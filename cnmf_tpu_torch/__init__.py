@@ -1,0 +1,35 @@
+"""cnmf_tpu_torch — the consensus NMF pipeline of ``cnmf_tpu``, in PyTorch.
+
+A port of the JAX package to PyTorch and CUDA: the same ``cNMF`` stages
+(prepare / factorize / combine / consensus), the same run-directory file
+contract and the same sklearn solver semantics, with the HALS coordinate
+descent half-sweeps as hand-written CUDA kernels for Hopper
+(``ops/cd_kernels.py``, ``csrc/cd_half_sweep.cu``). It imports neither jax
+nor ``cnmf_tpu``.
+
+    from cnmf_tpu_torch import cNMF
+    obj = cNMF(output_dir="out", name="run", device="cuda")
+
+Float32 matrix products run in full float32: TF32 is switched off for
+matmuls and cuDNN when the package is imported, mirroring the JAX package's
+``MATMUL_PRECISION='highest'`` (cnmf_tpu/ops/nmf.py:41-44).
+
+``cNMF`` and its file layer (pandas, yaml, h5py) load on first use, so
+``ops/`` and ``pipeline/stages.py`` import with numpy, scipy and torch only.
+"""
+
+import torch
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+torch.set_float32_matmul_precision("highest")
+
+__all__ = ["cNMF"]
+
+
+def __getattr__(name):
+    if name == "cNMF":
+        from cnmf_tpu_torch.pipeline.cnmf import cNMF
+
+        return cNMF
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

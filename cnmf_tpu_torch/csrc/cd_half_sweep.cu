@@ -1,0 +1,308 @@
+// Fused HALS coordinate-descent half-sweeps for Hopper (sm_90a), plain C ABI.
+//
+// Replaces the Pallas TPU kernels of cnmf_tpu/ops/pallas_cd.py:
+//   cd_w_half_sweep (:118, kernel body _make_w_kernel :84)  -> fused kernel, W half
+//   cd_h_half_sweep (:162, kernel body _make_h_kernel :97)  -> fused kernel, H half
+// Both are built on _column_sweep (:58), which is column_sweep() below. The
+// products-given entry point runs the same sweep on a precomputed data product
+// (the consensus refits of cnmf_tpu/ops/nmf.py:nnls_cd_from_products).
+//
+// One block owns one row tile (cells for W, genes for Ht) of one restart:
+//   1. P = X . F_other - l1 for its tile, computed in the block's own body in
+//      plain f32 FMA (no tensor cores, no TF32: sklearn parity needs full f32),
+//      looping over the contraction axis in chunks staged through shared memory.
+//      X's strides are arguments, so one kernel reads X row-major (W half) or
+//      transposed (H half).
+//   2. The K sequential column updates of the factor tile, held in registers
+//      (each thread owns whole rows), with the (K, K) gram in shared memory.
+//   3. The new tile, and one partial violation per (tile, restart). The partials
+//      are summed outside with a plain reduction: no atomics, so every run
+//      gives the same bits.
+//
+// What bounds it on an H100: the fused product's f32 FMA rate at K <= 16
+// (2.N.G.K flops per restart per half-sweep against 67 TFLOP/s), then the
+// re-reads of X: every (tile, restart) block streams its X tile again, which
+// at the PBMC-3k size (X is 21.6 MB) comes from the 50 MB L2, not HBM. The
+// design keeps the restart index fastest in the grid so that co-resident
+// blocks share an X tile in L2, gives each thread RM.K accumulators (RM rows of
+// K columns) so that every shared-memory value feeds RM.K or K FMAs, and keeps
+// the factor tile in registers between the product and the sweep, so the
+// factor is read and written exactly once per half-sweep.
+//
+// Padded rows, contraction columns and K columns are exact no-ops: rows past M
+// and contraction entries past C load as 0, and a zero K column has a zero
+// gram diagonal and is skipped, as in the Pallas kernel.
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kThreads = 128;
+constexpr int kChunk = 16;  // contraction entries staged per shared-memory round
+// Larger buckets multiply the build time (the sweep is unrolled K x K).
+constexpr int kMaxK = 32;
+
+template <int K>
+struct Tile {
+  static_assert(K % 8 == 0 && K <= kMaxK, "K bucket");
+  static constexpr int kRows = K >= 32 ? 1 : 32 / K;  // rows owned by a thread
+  static constexpr int kTileM = kRows * kThreads;      // rows owned by a block
+};
+
+// All K sequential HALS column updates of the thread's R rows, in column order
+// 0..K-1 (cnmf_tpu/ops/pallas_cd.py:_column_sweep). gram carries l2 on its
+// diagonal, p has l1 subtracted. Returns the summed |projected gradient| over
+// live columns.
+template <int K, int R>
+__device__ __forceinline__ float column_sweep(float (&f)[R][K],
+                                              const float (&p)[R][K],
+                                              const float* __restrict__ gram) {
+  float viol = 0.f;
+#pragma unroll
+  for (int t = 0; t < K; ++t) {
+    const float hess = gram[t * K + t];
+    const bool live = hess != 0.f;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      float grad = 0.f;
+#pragma unroll
+      for (int j = 0; j < K; ++j) grad = fmaf(f[r][j], gram[j * K + t], grad);
+      grad -= p[r][t];
+      const float ft = f[r][t];
+      const float pgrad = ft == 0.f ? fminf(grad, 0.f) : grad;
+      if (live) {
+        viol += fabsf(pgrad);
+        f[r][t] = fmaxf(ft - grad / hess, 0.f);
+      }
+    }
+  }
+  return viol;
+}
+
+template <int K, int R>
+__device__ __forceinline__ void load_rows(float (&f)[R][K],
+                                          const float* __restrict__ src, int m0,
+                                          int M) {
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int row = m0 + threadIdx.x + r * kThreads;
+#pragma unroll
+    for (int k = 0; k < K; k += 4) {
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (row < M) v = *reinterpret_cast<const float4*>(src + (size_t)row * K + k);
+      f[r][k] = v.x;
+      f[r][k + 1] = v.y;
+      f[r][k + 2] = v.z;
+      f[r][k + 3] = v.w;
+    }
+  }
+}
+
+template <int K, int R>
+__device__ __forceinline__ void store_rows(float* __restrict__ dst,
+                                           const float (&f)[R][K], int m0,
+                                           int M) {
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int row = m0 + threadIdx.x + r * kThreads;
+    if (row >= M) continue;
+#pragma unroll
+    for (int k = 0; k < K; k += 4)
+      *reinterpret_cast<float4*>(dst + (size_t)row * K + k) =
+          make_float4(f[r][k], f[r][k + 1], f[r][k + 2], f[r][k + 3]);
+  }
+}
+
+// Block sum of v; thread 0 writes it to *out.
+__device__ __forceinline__ void block_sum_to(float v, float* out) {
+  __shared__ float warp_sums[kThreads / 32];
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+  if ((threadIdx.x & 31) == 0) warp_sums[threadIdx.x >> 5] = v;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float s = 0.f;
+#pragma unroll
+    for (int w = 0; w < kThreads / 32; ++w) s += warp_sums[w];
+    *out = s;
+  }
+}
+
+template <int K>
+__device__ __forceinline__ void load_gram(float* gs, const float* __restrict__ gram) {
+  for (int i = threadIdx.x; i < K * K; i += kThreads) gs[i] = gram[i];
+}
+
+// grid (B, tiles); X element (m, c) at X[m * sxm + c * sxc].
+template <int K>
+__global__ void __launch_bounds__(kThreads)
+cd_fused_kernel(const float* __restrict__ X, int M, int C, long long sxm,
+                long long sxc, const float* __restrict__ Fo,
+                const float* __restrict__ F, const float* __restrict__ gram,
+                float l1, float* __restrict__ Fout,
+                float* __restrict__ viol_part) {
+  constexpr int R = Tile<K>::kRows;
+  constexpr int TM = Tile<K>::kTileM;
+  __shared__ float xs[kChunk][TM + 1];  // +1: transposed staging writes spread banks
+  __shared__ __align__(16) float fs[kChunk][K];
+  __shared__ float gs[K * K];
+
+  const int b = blockIdx.x;
+  const int m0 = blockIdx.y * TM;
+  const int tid = threadIdx.x;
+  const float* fo = Fo + (size_t)b * C * K;
+  load_gram<K>(gs, gram + (size_t)b * K * K);
+
+  float p[R][K];
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int k = 0; k < K; ++k) p[r][k] = 0.f;
+
+  const bool c_contiguous = sxc == 1;
+  for (int c0 = 0; c0 < C; c0 += kChunk) {
+    __syncthreads();  // the previous chunk is consumed
+    for (int i = tid; i < TM * kChunk; i += kThreads) {
+      // neighbouring threads walk X's contiguous axis
+      const int m = c_contiguous ? i / kChunk : i % TM;
+      const int c = c_contiguous ? i % kChunk : i / TM;
+      const int gm = m0 + m, gc = c0 + c;
+      xs[c][m] = (gm < M && gc < C) ? X[gm * sxm + gc * sxc] : 0.f;
+    }
+    for (int i = tid; i < kChunk * K; i += kThreads) {
+      const int c = i / K;
+      fs[c][i % K] = c0 + c < C ? fo[(size_t)c0 * K + i] : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int c = 0; c < kChunk; ++c) {
+      float fv[K];
+#pragma unroll
+      for (int k = 0; k < K; ++k) fv[k] = fs[c][k];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const float xv = xs[c][tid + r * kThreads];
+#pragma unroll
+        for (int k = 0; k < K; ++k) p[r][k] = fmaf(xv, fv[k], p[r][k]);
+      }
+    }
+  }
+  __syncthreads();  // gs is visible to every thread
+
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const bool valid = m0 + tid + r * kThreads < M;
+#pragma unroll
+    for (int k = 0; k < K; ++k) p[r][k] = valid ? p[r][k] - l1 : 0.f;
+  }
+  float f[R][K];
+  const size_t f_off = (size_t)b * M * K;
+  load_rows<K, R>(f, F + f_off, m0, M);
+  const float v = column_sweep<K, R>(f, p, gs);
+  store_rows<K, R>(Fout + f_off, f, m0, M);
+  block_sum_to(v, viol_part + (size_t)blockIdx.y * gridDim.x + b);
+}
+
+// The same sweep on a precomputed product P (B, M, K).
+template <int K>
+__global__ void __launch_bounds__(kThreads)
+cd_products_kernel(const float* __restrict__ P, int M,
+                   const float* __restrict__ F, const float* __restrict__ gram,
+                   float l1, float* __restrict__ Fout,
+                   float* __restrict__ viol_part) {
+  constexpr int R = Tile<K>::kRows;
+  constexpr int TM = Tile<K>::kTileM;
+  __shared__ float gs[K * K];
+  const int b = blockIdx.x;
+  const int m0 = blockIdx.y * TM;
+  load_gram<K>(gs, gram + (size_t)b * K * K);
+
+  const size_t off = (size_t)b * M * K;
+  float p[R][K];
+  load_rows<K, R>(p, P + off, m0, M);
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const bool valid = m0 + threadIdx.x + r * kThreads < M;
+#pragma unroll
+    for (int k = 0; k < K; ++k) p[r][k] = valid ? p[r][k] - l1 : 0.f;
+  }
+  float f[R][K];
+  load_rows<K, R>(f, F + off, m0, M);
+  __syncthreads();
+  const float v = column_sweep<K, R>(f, p, gs);
+  store_rows<K, R>(Fout + off, f, m0, M);
+  block_sum_to(v, viol_part + (size_t)blockIdx.y * gridDim.x + b);
+}
+
+template <int K>
+int launch_fused(const float* X, int M, int C, long long sxm, long long sxc,
+                 const float* Fo, const float* F, const float* gram, float l1,
+                 int B, float* Fout, float* viol_part, cudaStream_t stream) {
+  constexpr int TM = Tile<K>::kTileM;
+  const dim3 grid(B, (M + TM - 1) / TM);
+  cd_fused_kernel<K><<<grid, kThreads, 0, stream>>>(X, M, C, sxm, sxc, Fo, F,
+                                                    gram, l1, Fout, viol_part);
+  return (int)cudaGetLastError();
+}
+
+template <int K>
+int launch_products(const float* P, int M, const float* F, const float* gram,
+                    float l1, int B, float* Fout, float* viol_part,
+                    cudaStream_t stream) {
+  constexpr int TM = Tile<K>::kTileM;
+  const dim3 grid(B, (M + TM - 1) / TM);
+  cd_products_kernel<K><<<grid, kThreads, 0, stream>>>(P, M, F, gram, l1, Fout,
+                                                       viol_part);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+#define CD_K_BUCKETS(X) X(8) X(16) X(24) X(32)
+
+extern "C" {
+
+// Largest K bucket the kernels are instantiated for.
+int cd_max_k() { return kMaxK; }
+
+// Rows one block owns for bucket K (sizes the (tiles, B) violation partials);
+// 0 for a K that has no instantiation.
+int cd_tile_rows(int K) {
+#define CD_CASE(KK) \
+  case KK:          \
+    return Tile<KK>::kTileM;
+  switch (K) { CD_K_BUCKETS(CD_CASE) }
+#undef CD_CASE
+  return 0;
+}
+
+// One fused half-sweep. F (B, M, K) is updated against F_other (B, C, K) and
+// X (M x C in element (m, c) = X[m * sxm + c * sxc]); gram (B, K, K) carries
+// l2 on its diagonal. Writes Fout (B, M, K) and viol_part (tiles, B).
+int cd_half_sweep_fused(const float* X, int M, int C, long long sxm,
+                        long long sxc, const float* F_other, const float* F,
+                        const float* gram, float l1, int B, int K, float* Fout,
+                        float* viol_part, void* stream) {
+#define CD_CASE(KK)                                                        \
+  case KK:                                                                 \
+    return launch_fused<KK>(X, M, C, sxm, sxc, F_other, F, gram, l1, B,    \
+                            Fout, viol_part, (cudaStream_t)stream);
+  switch (K) { CD_K_BUCKETS(CD_CASE) }
+#undef CD_CASE
+  return (int)cudaErrorInvalidValue;
+}
+
+// One half-sweep from a precomputed product P (B, M, K).
+int cd_half_sweep_products(const float* P, int M, const float* F,
+                           const float* gram, float l1, int B, int K,
+                           float* Fout, float* viol_part, void* stream) {
+#define CD_CASE(KK)                                                  \
+  case KK:                                                           \
+    return launch_products<KK>(P, M, F, gram, l1, B, Fout, viol_part, \
+                               (cudaStream_t)stream);
+  switch (K) { CD_K_BUCKETS(CD_CASE) }
+#undef CD_CASE
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // extern "C"

@@ -1,0 +1,334 @@
+"""Fused HALS coordinate-descent half-sweeps: CUDA kernels and their plain twins.
+
+Port of ``cnmf_tpu/ops/pallas_cd.py`` (``cd_w_half_sweep`` :118 and
+``cd_h_half_sweep`` :162, both built on ``_column_sweep`` :58). Each
+wrapper here takes the unpadded solver layout — X (N, G) shared by every
+restart, W (B, N, K), Ht (B, G, K) — and dispatches on where its tensors lie:
+
+* CUDA tensors launch the hand-written kernel of ``csrc/cd_half_sweep.cu``
+  (f32, contiguous, K a multiple of 8 up to 32). Anything else on CUDA
+  raises; there is no fallback to the plain version.
+* CPU tensors run the plain PyTorch version below: the same column-cyclic
+  update as ``cnmf_tpu.ops.nmf._cd_half_sweep``, at the tensors' dtype. This
+  is where ``compute_dtype=float64`` runs; the kernels are f32 only.
+
+The kernel computes the data product (X·Ht for W, Xᵀ·W for Ht) inside its
+own body, as the Pallas kernels did (pallas_cd.py:86, :100); the (K, K) grams
+are computed outside, as pallas_cd.py:124 and :167 do. A third entry point,
+``cd_sweep_from_products``, runs the same sweep on a precomputed product —
+every fixed-factor refit of the consensus stage goes through it.
+
+Each wrapper counts its kernel launches in a ``launches`` attribute, so a run
+can show that its main path went through the kernels. The shared library is
+built with ``nvcc`` at first use, from the sources under ``csrc/``, into
+``_build/`` inside the package, keyed by a hash of the sources; importing
+this module needs neither ``nvcc`` nor a GPU.
+"""
+
+from __future__ import annotations
+
+import functools
+import os
+
+import numpy as np
+import torch
+
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
+_BUILD_DIR = os.path.join(_PKG_DIR, "_build")
+_NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+
+
+def pad_bucket(k: int) -> int:
+    """K zero-padded to the next multiple of 8, the buckets the kernels are
+    instantiated for (8 to 32). The padding is an exact no-op: a zero column
+    has a zero gram diagonal and is skipped."""
+    return -(-int(k) // 8) * 8
+
+
+def torch_dtype(dtype) -> torch.dtype:
+    """torch dtype of a numpy dtype (or a torch dtype, returned as is)."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    return torch.from_numpy(np.empty(0, dtype=np.dtype(dtype))).dtype
+
+
+def factors_from_numpy(W0, Ht0, *, device, dtype):
+    """The JAX package's (B, N, K) / (B, G, K) numpy factors as contiguous
+    tensors on ``device`` — the same inits then feed both solvers."""
+    dt = torch_dtype(dtype)
+    return (
+        torch.as_tensor(np.ascontiguousarray(W0), device=device).to(dt).contiguous(),
+        torch.as_tensor(np.ascontiguousarray(Ht0), device=device).to(dt).contiguous(),
+    )
+
+
+# ----------------------------------------------------------------------
+# plain PyTorch versions (CPU tensors, and the reference the kernels are
+# held against on the card)
+# ----------------------------------------------------------------------
+
+def _shared_x_dot(X, F):
+    """X (N,G) · F (B,G,K) → (B,N,K) via one flat (N,G)@(G,B·K) matmul."""
+    B, G, K = F.shape
+    flat = F.permute(1, 0, 2).reshape(G, B * K)
+    return (X @ flat).reshape(X.shape[0], B, K).permute(1, 0, 2).contiguous()
+
+
+def _shared_xt_dot(X, F):
+    """Xᵀ (G,N) · F (B,N,K) → (B,G,K) via one flat matmul."""
+    B, N, K = F.shape
+    flat = F.permute(1, 0, 2).reshape(N, B * K)
+    return (X.T @ flat).reshape(X.shape[1], B, K).permute(1, 0, 2).contiguous()
+
+
+def _gram(F):
+    """(B, M, K) → (B, K, K) = FᵀF per restart."""
+    return torch.bmm(F.transpose(1, 2), F)
+
+
+def _cd_half_sweep(F, G, P, l1_reg: float, l2_reg: float):
+    """One cyclic CD pass updating factor F (cnmf_tpu.ops.nmf._cd_half_sweep).
+
+    F (B, M, K) factor being updated; G (B, K, K) gram of the other factor;
+    P (B, M, K) data product. Column order 0..K-1 (sklearn shuffle=False);
+    columns whose hessian G[t, t] is 0 are skipped. Returns the updated F (a
+    new tensor, updated in place column by column) and the per-restart summed
+    |projected gradient| violation."""
+    B, M, K = F.shape
+    if l2_reg != 0.0:
+        G = G + l2_reg * torch.eye(K, dtype=G.dtype, device=G.device)
+    if l1_reg != 0.0:
+        P = P - l1_reg
+    F = F.clone()
+    violation = torch.zeros(B, dtype=F.dtype, device=F.device)
+    for t in range(K):
+        g_col = G[:, :, t]
+        hess = G[:, t, t]
+        f_col = F[:, :, t]
+        grad = torch.bmm(F, g_col.unsqueeze(2)).squeeze(2) - P[:, :, t]
+        pgrad = torch.where(f_col == 0, grad.clamp(max=0.0), grad)
+        live = hess != 0
+        violation = violation + torch.where(live, pgrad.abs().sum(dim=1), 0.0)
+        safe_hess = torch.where(live, hess, 1.0)
+        f_new = (f_col - grad / safe_hess[:, None]).clamp(min=0.0)
+        F[:, :, t] = torch.where(live[:, None], f_new, f_col)
+    return F, violation
+
+
+def cd_w_half_sweep_plain(X, W, Ht, *, l1_reg=0.0, l2_reg=0.0):
+    """Plain version of ``cd_w_half_sweep``."""
+    return _cd_half_sweep(W, _gram(Ht), _shared_x_dot(X, Ht), l1_reg, l2_reg)
+
+
+def cd_h_half_sweep_plain(X, W, Ht, *, l1_reg=0.0, l2_reg=0.0):
+    """Plain version of ``cd_h_half_sweep``."""
+    return _cd_half_sweep(Ht, _gram(W), _shared_xt_dot(X, W), l1_reg, l2_reg)
+
+
+def cd_sweep_from_products_plain(F, gram, P, *, l1_reg=0.0, l2_reg=0.0):
+    """Plain version of ``cd_sweep_from_products``."""
+    return _cd_half_sweep(F, gram, P, l1_reg, l2_reg)
+
+
+# ----------------------------------------------------------------------
+# the CUDA library
+# ----------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def load_library():
+    """Build (once per source hash) and load ``csrc/cd_half_sweep.cu``.
+
+    The build runs ``nvcc`` from the CUDA toolkit PyTorch finds, writes the
+    shared library and the compiler's ``-Xptxas -v`` report (registers,
+    shared memory, spills per kernel) into ``_build/``, and never runs while
+    the module is imported."""
+    import ctypes
+    import hashlib
+    import subprocess
+
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    sources = sorted(
+        os.path.join(_CSRC_DIR, f) for f in os.listdir(_CSRC_DIR)
+        if f.endswith((".cu", ".cuh"))
+    )
+    digest = hashlib.sha256(" ".join(_NVCC_FLAGS).encode())
+    for path in sources:
+        with open(path, "rb") as fh:
+            digest.update(fh.read())
+    so_path = os.path.join(
+        _BUILD_DIR, f"libcd_half_sweep_{digest.hexdigest()[:16]}.so"
+    )
+    if not os.path.exists(so_path):
+        os.makedirs(_BUILD_DIR, exist_ok=True)
+        if CUDA_HOME is None:
+            raise RuntimeError("CUDA toolkit not found: nvcc is needed to "
+                               "build the CD kernels")
+        nvcc = os.path.join(CUDA_HOME, "bin", "nvcc")
+        tmp = f"{so_path}.{os.getpid()}.tmp"
+        proc = subprocess.run(
+            [nvcc, *_NVCC_FLAGS, "-o", tmp,
+             *[s for s in sources if s.endswith(".cu")]],
+            capture_output=True, text=True,
+        )
+        with open(so_path + ".log", "w") as fh:
+            fh.write(proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
+            )
+        os.replace(tmp, so_path)
+    lib = ctypes.CDLL(so_path)
+    vp, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                         ctypes.c_float)
+    lib.cd_max_k.argtypes = []
+    lib.cd_tile_rows.argtypes = [i32]
+    lib.cd_half_sweep_fused.argtypes = [
+        vp, i32, i32, i64, i64, vp, vp, vp, f32, i32, i32, vp, vp, vp,
+    ]
+    lib.cd_half_sweep_products.argtypes = [
+        vp, i32, vp, vp, f32, i32, i32, vp, vp, vp,
+    ]
+    for fn in (lib.cd_max_k, lib.cd_tile_rows, lib.cd_half_sweep_fused,
+               lib.cd_half_sweep_products):
+        fn.restype = i32
+    lib.so_path = so_path
+    return lib
+
+
+def _check_cuda(name, *tensors):
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev:
+            raise ValueError(f"{name}: tensors on {t.device} and {dev}")
+        if t.dtype != torch.float32:
+            raise TypeError(
+                f"{name}: the CUDA kernel takes float32, got {t.dtype} "
+                "(compute_dtype=float64 runs on the CPU only)"
+            )
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: the CUDA kernel takes contiguous tensors")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: tensor data must be 16-byte aligned")
+
+
+def _check_k(name, lib, K):
+    kmax = lib.cd_max_k()
+    if K > kmax or lib.cd_tile_rows(K) == 0:
+        raise ValueError(
+            f"{name}: K={K} has no kernel; K must be a multiple of 8 up to "
+            f"{kmax} (the solvers zero-pad K to that bucket)"
+        )
+
+
+def _with_l2(gram, l2_reg):
+    """gram + l2·I, the hessian the kernels take (pallas_cd.py:127-128)."""
+    if l2_reg != 0.0:
+        gram = gram + l2_reg * torch.eye(
+            gram.shape[-1], dtype=gram.dtype, device=gram.device
+        )
+    return gram.contiguous()
+
+
+def _raise_on(name, rc):
+    if rc != 0:
+        raise RuntimeError(f"{name}: kernel launch failed, CUDA error {rc}")
+
+
+def _launch_fused(name, X, F, F_other, gram, l1_reg, transposed):
+    """F (B, M, K) against F_other (B, C, K): the W half reads X as (M=N, C=G),
+    the H half reads it transposed as (M=G, C=N)."""
+    lib = load_library()
+    B, M, K = F.shape
+    N, G = X.shape
+    if transposed:
+        C, sxm, sxc = N, 1, G
+    else:
+        C, sxm, sxc = G, G, 1
+    if M != (G if transposed else N) or F_other.shape != (B, C, K):
+        raise ValueError(f"{name}: shapes X {tuple(X.shape)}, factor "
+                         f"{tuple(F.shape)}, other {tuple(F_other.shape)}")
+    _check_cuda(name, X, F, F_other, gram)
+    _check_k(name, lib, K)
+    out = torch.empty_like(F)
+    tiles = -(-M // lib.cd_tile_rows(K))
+    part = torch.empty((tiles, B), dtype=torch.float32, device=F.device)
+    stream = torch.cuda.current_stream(F.device).cuda_stream
+    _raise_on(name, lib.cd_half_sweep_fused(
+        X.data_ptr(), M, C, sxm, sxc, F_other.data_ptr(), F.data_ptr(),
+        gram.data_ptr(), float(l1_reg), B, K, out.data_ptr(), part.data_ptr(),
+        stream,
+    ))
+    return out, part.sum(dim=0)
+
+
+def _device_kind(name, t):
+    kind = t.device.type
+    if kind not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: no kernel for device {t.device}")
+    return kind
+
+
+# ----------------------------------------------------------------------
+# the wrappers the solvers call
+# ----------------------------------------------------------------------
+
+def cd_w_half_sweep(X, W, Ht, *, l1_reg=0.0, l2_reg=0.0):
+    """One W half-sweep with Ht fixed: gram = HtᵀHt + l2·I, P = X·Ht − l1,
+    then the K column updates of W. Returns (W_new (B,N,K), violation (B,)).
+    Replaces cnmf_tpu/ops/pallas_cd.py:cd_w_half_sweep."""
+    if _device_kind("cd_w_half_sweep", W) == "cpu":
+        return cd_w_half_sweep_plain(X, W, Ht, l1_reg=l1_reg, l2_reg=l2_reg)
+    out = _launch_fused("cd_w_half_sweep", X, W, Ht, _with_l2(_gram(Ht), l2_reg),
+                        l1_reg, transposed=False)
+    cd_w_half_sweep.launches += 1
+    return out
+
+
+def cd_h_half_sweep(X, W, Ht, *, l1_reg=0.0, l2_reg=0.0):
+    """One Ht half-sweep with W fixed: gram = WᵀW + l2·I, P = Xᵀ·W − l1.
+    Returns (Ht_new (B,G,K), violation (B,)). Replaces
+    cnmf_tpu/ops/pallas_cd.py:cd_h_half_sweep."""
+    if _device_kind("cd_h_half_sweep", Ht) == "cpu":
+        return cd_h_half_sweep_plain(X, W, Ht, l1_reg=l1_reg, l2_reg=l2_reg)
+    out = _launch_fused("cd_h_half_sweep", X, Ht, W, _with_l2(_gram(W), l2_reg),
+                        l1_reg, transposed=True)
+    cd_h_half_sweep.launches += 1
+    return out
+
+
+def cd_sweep_from_products(F, gram, P, *, l1_reg=0.0, l2_reg=0.0):
+    """One half-sweep of F (B,M,K) from a precomputed gram (B,K,K) and data
+    product P (B,M,K) — the fixed-factor refit loop of
+    ``nnls_cd_from_products``. Returns (F_new, violation (B,))."""
+    name = "cd_sweep_from_products"
+    if _device_kind(name, F) == "cpu":
+        return cd_sweep_from_products_plain(F, gram, P, l1_reg=l1_reg,
+                                            l2_reg=l2_reg)
+    lib = load_library()
+    B, M, K = F.shape
+    if P.shape != F.shape or gram.shape != (B, K, K):
+        raise ValueError(f"{name}: shapes F {tuple(F.shape)}, gram "
+                         f"{tuple(gram.shape)}, P {tuple(P.shape)}")
+    gram = _with_l2(gram, l2_reg)
+    _check_cuda(name, F, gram, P)
+    _check_k(name, lib, K)
+    out = torch.empty_like(F)
+    tiles = -(-M // lib.cd_tile_rows(K))
+    part = torch.empty((tiles, B), dtype=torch.float32, device=F.device)
+    stream = torch.cuda.current_stream(F.device).cuda_stream
+    _raise_on(name, lib.cd_half_sweep_products(
+        P.data_ptr(), M, F.data_ptr(), gram.data_ptr(), float(l1_reg), B, K,
+        out.data_ptr(), part.data_ptr(), stream,
+    ))
+    cd_sweep_from_products.launches += 1
+    return out, part.sum(dim=0)
+
+
+cd_w_half_sweep.launches = 0
+cd_h_half_sweep.launches = 0
+cd_sweep_from_products.launches = 0

@@ -1,0 +1,512 @@
+"""The cNMF pipeline over a run directory, in PyTorch.
+
+The main path of ``cnmf_tpu.pipeline.cnmf.cNMF`` — prepare, factorize,
+combine and consensus at one K — with the same on-disk artifact contract
+(pipeline/paths.py, reference cnmf.py:298-330): a run directory written by
+either package is read by the other. The methods here are file wrappers;
+the array work lives in ``pipeline.stages``.
+
+Every solve runs on the ``device`` the object was created with. On CUDA the
+HALS half-sweeps go through the hand-written kernels of ``ops.cd_kernels``,
+which take float32 only: ``compute_dtype=np.float64`` is a CPU setting.
+Artifacts are written synchronously, so ``flush_writes`` has nothing to do.
+"""
+
+from __future__ import annotations
+
+import datetime
+import errno
+import os
+import shutil
+import time
+import uuid
+import warnings
+
+import numpy as np
+import pandas as pd
+import scipy.sparse as sp
+import torch
+import yaml
+
+from cnmf_tpu_torch.io.anndata_lite import AnnData
+from cnmf_tpu_torch.io.dataframe import (
+    check_dir_exists,
+    load_df_from_npz,
+    save_df_to_npz,
+    save_df_to_text,
+)
+from cnmf_tpu_torch.io.h5ad import read_h5ad, write_h5ad
+from cnmf_tpu_torch.io.loaders import load_counts
+from cnmf_tpu_torch.ops.cd_kernels import torch_dtype
+from cnmf_tpu_torch.ops.distance import pairwise_euclidean
+from cnmf_tpu_torch.pipeline import stages
+from cnmf_tpu_torch.pipeline.paths import build_paths
+
+# the consensus default density threshold (reference cnmf.py:823)
+DEFAULT_DENSITY_THRESHOLD = 0.5
+
+
+def worker_filter(iterable, worker_index, total_workers):
+    """Round-robin shard: element i goes to worker i % total_workers
+    (reference cnmf.py:52-53)."""
+    return (p for i, p in enumerate(iterable)
+            if (i - worker_index) % total_workers == 0)
+
+
+class cNMF:
+    """Consensus NMF over a restarts × K grid, batched on one device.
+
+    Parameters
+    ----------
+    output_dir : str — analysis output root (default ".").
+    name : str — run name, prefixed to every file; auto-generated
+        ``YYYY_MM_DD_<6-hex>`` when None (reference cnmf.py:268-288).
+    compute_dtype : numpy dtype of the solves (default float32). float64
+        gives exact sklearn parity and runs on the CPU only: the CUDA
+        kernels are float32.
+    device : the torch device every solve runs on ("cuda", "cpu", ...).
+        There is no default.
+    """
+
+    def __init__(self, output_dir=".", name=None, compute_dtype=np.float32,
+                 *, device):
+        self.output_dir = output_dir
+        if name is None:
+            now = datetime.datetime.now()
+            name = "%s_%s" % (now.strftime("%Y_%m_%d"), uuid.uuid4().hex[:6])
+        self.name = name
+        self.compute_dtype = np.dtype(compute_dtype)
+        self.device = torch.device(device)
+        self.paths = None
+        self._initialize_dirs()
+
+    def _initialize_dirs(self):
+        if self.paths is None:
+            check_dir_exists(self.output_dir)
+            check_dir_exists(os.path.join(self.output_dir, self.name))
+            check_dir_exists(os.path.join(self.output_dir, self.name, "cnmf_tmp"))
+            self.paths = build_paths(self.output_dir, self.name)
+
+    def _host_dense(self, X) -> np.ndarray:
+        """A (cells × features) matrix as a dense host array at the compute
+        dtype."""
+        if sp.issparse(X):
+            X = X.toarray()
+        return np.ascontiguousarray(X, dtype=self.compute_dtype)
+
+    def _to_device(self, X_host: np.ndarray) -> torch.Tensor:
+        return torch.as_tensor(X_host, device=self.device).to(
+            torch_dtype(self.compute_dtype))
+
+    def _load_run_params(self) -> dict:
+        with open(self.paths["nmf_run_parameters"]) as fh:
+            return yaml.safe_load(fh)
+
+    def flush_writes(self):
+        """No-op: every artifact is written before its stage returns (kept
+        for API compatibility with ``cnmf_tpu``)."""
+
+    # ==================================================================
+    # prepare
+    # ==================================================================
+
+    def prepare(
+        self,
+        counts_fn,
+        components,
+        n_iter=100,
+        densify=False,
+        tpm_fn=None,
+        seed=None,
+        beta_loss="frobenius",
+        num_highvar_genes=2000,
+        genes_file=None,
+        alpha_usage=0.0,
+        alpha_spectra=0.0,
+        init="random",
+        max_NMF_iter=1000,
+    ):
+        """Load counts, select/normalize HVGs, and lay out the replicate grid.
+
+        Produces the same six artifacts as the reference (cnmf.py:333-459):
+        tpm + tpm_stats, norm_counts, the HVG list, the replicate-parameter
+        table and the YAML solver kwargs."""
+        input_counts = load_counts(counts_fn, densify=densify)
+        tpm = None  # computed from the counts by stages.prepare_arrays
+        if tpm_fn is not None and tpm_fn.endswith(".h5ad"):
+            shutil.copy(tpm_fn, self.paths["tpm"])
+            tpm = read_h5ad(self.paths["tpm"])
+        elif tpm_fn is not None:
+            tpm = load_counts(tpm_fn, densify=densify)
+            write_h5ad(self.paths["tpm"], tpm)
+
+        if genes_file is not None:
+            with open(genes_file) as fh:
+                highvargenes = fh.read().rstrip().split("\n")
+        else:
+            highvargenes = None
+
+        prep, norm_counts = self._prepare(input_counts, tpm, highvargenes,
+                                          num_highvar_genes)
+        if tpm is None:
+            tpm = AnnData(prep.tpm, obs=input_counts.obs.copy(),
+                          var=input_counts.var.copy())
+            write_h5ad(self.paths["tpm"], tpm)
+        input_tpm_stats = pd.DataFrame(
+            [prep.tpm_mean, prep.tpm_std],
+            index=["__mean", "__std"],
+            columns=tpm.var.index,
+        ).T
+        save_df_to_npz(input_tpm_stats, self.paths["tpm_stats"])
+        self.save_norm_counts(norm_counts)
+        replicate_params, run_params = self.get_nmf_iter_params(
+            ks=components, n_iter=n_iter, random_state_seed=seed,
+            beta_loss=beta_loss, alpha_usage=alpha_usage,
+            alpha_spectra=alpha_spectra, init=init, max_iter=max_NMF_iter,
+        )
+        self.save_nmf_iter_params(replicate_params, run_params)
+
+    def get_norm_counts(self, counts, tpm, high_variance_genes_filter=None,
+                        num_highvar_genes=None) -> AnnData:
+        """Subset to HVGs and scale genes to unit variance without centering
+        (reference cnmf.py:487-556: f64 cast, ddof=1 scaling, zero-std genes
+        guarded only for sparse input, the HVG list file, and the zero-HVG-cell
+        error)."""
+        return self._prepare(counts, tpm, high_variance_genes_filter,
+                             num_highvar_genes)[1]
+
+    def _prepare(self, counts, tpm, hvgs, num_highvar_genes):
+        """``stages.prepare_arrays`` on AnnData, genes matched by name
+        (``tpm`` None: the TPM of the counts); writes the HVG list. Returns
+        (Prepared, the normalized counts as AnnData)."""
+        genes = counts.var.index
+        hvg_idx = None
+        if hvgs is not None:
+            hvg_idx = genes.get_indexer(pd.Index(hvgs))
+            if (hvg_idx < 0).any():
+                raise KeyError("HVGs missing from the counts' genes: "
+                               f"{list(np.asarray(hvgs)[hvg_idx < 0][:5])}")
+        same_genes = tpm is None or tpm.var.index.equals(genes)
+        prep = stages.prepare_arrays(
+            counts.X, num_highvar_genes,
+            tpm=None if tpm is None else tpm.X,
+            tpm_cols=None if same_genes else genes.get_indexer(tpm.var.index),
+            hvg_idx=hvg_idx,
+            cell_names=counts.obs.index,
+        )
+        with open(self.paths["nmf_genes_list"], "w") as fh:
+            fh.write("\n".join(genes[prep.hvg_idx]))
+        norm_counts = AnnData(prep.norm, obs=counts.obs.copy(),
+                              var=counts.var.iloc[prep.hvg_idx].copy())
+        return prep, norm_counts
+
+    def save_norm_counts(self, norm_counts: AnnData):
+        self._initialize_dirs()
+        write_h5ad(self.paths["normalized_counts"], norm_counts)
+
+    def get_nmf_iter_params(
+        self, ks, n_iter=100, random_state_seed=None,
+        beta_loss="kullback-leibler", alpha_usage=0.0, alpha_spectra=0.0,
+        init="random", max_iter=1000,
+    ):
+        """Replicate-parameter grid with order-stable per-(K, iter) seeds
+        (see ``stages.replicate_seeds``) and the solver kwargs."""
+        grid, seeds = stages.replicate_seeds(ks, n_iter, random_state_seed)
+        replicate_params = pd.DataFrame(
+            {
+                "n_components": [k for k, _ in grid],
+                "iter": [r for _, r in grid],
+                "nmf_seed": seeds,
+                "completed": [
+                    os.path.exists(self.paths["iter_spectra"] % kr) for kr in grid
+                ],
+            }
+        )
+        n_completed = replicate_params["completed"].sum()
+        if n_completed > 0:
+            warnings.warn(
+                "{n} runs already appear completed. If this is unexpected, "
+                "consider re-initializing the cnmf object with a different "
+                "run name or output directory".format(n=n_completed),
+                UserWarning,
+            )
+        run_params = stages.nmf_run_params(
+            beta_loss=beta_loss, alpha_usage=alpha_usage,
+            alpha_spectra=alpha_spectra, init=init, max_iter=max_iter,
+        )
+        return replicate_params, run_params
+
+    def update_nmf_iter_params(self):
+        """Re-scan disk for completed per-iteration spectra files and rewrite
+        the replicate table — the resume hook (reference cnmf.py:636-651)."""
+        run_params = self._load_run_params()
+        table = load_df_from_npz(self.paths["nmf_replicate_parameters"])
+        table["completed"] = [
+            os.path.exists(self.paths["iter_spectra"] % (row.n_components, row.iter))
+            for row in table.itertuples()
+        ]
+        print(
+            "{n} NMF runs are currently incomplete".format(
+                n=int((~table["completed"].astype(bool)).sum())
+            )
+        )
+        self.save_nmf_iter_params(table, run_params)
+
+    def save_nmf_iter_params(self, replicate_params, run_params):
+        self._initialize_dirs()
+        save_df_to_npz(replicate_params, self.paths["nmf_replicate_parameters"])
+        with open(self.paths["nmf_run_parameters"], "w") as fh:
+            yaml.dump(run_params, fh)
+
+    # ==================================================================
+    # factorize
+    # ==================================================================
+
+    def factorize(self, worker_i=0, total_workers=1, skip_completed_runs=False,
+                  restart_chunk=None, verbose=True):
+        """Run this worker's share of the replicate grid (round-robin, as the
+        reference's workers split it, cnmf.py:692-745): all restarts of one K
+        as one batched solve, K zero-padded to a bucket of 8. Spectra land in
+        the per-(K, iter) npz files."""
+        run_params = load_df_from_npz(self.paths["nmf_replicate_parameters"])
+        norm_counts = read_h5ad(self.paths["normalized_counts"])
+        nmf_kwargs = self._load_run_params()
+        if skip_completed_runs:
+            rows = run_params.index[run_params["completed"] == False]  # noqa: E712
+        else:
+            rows = range(len(run_params))
+        jobs = list(worker_filter(rows, worker_i, total_workers))
+        if not jobs:
+            return
+        X_host = self._host_dense(norm_counts.X)
+        Xd = self._to_device(X_host)
+        gene_index = norm_counts.var.index
+        for k, group in run_params.iloc[jobs].groupby("n_components", sort=True):
+            k = int(k)
+            seeds = group["nmf_seed"].values
+            t0 = time.perf_counter()
+            spectra, n_iter = stages.factorize_k(
+                X_host, Xd, k, seeds, nmf_kwargs, restart_chunk=restart_chunk
+            )
+            if verbose:
+                print("[Worker %d] k=%d: %d restarts in %.3f s, sweeps max %d "
+                      "mean %.1f" % (worker_i, k, len(seeds),
+                                     time.perf_counter() - t0, n_iter.max(),
+                                     n_iter.mean()))
+            for i, it in enumerate(group["iter"].values):
+                save_df_to_npz(
+                    pd.DataFrame(spectra[i], index=np.arange(1, k + 1),
+                                 columns=gene_index),
+                    self.paths["iter_spectra"] % (k, it),
+                )
+
+    # ==================================================================
+    # combine
+    # ==================================================================
+
+    def combine(self, components=None, skip_missing_files=False):
+        run_params = load_df_from_npz(self.paths["nmf_replicate_parameters"])
+        if type(components) is int:
+            ks = [components]
+        elif components is None:
+            ks = sorted(set(run_params.n_components))
+        else:
+            ks = components
+        for k in ks:
+            self.combine_nmf(k, skip_missing_files=skip_missing_files)
+
+    def combine_nmf(self, k, skip_missing_files=False,
+                    remove_individual_iterations=False):
+        """Concatenate per-iteration spectra into the merged (n_iter·K × G)
+        stack with ``iter{r}_topic{t}`` row labels (reference cnmf.py:748-773).
+        ``remove_individual_iterations`` deletes the per-iteration files."""
+        run_params = load_df_from_npz(self.paths["nmf_replicate_parameters"])
+        print("Combining factorizations for k=%d." % k)
+        subset = run_params[run_params.n_components == k].sort_values("iter")
+        files = []
+        for _, p in subset.iterrows():
+            path = self.paths["iter_spectra"] % (p["n_components"], p["iter"])
+            if os.path.exists(path):
+                files.append((int(p["iter"]), path))
+                continue
+            if not skip_missing_files:
+                print("Missing file: %s, run with skip_missing=True to override"
+                      % path)
+                raise FileNotFoundError(errno.ENOENT, os.strerror(errno.ENOENT),
+                                        path)
+            print("Missing file: %s. Skipping." % path)
+        if not files:
+            print("No spectra found for k=%d" % k)
+            return []
+        frames = [load_df_from_npz(path) for _, path in files]
+        combined = pd.DataFrame(
+            stages.combine_arrays([f.values for f in frames]),
+            index=["iter%d_topic%d" % (it, t + 1) for it, _ in files
+                   for t in range(k)],
+            columns=frames[0].columns,
+        )
+        save_df_to_npz(combined, self.paths["merged_spectra"] % k)
+        if remove_individual_iterations:
+            for _, path in files:
+                os.remove(path)
+        return combined
+
+    # ==================================================================
+    # consensus
+    # ==================================================================
+
+    def consensus(
+        self,
+        k,
+        density_threshold=DEFAULT_DENSITY_THRESHOLD,
+        local_neighborhood_size=0.30,
+        show_clustering=True,
+        build_ref=True,
+        close_clustergram_fig=False,
+        refit_usage=True,
+        normalize_tpm_spectra=False,
+    ):
+        """Consensus spectra/usages via density filtering + KMeans + medians
+        (reference cnmf.py:823-1082): the step-by-step consensus of
+        ``cnmf_tpu``, with the distance matrix, KNN density, KMeans, NNLS
+        refits and z-score OLS on the device."""
+        merged = load_df_from_npz(self.paths["merged_spectra"] % k)
+        norm_counts = read_h5ad(self.paths["normalized_counts"])
+        tpm = read_h5ad(self.paths["tpm"])
+        tpm_stats = load_df_from_npz(self.paths["tpm_stats"])
+        nmf_kwargs = self._load_run_params()
+        dt_tag = str(density_threshold).replace(".", "_")
+
+        density_path = self.paths["local_density_cache"] % k
+        cached_density = (load_df_from_npz(density_path).values[:, 0]
+                          if os.path.isfile(density_path) else None)
+        with open(self.paths["nmf_genes_list"]) as fh:
+            hvgs = fh.read().split("\n")
+        hvg_idx = tpm.var.index.get_indexer(hvgs)
+        if (hvg_idx < 0).any():
+            missing = [h for h, i in zip(hvgs, hvg_idx) if i < 0][:5]
+            raise KeyError(
+                f"genes from {self.paths['nmf_genes_list']} missing from the "
+                f"TPM var index (stale gene list / re-prepared TPM?): {missing}"
+            )
+
+        result = stages.consensus_arrays(
+            merged.values, k,
+            self._to_device(self._host_dense(norm_counts.X)),
+            self._to_device(self._host_dense(tpm.X)),
+            tpm_stats["__std"].values, hvg_idx, nmf_kwargs,
+            density_threshold=density_threshold,
+            local_neighborhood_size=local_neighborhood_size,
+            local_density=cached_density,
+            refit_usage=refit_usage,
+            normalize_tpm_spectra=normalize_tpm_spectra,
+            # the reference guards zero stds on its sparse path only
+            zero_safe=sp.issparse(tpm.X),
+        )
+        if cached_density is None:
+            save_df_to_npz(
+                pd.DataFrame(result.local_density, columns=["local_density"],
+                             index=merged.index),
+                density_path,
+            )
+
+        gep_ids = np.arange(1, result.spectra.shape[0] + 1)
+        median_spectra = pd.DataFrame(result.spectra, index=gep_ids,
+                                      columns=merged.columns)
+        usages = pd.DataFrame(result.usages, index=norm_counts.obs.index,
+                              columns=gep_ids)
+        spectra_tpm = pd.DataFrame(result.spectra_tpm, index=gep_ids,
+                                   columns=tpm.var.index)
+        spectra_score = pd.DataFrame(result.spectra_score, index=gep_ids,
+                                     columns=tpm.var.index)
+        for frame, key in (
+            (median_spectra, "consensus_spectra"),
+            (usages, "consensus_usages"),
+            (spectra_tpm, "gene_spectra_tpm"),
+            (spectra_score, "gene_spectra_score"),
+        ):
+            save_df_to_npz(frame, self.paths[key] % (k, dt_tag))
+            save_df_to_text(frame, self.paths[key + "__txt"] % (k, dt_tag))
+
+        if show_clustering:
+            from cnmf_tpu_torch.pipeline.plots import clustergram
+
+            l2_kept = torch.as_tensor(result.l2_kept, device=self.device).to(
+                torch_dtype(self.compute_dtype))
+            clustergram(
+                pairwise_euclidean(l2_kept).cpu().numpy(),
+                result.labels,
+                result.local_density,
+                density_threshold,
+                result.density_filter,
+                self.paths["clustering_plot"] % (k, dt_tag),
+                close_fig=close_clustergram_fig,
+            )
+        if build_ref:
+            self.build_reference(k, density_threshold)
+
+    # ==================================================================
+    # starCAT reference and results
+    # ==================================================================
+
+    def build_reference(self, k, density_threshold=DEFAULT_DENSITY_THRESHOLD,
+                        target_sum=1e6):
+        """starCAT reference GEPs for (k, dt): rows renormalized to
+        ``target_sum``, divided by the per-gene TPM std, subset to the HVGs,
+        indexed ``GEP{i}``.
+
+        Contract quirk kept (reference cnmf.py:1085-1116): the TPM spectra
+        reload from the TEXT file, not the npz, so the float round-trip
+        through the txt formatting is part of the output."""
+        dt_tag = str(density_threshold).replace(".", "_")
+        geps = pd.read_csv(
+            self.paths["gene_spectra_tpm__txt"] % (k, dt_tag), index_col=0, sep="\t"
+        )
+        gene_std = load_df_from_npz(self.paths["tpm_stats"])["__std"].to_numpy()
+        with open(self.paths["nmf_genes_list"]) as fh:
+            hvgs = fh.read().split("\n")
+        vals = geps.to_numpy(dtype=np.float64)
+        with np.errstate(divide="ignore", invalid="ignore"):
+            # zero-std genes yield inf/nan; they are never HVGs
+            vals = vals / vals.sum(axis=1, keepdims=True) * target_sum
+            vals = vals / gene_std[None, :]
+        cols = geps.columns.get_indexer(hvgs)
+        if (cols < 0).any():
+            raise KeyError([h for h, i in zip(hvgs, cols) if i < 0])
+        ref_spectra = pd.DataFrame(
+            vals[:, cols],
+            index="GEP" + geps.index.astype("str"),
+            columns=pd.Index(hvgs),
+        )
+        save_df_to_npz(ref_spectra, self.paths["starcat_spectra"] % (k, dt_tag))
+        save_df_to_text(ref_spectra, self.paths["starcat_spectra__txt"] % (k, dt_tag))
+
+    def load_results(self, K, density_threshold, n_top_genes=100, norm_usage=True):
+        """Load the (K, dt) result set back from the user-facing TEXT files:
+        usages (optionally row-normalized to sum 1), spectra z-scores and TPM
+        spectra transposed to genes × GEPs, and the top ``n_top_genes``
+        marker genes per GEP ranked by z-score (reference cnmf.py:1161-1210,
+        including the int-cast-with-fallback on usage columns)."""
+        dt_tag = str(density_threshold).replace(".", "_")
+
+        def read_t(key):
+            return pd.read_csv(self.paths[key] % (K, dt_tag), sep="\t",
+                               index_col=0)
+
+        spectra_scores = read_t("gene_spectra_score__txt").T
+        spectra_tpm = read_t("gene_spectra_tpm__txt").T
+        usage = read_t("consensus_usages__txt")
+        if norm_usage:
+            usage = usage.div(usage.sum(axis=1), axis=0)
+        try:
+            usage.columns = [int(x) for x in usage.columns]
+        except ValueError:
+            print("Usage matrix columns include non integer values")
+        top_genes = pd.DataFrame(
+            {
+                gep: spectra_scores[gep].sort_values(ascending=False)
+                     .index[:n_top_genes]
+                for gep in spectra_scores.columns
+            }
+        )
+        return usage, spectra_scores, spectra_tpm, top_genes

@@ -1,0 +1,148 @@
+"""Solver dispatch: sklearn-style NMF kwargs → the batched CD solver.
+
+The main-path subset of ``cnmf_tpu.pipeline.solvers``. The pipeline persists
+one YAML kwargs dict per run (same keys as the reference's sklearn kwargs,
+cnmf.py:618-631) and every stage rebuilds its solver from it. Where a solve
+runs follows its tensors: CUDA tensors go through the hand-written kernels of
+``ops.cd_kernels``, CPU tensors through their plain PyTorch versions. That
+replaces the JAX package's ``cd_pallas_eligible`` / ``mu_pallas_eligible``
+gates.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from cnmf_tpu_torch.ops.cd_kernels import pad_bucket
+from cnmf_tpu_torch.ops.init import nnls_w_init
+from cnmf_tpu_torch.ops.nmf import (
+    fixed_factor_gram,
+    fixed_factor_product_transposed,
+    nmf_coordinate_descent,
+    nnls_cd_fixed_spectra,
+    nnls_cd_from_products,
+)
+
+BETA_LOSS = {"frobenius": 2.0, "kullback-leibler": 1.0, "itakura-saito": 0.0}
+
+_MU_NOT_PORTED = (
+    "the multiplicative-update solver (beta_loss != 'frobenius') is not "
+    "ported to PyTorch yet: see ROADMAP.md, Queue 1, 'The KL/IS MU path'"
+)
+
+
+def beta_loss_to_float(beta_loss) -> float:
+    if isinstance(beta_loss, str):
+        return BETA_LOSS[beta_loss]
+    return float(beta_loss)
+
+
+def compute_regularization(
+    alpha_W: float, alpha_H, l1_ratio: float, shape
+) -> Tuple[float, float, float, float]:
+    """sklearn _compute_regularization scaling: W-regs scale with n_features,
+    H-regs with n_samples."""
+    n_samples, n_features = shape
+    if alpha_H == "same" or alpha_H is None:
+        alpha_H = alpha_W
+    l1_reg_W = n_features * alpha_W * l1_ratio
+    l1_reg_H = n_samples * alpha_H * l1_ratio
+    l2_reg_W = n_features * alpha_W * (1.0 - l1_ratio)
+    l2_reg_H = n_samples * alpha_H * (1.0 - l1_ratio)
+    return float(l1_reg_W), float(l1_reg_H), float(l2_reg_W), float(l2_reg_H)
+
+
+def _regularization(nmf_kwargs: dict, shape):
+    return compute_regularization(
+        float(nmf_kwargs.get("alpha_W", 0.0)),
+        nmf_kwargs.get("alpha_H", "same"),
+        float(nmf_kwargs.get("l1_ratio", 0.0)),
+        shape,
+    )
+
+
+def _check_cd(nmf_kwargs: dict):
+    if nmf_kwargs.get("solver", "cd") != "cd":
+        raise NotImplementedError(_MU_NOT_PORTED)
+    if beta_loss_to_float(nmf_kwargs.get("beta_loss", "frobenius")) != 2.0:
+        raise ValueError("CD solver supports frobenius loss only")
+
+
+def solve_nmf_batch(
+    X: torch.Tensor,
+    W0: torch.Tensor,
+    Ht0: torch.Tensor,
+    nmf_kwargs: dict,
+    update_H: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Run the batched CD solver described by sklearn-style kwargs.
+
+    X: (N, G); W0: (B, N, K); Ht0: (B, G, K), all on one device. Returns
+    (W, Ht, n_iter)."""
+    _check_cd(nmf_kwargs)
+    tol = float(nmf_kwargs.get("tol", 1e-4))
+    max_iter = int(nmf_kwargs.get("max_iter", 200))
+    l1_reg_W, l1_reg_H, l2_reg_W, l2_reg_H = _regularization(nmf_kwargs, X.shape)
+    if not update_H:
+        # fixed-spectra refit → products-distilled half-sweep loop
+        W, n_iter = nnls_cd_fixed_spectra(
+            X, Ht0, W0, tol=tol, max_iter=max_iter,
+            l1_reg=l1_reg_W, l2_reg=l2_reg_W,
+        )
+        return W, Ht0, n_iter
+    return nmf_coordinate_descent(
+        X, W0, Ht0, tol=tol, max_iter=max_iter, update_H=True,
+        l1_reg_W=l1_reg_W, l1_reg_H=l1_reg_H,
+        l2_reg_W=l2_reg_W, l2_reg_H=l2_reg_H,
+    )
+
+
+def refit_spectra_transposed(X: torch.Tensor, usages: np.ndarray,
+                             nmf_kwargs: dict) -> np.ndarray:
+    """Fixed-usage spectra refit via the transpose trick (reference
+    cnmf.py:805-820, 948-955) without materializing Xᵀ: the CD refit needs
+    only the usage gram and Xᵀ·U.
+
+    X: (cells × genes) tensor; usages: (cells × k). Returns spectra in X's
+    units, transposed: (genes × k), as a host array."""
+    _check_cd(nmf_kwargs)
+    k = usages.shape[1]
+    pad_k = pad_bucket(k)
+    U = np.pad(np.asarray(usages), ((0, 0), (0, pad_k - k)))
+    Ud = torch.as_tensor(U, device=X.device).to(X.dtype)
+    # the materialized-transpose solve's X is (genes × cells): n_features is
+    # the cell count
+    l1_reg_W, _, l2_reg_W, _ = _regularization(
+        nmf_kwargs, (X.shape[1], X.shape[0])
+    )
+    P = fixed_factor_product_transposed(Ud, X)
+    W0 = torch.zeros((1, X.shape[1], pad_k), dtype=X.dtype, device=X.device)
+    W, _ = nnls_cd_from_products(
+        fixed_factor_gram(Ud[None]), P, W0,
+        tol=float(nmf_kwargs.get("tol", 1e-4)),
+        max_iter=int(nmf_kwargs.get("max_iter", 200)),
+        l1_reg=l1_reg_W, l2_reg=l2_reg_W,
+    )
+    return W[0, :, :k].cpu().numpy()
+
+
+def refit_usages(X: torch.Tensor, spectra: np.ndarray,
+                 nmf_kwargs: dict) -> np.ndarray:
+    """Fixed-spectra NNLS usage refit (sklearn update_H=False semantics, CD:
+    W starts at zeros; reference cnmf.py:776-802).
+
+    X: (cells × genes) tensor; spectra: (k × genes). Returns usages
+    (cells × k) as a host array."""
+    _check_cd(nmf_kwargs)
+    k = spectra.shape[0]
+    pad_k = pad_bucket(k)
+    Ht = np.pad(np.asarray(spectra).T, ((0, 0), (0, pad_k - k)))
+    Ht0 = torch.as_tensor(np.ascontiguousarray(Ht), device=X.device)
+    Ht0 = Ht0.to(X.dtype)[None]
+    W0 = torch.as_tensor(nnls_w_init(X, pad_k, "cd"), device=X.device)
+    W0 = W0.to(X.dtype)[None]
+    W, _, _ = solve_nmf_batch(X, W0, Ht0, nmf_kwargs, update_H=False)
+    return W[0, :, :k].cpu().numpy()

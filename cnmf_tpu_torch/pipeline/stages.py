@@ -1,0 +1,288 @@
+"""The array work of each pipeline stage, on numpy arrays and tensors.
+
+``cNMF`` (pipeline/cnmf.py) wraps these functions with the run directory's
+files; they can also be driven directly on in-memory data:
+
+* ``prepare_arrays``: TPM, Fano HVG selection and unit-variance scaling;
+  ``replicate_seeds`` and ``nmf_run_params``: the replicate grid and the
+  solver kwargs;
+* ``factorize_k``: every restart of one K as one batched CD solve;
+* ``combine_arrays``: the per-restart spectra stacked into the merged matrix;
+* ``consensus_arrays``: KNN density filter, KMeans, cluster medians, the
+  fixed-factor refits and the z-score OLS (the step-by-step consensus of
+  ``cnmf_tpu.pipeline.cnmf.consensus``).
+
+Numerics follow the JAX package's CPU path: restart inits and the kmeans++
+seeding come from host ``np.random.RandomState`` draws, so both packages
+start from bit-identical inputs.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional, Sequence
+
+import numpy as np
+import scipy.sparse as sp
+import torch
+
+from cnmf_tpu_torch.ops.cd_kernels import factors_from_numpy, pad_bucket
+from cnmf_tpu_torch.ops.distance import local_density_from_spectra
+from cnmf_tpu_torch.ops.init import random_init_batch
+from cnmf_tpu_torch.ops.kmeans import kmeans_fit
+from cnmf_tpu_torch.ops.normalize import (
+    csr_column_subset,
+    normalize_total,
+    scale_unit_variance,
+)
+from cnmf_tpu_torch.ops.ols import efficient_ols_all_cols
+from cnmf_tpu_torch.ops.stats import fano_hvg_stats, mean_var
+from cnmf_tpu_torch.pipeline.solvers import (
+    refit_spectra_transposed,
+    refit_usages,
+    solve_nmf_batch,
+)
+
+
+# ----------------------------------------------------------------------
+# prepare
+# ----------------------------------------------------------------------
+
+@dataclass
+class Prepared:
+    tpm: object              # (cells × TPM genes) TPM, dense or CSR like the counts
+    tpm_mean: np.ndarray     # per-gene TPM mean
+    tpm_std: np.ndarray      # per-gene TPM std (ddof 0)
+    hvg_idx: np.ndarray      # HVG positions among the counts' columns
+    norm: object             # (cells × HVGs) float64 counts scaled to unit variance
+
+
+def normalize_hvgs(counts, hvg_idx, zero_safe: bool):
+    """Counts of the HVG columns, cast to float64 and scaled to unit variance
+    without centering (ddof 1). The reference guards zero-std genes only on
+    its sparse path (scanpy pp.scale) and divides unguarded when dense
+    (reference cnmf.py:537-544): ``zero_safe`` follows the TPM's kind."""
+    if sp.issparse(counts):
+        sub = csr_column_subset(sp.csr_matrix(counts), np.asarray(hvg_idx))
+    else:
+        sub = np.asarray(counts)[:, hvg_idx]
+    norm = scale_unit_variance(sub.astype(np.float64), ddof=1,
+                               zero_safe=zero_safe)
+    values = norm.data if sp.issparse(norm) else norm
+    if np.isnan(values).any():
+        print("Warning NaNs in normalized counts matrix")
+    return norm
+
+
+def check_zero_cells(norm, cell_names: Optional[Sequence[str]] = None):
+    """Raise when a cell has zero counts of every HVG (reference
+    cnmf.py:548-556): NMF cannot place such a cell."""
+    zero_cells = np.ravel(np.asarray(norm.sum(axis=1)) == 0)
+    if zero_cells.any():
+        names = (np.asarray(cell_names) if cell_names is not None
+                 else np.arange(len(zero_cells)).astype(str))
+        raise Exception(
+            "Error: %d cells have zero counts of overdispersed genes. E.g. %s. "
+            "Filter those cells and re-run or adjust the number of "
+            "overdispersed genes. Quitting!"
+            % (zero_cells.sum(), ", ".join(names[zero_cells][:4]))
+        )
+
+
+def prepare_arrays(counts, num_highvar_genes: int = 2000, *, tpm=None,
+                   tpm_cols=None, hvg_idx=None, cell_names=None) -> Prepared:
+    """prepare on in-memory counts (cells × genes, dense or CSR): TPM, the
+    ``num_highvar_genes`` Fano-overdispersed genes, their scaled counts.
+
+    tpm: a precomputed TPM (cells × its own genes) instead of the counts
+    scaled to 1e6 per cell; tpm_cols: the counts' column of each TPM gene
+    (-1 where absent), when the TPM's genes are not the counts'; hvg_idx: a
+    given HVG list as positions among the counts' columns, kept in its order;
+    cell_names: for the zero-HVG-cell error."""
+    if tpm is None:
+        tpm = normalize_total(counts, target_sum=1e6)
+    mean, var = mean_var(tpm)
+    if hvg_idx is None:
+        hvg_stats, _ = fano_hvg_stats(mean, var, numgenes=num_highvar_genes)
+        hvg_idx = np.flatnonzero(hvg_stats["high_var"])
+        if tpm_cols is not None:
+            hvg_idx = np.asarray(tpm_cols)[hvg_idx]
+    hvg_idx = np.asarray(hvg_idx)
+    if (hvg_idx < 0).any():
+        raise KeyError(f"{int((hvg_idx < 0).sum())} HVGs are missing from "
+                       "the counts' genes")
+    norm = normalize_hvgs(counts, hvg_idx, zero_safe=sp.issparse(tpm))
+    check_zero_cells(norm, cell_names)
+    return Prepared(tpm, mean, var ** 0.5, hvg_idx, norm)
+
+
+def replicate_seeds(ks, n_iter: int, random_state_seed):
+    """The replicate grid [(k, iter)] in K-major/iter-minor order and one
+    seed per grid row (reference cnmf.py:564-633): the master seed feeds the
+    global numpy RNG, so serial and worker-sharded runs draw the same seeds.
+    Quirk kept: the seed vector is sized from the PRE-dedup ks length, so
+    duplicate ks draw (unused) extra seeds."""
+    ks = [ks] if type(ks) is int else ks
+    np.random.seed(seed=random_state_seed)
+    seeds = np.random.randint(low=1, high=(2**31) - 1, size=len(ks) * n_iter)
+    grid = [(k, r) for k in sorted(set(list(ks))) for r in range(n_iter)]
+    return grid, seeds[: len(grid)]
+
+
+def nmf_run_params(beta_loss="frobenius", alpha_usage=0.0, alpha_spectra=0.0,
+                   init="random", max_iter=1000) -> dict:
+    """The solver kwargs a run persists (reference cnmf.py:618-631)."""
+    return dict(
+        alpha_W=alpha_usage,
+        alpha_H=alpha_spectra,
+        l1_ratio=0.0,
+        beta_loss=beta_loss,
+        # CD is faster than MU but frobenius-only (reference cnmf.py:629-631)
+        solver="cd" if beta_loss == "frobenius" else "mu",
+        tol=1e-4,
+        max_iter=max_iter,
+        init=init,
+    )
+
+
+# ----------------------------------------------------------------------
+# factorize and combine
+# ----------------------------------------------------------------------
+
+def factorize_k(X_host: np.ndarray, Xd: torch.Tensor, k: int, seeds,
+                nmf_kwargs: dict, restart_chunk: Optional[int] = None):
+    """All restarts of one K: sklearn-RNG inits on the host, one batched solve
+    per restart chunk on Xd's device, K zero-padded to its bucket of 8.
+
+    X_host: (cells × HVGs) array at the compute dtype (the inits scale by its
+    mean); Xd: the same values as a tensor. Returns (spectra (B, k, G),
+    n_iter (B,)) as host arrays."""
+    init = nmf_kwargs.get("init", "random")
+    if init != "random":
+        raise NotImplementedError(
+            f"init={init!r} is not ported to PyTorch yet (ROADMAP.md, "
+            "Queue 1: nndsvd); use init='random'"
+        )
+    seeds = np.asarray(seeds)
+    B = len(seeds)
+    pad_k = pad_bucket(k)
+    if restart_chunk is None:
+        # keep the restart batch's solver working set (W, XHt, grads ≈
+        # 4 × B×N×K buffers) within ~4 GB of device memory
+        per_restart = X_host.shape[0] * pad_k * X_host.dtype.itemsize * 4
+        restart_chunk = max(1, int(4e9 / max(per_restart, 1)))
+    spectra, n_iters = [], []
+    for start in range(0, B, restart_chunk):
+        W0, Ht0 = random_init_batch(X_host, k, seeds[start:start + restart_chunk],
+                                    dtype=X_host.dtype)
+        pad = ((0, 0), (0, 0), (0, pad_k - k))
+        W0, Ht0 = factors_from_numpy(np.pad(W0, pad), np.pad(Ht0, pad),
+                                     device=Xd.device, dtype=Xd.dtype)
+        _, Ht, n_iter = solve_nmf_batch(Xd, W0, Ht0, nmf_kwargs)
+        spectra.append(Ht[:, :, :k].transpose(1, 2).cpu().numpy())
+        n_iters.append(n_iter.cpu().numpy())
+    return np.concatenate(spectra), np.concatenate(n_iters)
+
+
+def combine_arrays(spectra: Sequence[np.ndarray]) -> np.ndarray:
+    """Per-restart (k × G) spectra stacked into the merged (n·k × G) matrix,
+    rows ``iter{r}_topic{t}`` in restart order."""
+    return np.concatenate([np.asarray(s) for s in spectra], axis=0)
+
+
+# ----------------------------------------------------------------------
+# consensus
+# ----------------------------------------------------------------------
+
+@dataclass
+class Consensus:
+    local_density: np.ndarray   # (R,) mean KNN distance of every spectrum
+    density_filter: np.ndarray  # (R,) bool, spectra kept for clustering
+    l2_kept: np.ndarray         # kept L2-normalized spectra
+    labels: np.ndarray          # (R_kept,) 1-based KMeans cluster labels
+    spectra: np.ndarray         # (k × G) median spectra, rows summing to 1
+    usages: np.ndarray          # (cells × k) refit usages
+    spectra_tpm: np.ndarray     # (k × all genes) TPM-unit spectra
+    spectra_score: np.ndarray   # (k × all genes) z-score OLS coefficients
+
+
+def l2_normalize(merged: np.ndarray) -> np.ndarray:
+    norms = np.sqrt((merged ** 2).sum(axis=1))
+    return merged / norms[:, None]
+
+
+def consensus_arrays(
+    merged: np.ndarray,
+    k: int,
+    norm_counts: torch.Tensor,
+    tpm: torch.Tensor,
+    tpm_std: np.ndarray,
+    hvg_idx: np.ndarray,
+    nmf_kwargs: dict,
+    density_threshold: float = 0.5,
+    local_neighborhood_size: float = 0.30,
+    local_density: Optional[np.ndarray] = None,
+    refit_usage: bool = True,
+    normalize_tpm_spectra: bool = False,
+    zero_safe: bool = False,
+) -> Consensus:
+    """Consensus spectra and usages for one K (reference cnmf.py:823-975).
+
+    merged: (n_iter·k × HVGs) merged spectra; norm_counts: (cells × HVGs)
+    tensor; tpm: (cells × all genes) tensor at the same dtype and device;
+    tpm_std: per-gene TPM std; hvg_idx: HVG columns of the TPM.
+    ``local_density``: a cached density vector, used instead of computing it.
+    ``zero_safe``: guard zero-std HVGs in the final refit (sparse inputs)."""
+    dev, dtype = norm_counts.device, norm_counts.dtype
+
+    def to_dev(a):
+        return torch.as_tensor(np.ascontiguousarray(a), device=dev).to(dtype)
+
+    l2 = l2_normalize(merged)
+    if local_density is None:
+        n_neighbors = int(local_neighborhood_size * merged.shape[0] / k)
+        local_density = local_density_from_spectra(
+            to_dev(l2), n_neighbors
+        ).astype(np.float64)
+    density_filter = local_density < density_threshold
+    l2_kept = l2[density_filter]
+    if l2_kept.shape[0] == 0:
+        raise RuntimeError(
+            "Zero components remain after density filtering. "
+            "Consider increasing density threshold"
+        )
+
+    labels, _, _ = kmeans_fit(to_dev(l2_kept), n_clusters=k, n_init=10,
+                              random_state=1)
+    labels = labels + 1
+    # per-cluster median spectra, renormalized to row-sum 1
+    median = np.stack([np.median(l2_kept[labels == c], axis=0)
+                       for c in np.unique(labels)])
+    median = median / median.sum(axis=1, keepdims=True)
+
+    usages = refit_usages(norm_counts, median, nmf_kwargs)
+    # re-order programs by total contribution (reference cnmf.py:938-946)
+    norm_usages = usages / usages.sum(axis=1, keepdims=True)
+    order = np.argsort(-norm_usages.sum(axis=0), kind="stable")
+    usages, norm_usages, median = usages[:, order], norm_usages[:, order], median[order]
+
+    spectra_tpm = refit_spectra_transposed(tpm, norm_usages, nmf_kwargs).T
+    if normalize_tpm_spectra:
+        spectra_tpm = spectra_tpm / spectra_tpm.sum(axis=1, keepdims=True) * 1e6
+    # z-score spectra: OLS of the z-scored TPM on the usages (cnmf.py:957-959)
+    spectra_score = efficient_ols_all_cols(usages, tpm, normalize_y=True)
+
+    if refit_usage:
+        # final usage refit on the std-scaled HVG TPM (reference cnmf.py:961-975)
+        tpm_hvg = tpm[:, torch.as_tensor(hvg_idx, device=dev)]
+        n = tpm_hvg.shape[0]
+        mean = torch.sum(tpm_hvg, dim=0) / n
+        sq = torch.sum(tpm_hvg * tpm_hvg, dim=0) / n
+        std = torch.sqrt(((sq - mean * mean) * n / (n - 1)).clamp(min=0.0))
+        if zero_safe:
+            std = torch.where(std == 0, 1.0, std)
+        spectra_tpm_rf = spectra_tpm[:, hvg_idx] / tpm_std[hvg_idx][None, :]
+        usages = refit_usages(tpm_hvg / std, spectra_tpm_rf, nmf_kwargs)
+
+    return Consensus(local_density, density_filter, l2_kept, labels, median,
+                     usages, spectra_tpm, spectra_score)

@@ -1,0 +1,311 @@
+"""The port's cNMF (cnmf_tpu_torch) against the JAX package's on one recipe,
+against the goldens, and across run directories, in float64 on the CPU.
+
+The recipe is the verify recipe (300×400 counts with 6 planted programs,
+components [5, 6], 5 restarts, 200 HVGs, consensus k=6 at density threshold
+0.5). Consensus artifacts are compared at SSE < 1e-4 computed as in
+tests/test_golden.py; merged spectra at 1e-6."""
+
+import os
+import shutil
+import subprocess
+import sys
+
+import numpy as np
+import pandas as pd
+import pytest
+import yaml
+
+from cnmf_tpu import cNMF as JaxCNMF
+from cnmf_tpu.io.dataframe import load_df_from_npz, save_df_to_npz
+from cnmf_tpu.simulate import simulate_counts
+from cnmf_tpu_torch import cNMF as TorchCNMF
+from cnmf_tpu_torch.io.h5ad import read_h5ad, write_h5ad
+
+NAME = "v"
+K = 6
+DT = "0_5"
+SSE_TOL = 1e-4
+MERGED_TOL = 1e-6
+GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "goldens")
+CONSENSUS_ARTIFACTS = ["consensus_spectra", "consensus_usages",
+                       "gene_spectra_tpm", "gene_spectra_score",
+                       "starcat_spectra"]
+PREPARE_FILES = ["norm_counts.h5ad", "tpm.h5ad", "tpm_stats.df.npz",
+                 "nmf_params.df.npz", "nmf_idvrun_params.yaml"]
+
+
+def sse(a, b):
+    return float(((a.values.astype(float) - b.values.astype(float)) ** 2).sum())
+
+
+def make(pkg, out_dir):
+    if pkg == "jax":
+        return JaxCNMF(output_dir=str(out_dir), name=NAME,
+                       compute_dtype=np.float64)
+    return TorchCNMF(output_dir=str(out_dir), name=NAME,
+                     compute_dtype=np.float64, device="cpu")
+
+
+def finish(obj):
+    obj.factorize(verbose=False)
+    obj.combine()
+    obj.consensus(k=K, density_threshold=0.5, show_clustering=False)
+    return obj
+
+
+@pytest.fixture(scope="module")
+def workdir(tmp_path_factory):
+    root = tmp_path_factory.mktemp("torch_pipeline")
+    rng = np.random.RandomState(42)
+    W = rng.gamma(0.7, 1.0, size=(300, 6))
+    H = rng.gamma(0.5, 1.0, size=(6, 400)) * (rng.rand(6, 400) < 0.3)
+    X = rng.poisson(W @ H * 2.0).astype(float)
+    X[X.sum(1) == 0, 0] = 1
+    pd.DataFrame(X, index=[f"cell{i}" for i in range(300)],
+                 columns=[f"gene{j}" for j in range(400)]).to_csv(
+        root / "counts.txt", sep="\t")
+    return root
+
+
+@pytest.fixture(scope="module")
+def runs(workdir):
+    """The recipe through each package end to end."""
+    out = {}
+    for pkg in ("jax", "torch"):
+        obj = make(pkg, workdir / pkg)
+        obj.prepare(counts_fn=str(workdir / "counts.txt"), components=[5, 6],
+                    n_iter=5, seed=14, num_highvar_genes=200)
+        out[pkg] = finish(obj)
+    return out
+
+
+@pytest.fixture(scope="module")
+def crossed(workdir, runs):
+    """Each package finishes (factorize → consensus) from a run directory the
+    other package prepared."""
+    out = {}
+    for prep_pkg, fin_pkg in (("jax", "torch"), ("torch", "jax")):
+        dst = workdir / f"{prep_pkg}_prepared"
+        os.makedirs(dst / NAME / "cnmf_tmp")
+        src = runs[prep_pkg].paths
+        for f in PREPARE_FILES:
+            shutil.copy(os.path.join(os.path.dirname(src["tpm"]), f"{NAME}.{f}"),
+                        dst / NAME / "cnmf_tmp")
+        shutil.copy(src["nmf_genes_list"], dst / NAME)
+        out[prep_pkg] = finish(make(fin_pkg, dst))
+    return out
+
+
+def _listing(obj):
+    top = os.path.join(obj.output_dir, NAME)
+    return sorted(os.listdir(top)), sorted(os.listdir(os.path.join(top, "cnmf_tmp")))
+
+
+def test_same_artifact_files(runs):
+    assert _listing(runs["torch"]) == _listing(runs["jax"])
+
+
+def assert_prepare_match(jp, tp):
+    with open(jp["nmf_genes_list"]) as a, open(tp["nmf_genes_list"]) as b:
+        assert a.read() == b.read()
+    for key in ("tpm_stats", "nmf_replicate_parameters"):
+        a, b = load_df_from_npz(jp[key]), load_df_from_npz(tp[key])
+        assert list(a.index) == list(b.index) and list(a.columns) == list(b.columns)
+        np.testing.assert_allclose(b.values.astype(float),
+                                   a.values.astype(float), rtol=1e-12)
+    with open(jp["nmf_run_parameters"]) as a, open(tp["nmf_run_parameters"]) as b:
+        assert yaml.safe_load(a) == yaml.safe_load(b)
+    na, nb = read_h5ad(jp["normalized_counts"]), read_h5ad(tp["normalized_counts"])
+    assert list(na.var.index) == list(nb.var.index)
+    np.testing.assert_allclose(nb.X, na.X, rtol=1e-12)
+
+
+def test_prepare_artifacts_match(runs):
+    assert_prepare_match(runs["jax"].paths, runs["torch"].paths)
+
+
+@pytest.mark.parametrize("given", ["genes_file", "tpm_reordered"])
+def test_prepare_with_given_genes_or_tpm_matches_jax(workdir, runs, given,
+                                                    tmp_path):
+    """prepare with a user HVG list (its order kept) or a precomputed TPM
+    whose genes are in another order than the counts' (HVGs matched by
+    name) writes what the JAX package writes."""
+    counts_fn = str(workdir / "counts.txt")
+    if given == "genes_file":
+        with open(runs["jax"].paths["nmf_genes_list"]) as fh:
+            hvgs = fh.read().split("\n")[::-1][:150]
+        (tmp_path / "genes.txt").write_text("\n".join(hvgs))
+        extra = dict(genes_file=str(tmp_path / "genes.txt"))
+    else:
+        counts = pd.read_csv(counts_fn, sep="\t", index_col=0)
+        tpm = counts.div(counts.sum(axis=1), axis=0) * 1e6
+        tpm[tpm.columns[::-1]].to_csv(tmp_path / "tpm.txt", sep="\t")
+        extra = dict(tpm_fn=str(tmp_path / "tpm.txt"))
+    objs = {}
+    for pkg in ("jax", "torch"):
+        objs[pkg] = make(pkg, tmp_path / pkg)
+        objs[pkg].prepare(counts_fn=counts_fn, components=[5, 6], n_iter=5,
+                          seed=14, num_highvar_genes=200, **extra)
+    assert_prepare_match(objs["jax"].paths, objs["torch"].paths)
+    if given == "genes_file":
+        with open(objs["torch"].paths["nmf_genes_list"]) as fh:
+            assert fh.read().split("\n") == hvgs
+
+
+@pytest.mark.parametrize("k", [5, 6])
+def test_merged_spectra_match(runs, k):
+    a = load_df_from_npz(runs["jax"].paths["merged_spectra"] % k)
+    b = load_df_from_npz(runs["torch"].paths["merged_spectra"] % k)
+    assert list(a.index) == list(b.index)
+    assert list(a.columns) == list(b.columns)
+    assert np.max(np.abs(b.values - a.values)) / np.max(np.abs(a.values)) \
+        < MERGED_TOL
+
+
+@pytest.mark.parametrize("artifact", CONSENSUS_ARTIFACTS)
+def test_consensus_artifacts_match_jax(runs, artifact):
+    a = load_df_from_npz(runs["jax"].paths[artifact] % (K, DT))
+    b = load_df_from_npz(runs["torch"].paths[artifact] % (K, DT))
+    assert a.shape == b.shape and list(a.index) == list(b.index)
+    assert sse(a, b) < SSE_TOL, f"{artifact}: SSE {sse(a, b):.2e}"
+
+
+@pytest.mark.parametrize("prepared_by", ["jax", "torch"])
+@pytest.mark.parametrize("artifact", CONSENSUS_ARTIFACTS)
+def test_run_directories_cross_packages(runs, crossed, prepared_by, artifact):
+    ref = load_df_from_npz(runs["jax"].paths[artifact] % (K, DT))
+    ours = load_df_from_npz(crossed[prepared_by].paths[artifact] % (K, DT))
+    assert ours.shape == ref.shape and list(ours.index) == list(ref.index)
+    assert sse(ours, ref) < SSE_TOL
+
+
+def test_load_results_and_usage_rows(runs):
+    usage, scores, tpm, top = runs["torch"].load_results(K=K,
+                                                         density_threshold=0.5)
+    np.testing.assert_allclose(usage.sum(axis=1).values, 1.0, rtol=1e-12)
+    assert list(usage.columns) == list(range(1, K + 1))
+    assert scores.shape == tpm.shape == (400, K)
+    assert top.shape == (100, K)
+
+
+# ----------------------------------------------------------------------
+# goldens (the pattern of tests/test_golden.py)
+# ----------------------------------------------------------------------
+
+def _golden_counts(tmp_path):
+    adata, _, _ = simulate_counts(n_cells=300, n_genes=400, n_identities=5,
+                                  n_activities=1, n_markers_per_program=40,
+                                  seed=7)
+    counts_fn = str(tmp_path / "counts.h5ad")
+    write_h5ad(counts_fn, adata)
+    return counts_fn
+
+
+@pytest.fixture(scope="module")
+def golden_rerun(tmp_path_factory):
+    tmp_path = tmp_path_factory.mktemp("torch_golden")
+    obj = TorchCNMF(output_dir=str(tmp_path), name="rerun",
+                    compute_dtype=np.float64, device="cpu")
+    obj.prepare(counts_fn=_golden_counts(tmp_path), components=[K], n_iter=10,
+                seed=14, num_highvar_genes=200)
+    # skip factorize: the golden merged spectra (made by sklearn) go in
+    save_df_to_npz(
+        load_df_from_npz(os.path.join(GOLDEN_DIR, f"merged_spectra.k_{K}.df.npz")),
+        obj.paths["merged_spectra"] % K,
+    )
+    obj.consensus(k=K, density_threshold=0.5, show_clustering=False)
+    return obj
+
+
+@pytest.mark.parametrize("artifact", CONSENSUS_ARTIFACTS)
+def test_consensus_matches_golden(golden_rerun, artifact):
+    ours = load_df_from_npz(golden_rerun.paths[artifact] % (K, DT))
+    golden = load_df_from_npz(
+        os.path.join(GOLDEN_DIR, f"{artifact}.k_{K}.dt_{DT}.df.npz"))
+    assert ours.shape == golden.shape
+    assert list(ours.index) == list(golden.index)
+    assert sse(ours, golden) < SSE_TOL, f"{artifact}: SSE {sse(ours, golden):.2e}"
+
+
+def test_factorize_reproduces_golden_merged(tmp_path):
+    obj = TorchCNMF(output_dir=str(tmp_path), name="live",
+                    compute_dtype=np.float64, device="cpu")
+    obj.prepare(counts_fn=_golden_counts(tmp_path), components=[K], n_iter=10,
+                seed=14, num_highvar_genes=200)
+    obj.factorize(verbose=False)
+    obj.combine()
+    ours = load_df_from_npz(obj.paths["merged_spectra"] % K)
+    golden = load_df_from_npz(
+        os.path.join(GOLDEN_DIR, f"merged_spectra.k_{K}.df.npz"))
+    assert sse(ours, golden) < SSE_TOL
+
+
+# ----------------------------------------------------------------------
+# isolation
+# ----------------------------------------------------------------------
+
+def test_port_imports_without_jax():
+    """A fresh interpreter that imports the port has neither jax nor the JAX
+    package loaded, and full-f32 matmuls (TF32 off)."""
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    code = (
+        "import sys, cnmf_tpu_torch\n"
+        "import cnmf_tpu_torch.pipeline.stages, cnmf_tpu_torch.ops.cd_kernels\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'cnmf_tpu' or m.startswith('cnmf_tpu.')]\n"
+        "assert not bad, bad\n"
+        "import torch\n"
+        "assert not torch.backends.cuda.matmul.allow_tf32\n"
+        "assert not torch.backends.cudnn.allow_tf32\n"
+        "assert torch.get_float32_matmul_precision() == 'highest'\n"
+        "print('clean')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=repo)
+    out = subprocess.run([sys.executable, "-c", code], cwd=repo, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "clean"
+
+
+def test_stages_run_without_file_packages():
+    """ops/ and pipeline/stages.py import, and run the four stages on arrays,
+    in an interpreter where pandas, yaml, h5py and matplotlib cannot be
+    imported: the route a machine without the file layer's packages takes."""
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    code = (
+        "import sys\n"
+        "BLOCKED = ('pandas', 'yaml', 'h5py', 'matplotlib')\n"
+        "class Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in BLOCKED:\n"
+        "            raise ImportError('blocked: ' + name)\n"
+        "sys.meta_path.insert(0, Block())\n"
+        "import numpy as np, torch\n"
+        "from cnmf_tpu_torch.ops import cd_kernels\n"
+        "from cnmf_tpu_torch.pipeline import stages\n"
+        "rng = np.random.RandomState(0)\n"
+        "W = rng.gamma(0.7, 1.0, (80, 3))\n"
+        "H = rng.gamma(0.5, 1.0, (3, 120)) * (rng.rand(3, 120) < 0.4)\n"
+        "counts = rng.poisson(W @ H * 3.0).astype(float)\n"
+        "counts[counts.sum(1) == 0, 0] = 1\n"
+        "prep = stages.prepare_arrays(counts, num_highvar_genes=60)\n"
+        "X = np.ascontiguousarray(prep.norm)\n"
+        "kw = stages.nmf_run_params(max_iter=200)\n"
+        "_, seeds = stages.replicate_seeds([3], 4, 14)\n"
+        "spectra, n_iter = stages.factorize_k(X, torch.as_tensor(X), 3, seeds, kw)\n"
+        "merged = stages.combine_arrays(list(spectra))\n"
+        "res = stages.consensus_arrays(merged, 3, torch.as_tensor(X),\n"
+        "    torch.as_tensor(np.asarray(prep.tpm)), prep.tpm_std, prep.hvg_idx,\n"
+        "    kw, density_threshold=2.0)\n"
+        "assert res.usages.shape == (80, 3) and np.isfinite(res.usages).all()\n"
+        "assert res.spectra_tpm.shape == (3, 120)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in BLOCKED]\n"
+        "assert not bad, bad\n"
+        "print('clean')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=repo)
+    out = subprocess.run([sys.executable, "-c", code], cwd=repo, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "clean"
