@@ -3,9 +3,9 @@
 A port of the JAX package to PyTorch and CUDA: the same ``cNMF`` stages
 (prepare / factorize / combine / consensus), the same run-directory file
 contract and the same sklearn solver semantics, with the HALS coordinate
-descent half-sweeps as hand-written CUDA kernels for Hopper
-(``ops/cd_kernels.py``, ``csrc/cd_half_sweep.cu``). It imports neither jax
-nor ``cnmf_tpu``.
+descent half-sweeps and the KL multiplicative-update terms as hand-written
+CUDA kernels for Hopper (``ops/cd_kernels.py``, ``ops/mu_kernels.py``,
+``csrc/``). It imports neither jax nor ``cnmf_tpu``.
 
     from cnmf_tpu_torch import cNMF
     obj = cNMF(output_dir="out", name="run", device="cuda")

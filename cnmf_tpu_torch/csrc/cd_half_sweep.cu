@@ -32,100 +32,64 @@
 // Padded rows, contraction columns and K columns are exact no-ops: rows past M
 // and contraction entries past C load as 0, and a zero K column has a zero
 // gram diagonal and is skipped, as in the Pallas kernel.
+//
+// K buckets 8..64 (common.cuh). The column loop is unrolled up to K = 32 and
+// rolled above it, where a fully unrolled K x K sweep costs minutes of build
+// for a loop that is a small share of the run (K / C of the product's work).
 
-#include <cuda_runtime.h>
+#include "common.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
+using cnmf::kThreads;
 constexpr int kChunk = 16;  // contraction entries staged per shared-memory round
-// Larger buckets multiply the build time (the sweep is unrolled K x K).
-constexpr int kMaxK = 32;
 
 template <int K>
 struct Tile {
-  static_assert(K % 8 == 0 && K <= kMaxK, "K bucket");
+  static_assert(K % 8 == 0 && K <= cnmf::kMaxK, "K bucket");
   static constexpr int kRows = K >= 32 ? 1 : 32 / K;  // rows owned by a thread
   static constexpr int kTileM = kRows * kThreads;      // rows owned by a block
+  static constexpr int kSweepUnroll = K <= 32 ? K : 1;
 };
 
 // All K sequential HALS column updates of the thread's R rows, in column order
 // 0..K-1 (cnmf_tpu/ops/pallas_cd.py:_column_sweep). gram carries l2 on its
 // diagonal, p has l1 subtracted. Returns the summed |projected gradient| over
-// live columns.
+// live columns. f and p are indexed only by the unrolled j, so they stay in
+// registers when the column loop over t is rolled; the compares against t
+// fold away where it is unrolled.
 template <int K, int R>
 __device__ __forceinline__ float column_sweep(float (&f)[R][K],
                                               const float (&p)[R][K],
                                               const float* __restrict__ gram) {
   float viol = 0.f;
-#pragma unroll
+#pragma unroll(Tile<K>::kSweepUnroll)
   for (int t = 0; t < K; ++t) {
     const float hess = gram[t * K + t];
     const bool live = hess != 0.f;
 #pragma unroll
     for (int r = 0; r < R; ++r) {
-      float grad = 0.f;
+      float grad = 0.f, ft = 0.f, pt = 0.f;
 #pragma unroll
-      for (int j = 0; j < K; ++j) grad = fmaf(f[r][j], gram[j * K + t], grad);
-      grad -= p[r][t];
-      const float ft = f[r][t];
+      for (int j = 0; j < K; ++j) {
+        grad = fmaf(f[r][j], gram[j * K + t], grad);
+        if (j == t) {
+          ft = f[r][j];
+          pt = p[r][j];
+        }
+      }
+      grad -= pt;
       const float pgrad = ft == 0.f ? fminf(grad, 0.f) : grad;
       if (live) {
         viol += fabsf(pgrad);
-        f[r][t] = fmaxf(ft - grad / hess, 0.f);
+        const float fnew = fmaxf(ft - grad / hess, 0.f);
+#pragma unroll
+        for (int j = 0; j < K; ++j)
+          if (j == t) f[r][j] = fnew;
       }
     }
   }
   return viol;
-}
-
-template <int K, int R>
-__device__ __forceinline__ void load_rows(float (&f)[R][K],
-                                          const float* __restrict__ src, int m0,
-                                          int M) {
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const int row = m0 + threadIdx.x + r * kThreads;
-#pragma unroll
-    for (int k = 0; k < K; k += 4) {
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (row < M) v = *reinterpret_cast<const float4*>(src + (size_t)row * K + k);
-      f[r][k] = v.x;
-      f[r][k + 1] = v.y;
-      f[r][k + 2] = v.z;
-      f[r][k + 3] = v.w;
-    }
-  }
-}
-
-template <int K, int R>
-__device__ __forceinline__ void store_rows(float* __restrict__ dst,
-                                           const float (&f)[R][K], int m0,
-                                           int M) {
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const int row = m0 + threadIdx.x + r * kThreads;
-    if (row >= M) continue;
-#pragma unroll
-    for (int k = 0; k < K; k += 4)
-      *reinterpret_cast<float4*>(dst + (size_t)row * K + k) =
-          make_float4(f[r][k], f[r][k + 1], f[r][k + 2], f[r][k + 3]);
-  }
-}
-
-// Block sum of v; thread 0 writes it to *out.
-__device__ __forceinline__ void block_sum_to(float v, float* out) {
-  __shared__ float warp_sums[kThreads / 32];
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-  if ((threadIdx.x & 31) == 0) warp_sums[threadIdx.x >> 5] = v;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float s = 0.f;
-#pragma unroll
-    for (int w = 0; w < kThreads / 32; ++w) s += warp_sums[w];
-    *out = s;
-  }
 }
 
 template <int K>
@@ -143,7 +107,7 @@ cd_fused_kernel(const float* __restrict__ X, int M, int C, long long sxm,
                 float* __restrict__ viol_part) {
   constexpr int R = Tile<K>::kRows;
   constexpr int TM = Tile<K>::kTileM;
-  __shared__ float xs[kChunk][TM + 1];  // +1: transposed staging writes spread banks
+  __shared__ float xs[kChunk][TM + 1];
   __shared__ __align__(16) float fs[kChunk][K];
   __shared__ float gs[K * K];
 
@@ -159,20 +123,9 @@ cd_fused_kernel(const float* __restrict__ X, int M, int C, long long sxm,
 #pragma unroll
     for (int k = 0; k < K; ++k) p[r][k] = 0.f;
 
-  const bool c_contiguous = sxc == 1;
   for (int c0 = 0; c0 < C; c0 += kChunk) {
     __syncthreads();  // the previous chunk is consumed
-    for (int i = tid; i < TM * kChunk; i += kThreads) {
-      // neighbouring threads walk X's contiguous axis
-      const int m = c_contiguous ? i / kChunk : i % TM;
-      const int c = c_contiguous ? i % kChunk : i / TM;
-      const int gm = m0 + m, gc = c0 + c;
-      xs[c][m] = (gm < M && gc < C) ? X[gm * sxm + gc * sxc] : 0.f;
-    }
-    for (int i = tid; i < kChunk * K; i += kThreads) {
-      const int c = i / K;
-      fs[c][i % K] = c0 + c < C ? fo[(size_t)c0 * K + i] : 0.f;
-    }
+    cnmf::stage_chunk<K, TM, kChunk>(xs, fs, X, M, C, sxm, sxc, fo, m0, c0);
     __syncthreads();
 #pragma unroll
     for (int c = 0; c < kChunk; ++c) {
@@ -197,10 +150,10 @@ cd_fused_kernel(const float* __restrict__ X, int M, int C, long long sxm,
   }
   float f[R][K];
   const size_t f_off = (size_t)b * M * K;
-  load_rows<K, R>(f, F + f_off, m0, M);
+  cnmf::load_rows<K, R>(f, F + f_off, m0, M);
   const float v = column_sweep<K, R>(f, p, gs);
-  store_rows<K, R>(Fout + f_off, f, m0, M);
-  block_sum_to(v, viol_part + (size_t)blockIdx.y * gridDim.x + b);
+  cnmf::store_rows<K, R>(Fout + f_off, f, m0, M);
+  cnmf::block_sum_to(v, viol_part + (size_t)blockIdx.y * gridDim.x + b);
 }
 
 // The same sweep on a precomputed product P (B, M, K).
@@ -219,7 +172,7 @@ cd_products_kernel(const float* __restrict__ P, int M,
 
   const size_t off = (size_t)b * M * K;
   float p[R][K];
-  load_rows<K, R>(p, P + off, m0, M);
+  cnmf::load_rows<K, R>(p, P + off, m0, M);
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     const bool valid = m0 + threadIdx.x + r * kThreads < M;
@@ -227,11 +180,11 @@ cd_products_kernel(const float* __restrict__ P, int M,
     for (int k = 0; k < K; ++k) p[r][k] = valid ? p[r][k] - l1 : 0.f;
   }
   float f[R][K];
-  load_rows<K, R>(f, F + off, m0, M);
+  cnmf::load_rows<K, R>(f, F + off, m0, M);
   __syncthreads();
   const float v = column_sweep<K, R>(f, p, gs);
-  store_rows<K, R>(Fout + off, f, m0, M);
-  block_sum_to(v, viol_part + (size_t)blockIdx.y * gridDim.x + b);
+  cnmf::store_rows<K, R>(Fout + off, f, m0, M);
+  cnmf::block_sum_to(v, viol_part + (size_t)blockIdx.y * gridDim.x + b);
 }
 
 template <int K>
@@ -258,12 +211,10 @@ int launch_products(const float* P, int M, const float* F, const float* gram,
 
 }  // namespace
 
-#define CD_K_BUCKETS(X) X(8) X(16) X(24) X(32)
-
 extern "C" {
 
-// Largest K bucket the kernels are instantiated for.
-int cd_max_k() { return kMaxK; }
+// Largest K bucket of every kernel of the library (common.cuh's buckets).
+int cnmf_max_k() { return cnmf::kMaxK; }
 
 // Rows one block owns for bucket K (sizes the (tiles, B) violation partials);
 // 0 for a K that has no instantiation.
@@ -271,7 +222,7 @@ int cd_tile_rows(int K) {
 #define CD_CASE(KK) \
   case KK:          \
     return Tile<KK>::kTileM;
-  switch (K) { CD_K_BUCKETS(CD_CASE) }
+  switch (K) { CNMF_K_BUCKETS(CD_CASE) }
 #undef CD_CASE
   return 0;
 }
@@ -287,7 +238,7 @@ int cd_half_sweep_fused(const float* X, int M, int C, long long sxm,
   case KK:                                                                 \
     return launch_fused<KK>(X, M, C, sxm, sxc, F_other, F, gram, l1, B,    \
                             Fout, viol_part, (cudaStream_t)stream);
-  switch (K) { CD_K_BUCKETS(CD_CASE) }
+  switch (K) { CNMF_K_BUCKETS(CD_CASE) }
 #undef CD_CASE
   return (int)cudaErrorInvalidValue;
 }
@@ -300,7 +251,7 @@ int cd_half_sweep_products(const float* P, int M, const float* F,
   case KK:                                                           \
     return launch_products<KK>(P, M, F, gram, l1, B, Fout, viol_part, \
                                (cudaStream_t)stream);
-  switch (K) { CD_K_BUCKETS(CD_CASE) }
+  switch (K) { CNMF_K_BUCKETS(CD_CASE) }
 #undef CD_CASE
   return (int)cudaErrorInvalidValue;
 }

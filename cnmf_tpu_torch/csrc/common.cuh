@@ -1,0 +1,94 @@
+// What the hand-written kernels of this directory share: the block shape, the
+// K buckets they are instantiated for, row loads and stores of a (B, M, K)
+// factor held in registers, the staging of an X tile in shared memory, and
+// the block reduction of per-thread partials.
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace cnmf {
+
+constexpr int kThreads = 128;
+// K buckets: multiples of 8 up to 64 (the solvers zero-pad K to a bucket).
+constexpr int kMaxK = 64;
+#define CNMF_K_BUCKETS(X) X(8) X(16) X(24) X(32) X(40) X(48) X(56) X(64)
+
+// R rows of K values per thread (row m0 + threadIdx.x + r * kThreads); rows
+// past M load as 0.
+template <int K, int R>
+__device__ __forceinline__ void load_rows(float (&f)[R][K],
+                                          const float* __restrict__ src, int m0,
+                                          int M) {
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int row = m0 + threadIdx.x + r * kThreads;
+#pragma unroll
+    for (int k = 0; k < K; k += 4) {
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (row < M) v = *reinterpret_cast<const float4*>(src + (size_t)row * K + k);
+      f[r][k] = v.x;
+      f[r][k + 1] = v.y;
+      f[r][k + 2] = v.z;
+      f[r][k + 3] = v.w;
+    }
+  }
+}
+
+template <int K, int R>
+__device__ __forceinline__ void store_rows(float* __restrict__ dst,
+                                           const float (&f)[R][K], int m0,
+                                           int M) {
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int row = m0 + threadIdx.x + r * kThreads;
+    if (row >= M) continue;
+#pragma unroll
+    for (int k = 0; k < K; k += 4)
+      *reinterpret_cast<float4*>(dst + (size_t)row * K + k) =
+          make_float4(f[r][k], f[r][k + 1], f[r][k + 2], f[r][k + 3]);
+  }
+}
+
+// One contraction chunk into shared memory: xs[c][m] = X(m0 + m, c0 + c) for
+// an X tile of TM rows, X element (m, c) at X[m * sxm + c * sxc], and
+// fs[c][:] = row c0 + c of the other factor fo (C, K). Entries past M or C
+// load as 0, so a ragged edge is an exact no-op. Neighbouring threads walk
+// whichever axis of X is contiguous; xs is padded by one column so the
+// transposed writes spread over the banks.
+template <int K, int TM, int CHUNK>
+__device__ __forceinline__ void stage_chunk(float (&xs)[CHUNK][TM + 1],
+                                            float (&fs)[CHUNK][K],
+                                            const float* __restrict__ X, int M,
+                                            int C, long long sxm, long long sxc,
+                                            const float* __restrict__ fo,
+                                            int m0, int c0) {
+  const bool c_contiguous = sxc == 1;
+  for (int i = threadIdx.x; i < TM * CHUNK; i += kThreads) {
+    const int m = c_contiguous ? i / CHUNK : i % TM;
+    const int c = c_contiguous ? i % CHUNK : i / TM;
+    const int gm = m0 + m, gc = c0 + c;
+    xs[c][m] = (gm < M && gc < C) ? X[gm * sxm + gc * sxc] : 0.f;
+  }
+  for (int i = threadIdx.x; i < CHUNK * K; i += kThreads) {
+    const int c = i / K;
+    fs[c][i % K] = c0 + c < C ? fo[(size_t)c0 * K + i] : 0.f;
+  }
+}
+
+// Block sum of v; thread 0 writes it to *out. Every thread must call it.
+template <typename T>
+__device__ __forceinline__ void block_sum_to(T v, T* out) {
+  __shared__ T warp_sums[kThreads / 32];
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+  if ((threadIdx.x & 31) == 0) warp_sums[threadIdx.x >> 5] = v;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    T s = 0;
+#pragma unroll
+    for (int w = 0; w < kThreads / 32; ++w) s += warp_sums[w];
+    *out = s;
+  }
+}
+
+}  // namespace cnmf

@@ -6,7 +6,7 @@ wrapper here takes the unpadded solver layout — X (N, G) shared by every
 restart, W (B, N, K), Ht (B, G, K) — and dispatches on where its tensors lie:
 
 * CUDA tensors launch the hand-written kernel of ``csrc/cd_half_sweep.cu``
-  (f32, contiguous, K a multiple of 8 up to 32). Anything else on CUDA
+  (f32, contiguous, K a multiple of 8 up to 64). Anything else on CUDA
   raises; there is no fallback to the plain version.
 * CPU tensors run the plain PyTorch version below: the same column-cyclic
   update as ``cnmf_tpu.ops.nmf._cd_half_sweep``, at the tensors' dtype. This
@@ -19,32 +19,34 @@ are computed outside, as pallas_cd.py:124 and :167 do. A third entry point,
 every fixed-factor refit of the consensus stage goes through it.
 
 Each wrapper counts its kernel launches in a ``launches`` attribute, so a run
-can show that its main path went through the kernels. The shared library is
-built with ``nvcc`` at first use, from the sources under ``csrc/``, into
-``_build/`` inside the package, keyed by a hash of the sources; importing
-this module needs neither ``nvcc`` nor a GPU.
+can show that its main path went through the kernels. The library is built
+at first use by ``ops/kernel_lib.py``; importing this module needs neither
+``nvcc`` nor a GPU.
 """
 
 from __future__ import annotations
 
-import functools
-import os
-
 import numpy as np
 import torch
 
-_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
-_BUILD_DIR = os.path.join(_PKG_DIR, "_build")
-_NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-]
+from cnmf_tpu_torch.ops.kernel_lib import (
+    F32,
+    I32,
+    I64,
+    VP,
+    check_cuda,
+    check_k,
+    device_kind,
+    kernel_function,
+    library_constant,
+    raise_on,
+    stream_of,
+)
 
 
 def pad_bucket(k: int) -> int:
     """K zero-padded to the next multiple of 8, the buckets the kernels are
-    instantiated for (8 to 32). The padding is an exact no-op: a zero column
+    instantiated for (8 to 64). The padding is an exact no-op: a zero column
     has a zero gram diagonal and is skipped."""
     return -(-int(k) // 8) * 8
 
@@ -135,94 +137,18 @@ def cd_sweep_from_products_plain(F, gram, P, *, l1_reg=0.0, l2_reg=0.0):
 
 
 # ----------------------------------------------------------------------
-# the CUDA library
+# the CUDA kernels
 # ----------------------------------------------------------------------
 
-@functools.lru_cache(maxsize=None)
-def load_library():
-    """Build (once per source hash) and load ``csrc/cd_half_sweep.cu``.
-
-    The build runs ``nvcc`` from the CUDA toolkit PyTorch finds, writes the
-    shared library and the compiler's ``-Xptxas -v`` report (registers,
-    shared memory, spills per kernel) into ``_build/``, and never runs while
-    the module is imported."""
-    import ctypes
-    import hashlib
-    import subprocess
-
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    sources = sorted(
-        os.path.join(_CSRC_DIR, f) for f in os.listdir(_CSRC_DIR)
-        if f.endswith((".cu", ".cuh"))
-    )
-    digest = hashlib.sha256(" ".join(_NVCC_FLAGS).encode())
-    for path in sources:
-        with open(path, "rb") as fh:
-            digest.update(fh.read())
-    so_path = os.path.join(
-        _BUILD_DIR, f"libcd_half_sweep_{digest.hexdigest()[:16]}.so"
-    )
-    if not os.path.exists(so_path):
-        os.makedirs(_BUILD_DIR, exist_ok=True)
-        if CUDA_HOME is None:
-            raise RuntimeError("CUDA toolkit not found: nvcc is needed to "
-                               "build the CD kernels")
-        nvcc = os.path.join(CUDA_HOME, "bin", "nvcc")
-        tmp = f"{so_path}.{os.getpid()}.tmp"
-        proc = subprocess.run(
-            [nvcc, *_NVCC_FLAGS, "-o", tmp,
-             *[s for s in sources if s.endswith(".cu")]],
-            capture_output=True, text=True,
-        )
-        with open(so_path + ".log", "w") as fh:
-            fh.write(proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
-            )
-        os.replace(tmp, so_path)
-    lib = ctypes.CDLL(so_path)
-    vp, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-                         ctypes.c_float)
-    lib.cd_max_k.argtypes = []
-    lib.cd_tile_rows.argtypes = [i32]
-    lib.cd_half_sweep_fused.argtypes = [
-        vp, i32, i32, i64, i64, vp, vp, vp, f32, i32, i32, vp, vp, vp,
-    ]
-    lib.cd_half_sweep_products.argtypes = [
-        vp, i32, vp, vp, f32, i32, i32, vp, vp, vp,
-    ]
-    for fn in (lib.cd_max_k, lib.cd_tile_rows, lib.cd_half_sweep_fused,
-               lib.cd_half_sweep_products):
-        fn.restype = i32
-    lib.so_path = so_path
-    return lib
+_FUSED_ARGS = (VP, I32, I32, I64, I64, VP, VP, VP, F32, I32, I32, VP, VP, VP)
+_PRODUCTS_ARGS = (VP, I32, VP, VP, F32, I32, I32, VP, VP, VP)
 
 
-def _check_cuda(name, *tensors):
-    dev = tensors[0].device
-    for t in tensors:
-        if t.device != dev:
-            raise ValueError(f"{name}: tensors on {t.device} and {dev}")
-        if t.dtype != torch.float32:
-            raise TypeError(
-                f"{name}: the CUDA kernel takes float32, got {t.dtype} "
-                "(compute_dtype=float64 runs on the CPU only)"
-            )
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: the CUDA kernel takes contiguous tensors")
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name}: tensor data must be 16-byte aligned")
-
-
-def _check_k(name, lib, K):
-    kmax = lib.cd_max_k()
-    if K > kmax or lib.cd_tile_rows(K) == 0:
-        raise ValueError(
-            f"{name}: K={K} has no kernel; K must be a multiple of 8 up to "
-            f"{kmax} (the solvers zero-pad K to that bucket)"
-        )
+def _tile_rows(name, K):
+    """Rows one block of the CD kernels owns at bucket K; raises for a K
+    that has no kernel."""
+    check_k(name, K)
+    return library_constant("cd_tile_rows", K)
 
 
 def _with_l2(gram, l2_reg):
@@ -234,15 +160,9 @@ def _with_l2(gram, l2_reg):
     return gram.contiguous()
 
 
-def _raise_on(name, rc):
-    if rc != 0:
-        raise RuntimeError(f"{name}: kernel launch failed, CUDA error {rc}")
-
-
 def _launch_fused(name, X, F, F_other, gram, l1_reg, transposed):
     """F (B, M, K) against F_other (B, C, K): the W half reads X as (M=N, C=G),
     the H half reads it transposed as (M=G, C=N)."""
-    lib = load_library()
     B, M, K = F.shape
     N, G = X.shape
     if transposed:
@@ -252,25 +172,16 @@ def _launch_fused(name, X, F, F_other, gram, l1_reg, transposed):
     if M != (G if transposed else N) or F_other.shape != (B, C, K):
         raise ValueError(f"{name}: shapes X {tuple(X.shape)}, factor "
                          f"{tuple(F.shape)}, other {tuple(F_other.shape)}")
-    _check_cuda(name, X, F, F_other, gram)
-    _check_k(name, lib, K)
+    check_cuda(name, X, F, F_other, gram)
+    tiles = -(-M // _tile_rows(name, K))
     out = torch.empty_like(F)
-    tiles = -(-M // lib.cd_tile_rows(K))
     part = torch.empty((tiles, B), dtype=torch.float32, device=F.device)
-    stream = torch.cuda.current_stream(F.device).cuda_stream
-    _raise_on(name, lib.cd_half_sweep_fused(
+    raise_on(name, kernel_function("cd_half_sweep_fused", _FUSED_ARGS)(
         X.data_ptr(), M, C, sxm, sxc, F_other.data_ptr(), F.data_ptr(),
         gram.data_ptr(), float(l1_reg), B, K, out.data_ptr(), part.data_ptr(),
-        stream,
+        stream_of(F),
     ))
     return out, part.sum(dim=0)
-
-
-def _device_kind(name, t):
-    kind = t.device.type
-    if kind not in ("cpu", "cuda"):
-        raise ValueError(f"{name}: no kernel for device {t.device}")
-    return kind
 
 
 # ----------------------------------------------------------------------
@@ -281,7 +192,7 @@ def cd_w_half_sweep(X, W, Ht, *, l1_reg=0.0, l2_reg=0.0):
     """One W half-sweep with Ht fixed: gram = HtᵀHt + l2·I, P = X·Ht − l1,
     then the K column updates of W. Returns (W_new (B,N,K), violation (B,)).
     Replaces cnmf_tpu/ops/pallas_cd.py:cd_w_half_sweep."""
-    if _device_kind("cd_w_half_sweep", W) == "cpu":
+    if device_kind("cd_w_half_sweep", W) == "cpu":
         return cd_w_half_sweep_plain(X, W, Ht, l1_reg=l1_reg, l2_reg=l2_reg)
     out = _launch_fused("cd_w_half_sweep", X, W, Ht, _with_l2(_gram(Ht), l2_reg),
                         l1_reg, transposed=False)
@@ -293,7 +204,7 @@ def cd_h_half_sweep(X, W, Ht, *, l1_reg=0.0, l2_reg=0.0):
     """One Ht half-sweep with W fixed: gram = WᵀW + l2·I, P = Xᵀ·W − l1.
     Returns (Ht_new (B,G,K), violation (B,)). Replaces
     cnmf_tpu/ops/pallas_cd.py:cd_h_half_sweep."""
-    if _device_kind("cd_h_half_sweep", Ht) == "cpu":
+    if device_kind("cd_h_half_sweep", Ht) == "cpu":
         return cd_h_half_sweep_plain(X, W, Ht, l1_reg=l1_reg, l2_reg=l2_reg)
     out = _launch_fused("cd_h_half_sweep", X, Ht, W, _with_l2(_gram(W), l2_reg),
                         l1_reg, transposed=True)
@@ -306,24 +217,21 @@ def cd_sweep_from_products(F, gram, P, *, l1_reg=0.0, l2_reg=0.0):
     product P (B,M,K) — the fixed-factor refit loop of
     ``nnls_cd_from_products``. Returns (F_new, violation (B,))."""
     name = "cd_sweep_from_products"
-    if _device_kind(name, F) == "cpu":
+    if device_kind(name, F) == "cpu":
         return cd_sweep_from_products_plain(F, gram, P, l1_reg=l1_reg,
                                             l2_reg=l2_reg)
-    lib = load_library()
     B, M, K = F.shape
     if P.shape != F.shape or gram.shape != (B, K, K):
         raise ValueError(f"{name}: shapes F {tuple(F.shape)}, gram "
                          f"{tuple(gram.shape)}, P {tuple(P.shape)}")
     gram = _with_l2(gram, l2_reg)
-    _check_cuda(name, F, gram, P)
-    _check_k(name, lib, K)
+    check_cuda(name, F, gram, P)
+    tiles = -(-M // _tile_rows(name, K))
     out = torch.empty_like(F)
-    tiles = -(-M // lib.cd_tile_rows(K))
     part = torch.empty((tiles, B), dtype=torch.float32, device=F.device)
-    stream = torch.cuda.current_stream(F.device).cuda_stream
-    _raise_on(name, lib.cd_half_sweep_products(
+    raise_on(name, kernel_function("cd_half_sweep_products", _PRODUCTS_ARGS)(
         P.data_ptr(), M, F.data_ptr(), gram.data_ptr(), float(l1_reg), B, K,
-        out.data_ptr(), part.data_ptr(), stream,
+        out.data_ptr(), part.data_ptr(), stream_of(F),
     ))
     cd_sweep_from_products.launches += 1
     return out, part.sum(dim=0)

@@ -1,4 +1,4 @@
-"""NMF factor initialization on the host.
+"""NMF factor initialization.
 
 sklearn's init='random' (the reference passes it through to sklearn,
 reference cnmf.py:627): ``avg·|N(0,1)|`` with ``avg = sqrt(X.mean()/K)``,
@@ -6,15 +6,17 @@ drawn from ``np.random.RandomState(seed)`` with H drawn before W. The draw
 is the same numpy stream as ``cnmf_tpu.ops.init``'s host path, so both
 packages start every restart from bit-identical factors. The batched variant
 stacks per-seed factors along a leading restart axis in the solvers'
-(B, N, K) / (B, G, K) layout.
+(B, N, K) / (B, G, K) layout. The fixed-H refits' W init is made on X's
+device.
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import scipy.sparse as sp
+import torch
 
 
 def _x_mean(X) -> float:
@@ -47,11 +49,14 @@ def random_init_batch(
     return np.stack(Ws), np.stack(Hts)
 
 
-def nnls_w_init(X, n_components: int, solver: str, dtype=np.float32) -> np.ndarray:
-    """W init for fixed-H refits (sklearn _check_w_h, update_H=False):
-    zeros for CD, sqrt(X.mean()/K) for MU."""
-    n_samples = X.shape[0]
+def nnls_w_init(X: torch.Tensor, k: int, solver: str,
+                pad_k: Optional[int] = None) -> torch.Tensor:
+    """W init for fixed-H refits (sklearn _check_w_h, update_H=False), a
+    (1, N, pad_k) tensor of X's device and dtype: zeros for CD; for MU
+    sqrt(X.mean()/k) with the real k, over every column of the zero-padded
+    bucket (cnmf_tpu/pipeline/solvers.py:1008-1023) — a padded column has
+    zero spectra, so its W goes to 0 at the first update."""
+    shape = (1, X.shape[0], k if pad_k is None else pad_k)
     if solver == "mu":
-        avg = np.sqrt(_x_mean(X) / n_components)
-        return np.full((n_samples, n_components), avg, dtype=dtype)
-    return np.zeros((n_samples, n_components), dtype=dtype)
+        return torch.sqrt(X.sum() / X.numel() / k).expand(shape).contiguous()
+    return torch.zeros(shape, dtype=X.dtype, device=X.device)

@@ -1,0 +1,171 @@
+"""The one shared library of the hand-written CUDA kernels, and the checks
+every kernel wrapper makes before it launches.
+
+``load_library`` builds every ``csrc/*.cu`` at first use with ``nvcc`` (one
+compiler process per source, all started together, then one link) into
+``_build/`` inside the package, keyed by a hash of the flags and of every
+source and header, and loads it with ctypes. ``ops/cd_kernels.py`` and
+``ops/mu_kernels.py`` call their own symbols of it through
+``kernel_function`` and ``library_constant``, which bind each symbol and
+read each constant once. Importing this module needs neither ``nvcc`` nor a
+GPU, and nothing is built for CPU tensors.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import os
+
+import torch
+
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
+_BUILD_DIR = os.path.join(_PKG_DIR, "_build")
+_NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+
+VP, I32, I64, F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME is None:
+        raise RuntimeError("CUDA toolkit not found: nvcc is needed to build "
+                           "the kernels of cnmf_tpu_torch/csrc")
+    return os.path.join(CUDA_HOME, "bin", "nvcc")
+
+
+def _build(sources, so_path):
+    """Compile each .cu to an object in parallel, then link the shared
+    library. The compilers' output (``-Xptxas -v``: registers, shared
+    memory and spills per kernel) goes to ``so_path + '.log'``."""
+    import subprocess
+
+    nvcc = _nvcc()
+    tmp = f"{so_path}.{os.getpid()}"
+    jobs = []
+    for src in sources:
+        if src.endswith(".cu"):
+            obj = f"{tmp}.{os.path.basename(src)}.o"
+            jobs.append((obj, subprocess.Popen(
+                [nvcc, *_NVCC_FLAGS, "-c", "-o", obj, src],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            )))
+    log, failed = [], False
+    for obj, proc in jobs:
+        out, _ = proc.communicate()
+        log.append(out)
+        failed |= proc.returncode != 0
+    if not failed:
+        link = subprocess.run(
+            [nvcc, "-shared", "-o", f"{tmp}.so", *[o for o, _ in jobs]],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        log.append(link.stdout)
+        failed = link.returncode != 0
+    for obj, _ in jobs:
+        if os.path.exists(obj):
+            os.remove(obj)
+    with open(so_path + ".log", "w") as fh:
+        fh.write("".join(log))
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "".join(log))
+    os.replace(f"{tmp}.so", so_path)
+
+
+@functools.lru_cache(maxsize=None)
+def load_library():
+    """Build (once per source hash) and load the kernels of ``csrc/``.
+    Never runs while a module is imported."""
+    import hashlib
+
+    sources = sorted(
+        os.path.join(_CSRC_DIR, f) for f in os.listdir(_CSRC_DIR)
+        if f.endswith((".cu", ".cuh"))
+    )
+    digest = hashlib.sha256(" ".join(_NVCC_FLAGS).encode())
+    for path in sources:
+        digest.update(os.path.basename(path).encode())
+        with open(path, "rb") as fh:
+            digest.update(fh.read())
+    so_path = os.path.join(_BUILD_DIR, f"libcnmf_kernels_{digest.hexdigest()[:16]}.so")
+    if not os.path.exists(so_path):
+        os.makedirs(_BUILD_DIR, exist_ok=True)
+        _build(sources, so_path)
+    lib = ctypes.CDLL(so_path)
+    lib.so_path = so_path
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def kernel_function(name: str, argtypes: tuple):
+    """The library's C function ``name``, bound once with its argument types
+    declared and an int result (a CUDA error code or a constant)."""
+    fn = getattr(load_library(), name)
+    fn.argtypes = list(argtypes)
+    fn.restype = I32
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def library_constant(name: str, *args: int) -> int:
+    """An int the library fixes at compile time (``cnmf_max_k``, the rows one
+    block owns), read once per argument."""
+    return kernel_function(name, (I32,) * len(args))(*args)
+
+
+# ----------------------------------------------------------------------
+# the checks of every wrapper
+# ----------------------------------------------------------------------
+
+def device_kind(name, t) -> str:
+    """'cpu' (the plain version runs) or 'cuda' (the kernel launches)."""
+    kind = t.device.type
+    if kind not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: no kernel for device {t.device}")
+    return kind
+
+
+def check_cuda(name, *tensors, strided=()):
+    """All tensors on one device and float32; ``tensors`` contiguous and
+    16-byte aligned (the kernels move rows as float4), ``strided`` with any
+    positive strides (the kernels take X's strides as arguments)."""
+    dev = tensors[0].device
+    for t in (*tensors, *strided):
+        if t.device != dev:
+            raise ValueError(f"{name}: tensors on {t.device} and {dev}")
+        if t.dtype != torch.float32:
+            raise TypeError(
+                f"{name}: the CUDA kernel takes float32, got {t.dtype} "
+                "(compute_dtype=float64 runs on the CPU only)"
+            )
+    for t in tensors:
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: the CUDA kernel takes contiguous tensors")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: tensor data must be 16-byte aligned")
+    for t in strided:
+        if min(t.stride()) < 1:
+            raise ValueError(f"{name}: strides {t.stride()} must be positive")
+
+
+def check_k(name, K: int):
+    kmax = library_constant("cnmf_max_k")
+    if K % 8 or not 8 <= K <= kmax:
+        raise ValueError(
+            f"{name}: K={K} has no kernel; K must be a multiple of 8 up to "
+            f"{kmax} (the solvers zero-pad K to that bucket)"
+        )
+
+
+def raise_on(name, rc):
+    if rc != 0:
+        raise RuntimeError(f"{name}: kernel launch failed, CUDA error {rc}")
+
+
+def stream_of(t) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream

@@ -1,11 +1,15 @@
-"""Batched frobenius NMF by HALS coordinate descent, in PyTorch.
+"""Batched NMF in PyTorch: HALS coordinate descent (frobenius) and
+beta-divergence multiplicative updates (MU).
 
-The CD subset of ``cnmf_tpu.ops.nmf``: the whole restart batch is one solve
-whose factors carry a leading restart axis ``B`` and share the data matrix X
-(cells × genes). Every half-sweep goes through ``ops.cd_kernels``: the fused
-Hopper kernel for CUDA tensors, the plain PyTorch sweep for CPU tensors.
+The CD and MU solvers of ``cnmf_tpu.ops.nmf``: the whole restart batch is one
+solve whose factors carry a leading restart axis ``B`` and share the data
+matrix X (cells × genes). Every CD half-sweep goes through ``ops.cd_kernels``
+and every KL (beta=1) MU term through ``ops.mu_kernels``: the fused Hopper
+kernels for CUDA tensors, the plain PyTorch versions for CPU tensors. beta=2
+MU runs plain matmuls everywhere (the JAX package has no kernel there);
+any other beta has no kernel yet and runs on CPU tensors only.
 
-Solver semantics mirror sklearn's, as in the JAX package:
+CD semantics mirror sklearn's, as in the JAX package:
 
 * cyclic coordinate descent in column order 0..K-1, W updated before H;
 * ``violation_init`` is the summed projected-gradient violation of global
@@ -36,6 +40,17 @@ from cnmf_tpu_torch.ops.cd_kernels import (  # noqa: F401  (re-exported)
     cd_h_half_sweep,
     cd_sweep_from_products,
     cd_w_half_sweep,
+)
+from cnmf_tpu_torch.ops.init import nnls_w_init
+from cnmf_tpu_torch.ops.mu_kernels import (
+    kl_h_denominator,
+    kl_mu_h_numerator,
+    kl_mu_w_numerator,
+    kl_w_denominator,
+    kl_x_log_wh,
+    mu_h_terms_plain,
+    mu_w_terms_plain,
+    wh_chunks,
 )
 
 EPSILON = float(np.finfo(np.float32).eps)
@@ -201,3 +216,184 @@ def frobenius_error(X, W, Ht, XHt: Optional[torch.Tensor] = None):
     wh_norm = torch.einsum("bkl,bkl->b", _gram(W), _gram(Ht))
     sq = X_sq + wh_norm - 2.0 * cross
     return torch.sqrt(sq.clamp(min=0.0))
+
+
+# ----------------------------------------------------------------------
+# multiplicative updates
+# ----------------------------------------------------------------------
+
+_EPS64 = float(np.finfo(np.float64).eps)
+_MU_CHECK_EVERY = 10   # sklearn's MU convergence check cadence
+
+_GENERAL_BETA_NOT_PORTED = (
+    "multiplicative updates at beta={beta} (beta_loss other than 'frobenius' "
+    "and 'kullback-leibler', e.g. 'itakura-saito') have no CUDA kernel yet "
+    "and run on CPU tensors only: see ROADMAP.md, Queue 1, 'The IS / "
+    "general-beta MU slice'"
+)
+
+
+def _check_beta_device(beta: float, t: torch.Tensor):
+    """beta ∉ {1, 2} has no kernel: refuse it on anything but the CPU rather
+    than run its plain version on the card."""
+    if beta not in (1.0, 2.0) and t.device.type != "cpu":
+        raise NotImplementedError(_GENERAL_BETA_NOT_PORTED.format(beta=beta))
+
+
+def _kl_x_terms(X):
+    """The X-only terms of the KL divergence over X > eps: (Σ X·log X, Σ X)."""
+    mask = X > EPSILON
+    X_log_X = torch.where(mask, X * torch.log(X.clamp(min=EPSILON)), 0.0).sum()
+    return X_log_X, torch.where(mask, X, 0.0).sum()
+
+
+def _beta_divergence_chunked(X, W, Ht, beta: float):
+    """beta ∉ {1, 2}: beta_div per restart from chunked reconstructions
+    (sklearn's dense _beta_divergence: X <= eps excluded from the elementwise
+    terms, WH floored at eps)."""
+    mask = X > EPSILON
+    divs = torch.empty(W.shape[0], dtype=W.dtype, device=W.device)
+    for sl, _, _, WH in wh_chunks(W, Ht):
+        WH_safe = WH.clamp(min=EPSILON)
+        if beta == 0:
+            ratio = X / WH_safe
+            # sklearn subtracts the FULL element count
+            divs[sl] = torch.where(
+                mask, ratio - torch.log(ratio.clamp(min=EPSILON)), 0.0
+            ).sum(dim=(1, 2)) - X.numel()
+        else:
+            sum_WH_beta = WH.pow(beta).sum(dim=(1, 2))
+            sum_X_WH = torch.where(
+                mask, X * WH_safe.pow(beta - 1.0), 0.0).sum(dim=(1, 2))
+            sum_X_beta = torch.where(mask, X.pow(beta), 0.0).sum()
+            divs[sl] = (sum_X_beta - beta * sum_X_WH
+                        + sum_WH_beta * (beta - 1.0)) / (beta * (beta - 1.0))
+    return divs
+
+
+def beta_divergence_error(X, W, Ht, beta: float, x_terms=None):
+    """sqrt(2·beta_div(X, WH)) per restart (sklearn square_root=True).
+    ``x_terms``: ``_kl_x_terms(X)``, when the caller has it (beta=1)."""
+    if beta == 2:
+        return frobenius_error(X, W, Ht)
+    if beta == 1:
+        X_log_X, sum_X = x_terms if x_terms is not None else _kl_x_terms(X)
+        # the full Σ(W·H) by the rank-K identity
+        sum_WH = (W.sum(dim=1) * Ht.sum(dim=1)).sum(dim=1)
+        divs = -kl_x_log_wh(X, W, Ht) + X_log_X - sum_X + sum_WH
+    else:
+        _check_beta_device(beta, W)
+        divs = _beta_divergence_chunked(X, W, Ht, beta)
+    return torch.sqrt((2.0 * divs).clamp(min=0.0))
+
+
+def _mu_step(F, numerator, denominator, gamma, l1_reg, l2_reg):
+    """F ∘ (numerator / denominator)^gamma with sklearn's regularized
+    denominator, 0 mapped to eps (nmf.py:1081-1089)."""
+    if l1_reg > 0:
+        denominator = denominator + l1_reg
+    if l2_reg > 0:
+        denominator = denominator + l2_reg * F
+    denominator = torch.where(denominator == 0, EPSILON, denominator)
+    delta = numerator / denominator
+    if gamma != 1.0:
+        delta = delta.pow(gamma)
+    return F * delta
+
+
+def _mu_update_w(X, W, Ht, beta, gamma, l1_reg, l2_reg):
+    if beta == 2:
+        numerator = _shared_x_dot(X, Ht)
+        denominator = torch.bmm(W, _gram(Ht))
+    elif beta == 1:
+        numerator = kl_mu_w_numerator(X, W, Ht)
+        denominator = kl_w_denominator(Ht)
+    else:
+        numerator, denominator = mu_w_terms_plain(X, W, Ht, beta)
+    return _mu_step(W, numerator, denominator, gamma, l1_reg, l2_reg)
+
+
+def _mu_update_h(X, W, Ht, beta, gamma, l1_reg, l2_reg):
+    if beta == 2:
+        numerator = _shared_xt_dot(X, W)
+        denominator = torch.bmm(Ht, _gram(W))
+    elif beta == 1:
+        numerator = kl_mu_h_numerator(X, W, Ht)
+        denominator = kl_h_denominator(W)
+    else:
+        numerator, denominator = mu_h_terms_plain(X, W, Ht, beta)
+    return _mu_step(Ht, numerator, denominator, gamma, l1_reg, l2_reg)
+
+
+def nmf_multiplicative_update(
+    X: torch.Tensor,
+    W0: torch.Tensor,
+    Ht0: torch.Tensor,
+    *,
+    beta: float = 2.0,
+    tol: float = 1e-4,
+    max_iter: int = 200,
+    update_H: bool = True,
+    l1_reg_W: float = 0.0,
+    l1_reg_H: float = 0.0,
+    l2_reg_W: float = 0.0,
+    l2_reg_H: float = 0.0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Batched beta-divergence NMF via multiplicative updates.
+
+    beta: 2 = frobenius, 1 = kullback-leibler, 0 = itakura-saito. X (N, G);
+    W0 (B, N, K); Ht0 (B, G, K). Every 10 iterations the restarts whose
+    relative error improvement (previous_error - error) / error_at_init is
+    below tol stop (sklearn's rule); the all-done flag is read on the host at
+    those checks only, and frozen restarts stop changing. Returns W, Ht and
+    n_iter (B,) int32."""
+    _check_beta_device(beta, W0)
+    B = W0.shape[0]
+    dev = W0.device
+    if beta < 1:
+        gamma = 1.0 / (2.0 - beta)
+    elif beta > 2:
+        gamma = 1.0 / (beta - 1.0)
+    else:
+        gamma = 1.0
+    x_terms = _kl_x_terms(X) if beta == 1 else None
+    error_init = beta_divergence_error(X, W0, Ht0, beta, x_terms)
+    prev_error = error_init
+    done = torch.zeros(B, dtype=torch.bool, device=dev)
+    n_iter = torch.zeros(B, dtype=torch.int32, device=dev)
+    W, Ht = W0, Ht0
+    for it in range(1, max_iter + 1):
+        W_new = _mu_update_w(X, W, Ht, beta, gamma, l1_reg_W, l2_reg_W)
+        if beta < 1:
+            W_new = torch.where(W_new < _EPS64, 0.0, W_new)
+        keep = ~done
+        if update_H:
+            Ht_new = _mu_update_h(X, W_new, Ht, beta, gamma, l1_reg_H,
+                                  l2_reg_H)
+            if beta <= 1:
+                Ht_new = torch.where(Ht_new < _EPS64, 0.0, Ht_new)
+            Ht = torch.where(keep[:, None, None], Ht_new, Ht)
+        W = torch.where(keep[:, None, None], W_new, W)
+        n_iter = torch.where(keep, it, n_iter)
+        if tol > 0 and it % _MU_CHECK_EVERY == 0:
+            error = beta_divergence_error(X, W, Ht, beta,
+                                          x_terms).to(W0.dtype)
+            done = done | ((prev_error - error)
+                           / error_init.clamp(min=EPSILON) < tol)
+            prev_error = error
+            if bool(done.all()):
+                break
+    return W, Ht, n_iter
+
+
+def nnls_multiplicative_update(X, H, *, beta=1.0, tol=1e-4, max_iter=200,
+                               l1_reg_W=0.0, l2_reg_W=0.0):
+    """Fixed-H NNLS via MU; W starts at sqrt(X.mean()/K) (sklearn 'mu'
+    rule). X (N, G), H (K, G). Returns W (N, K) and the iteration count."""
+    W0 = nnls_w_init(X, H.shape[0], "mu")
+    Ht0 = H.T.to(X.dtype).contiguous()[None]
+    W, _, n_iter = nmf_multiplicative_update(
+        X, W0, Ht0, beta=beta, tol=tol, max_iter=max_iter, update_H=False,
+        l1_reg_W=l1_reg_W, l2_reg_W=l2_reg_W,
+    )
+    return W[0], int(n_iter[0])

@@ -7,8 +7,9 @@ either package is read by the other. The methods here are file wrappers;
 the array work lives in ``pipeline.stages``.
 
 Every solve runs on the ``device`` the object was created with. On CUDA the
-HALS half-sweeps go through the hand-written kernels of ``ops.cd_kernels``,
-which take float32 only: ``compute_dtype=np.float64`` is a CPU setting.
+HALS half-sweeps and the KL multiplicative-update terms go through the
+hand-written kernels of ``ops.cd_kernels`` and ``ops.mu_kernels``, which take
+float32 only: ``compute_dtype=np.float64`` is a CPU setting.
 Artifacts are written synchronously, so ``flush_writes`` has nothing to do.
 """
 

@@ -1,12 +1,14 @@
-"""Solver dispatch: sklearn-style NMF kwargs → the batched CD solver.
+"""Solver dispatch: sklearn-style NMF kwargs → the batched CD or MU solver.
 
-The main-path subset of ``cnmf_tpu.pipeline.solvers``. The pipeline persists
-one YAML kwargs dict per run (same keys as the reference's sklearn kwargs,
-cnmf.py:618-631) and every stage rebuilds its solver from it. Where a solve
-runs follows its tensors: CUDA tensors go through the hand-written kernels of
-``ops.cd_kernels``, CPU tensors through their plain PyTorch versions. That
-replaces the JAX package's ``cd_pallas_eligible`` / ``mu_pallas_eligible``
-gates.
+A subset of ``cnmf_tpu.pipeline.solvers``. The pipeline persists one YAML
+kwargs dict per run (same keys as the reference's sklearn kwargs,
+cnmf.py:618-631) and every stage rebuilds its solver from it: ``solver="cd"``
+(frobenius) or ``solver="mu"`` (any beta loss). Where a solve runs follows
+its tensors: CUDA tensors go through the hand-written kernels of
+``ops.cd_kernels`` and ``ops.mu_kernels``, CPU tensors through their plain
+PyTorch versions. That replaces the JAX package's ``cd_pallas_eligible`` /
+``mu_pallas_eligible`` gates. On CUDA, MU at beta=1 runs the kernels, at
+beta=2 plain matmuls, and any other beta raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -22,16 +24,12 @@ from cnmf_tpu_torch.ops.nmf import (
     fixed_factor_gram,
     fixed_factor_product_transposed,
     nmf_coordinate_descent,
+    nmf_multiplicative_update,
     nnls_cd_fixed_spectra,
     nnls_cd_from_products,
 )
 
 BETA_LOSS = {"frobenius": 2.0, "kullback-leibler": 1.0, "itakura-saito": 0.0}
-
-_MU_NOT_PORTED = (
-    "the multiplicative-update solver (beta_loss != 'frobenius') is not "
-    "ported to PyTorch yet: see ROADMAP.md, Queue 1, 'The KL/IS MU path'"
-)
 
 
 def beta_loss_to_float(beta_loss) -> float:
@@ -64,11 +62,13 @@ def _regularization(nmf_kwargs: dict, shape):
     )
 
 
-def _check_cd(nmf_kwargs: dict):
+def _is_mu(nmf_kwargs: dict) -> bool:
+    """True for the MU solver; the CD solver takes frobenius loss only."""
     if nmf_kwargs.get("solver", "cd") != "cd":
-        raise NotImplementedError(_MU_NOT_PORTED)
+        return True
     if beta_loss_to_float(nmf_kwargs.get("beta_loss", "frobenius")) != 2.0:
         raise ValueError("CD solver supports frobenius loss only")
+    return False
 
 
 def solve_nmf_batch(
@@ -78,14 +78,21 @@ def solve_nmf_batch(
     nmf_kwargs: dict,
     update_H: bool = True,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Run the batched CD solver described by sklearn-style kwargs.
+    """Run the batched solver described by sklearn-style kwargs.
 
     X: (N, G); W0: (B, N, K); Ht0: (B, G, K), all on one device. Returns
     (W, Ht, n_iter)."""
-    _check_cd(nmf_kwargs)
     tol = float(nmf_kwargs.get("tol", 1e-4))
     max_iter = int(nmf_kwargs.get("max_iter", 200))
     l1_reg_W, l1_reg_H, l2_reg_W, l2_reg_H = _regularization(nmf_kwargs, X.shape)
+    if _is_mu(nmf_kwargs):
+        return nmf_multiplicative_update(
+            X, W0, Ht0,
+            beta=beta_loss_to_float(nmf_kwargs.get("beta_loss", "frobenius")),
+            tol=tol, max_iter=max_iter, update_H=update_H,
+            l1_reg_W=l1_reg_W, l1_reg_H=l1_reg_H,
+            l2_reg_W=l2_reg_W, l2_reg_H=l2_reg_H,
+        )
     if not update_H:
         # fixed-spectra refit → products-distilled half-sweep loop
         W, n_iter = nnls_cd_fixed_spectra(
@@ -104,11 +111,13 @@ def refit_spectra_transposed(X: torch.Tensor, usages: np.ndarray,
                              nmf_kwargs: dict) -> np.ndarray:
     """Fixed-usage spectra refit via the transpose trick (reference
     cnmf.py:805-820, 948-955) without materializing Xᵀ: the CD refit needs
-    only the usage gram and Xᵀ·U.
+    only the usage gram and Xᵀ·U; the MU refit is the usage refit of Xᵀ, a
+    transposed view that the kernels read through its strides.
 
     X: (cells × genes) tensor; usages: (cells × k). Returns spectra in X's
     units, transposed: (genes × k), as a host array."""
-    _check_cd(nmf_kwargs)
+    if _is_mu(nmf_kwargs):
+        return refit_usages(X.T, np.ascontiguousarray(usages.T), nmf_kwargs)
     k = usages.shape[1]
     pad_k = pad_bucket(k)
     U = np.pad(np.asarray(usages), ((0, 0), (0, pad_k - k)))
@@ -119,9 +128,8 @@ def refit_spectra_transposed(X: torch.Tensor, usages: np.ndarray,
         nmf_kwargs, (X.shape[1], X.shape[0])
     )
     P = fixed_factor_product_transposed(Ud, X)
-    W0 = torch.zeros((1, X.shape[1], pad_k), dtype=X.dtype, device=X.device)
     W, _ = nnls_cd_from_products(
-        fixed_factor_gram(Ud[None]), P, W0,
+        fixed_factor_gram(Ud[None]), P, nnls_w_init(X.T, k, "cd", pad_k),
         tol=float(nmf_kwargs.get("tol", 1e-4)),
         max_iter=int(nmf_kwargs.get("max_iter", 200)),
         l1_reg=l1_reg_W, l2_reg=l2_reg_W,
@@ -131,18 +139,16 @@ def refit_spectra_transposed(X: torch.Tensor, usages: np.ndarray,
 
 def refit_usages(X: torch.Tensor, spectra: np.ndarray,
                  nmf_kwargs: dict) -> np.ndarray:
-    """Fixed-spectra NNLS usage refit (sklearn update_H=False semantics, CD:
-    W starts at zeros; reference cnmf.py:776-802).
+    """Fixed-spectra NNLS usage refit (sklearn update_H=False semantics;
+    reference cnmf.py:776-802), W started by ``nnls_w_init``.
 
     X: (cells × genes) tensor; spectra: (k × genes). Returns usages
     (cells × k) as a host array."""
-    _check_cd(nmf_kwargs)
     k = spectra.shape[0]
     pad_k = pad_bucket(k)
     Ht = np.pad(np.asarray(spectra).T, ((0, 0), (0, pad_k - k)))
     Ht0 = torch.as_tensor(np.ascontiguousarray(Ht), device=X.device)
     Ht0 = Ht0.to(X.dtype)[None]
-    W0 = torch.as_tensor(nnls_w_init(X, pad_k, "cd"), device=X.device)
-    W0 = W0.to(X.dtype)[None]
+    W0 = nnls_w_init(X, k, "mu" if _is_mu(nmf_kwargs) else "cd", pad_k)
     W, _, _ = solve_nmf_batch(X, W0, Ht0, nmf_kwargs, update_H=False)
     return W[0, :, :k].cpu().numpy()

@@ -6,7 +6,8 @@ files; they can also be driven directly on in-memory data:
 * ``prepare_arrays``: TPM, Fano HVG selection and unit-variance scaling;
   ``replicate_seeds`` and ``nmf_run_params``: the replicate grid and the
   solver kwargs;
-* ``factorize_k``: every restart of one K as one batched CD solve;
+* ``factorize_k``: every restart of one K as one batched solve (CD or MU, as
+  the kwargs say);
 * ``combine_arrays``: the per-restart spectra stacked into the merged matrix;
 * ``consensus_arrays``: KNN density filter, KMeans, cluster medians, the
   fixed-factor refits and the z-score OLS (the step-by-step consensus of

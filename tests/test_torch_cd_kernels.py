@@ -20,6 +20,7 @@ from cnmf_tpu.ops.nmf import (
     nnls_cd_from_products as jax_nnls_from_products,
 )
 from cnmf_tpu_torch.ops import cd_kernels as ck
+from cnmf_tpu_torch.ops.kernel_lib import load_library
 from cnmf_tpu_torch.ops.nmf import nnls_cd_from_products
 
 # the shapes of tests/test_pallas_kernels.py::test_cd_half_sweeps_match_xla
@@ -176,7 +177,7 @@ def test_cpu_path_needs_no_compiler_and_launches_nothing(monkeypatch):
     gram = torch.eye(K).expand(B, K, K).contiguous()
     ck.cd_sweep_from_products(_t(W), gram, _t(W))
     assert [fn.launches for fn in wrappers] == [0, 0, 0]
-    assert ck.load_library.cache_info().currsize == 0
+    assert load_library.cache_info().currsize == 0
 
 
 def test_factors_from_numpy_layout():

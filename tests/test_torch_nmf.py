@@ -116,8 +116,15 @@ def test_random_init_batch_bit_identical(dtype):
     np.testing.assert_array_equal(W_p, W_j)
     np.testing.assert_array_equal(Ht_p, Ht_j)
     assert W_p.dtype == np.dtype(dtype)
-    np.testing.assert_array_equal(pt_init.nnls_w_init(X, 4, "cd"),
-                                  jax_init.nnls_w_init(X, 4, "cd"))
+    for solver in ("cd", "mu"):
+        w_p = pt_init.nnls_w_init(torch.from_numpy(X), 4, solver, pad_k=8)
+        w_j = jax_init.nnls_w_init(X, 4, solver, dtype=dtype)
+        assert w_p.shape == (1, X.shape[0], 8)
+        assert w_p.numpy().dtype == W_p.dtype
+        np.testing.assert_allclose(w_p[0, :, :4].numpy(), w_j, rtol=1e-6)
+        # MU spreads the real k's value over the padded columns
+        np.testing.assert_array_equal(w_p[0, :, 4:].numpy(),
+                                      w_p[0, :, :4].numpy())
 
 
 def test_frobenius_error_matches_jax():
@@ -131,10 +138,18 @@ def test_frobenius_error_matches_jax():
 
 
 def test_mu_solver_not_ported_raises():
-    X = torch.from_numpy(make_counts())
-    W0 = torch.ones(1, X.shape[0], 8, dtype=X.dtype)
-    Ht0 = torch.ones(1, X.shape[1], 8, dtype=X.dtype)
+    """MU at a beta other than 1 and 2 has no kernel yet: on any device but
+    the CPU it raises before any work (meta tensors stand in for the card)
+    instead of running its plain version there."""
+    W0 = torch.ones(1, 60, 8, device="meta")
+    Ht0 = torch.ones(1, 40, 8, device="meta")
+    X = torch.ones(60, 40, device="meta")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
+        pt_solvers.solve_nmf_batch(
+            X, W0, Ht0, dict(solver="mu", beta_loss="itakura-saito"))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        pt_nmf.beta_divergence_error(X, W0, Ht0, 0.5)
+    with pytest.raises(ValueError, match="no kernel for device meta"):
         pt_solvers.solve_nmf_batch(
             X, W0, Ht0, dict(solver="mu", beta_loss="kullback-leibler"))
     assert pt_solvers.beta_loss_to_float("itakura-saito") == 0.0

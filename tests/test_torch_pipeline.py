@@ -3,7 +3,9 @@ against the goldens, and across run directories, in float64 on the CPU.
 
 The recipe is the verify recipe (300×400 counts with 6 planted programs,
 components [5, 6], 5 restarts, 200 HVGs, consensus k=6 at density threshold
-0.5). Consensus artifacts are compared at SSE < 1e-4 computed as in
+0.5), with the default frobenius loss (CD solver) and with
+``beta_loss="kullback-leibler"`` (MU solver, 200 iterations at most).
+Consensus artifacts are compared at SSE < 1e-4 computed as in
 tests/test_golden.py; merged spectra at 1e-6."""
 
 import os
@@ -68,16 +70,26 @@ def workdir(tmp_path_factory):
     return root
 
 
-@pytest.fixture(scope="module")
-def runs(workdir):
+def run_recipe(workdir, tag, **prepare_kwargs):
     """The recipe through each package end to end."""
     out = {}
     for pkg in ("jax", "torch"):
-        obj = make(pkg, workdir / pkg)
+        obj = make(pkg, workdir / f"{pkg}{tag}")
         obj.prepare(counts_fn=str(workdir / "counts.txt"), components=[5, 6],
-                    n_iter=5, seed=14, num_highvar_genes=200)
+                    n_iter=5, seed=14, num_highvar_genes=200, **prepare_kwargs)
         out[pkg] = finish(obj)
     return out
+
+
+@pytest.fixture(scope="module")
+def runs(workdir):
+    return run_recipe(workdir, "")
+
+
+@pytest.fixture(scope="module")
+def kl_runs(workdir):
+    return run_recipe(workdir, "_kl", beta_loss="kullback-leibler",
+                      max_NMF_iter=200)
 
 
 @pytest.fixture(scope="module")
@@ -153,8 +165,7 @@ def test_prepare_with_given_genes_or_tpm_matches_jax(workdir, runs, given,
             assert fh.read().split("\n") == hvgs
 
 
-@pytest.mark.parametrize("k", [5, 6])
-def test_merged_spectra_match(runs, k):
+def assert_merged_match(runs, k):
     a = load_df_from_npz(runs["jax"].paths["merged_spectra"] % k)
     b = load_df_from_npz(runs["torch"].paths["merged_spectra"] % k)
     assert list(a.index) == list(b.index)
@@ -163,12 +174,39 @@ def test_merged_spectra_match(runs, k):
         < MERGED_TOL
 
 
-@pytest.mark.parametrize("artifact", CONSENSUS_ARTIFACTS)
-def test_consensus_artifacts_match_jax(runs, artifact):
+def assert_artifact_match(runs, artifact):
     a = load_df_from_npz(runs["jax"].paths[artifact] % (K, DT))
     b = load_df_from_npz(runs["torch"].paths[artifact] % (K, DT))
     assert a.shape == b.shape and list(a.index) == list(b.index)
     assert sse(a, b) < SSE_TOL, f"{artifact}: SSE {sse(a, b):.2e}"
+
+
+@pytest.mark.parametrize("k", [5, 6])
+def test_merged_spectra_match(runs, k):
+    assert_merged_match(runs, k)
+
+
+@pytest.mark.parametrize("artifact", CONSENSUS_ARTIFACTS)
+def test_consensus_artifacts_match_jax(runs, artifact):
+    assert_artifact_match(runs, artifact)
+
+
+@pytest.mark.parametrize("k", [5, 6])
+def test_kl_merged_spectra_match(kl_runs, k):
+    assert_merged_match(kl_runs, k)
+
+
+@pytest.mark.parametrize("artifact", CONSENSUS_ARTIFACTS)
+def test_kl_consensus_artifacts_match_jax(kl_runs, artifact):
+    assert_artifact_match(kl_runs, artifact)
+
+
+def test_kl_run_persists_mu_kwargs(kl_runs):
+    """The KL run's persisted kwargs select the MU solver, and the port reads
+    back what it wrote."""
+    kw = kl_runs["torch"]._load_run_params()
+    assert kw["solver"] == "mu" and kw["beta_loss"] == "kullback-leibler"
+    assert kw["max_iter"] == 200
 
 
 @pytest.mark.parametrize("prepared_by", ["jax", "torch"])
@@ -252,6 +290,7 @@ def test_port_imports_without_jax():
     code = (
         "import sys, cnmf_tpu_torch\n"
         "import cnmf_tpu_torch.pipeline.stages, cnmf_tpu_torch.ops.cd_kernels\n"
+        "import cnmf_tpu_torch.ops.mu_kernels\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'cnmf_tpu' or m.startswith('cnmf_tpu.')]\n"
         "assert not bad, bad\n"
