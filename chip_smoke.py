@@ -7,29 +7,41 @@ Phases, each printing its own line(s):
 
 1. environment: the card's name and power limit, torch/CUDA versions, and
    which of pandas, h5py, yaml and matplotlib import;
-2. build: every kernel of csrc/ into one library (build seconds, ptxas
-   report);
+2. build: every kernel of csrc/ into one library (build seconds; one ptxas
+   line per kernel family: registers, stack and spills of each K);
 3. each kernel against its plain PyTorch version on the card (max relative
-   difference, f32, bounded by KERNEL_REL_BOUND), with median times: the CD
-   half-sweeps at the main path's shapes (K=8 and K=16 buckets) and the
-   KL multiplicative-update kernels at the KL factorize shape (K=16, and K=8
-   with zero columns) and the W numerator and the divergence at the
-   consensus refits' two shapes, plus ragged shapes at every K bucket 8..64; then the slice at the verify recipe's
-   size on the card against the same code on the CPU, with the frobenius
-   (CD) and the kullback-leibler (MU) loss;
+   difference, f32, bounded by KERNEL_REL_BOUND), with median times at the
+   main path's shapes: the CD half-sweeps (K=8 and K=16 buckets), the KL
+   multiplicative-update kernels and the general-beta kernels (at beta 0
+   and 1.5) at the factorize shape (K=16, and K=8 with zero columns), the W
+   terms at the consensus refits' two shapes; then ragged shapes at every K
+   bucket 8..64 and at the wide K 72 and 136 of every entry point, one line
+   per kernel and K range (each case asserts the bound, and that zero K
+   columns stay exactly zero); then the slice at the verify recipe's size on
+   the card against the same code on the CPU, with the frobenius (CD), the
+   kullback-leibler and the itakura-saito (MU) loss, the K-selection stats
+   of K=5 and 6 included;
 4. the main path end to end at PBMC-3k scale — bench.py's make_counts(2700,
    10000), 2000 HVGs, K=5..13 × 100 restarts, consensus at K=10 (density
    threshold 0.5) — through cNMF(device="cuda") when pandas, h5py and yaml
-   import, else through the same four stages in pipeline/stages.py; the wall
-   and sweeps of each K, stage walls and the CD kernels' launch counts, each
-   of which must be > 0; then the smallest and largest K again under
+   import, else through the same stages in pipeline/stages.py; the wall and
+   sweeps of each K, stage walls and the CD kernels' launch counts, each of
+   which must be > 0; then the smallest and largest K again under
    torch.profiler (device-busy time and idle share);
-5. the KL path at bench.py's KL configuration — the same counts, K=10 × 100
+5. k-selection over that run's merged spectra of K=5..13: silhouette,
+   prediction error and wall of each K, and the products kernel's launches;
+6. the KL path at bench.py's KL configuration — the same counts, K=10 × 100
    restarts with beta_loss="kullback-leibler" and at most 200 iterations,
    combine, consensus at K=10 — through pipeline/stages.py: stage walls,
-   iterations and the MU kernels' launch counts, each of which must be > 0;
+   iterations and the KL kernels' launch counts, each of which must be > 0;
    then its factorize again under torch.profiler;
-6. a JSON line of the kernels, the card line, and the result line
+7. the Itakura-Saito path, the same configuration with
+   beta_loss="itakura-saito", k-stats at K=10 as well, and consensus at
+   density threshold IS_DENSITY_THRESHOLD: stage walls, iterations, the
+   local densities and the general-beta kernels' launches (> 0); then its
+   factorize under torch.profiler;
+8. a JSON line of the kernels (times, the bound of the work at the main
+   shape, launches on the main path), the card line, and the result line
    {"ok": true, "device": {...}}.
 
 Each path's launch counts are set to 0 just before it runs and read just
@@ -42,6 +54,7 @@ no CUDA device the script exits 2 and prints no result.
 import importlib.util
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -51,14 +64,29 @@ import numpy as np
 
 KERNEL_REL_BOUND = 1e-4   # max |kernel - plain| / max |plain|, f32
 SMALL_SSE_BOUND = 1e-4    # the repo's consensus-artifact contract (SSE)
+# K-selection stats, card against CPU, both f32: the silhouette's distances
+# between near-identical spectra come from the f32 gram trick, whose
+# rounding depends on the matmul's summation order
+K_STATS_SIL_ABS = 1e-3
+K_STATS_ERR_REL = 1e-4
+# Itakura-Saito on these counts stops by sklearn's rule after 20 iterations
+# and leaves no spectrum within 0.5 of its neighbours (local densities
+# 0.54-0.70 on one H100), so its consensus keeps every spectrum: no two
+# unit vectors are more than sqrt(2) apart
+IS_DENSITY_THRESHOLD = 2.0
+# the H100 SXM's data-sheet peaks at 700 W: f32 outside the tensor cores,
+# and HBM3
+F32_FLOPS = 67e12
+HBM_BYTES_S = 3.35e12
 # the main path's two fused-kernel buckets: K=9..13 pad to 16, K=5..8 to 8
 # (K=5 carries 3 zero columns)
 MAIN = [(dict(B=100, N=2700, G=2000, K=16), 0),
         (dict(B=100, N=2700, G=2000, K=8), 3)]
 REFIT = dict(B=1, M=10000, K=16)   # the consensus TPM-spectra refit
-# ragged shapes (rows and contraction off the tile) at every K bucket, each
-# with two zero K-bucket columns that must stay exactly zero: skipped (zero
-# hessian) without regularization, live but pinned at 0 with it
+# ragged shapes (rows and contraction off the tile) at every register K
+# bucket and two wide K, each with two zero K columns that must stay
+# exactly zero: skipped (zero hessian) without regularization, live but
+# pinned at 0 with it
 REGS = dict(l1_reg=0.1, l2_reg=0.2)
 RAGGED = [(dict(B=7, N=1001, G=333, K=8), {}),
           (dict(B=5, N=700, G=150, K=16), REGS),
@@ -67,22 +95,27 @@ RAGGED = [(dict(B=7, N=1001, G=333, K=8), {}),
           (dict(B=3, N=450, G=77, K=40), REGS),
           (dict(B=2, N=333, G=90, K=48), {}),
           (dict(B=3, N=257, G=65, K=56), REGS),
-          (dict(B=2, N=200, G=130, K=64), REGS)]
+          (dict(B=2, N=200, G=130, K=64), REGS),
+          (dict(B=3, N=301, G=141, K=72), REGS),
+          (dict(B=2, N=150, G=97, K=136), {})]
 PAD_COLS = 2
-# the KL factorize's buckets (K=10 pads to 16; K=8 with zero columns as a
-# K=5 run pads), the consensus refits and ragged shapes at every bucket with
-# B not a multiple of 4 and N off the 128-row tile. The refits hold H fixed,
-# so they run the W numerator and the divergence only: the two usage refits
-# on row-major X (2700 cells × 2000 HVGs), the spectra refit on X = TPMᵀ
-# (10000 genes × 2700 cells, read as a transposed view)
+# the MU factorize's buckets (K=10 pads to 16; K=8 with zero columns as a
+# K=5 run pads), the consensus refits and ragged shapes at every bucket and
+# the two wide K, with B not a multiple of 4 and N off the 128-row tile. The
+# refits hold H fixed, so they run the W terms and the KL divergence only:
+# the two usage refits on row-major X (2700 cells × 2000 HVGs), the spectra
+# refit on X = TPMᵀ (10000 genes × 2700 cells, read as a transposed view)
 MU_MAIN = [(dict(B=100, N=2700, G=2000, K=16), 0),
            (dict(B=100, N=2700, G=2000, K=8), 3)]
 MU_REFIT = [(dict(B=1, N=2700, G=2000, K=16), "usage refit", False),
             (dict(B=1, N=10000, G=2700, K=16),
              "spectra refit, X a transposed view", True)]
 MU_RAGGED = [dict(B=3 + 2 * (i % 3), N=300 + 37 * i, G=150 + 29 * i, K=K)
-             for i, K in enumerate(range(8, 65, 8))]
-MU_KERNELS = ("kl_mu_w_numerator", "kl_mu_h_numerator", "kl_x_log_wh")
+             for i, K in enumerate(list(range(8, 65, 8)) + [72, 136])]
+KL_KERNELS = ("kl_mu_w_numerator", "kl_mu_h_numerator", "kl_x_log_wh")
+BETA_KERNELS = ("beta_mu_w_terms", "beta_mu_h_terms")
+BETAS = (0.0, 1.5)   # Itakura-Saito, and a beta that takes powf
+MU_REFIT_KERNELS = ("kl_mu_w_numerator", "kl_x_log_wh", "beta_mu_w_terms")
 
 
 def card_line():
@@ -111,24 +144,98 @@ def timed_ms(fn, reps=10):
     return float(np.median(times))
 
 
+def as_list(out):
+    return list(out) if isinstance(out, (tuple, list)) else [out]
+
+
 def compare(kernel, plain):
-    """(max abs error, max relative error) of a kernel result tuple against
-    its plain version."""
+    """(max abs error, max relative error) of kernel results against their
+    plain versions (each result relative to its own largest value)."""
     abs_err, rel_err = 0.0, 0.0
-    for a, b in zip(kernel, plain):
+    for a, b in zip(as_list(kernel), as_list(plain)):
         d = float((a - b).abs().max())
         abs_err = max(abs_err, d)
         rel_err = max(rel_err, d / max(float(b.abs().max()), 1e-30))
     return abs_err, rel_err
 
 
+def check_pad(out, pad):
+    """Zero K columns of the inputs stay exactly zero in every (B, M, K)
+    output (the violation and divergence vectors have none)."""
+    for t in as_list(out):
+        assert pad == 0 or t.ndim != 3 or not t[:, :, -pad:].any(), \
+            "padding moved"
+
+
+def bound(flops, nbytes):
+    """(bound ms, what binds): the larger of the operations over the f32
+    peak and the compulsory bytes over the HBM rate."""
+    t_ops, t_bytes = flops / F32_FLOPS, nbytes / HBM_BYTES_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def kernel_work(name, X, B, N, G, K):
+    """(operations, compulsory bytes) of one launch at these inputs, an FMA
+    two operations and a division, reciprocal, power or log one. What the
+    data decides is counted from X: the KL numerators need the
+    reconstruction only where X is nonzero, the divergence term where X >
+    eps; the general-beta denominator needs it everywhere."""
+    nz = int((X != 0).sum())
+    if name.startswith("cd_"):
+        M, C = (N, G) if name == "cd_w_half_sweep" else (G, N)
+        return (2 * M * C * K * B + 2 * M * K * K * B,
+                4 * (M * C + 2 * B * M * K + B * C * K + B * K * K))
+    if name in ("kl_mu_w_numerator", "kl_mu_h_numerator"):
+        out = N if name == "kl_mu_w_numerator" else G
+        return B * nz * (4 * K + 1), 4 * (N * G + B * (N + G) * K + B * out * K)
+    if name == "kl_x_log_wh":
+        gt = int((X > np.finfo(np.float32).eps).sum())
+        return B * gt * (2 * K + 2), 4 * (N * G + B * (N + G) * K) + 8 * B
+    out = N if name == "beta_mu_w_terms" else G
+    return (B * (N * G * (4 * K + 1) + nz * (2 * K + 1)),
+            4 * (N * G + B * (N + G) * K + 2 * B * out * K))
+
+
+class RaggedLines:
+    """Ragged cases folded into one line per kernel and K range; every case
+    has asserted its bound before it is added."""
+
+    def __init__(self):
+        self.rows = {}
+
+    def add(self, name, K, rel, abs_err):
+        key = (name, "72,136" if K > 64 else "8..64")
+        r = self.rows.setdefault(key, dict(n=0, rel=0.0, abs=0.0))
+        r["n"] += 1
+        r["rel"], r["abs"] = max(r["rel"], rel), max(r["abs"], abs_err)
+
+    def print(self, card):
+        for (name, ks), r in self.rows.items():
+            print(f"[kernel] {name} ragged K={ks}: {r['n']} cases, "
+                  f"max_rel_diff={r['rel']:.3e} (bound {KERNEL_REL_BOUND:g}) "
+                  f"max_abs_err={r['abs']:.3e}, zero K columns stay 0; card: "
+                  f"{card}", flush=True)
+
+
+def main_record(records, name, K, abs_err, ms, plain_ms, suffix=""):
+    """The JSON line's times are the K=16 bucket's (suffix "" — at beta 0
+    for the general-beta kernels), the others' beside them; the error is the
+    worst of the main cases."""
+    rec = records.setdefault(name, dict(max_abs_err=0.0))
+    rec["max_abs_err"] = max(rec["max_abs_err"], abs_err)
+    suffix += "" if K == 16 else f"_k{K}"
+    rec["ms" + suffix], rec["plain_ms" + suffix] = ms, plain_ms
+
+
 def phase_kernels(dev, card):
-    """Kernel against plain on the card; returns {name: record}."""
+    """The CD kernels against plain on the card; returns {name: record}."""
     import torch
 
     from cnmf_tpu_torch.ops import cd_kernels as ck
 
     rng = np.random.RandomState(0)
+    ragged_lines = RaggedLines()
 
     def factors(B, N, G, K, pad):
         # the scale of sklearn's random init: sqrt(mean(X) / K) · |N(0, 1)|
@@ -139,9 +246,6 @@ def phase_kernels(dev, card):
         W[:, :, K - pad:] = 0.0
         Ht[:, :, K - pad:] = 0.0
         return [torch.as_tensor(a, device=dev) for a in (X, W, Ht)]
-
-    def check_pad(out, pad):
-        assert pad == 0 or not out[0][:, :, -pad:].any(), "padding moved"
 
     records = {}
     cases = [(m, "main", {}, pad) for m, pad in MAIN] + [
@@ -155,20 +259,20 @@ def phase_kernels(dev, card):
             out = kernel(X, W, Ht, **regs)
             check_pad(out, pad)
             abs_err, rel_err = compare(out, plain(X, W, Ht, **regs))
+            assert rel_err <= KERNEL_REL_BOUND, (name, tag, shape, rel_err)
+            if tag == "ragged":
+                ragged_lines.add(name, shape["K"], rel_err, abs_err)
+                continue
             ms = timed_ms(lambda: kernel(X, W, Ht, **regs))
             plain_ms = timed_ms(lambda: plain(X, W, Ht, **regs))
-            print(f"[kernel] {name} {tag} {shape} {regs} zero K columns {pad}: "
+            print(f"[kernel] {name} main {shape} zero K columns {pad}: "
                   f"max_rel_diff={rel_err:.3e} (bound {KERNEL_REL_BOUND:g}) "
                   f"max_abs_err={abs_err:.3e} kernel_ms={ms:.4f} "
                   f"plain_ms={plain_ms:.4f}; card: {card}", flush=True)
-            assert rel_err <= KERNEL_REL_BOUND, (name, tag, rel_err)
-            if tag == "main":
-                # the JSON line's times are the K=16 bucket's, the other
-                # bucket's beside them; the error is the worst of both
-                rec = records.setdefault(name, dict(max_abs_err=0.0))
-                rec["max_abs_err"] = max(rec["max_abs_err"], abs_err)
-                suffix = "" if shape["K"] == 16 else f"_k{shape['K']}"
-                rec["ms" + suffix], rec["plain_ms" + suffix] = ms, plain_ms
+            main_record(records, name, shape["K"], abs_err, ms, plain_ms)
+            if shape["K"] == 16:
+                records[name]["bound_ms"], records[name]["bound_by"] = bound(
+                    *kernel_work(name, X.cpu().numpy(), **shape))
 
     name = "cd_sweep_from_products"
     cases = [(REFIT, "main", {})] + [
@@ -176,35 +280,45 @@ def phase_kernels(dev, card):
     for shape, tag, regs in cases:
         B, M, K = shape["B"], shape["M"], shape["K"]
         avg = np.sqrt(1.0 / K)
-        F = torch.as_tensor((avg * np.abs(rng.randn(B, M, K))).astype(np.float32),
-                            device=dev)
-        Hfix = torch.as_tensor(
-            (avg * np.abs(rng.randn(B, 2700, K))).astype(np.float32), device=dev)
+        F = (avg * np.abs(rng.randn(B, M, K))).astype(np.float32)
+        Hfix = (avg * np.abs(rng.randn(B, 2700, K))).astype(np.float32)
+        if tag == "ragged":
+            F[:, :, -PAD_COLS:] = 0.0
+            Hfix[:, :, -PAD_COLS:] = 0.0
+        F, Hfix = (torch.as_tensor(a, device=dev) for a in (F, Hfix))
         gram = ck._gram(Hfix)
         P = torch.as_tensor(rng.gamma(1.0, 1.0, (B, M, K)).astype(np.float32),
                             device=dev) * gram.diagonal(dim1=1, dim2=2)[:, None]
         kernel, plain = ck.cd_sweep_from_products, ck.cd_sweep_from_products_plain
-        abs_err, rel_err = compare(kernel(F, gram, P, **regs),
-                                   plain(F, gram, P, **regs))
+        out = kernel(F, gram, P, **regs)
+        check_pad(out, PAD_COLS if tag == "ragged" else 0)
+        abs_err, rel_err = compare(out, plain(F, gram, P, **regs))
+        assert rel_err <= KERNEL_REL_BOUND, (name, tag, shape, rel_err)
+        if tag == "ragged":
+            ragged_lines.add(name, K, rel_err, abs_err)
+            continue
         ms = timed_ms(lambda: kernel(F, gram, P, **regs))
         plain_ms = timed_ms(lambda: plain(F, gram, P, **regs))
-        print(f"[kernel] {name} {tag} {shape} {regs}: max_rel_diff={rel_err:.3e} "
+        print(f"[kernel] {name} main {shape} {regs}: max_rel_diff={rel_err:.3e} "
               f"(bound {KERNEL_REL_BOUND:g}) max_abs_err={abs_err:.3e} "
-              f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f}; card: {card}", flush=True)
-        assert rel_err <= KERNEL_REL_BOUND, (name, tag, rel_err)
-        if tag == "main":
-            records[name] = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms)
+              f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f}; card: {card}",
+              flush=True)
+        bound_ms, by = bound(2 * M * K * K * B, 4 * (3 * B * M * K + B * K * K))
+        records[name] = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
+                             bound_ms=bound_ms, bound_by=by)
+    ragged_lines.print(card)
     return records
 
 
 def phase_mu_kernels(dev, card):
-    """The KL multiplicative-update kernels against their plain versions on
-    the card; returns {name: record}."""
+    """The KL and general-beta multiplicative-update kernels against their
+    plain versions on the card; returns {name: record}."""
     import torch
 
     from cnmf_tpu_torch.ops import mu_kernels as mk
 
     rng = np.random.RandomState(1)
+    ragged_lines = RaggedLines()
 
     def problem(B, N, G, K, pad, transposed):
         # X like normalized counts (a third of it zero), factors at the scale
@@ -219,33 +333,52 @@ def phase_mu_kernels(dev, card):
         Ht[:, :, K - pad:] = 0.0
         Xd = (torch.as_tensor(np.ascontiguousarray(X.T), device=dev).T
               if transposed else torch.as_tensor(X, device=dev))
-        return Xd, torch.as_tensor(W, device=dev), torch.as_tensor(Ht, device=dev)
+        return X, Xd, torch.as_tensor(W, device=dev), torch.as_tensor(Ht, device=dev)
+
+    def runs(names, betas):
+        """(name, beta or None, suffix) of each kernel call of a case."""
+        for name in names:
+            if name in BETA_KERNELS:
+                for beta in betas:
+                    yield name, beta, "" if beta == 0 else f"_b{beta:g}"
+            else:
+                yield name, None, ""
 
     records = {}
-    refit_kernels = ("kl_mu_w_numerator", "kl_x_log_wh")
-    cases = ([(m, "main", pad, False, MU_KERNELS) for m, pad in MU_MAIN]
-             + [(m, tag, 0, tr, refit_kernels) for m, tag, tr in MU_REFIT]
-             + [(r, "ragged", PAD_COLS, False, MU_KERNELS) for r in MU_RAGGED])
-    for shape, tag, pad, transposed, names in cases:
-        X, W, Ht = problem(**shape, pad=pad, transposed=transposed)
-        for name in names:
+    every = KL_KERNELS + BETA_KERNELS
+    cases = ([(m, "main", pad, False, every, BETAS) for m, pad in MU_MAIN]
+             + [(m, tag, 0, tr, MU_REFIT_KERNELS, (0.0,))
+                for m, tag, tr in MU_REFIT]
+             + [(r, "ragged", PAD_COLS, False, every, BETAS)
+                for r in MU_RAGGED])
+    for shape, tag, pad, transposed, names, betas in cases:
+        X_host, X, W, Ht = problem(**shape, pad=pad, transposed=transposed)
+        for name, beta, suffix in runs(names, betas):
             kernel, plain = getattr(mk, name), getattr(mk, name + "_plain")
-            out = kernel(X, W, Ht)
-            assert pad == 0 or out.ndim == 1 or not out[:, :, -pad:].any(), \
-                "padding moved"
-            abs_err, rel_err = compare([out], [plain(X, W, Ht)])
-            ms = timed_ms(lambda: kernel(X, W, Ht))
-            plain_ms = timed_ms(lambda: plain(X, W, Ht))
-            print(f"[kernel] {name} {tag} {shape} zero K columns {pad}: "
-                  f"max_rel_diff={rel_err:.3e} (bound {KERNEL_REL_BOUND:g}) "
-                  f"max_abs_err={abs_err:.3e} kernel_ms={ms:.4f} "
-                  f"plain_ms={plain_ms:.4f}; card: {card}", flush=True)
-            assert rel_err <= KERNEL_REL_BOUND, (name, tag, rel_err)
+            args = (X, W, Ht) if beta is None else (X, W, Ht, beta)
+            out = kernel(*args)
+            check_pad(out, pad)
+            abs_err, rel_err = compare(out, plain(*args))
+            assert rel_err <= KERNEL_REL_BOUND, (name, beta, tag, shape, rel_err)
+            if tag == "ragged":
+                ragged_lines.add(name if beta is None else f"{name}(beta={beta:g})",
+                                 shape["K"], rel_err, abs_err)
+                continue
+            ms = timed_ms(lambda: kernel(*args))
+            plain_ms = timed_ms(lambda: plain(*args))
+            beta_txt = "" if beta is None else f" beta={beta:g}"
+            print(f"[kernel] {name}{beta_txt} {tag} {shape} zero K columns "
+                  f"{pad}: max_rel_diff={rel_err:.3e} (bound "
+                  f"{KERNEL_REL_BOUND:g}) max_abs_err={abs_err:.3e} "
+                  f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f}; card: {card}",
+                  flush=True)
             if tag == "main":
-                rec = records.setdefault(name, dict(max_abs_err=0.0))
-                rec["max_abs_err"] = max(rec["max_abs_err"], abs_err)
-                suffix = "" if shape["K"] == 16 else f"_k{shape['K']}"
-                rec["ms" + suffix], rec["plain_ms" + suffix] = ms, plain_ms
+                main_record(records, name, shape["K"], abs_err, ms, plain_ms,
+                            suffix)
+                if shape["K"] == 16 and suffix == "":
+                    records[name]["bound_ms"], records[name]["bound_by"] = \
+                        bound(*kernel_work(name, X_host, **shape))
+    ragged_lines.print(card)
     return records
 
 
@@ -256,12 +389,15 @@ def make_counts(n_cells, n_genes, seed=7):
 
 
 def run_stages(counts, ks, n_iter, hvg, k_cons, dev, dtype=np.float32,
-               verbose=False, nmf_kwargs=None):
-    """prepare → factorize → combine → consensus through pipeline/stages.py
-    with ``nmf_kwargs`` (default: stages.nmf_run_params(), frobenius);
-    returns (stage walls after a device synchronize, merged spectra at k_cons,
-    consensus result, {K: sweeps of each restart}). ``verbose``: a line per K
-    with its wall and sweeps, as cNMF.factorize prints."""
+               verbose=False, nmf_kwargs=None, k_stats=(),
+               density_threshold=0.5):
+    """prepare → factorize → combine → [k-stats] → consensus through
+    pipeline/stages.py with ``nmf_kwargs`` (default: stages.nmf_run_params(),
+    frobenius); ``k_stats``: the K whose K-selection stats run. Returns
+    (stage walls after a device synchronize, {K: merged spectra}, consensus
+    result, {K: sweeps of each restart}, the normalized counts tensor, the
+    k-stats rows). ``verbose``: a line per K with its wall and sweeps, as
+    cNMF.factorize prints."""
     import torch
 
     from cnmf_tpu_torch.pipeline import stages
@@ -296,24 +432,33 @@ def run_stages(counts, ks, n_iter, hvg, k_cons, dev, dtype=np.float32,
     walls["factorize"] = wall(t0)
 
     t0 = time.perf_counter()
-    merged = stages.combine_arrays(list(spectra[k_cons]))
+    merged = {k: stages.combine_arrays(list(s)) for k, s in spectra.items()}
     walls["combine"] = wall(t0)
 
+    k_rows = []
+    if k_stats:
+        t0 = time.perf_counter()
+        k_rows = stages.k_stats_arrays({k: merged[k] for k in k_stats}, Xd,
+                                       kwargs)
+        walls["k_stats"] = wall(t0)
+
     t0 = time.perf_counter()
-    result = stages.consensus_arrays(merged, k_cons, Xd, tpm, prep.tpm_std,
-                                     prep.hvg_idx, kwargs,
-                                     density_threshold=0.5)
+    result = stages.consensus_arrays(merged[k_cons], k_cons, Xd, tpm,
+                                     prep.tpm_std, prep.hvg_idx, kwargs,
+                                     density_threshold=density_threshold)
     walls["consensus"] = wall(t0)
-    return walls, merged, result, n_iters
+    return walls, merged, result, n_iters, Xd, k_rows
 
 
 def run_cnmf(counts, ks, n_iter, hvg, k_cons, workdir):
-    """The same four stages through cNMF(device="cuda") and its files."""
+    """The same four stages through cNMF(device="cuda") and its files;
+    returns (walls, usages, {K: merged spectra}, normalized counts tensor)."""
     import pandas as pd
     import torch
 
     from cnmf_tpu_torch import cNMF
     from cnmf_tpu_torch.io.dataframe import load_df_from_npz, save_df_to_npz
+    from cnmf_tpu_torch.io.h5ad import read_h5ad
 
     counts_fn = os.path.join(workdir, "counts.df.npz")
     save_df_to_npz(pd.DataFrame(
@@ -340,7 +485,11 @@ def run_cnmf(counts, ks, n_iter, hvg, k_cons, workdir):
                 "gene_spectra_score", "starcat_spectra"):
         frame = load_df_from_npz(obj.paths[key] % (k_cons, "0_5"))
         assert np.isfinite(frame.values).all(), key
-    return walls, usage.values
+    merged = {k: load_df_from_npz(obj.paths["merged_spectra"] % k).values
+              for k in ks}
+    Xd = obj._to_device(obj._host_dense(
+        read_h5ad(obj.paths["normalized_counts"]).X))
+    return walls, usage.values, merged, Xd
 
 
 def phase_profile(counts, hvg, dev, card, ks, n_iter, profile_ks,
@@ -374,7 +523,7 @@ def phase_profile(counts, hvg, dev, card, ks, n_iter, profile_ks,
             reverse=True)
         busy = sum(s for s, _ in events)
         assert busy > 0, "the profiler saw no device time"
-        top = "; ".join(f"{key[:48]} {s:.3f} s" for s, key in events[:4])
+        top = "; ".join(f"{key[:40]} {s:.3f} s" for s, key in events[:4])
         print(f"[profile] {label} factorize k={k}, {len(rows)} restarts, sweeps max "
               f"{n_it.max()}: wall {wall:.3f} s (profiled), device busy "
               f"{busy:.3f} s, idle share {1 - busy / wall:.2%}; top device "
@@ -383,29 +532,65 @@ def phase_profile(counts, hvg, dev, card, ks, n_iter, profile_ks,
 
 def phase_small_agreement(dev, nmf_kwargs=None, label="frobenius"):
     """The slice at the verify recipe's size (300×400 counts, K=5,6 × 5
-    restarts, 200 HVGs, consensus K=6), f32 on the card and on the CPU: the
-    consensus artifacts must agree within the repo's SSE contract. Also
-    prints whether each restart took as many sweeps on both."""
+    restarts, 200 HVGs, consensus K=6, the K-selection stats of K=5 and 6),
+    f32 on the card and on the CPU: the consensus artifacts must agree
+    within the repo's SSE contract. Also prints whether each restart took as
+    many sweeps on both, and how far the K-selection stats differ."""
     rng = np.random.RandomState(42)
     W = rng.gamma(0.7, 1.0, size=(300, 6))
     H = rng.gamma(0.5, 1.0, size=(6, 400)) * (rng.rand(6, 400) < 0.3)
     X = rng.poisson(W @ H * 2.0).astype(float)
     X[X.sum(1) == 0, 0] = 1
-    _, merged_gpu, gpu, it_gpu = run_stages(X, [5, 6], 5, 200, 6, dev,
-                                            nmf_kwargs=nmf_kwargs)
-    _, merged_cpu, cpu, it_cpu = run_stages(X, [5, 6], 5, 200, 6, "cpu",
-                                            nmf_kwargs=nmf_kwargs)
-    merged_diff = float(np.abs(merged_gpu - merged_cpu).max()
-                        / np.abs(merged_cpu).max())
+    _, merged_gpu, gpu, it_gpu, _, ks_gpu = run_stages(
+        X, [5, 6], 5, 200, 6, dev, nmf_kwargs=nmf_kwargs, k_stats=(5, 6))
+    _, merged_cpu, cpu, it_cpu, _, ks_cpu = run_stages(
+        X, [5, 6], 5, 200, 6, "cpu", nmf_kwargs=nmf_kwargs, k_stats=(5, 6))
+    merged_diff = max(float(np.abs(merged_gpu[k] - merged_cpu[k]).max()
+                            / np.abs(merged_cpu[k]).max()) for k in (5, 6))
     sse = {name: float(((getattr(gpu, name) - getattr(cpu, name)) ** 2).sum()
                        / (getattr(cpu, name) ** 2).sum())
            for name in ("spectra", "usages", "spectra_tpm", "spectra_score")}
     sweeps = {k: (it_gpu[k].tolist(), it_cpu[k].tolist()) for k in it_gpu}
+    same = all(a == b for a, b in sweeps.values())
+    stats = "; ".join(
+        f"K={g[0]}: silhouette {g[2]:.6g} (CPU {c[2]:.6g}), prediction error "
+        f"{g[3]:.6g} (CPU {c[3]:.6g})" for g, c in zip(ks_gpu, ks_cpu))
     print(f"[small] {label}, card vs CPU at 300x400, K=6: merged spectra max "
-          f"rel diff {merged_diff:.3e}; consensus relative SSE {sse} (bound "
-          f"{SMALL_SSE_BOUND:g}); sweeps per restart (card, CPU) {sweeps}",
-          flush=True)
+          f"rel diff {merged_diff:.3e}; consensus relative SSE "
+          + json.dumps({k: float(f"{v:.3e}") for k, v in sse.items()})
+          + f" (bound {SMALL_SSE_BOUND:g}); same sweeps per restart: {same}"
+          + ("" if same else f" {sweeps}") + f"; k-stats {stats}", flush=True)
     assert max(sse.values()) < SMALL_SSE_BOUND, sse
+    assert [r[0] for r in ks_gpu] == [r[0] for r in ks_cpu] == [5, 6]
+    for g, c in zip(ks_gpu, ks_cpu):
+        assert abs(g[2] - c[2]) <= K_STATS_SIL_ABS, (label, g, c)
+        assert abs(g[3] - c[3]) <= K_STATS_ERR_REL * abs(c[3]), (label, g, c)
+
+
+def phase_k_selection(merged, Xd, card):
+    """The K-selection stats of every K of the CD slice's merged spectra, K
+    by K; the products kernel's launches over the sweep."""
+    import torch
+
+    from cnmf_tpu_torch.ops import cd_kernels as ck
+    from cnmf_tpu_torch.pipeline import stages
+
+    kwargs = stages.nmf_run_params()
+    ck.cd_sweep_from_products.launches = 0
+    parts, t_all = [], time.perf_counter()
+    for k in sorted(merged):
+        t0 = time.perf_counter()
+        (row,) = stages.k_stats_arrays({k: merged[k]}, Xd, kwargs)
+        torch.cuda.synchronize()
+        parts.append(f"K={k} silhouette {row[2]:.4f} error {row[3]:.6g} "
+                     f"{time.perf_counter() - t0:.3f} s")
+        assert np.isfinite(row[2:]).all(), row
+    launches = ck.cd_sweep_from_products.launches
+    print(f"[k-selection] CD slice, K={min(merged)}..{max(merged)}: "
+          + "; ".join(parts) + f"; total {time.perf_counter() - t_all:.3f} s; "
+          f"cd_sweep_from_products launches {launches}; card: {card}",
+          flush=True)
+    assert launches > 0
 
 
 def check_result(result, k, hvg):
@@ -417,6 +602,71 @@ def check_result(result, k, hvg):
     assert result.usages.shape == (2700, k)
     assert result.spectra_tpm.shape == (k, 10000)
     return result.usages / result.usages.sum(axis=1, keepdims=True)
+
+
+def mu_slice(label, counts, k_cons, n_iter, hvg, dev, kwargs, names, card,
+             k_stats=(), density_threshold=0.5):
+    """One MU path at bench.py's KL configuration through pipeline/stages.py;
+    returns the launches of ``names``' wrappers, each of which must be > 0."""
+    from cnmf_tpu_torch.ops import mu_kernels as mk
+
+    wrappers = {name: getattr(mk, name) for name in names}
+    for fn in wrappers.values():
+        fn.launches = 0
+    walls, _, result, n_iters, _, k_rows = run_stages(
+        counts, [k_cons], n_iter, hvg, k_cons, dev, verbose=True,
+        nmf_kwargs=kwargs, k_stats=k_stats,
+        density_threshold=density_threshold)
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    usage = check_result(result, k_cons, hvg)
+    assert np.allclose(usage.sum(axis=1), 1.0), "usage rows must sum to 1"
+    its = n_iters[k_cons]
+    stats = "".join(f"; k-stats K={r[0]}: silhouette {r[2]:.6g}, prediction "
+                    f"error {r[3]:.6g}" for r in k_rows)
+    density = np.percentile(result.local_density, [0, 50, 100])
+    print(f"[{label}-slice] 2700x10000 counts, {hvg} HVGs, K={k_cons} x "
+          f"{n_iter} restarts, beta_loss={kwargs['beta_loss']}, max_iter "
+          f"{kwargs['max_iter']}, consensus K={k_cons} dt {density_threshold:g} "
+          f"(local density min/median/max {density[0]:.4f}/{density[1]:.4f}/"
+          f"{density[2]:.4f}, {int(result.density_filter.sum())} of "
+          f"{len(result.density_filter)} kept), via pipeline/stages.py: walls_s "
+          + json.dumps({k: round(v, 3) for k, v in walls.items()})
+          + f"; iterations max {its.max()} mean {its.mean():.1f}{stats}; "
+          f"launches {launches}; card: {card}", flush=True)
+    assert all(n > 0 for n in launches.values()), launches
+    return launches
+
+
+def ptxas_lines(log_path):
+    """One line per kernel family of the build log: each instantiation's
+    registers, stack frame and spill bytes."""
+    fams, name = {}, None
+    with open(log_path) as fh:
+        for ln in fh:
+            m = re.search(r"Compiling entry function '(\w+)'", ln)
+            if m:
+                mangled = m.group(1)
+                fam = re.search(r"\d+([a-z_]+(?:kernel|wide)\w*?)(?:I|E|v)",
+                                mangled)
+                args = re.findall(r"Li(\d+)E|Lb([01])E", mangled)
+                tag = ",".join(a or ("IS" if b == "1" else "beta")
+                               for a, b in args) or "-"
+                name = (fam.group(1) if fam else mangled, tag)
+                fams.setdefault(name[0], {})[tag] = ["?", "?", "?"]
+                continue
+            if name is None:
+                continue
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores", ln)
+            if m:
+                fams[name[0]][name[1]][1:] = [m.group(1), m.group(2)]
+            m = re.search(r"Used (\d+) registers", ln)
+            if m:
+                fams[name[0]][name[1]][0] = m.group(1)
+    return [f"[ptxas] {fam} (registers/stack/spill bytes): "
+            + " ".join(f"{tag}:{'/'.join(v)}" for tag, v in sorted(
+                tags.items(), key=lambda kv: [int(x) if x.isdigit() else 0
+                                               for x in kv[0].split(",")]))
+            for fam, tags in fams.items()]
 
 
 def main():
@@ -437,25 +687,25 @@ def main():
 
     # 2. build
     from cnmf_tpu_torch.ops import cd_kernels as ck
-    from cnmf_tpu_torch.ops import mu_kernels as mk
     from cnmf_tpu_torch.ops.kernel_lib import load_library
     from cnmf_tpu_torch.pipeline import stages
 
     t0 = time.perf_counter()
     lib = load_library()
-    build_s = time.perf_counter() - t0
-    with open(lib.so_path + ".log") as fh:
-        ptxas = [ln.strip() for ln in fh if "registers" in ln or "spill" in ln]
-    print(f"[build] {os.path.relpath(lib.so_path)} in {build_s:.2f} s; "
-          f"ptxas: {' | '.join(ptxas)}", flush=True)
+    print(f"[build] {os.path.relpath(lib.so_path)} in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    for line in ptxas_lines(lib.so_path + ".log"):
+        print(line, flush=True)
 
-    # 3. kernels against plain, then the small slice against the CPU
+    # 3. kernels against plain, then the small slices against the CPU
     records = phase_kernels(dev, card)
     records.update(phase_mu_kernels(dev, card))
     kl_kwargs = stages.nmf_run_params(beta_loss="kullback-leibler",
                                       max_iter=200)
+    is_kwargs = stages.nmf_run_params(beta_loss="itakura-saito", max_iter=200)
     phase_small_agreement(dev)
     phase_small_agreement(dev, kl_kwargs, "kullback-leibler")
+    phase_small_agreement(dev, is_kwargs, "itakura-saito")
 
     # 4. the main path at PBMC-3k scale
     ks, n_iter, hvg, k_cons = list(range(5, 14)), 100, 2000, 10
@@ -469,12 +719,13 @@ def main():
     if not missing:
         route = "cNMF(device='cuda') with its run directory"
         with tempfile.TemporaryDirectory(dir=os.getcwd()) as workdir:
-            walls, usage = run_cnmf(counts, ks, n_iter, hvg, k_cons, workdir)
+            walls, usage, merged, Xd = run_cnmf(counts, ks, n_iter, hvg,
+                                                k_cons, workdir)
     else:
         route = (f"pipeline/stages.py on arrays ({', '.join(missing)} missing, "
                  "which cNMF's run directory needs)")
-        walls, _, result, _ = run_stages(counts, ks, n_iter, hvg, k_cons, dev,
-                                         verbose=True)
+        walls, merged, result, _, Xd, _ = run_stages(
+            counts, ks, n_iter, hvg, k_cons, dev, verbose=True)
         usage = check_result(result, k_cons, hvg)
     launches = {name: fn.launches for name, fn in wrappers.items()}
     assert np.allclose(usage.sum(axis=1), 1.0), "usage rows must sum to 1"
@@ -485,41 +736,41 @@ def main():
     assert all(n > 0 for n in launches.values()), launches
     phase_profile(counts, hvg, dev, card, ks, n_iter, (min(ks), max(ks)))
 
-    # 5. the KL path at bench.py's KL configuration
-    mu_wrappers = {name: getattr(mk, name) for name in MU_KERNELS}
-    for fn in mu_wrappers.values():
-        fn.launches = 0
-    walls, _, result, n_iters = run_stages(counts, [k_cons], n_iter, hvg,
-                                           k_cons, dev, verbose=True,
-                                           nmf_kwargs=kl_kwargs)
-    mu_launches = {name: fn.launches for name, fn in mu_wrappers.items()}
-    usage = check_result(result, k_cons, hvg)
-    assert np.allclose(usage.sum(axis=1), 1.0), "usage rows must sum to 1"
-    its = n_iters[k_cons]
-    print(f"[kl-slice] 2700x10000 counts, {hvg} HVGs, K={k_cons} x {n_iter} "
-          f"restarts, beta_loss=kullback-leibler, max_iter 200, consensus "
-          f"K={k_cons} dt 0.5, via pipeline/stages.py: walls_s "
-          + json.dumps({k: round(v, 3) for k, v in walls.items()})
-          + f"; iterations max {its.max()} mean {its.mean():.1f}; launches "
-          f"{mu_launches}; card: {card}", flush=True)
-    assert all(n > 0 for n in mu_launches.values()), mu_launches
-    launches.update(mu_launches)
+    # 5. k-selection over the CD slice's merged spectra
+    phase_k_selection(merged, Xd, card)
+    del merged, Xd
+
+    # 6. the KL path and 7. the Itakura-Saito path at bench.py's KL
+    # configuration
+    launches.update(mu_slice("kl", counts, k_cons, n_iter, hvg, dev,
+                             kl_kwargs, KL_KERNELS, card))
     phase_profile(counts, hvg, dev, card, [k_cons], n_iter, [k_cons],
                   kl_kwargs, "KL")
+    launches.update(mu_slice("is", counts, k_cons, n_iter, hvg, dev,
+                             is_kwargs, BETA_KERNELS, card, k_stats=[k_cons],
+                             density_threshold=IS_DENSITY_THRESHOLD))
+    phase_profile(counts, hvg, dev, card, [k_cons], n_iter, [k_cons],
+                  is_kwargs, "IS")
 
-    # 6. results
+    # 8. results
     replaces = {"cd_w_half_sweep": "cnmf_tpu/ops/pallas_cd.py:118",
                 "cd_h_half_sweep": "cnmf_tpu/ops/pallas_cd.py:162",
                 "cd_sweep_from_products": "cnmf_tpu/ops/pallas_cd.py:58",
                 "kl_mu_w_numerator": "cnmf_tpu/ops/pallas_mu.py:89",
                 "kl_mu_h_numerator": "cnmf_tpu/ops/pallas_mu.py:394",
-                "kl_x_log_wh": "cnmf_tpu/ops/pallas_mu.py:357"}
+                "kl_x_log_wh": "cnmf_tpu/ops/pallas_mu.py:357",
+                "beta_mu_w_terms": "cnmf_tpu/ops/pallas_mu.py:198",
+                "beta_mu_h_terms": "cnmf_tpu/ops/pallas_mu.py:281"}
+    sources = {name: "cnmf_tpu_torch/csrc/" + (
+        "mu_kl.cu" if name in KL_KERNELS else
+        "mu_beta.cu" if name in BETA_KERNELS else "cd_half_sweep.cu")
+        for name in replaces}
+    # no single PyTorch call computes any of these functions
     print(json.dumps({"kernels": [
-        dict(name=name, route="cuda",
-             source="cnmf_tpu_torch/csrc/" + (
-                 "mu_kl.cu" if name in MU_KERNELS else "cd_half_sweep.cu"),
-             replaces=replaces[name], launches=launches[name], **rec)
-        for name, rec in records.items()
+        dict(name=name, route="cuda", source=sources[name],
+             replaces=replaces[name], launches=launches[name],
+             library_ms=None, **records[name])
+        for name in replaces
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -36,6 +36,14 @@
 // K buckets 8..64 (common.cuh). The column loop is unrolled up to K = 32 and
 // rolled above it, where a fully unrolled K x K sweep costs minutes of build
 // for a loop that is a small share of the run (K / C of the product's work).
+//
+// Any larger multiple of 8 runs the wide variants (one row per thread, K a
+// runtime argument): the fused kernel accumulates P in a (B, M, K) scratch
+// that the caller allocates, sweeps the row in the output buffer itself, and
+// reads the gram from device memory ((K, K) would not fit beside the staged
+// chunks in shared memory at large K: 160 KB at K = 200). The column order
+// 0..K-1 and every sum's order are the register kernels', so the results are
+// the same bits.
 
 #include "common.cuh"
 
@@ -46,7 +54,7 @@ constexpr int kChunk = 16;  // contraction entries staged per shared-memory roun
 
 template <int K>
 struct Tile {
-  static_assert(K % 8 == 0 && K <= cnmf::kMaxK, "K bucket");
+  static_assert(K % 8 == 0 && K <= cnmf::kRegMaxK, "K bucket");
   static constexpr int kRows = K >= 32 ? 1 : 32 / K;  // rows owned by a thread
   static constexpr int kTileM = kRows * kThreads;      // rows owned by a block
   static constexpr int kSweepUnroll = K <= 32 ? K : 1;
@@ -187,6 +195,87 @@ cd_products_kernel(const float* __restrict__ P, int M,
   cnmf::block_sum_to(v, viol_part + (size_t)blockIdx.y * gridDim.x + b);
 }
 
+// column_sweep() on a row f (updated in place) and its product p (l1 not yet
+// subtracted), both in device memory, with the gram read from device memory.
+__device__ __forceinline__ float column_sweep_wide(float* __restrict__ f,
+                                                   const float* __restrict__ p,
+                                                   const float* __restrict__ gram,
+                                                   float l1, int K) {
+  float viol = 0.f;
+  for (int t = 0; t < K; ++t) {
+    const float hess = __ldg(gram + t * K + t);
+    float grad = 0.f;
+    for (int j = 0; j < K; ++j) grad = fmaf(f[j], __ldg(gram + j * K + t), grad);
+    const float ft = f[t];
+    grad -= p[t] - l1;
+    const float pgrad = ft == 0.f ? fminf(grad, 0.f) : grad;
+    if (hess != 0.f) {
+      viol += fabsf(pgrad);
+      f[t] = fmaxf(ft - grad / hess, 0.f);
+    }
+  }
+  return viol;
+}
+
+// cd_fused_kernel for K above the register buckets: P accumulates in
+// P_scratch (B, M, K), the row is swept in Fout.
+__global__ void __launch_bounds__(kThreads)
+cd_fused_wide(const float* __restrict__ X, int M, int C, long long sxm,
+              long long sxc, const float* __restrict__ Fo,
+              const float* __restrict__ F, const float* __restrict__ gram,
+              float l1, int K, float* __restrict__ Fout,
+              float* __restrict__ P_scratch, float* __restrict__ viol_part) {
+  __shared__ float xs[kChunk][kThreads + 1];
+  const int b = blockIdx.x;
+  const int m0 = blockIdx.y * kThreads;
+  const int row = m0 + threadIdx.x;
+  const bool live = row < M;
+  const float* fo = Fo + (size_t)b * C * K;
+  const size_t off = ((size_t)b * M + row) * K;
+  float* p = P_scratch + off;
+  if (live)
+    for (int k = 0; k < K; ++k) p[k] = 0.f;
+
+  for (int c0 = 0; c0 < C; c0 += kChunk) {
+    __syncthreads();  // the previous chunk is consumed
+    cnmf::stage_x<kThreads, kChunk>(xs, X, M, C, sxm, sxc, m0, c0);
+    __syncthreads();
+    if (!live) continue;
+    float xv[kChunk];
+#pragma unroll
+    for (int c = 0; c < kChunk; ++c) xv[c] = xs[c][threadIdx.x];
+    cnmf::wide_accumulate<kChunk>(p, xv, fo + (size_t)c0 * K, K,
+                                  min(kChunk, C - c0));
+  }
+  float v = 0.f;
+  if (live) {
+    float* f = Fout + off;
+    for (int k = 0; k < K; ++k) f[k] = F[off + k];
+    v = column_sweep_wide(f, p, gram + (size_t)b * K * K, l1, K);
+  }
+  cnmf::block_sum_to(v, viol_part + (size_t)blockIdx.y * gridDim.x + b);
+}
+
+// cd_products_kernel for K above the register buckets.
+__global__ void __launch_bounds__(kThreads)
+cd_products_wide(const float* __restrict__ P, int M,
+                 const float* __restrict__ F, const float* __restrict__ gram,
+                 float l1, int K, float* __restrict__ Fout,
+                 float* __restrict__ viol_part) {
+  const int b = blockIdx.x;
+  const int row = blockIdx.y * kThreads + threadIdx.x;
+  float v = 0.f;
+  if (row < M) {
+    const size_t off = ((size_t)b * M + row) * K;
+    float* f = Fout + off;
+    for (int k = 0; k < K; ++k) f[k] = F[off + k];
+    v = column_sweep_wide(f, P + off, gram + (size_t)b * K * K, l1, K);
+  }
+  cnmf::block_sum_to(v, viol_part + (size_t)blockIdx.y * gridDim.x + b);
+}
+
+dim3 wide_grid(int B, int M) { return dim3(B, (M + kThreads - 1) / kThreads); }
+
 template <int K>
 int launch_fused(const float* X, int M, int C, long long sxm, long long sxc,
                  const float* Fo, const float* F, const float* gram, float l1,
@@ -213,34 +302,37 @@ int launch_products(const float* P, int M, const float* F, const float* gram,
 
 extern "C" {
 
-// Largest K bucket of every kernel of the library (common.cuh's buckets).
-int cnmf_max_k() { return cnmf::kMaxK; }
-
-// Rows one block owns for bucket K (sizes the (tiles, B) violation partials);
-// 0 for a K that has no instantiation.
+// Rows one block owns at K (sizes the (tiles, B) violation partials): a
+// register bucket's tile, one row per thread for a wide K, 0 for a K that is
+// not a positive multiple of 8.
 int cd_tile_rows(int K) {
 #define CD_CASE(KK) \
   case KK:          \
     return Tile<KK>::kTileM;
   switch (K) { CNMF_K_BUCKETS(CD_CASE) }
 #undef CD_CASE
-  return 0;
+  return cnmf::is_wide_k(K) ? kThreads : 0;
 }
 
 // One fused half-sweep. F (B, M, K) is updated against F_other (B, C, K) and
 // X (M x C in element (m, c) = X[m * sxm + c * sxc]); gram (B, K, K) carries
 // l2 on its diagonal. Writes Fout (B, M, K) and viol_part (tiles, B).
+// P_scratch (B, M, K) is used for a wide K only (may be null otherwise).
 int cd_half_sweep_fused(const float* X, int M, int C, long long sxm,
                         long long sxc, const float* F_other, const float* F,
                         const float* gram, float l1, int B, int K, float* Fout,
-                        float* viol_part, void* stream) {
+                        float* viol_part, float* P_scratch, void* stream) {
 #define CD_CASE(KK)                                                        \
   case KK:                                                                 \
     return launch_fused<KK>(X, M, C, sxm, sxc, F_other, F, gram, l1, B,    \
                             Fout, viol_part, (cudaStream_t)stream);
   switch (K) { CNMF_K_BUCKETS(CD_CASE) }
 #undef CD_CASE
-  return (int)cudaErrorInvalidValue;
+  if (!cnmf::is_wide_k(K) || P_scratch == nullptr)
+    return (int)cudaErrorInvalidValue;
+  cd_fused_wide<<<wide_grid(B, M), kThreads, 0, (cudaStream_t)stream>>>(
+      X, M, C, sxm, sxc, F_other, F, gram, l1, K, Fout, P_scratch, viol_part);
+  return (int)cudaGetLastError();
 }
 
 // One half-sweep from a precomputed product P (B, M, K).
@@ -253,7 +345,10 @@ int cd_half_sweep_products(const float* P, int M, const float* F,
                                (cudaStream_t)stream);
   switch (K) { CNMF_K_BUCKETS(CD_CASE) }
 #undef CD_CASE
-  return (int)cudaErrorInvalidValue;
+  if (!cnmf::is_wide_k(K)) return (int)cudaErrorInvalidValue;
+  cd_products_wide<<<wide_grid(B, M), kThreads, 0, (cudaStream_t)stream>>>(
+      P, M, F, gram, l1, K, Fout, viol_part);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -1,7 +1,8 @@
 // What the hand-written kernels of this directory share: the block shape, the
 // K buckets they are instantiated for, row loads and stores of a (B, M, K)
-// factor held in registers, the staging of an X tile in shared memory, and
-// the block reduction of per-thread partials.
+// factor held in registers, the staging of an X tile in shared memory, the
+// block reduction of per-thread partials, and the helpers of the wide
+// (runtime-K) variants.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -9,9 +10,13 @@
 namespace cnmf {
 
 constexpr int kThreads = 128;
-// K buckets: multiples of 8 up to 64 (the solvers zero-pad K to a bucket).
-constexpr int kMaxK = 64;
+// K buckets held in registers: multiples of 8 up to 64 (the solvers zero-pad
+// K to a multiple of 8). Any larger multiple of 8 runs a wide variant whose
+// row and accumulators live in device memory (is_wide_k).
+constexpr int kRegMaxK = 64;
 #define CNMF_K_BUCKETS(X) X(8) X(16) X(24) X(32) X(40) X(48) X(56) X(64)
+
+inline bool is_wide_k(int K) { return K > kRegMaxK && K % 8 == 0; }
 
 // R rows of K values per thread (row m0 + threadIdx.x + r * kThreads); rows
 // past M load as 0.
@@ -49,19 +54,15 @@ __device__ __forceinline__ void store_rows(float* __restrict__ dst,
   }
 }
 
-// One contraction chunk into shared memory: xs[c][m] = X(m0 + m, c0 + c) for
-// an X tile of TM rows, X element (m, c) at X[m * sxm + c * sxc], and
-// fs[c][:] = row c0 + c of the other factor fo (C, K). Entries past M or C
-// load as 0, so a ragged edge is an exact no-op. Neighbouring threads walk
-// whichever axis of X is contiguous; xs is padded by one column so the
-// transposed writes spread over the banks.
-template <int K, int TM, int CHUNK>
-__device__ __forceinline__ void stage_chunk(float (&xs)[CHUNK][TM + 1],
-                                            float (&fs)[CHUNK][K],
-                                            const float* __restrict__ X, int M,
-                                            int C, long long sxm, long long sxc,
-                                            const float* __restrict__ fo,
-                                            int m0, int c0) {
+// xs[c][m] = X(m0 + m, c0 + c) for an X tile of TM rows, X element (m, c) at
+// X[m * sxm + c * sxc]. Entries past M or C load as 0, so a ragged edge is an
+// exact no-op. Neighbouring threads walk whichever axis of X is contiguous;
+// xs is padded by one column so the transposed writes spread over the banks.
+template <int TM, int CHUNK>
+__device__ __forceinline__ void stage_x(float (&xs)[CHUNK][TM + 1],
+                                        const float* __restrict__ X, int M,
+                                        int C, long long sxm, long long sxc,
+                                        int m0, int c0) {
   const bool c_contiguous = sxc == 1;
   for (int i = threadIdx.x; i < TM * CHUNK; i += kThreads) {
     const int m = c_contiguous ? i / CHUNK : i % TM;
@@ -69,6 +70,18 @@ __device__ __forceinline__ void stage_chunk(float (&xs)[CHUNK][TM + 1],
     const int gm = m0 + m, gc = c0 + c;
     xs[c][m] = (gm < M && gc < C) ? X[gm * sxm + gc * sxc] : 0.f;
   }
+}
+
+// One contraction chunk into shared memory: the X tile (stage_x) and
+// fs[c][:] = row c0 + c of the other factor fo (C, K), 0 past C.
+template <int K, int TM, int CHUNK>
+__device__ __forceinline__ void stage_chunk(float (&xs)[CHUNK][TM + 1],
+                                            float (&fs)[CHUNK][K],
+                                            const float* __restrict__ X, int M,
+                                            int C, long long sxm, long long sxc,
+                                            const float* __restrict__ fo,
+                                            int m0, int c0) {
+  stage_x<TM, CHUNK>(xs, X, M, C, sxm, sxc, m0, c0);
   for (int i = threadIdx.x; i < CHUNK * K; i += kThreads) {
     const int c = i / K;
     fs[c][i % K] = c0 + c < C ? fo[(size_t)c0 * K + i] : 0.f;
@@ -88,6 +101,65 @@ __device__ __forceinline__ void block_sum_to(T v, T* out) {
 #pragma unroll
     for (int w = 0; w < kThreads / 32; ++w) s += warp_sums[w];
     *out = s;
+  }
+}
+
+// ---- wide variants (K above the register buckets) ----
+// A thread's factor row and accumulators are K-long rows in device memory
+// (read through L1/L2). The other factor's rows fo[c] are read from device
+// memory too: every thread of a block reads the same address, one broadcast
+// per warp. A chunk of CHUNK contraction entries is handled at a time, so
+// each load of an accumulator serves CHUNK FMAs, and rows move as float4
+// (K is a multiple of 8, so every row starts 32-byte aligned). Every sum
+// runs in the same order as in the register kernels (k ascending for a dot,
+// c ascending for an accumulator), so both give the same bits. Entries
+// c >= nc are past the contraction axis and skipped (the register kernels
+// add exact zeros there).
+
+__device__ __forceinline__ float4 ldg4(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+
+// wh[c] = f . fo[c] for c < nc.
+template <int CHUNK>
+__device__ __forceinline__ void wide_dots(float (&wh)[CHUNK],
+                                          const float* __restrict__ f,
+                                          const float* __restrict__ fo, int K,
+                                          int nc) {
+#pragma unroll
+  for (int c = 0; c < CHUNK; ++c) wh[c] = 0.f;
+  for (int k = 0; k < K; k += 4) {
+    const float4 fk = *reinterpret_cast<const float4*>(f + k);
+#pragma unroll
+    for (int c = 0; c < CHUNK; ++c) {
+      if (c >= nc) continue;
+      const float4 o = ldg4(fo + (size_t)c * K + k);
+      wh[c] = fmaf(fk.x, o.x, wh[c]);
+      wh[c] = fmaf(fk.y, o.y, wh[c]);
+      wh[c] = fmaf(fk.z, o.z, wh[c]);
+      wh[c] = fmaf(fk.w, o.w, wh[c]);
+    }
+  }
+}
+
+// acc[k] += sum over c < nc of v[c] . fo[c][k], c ascending.
+template <int CHUNK>
+__device__ __forceinline__ void wide_accumulate(float* __restrict__ acc,
+                                                const float (&v)[CHUNK],
+                                                const float* __restrict__ fo,
+                                                int K, int nc) {
+  for (int k = 0; k < K; k += 4) {
+    float4 a = *reinterpret_cast<const float4*>(acc + k);
+#pragma unroll
+    for (int c = 0; c < CHUNK; ++c) {
+      if (c >= nc) continue;
+      const float4 o = ldg4(fo + (size_t)c * K + k);
+      a.x = fmaf(v[c], o.x, a.x);
+      a.y = fmaf(v[c], o.y, a.y);
+      a.z = fmaf(v[c], o.z, a.z);
+      a.w = fmaf(v[c], o.w, a.w);
+    }
+    *reinterpret_cast<float4*>(acc + k) = a;
   }
 }
 

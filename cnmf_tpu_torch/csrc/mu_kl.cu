@@ -4,8 +4,8 @@
 //   kl_mu_w_numerator (:89, body _kl_w_terms_kernel :59)        -> mu_kl_numerator, W side
 //   kl_mu_h_numerator (:394, body _make_kl_h_terms_kernel :128) -> mu_kl_numerator, H side
 //   kl_x_log_wh (:357, body _make_kl_xlogwh_kernel :327)        -> mu_kl_x_log_wh
-// The two Itakura-Saito / general-beta kernels of that file (beta_mu_w_terms,
-// beta_mu_h_terms) are not here yet.
+// The two general-beta kernels of that file (beta_mu_w_terms,
+// beta_mu_h_terms) are in mu_beta.cu, on the same design.
 //
 // All three contract the reconstruction WH = W . Ht^T (N x G per restart)
 // against X without ever writing it to memory. One block owns one row tile of
@@ -49,6 +49,10 @@
 // Padded rows, contraction entries and K columns are exact no-ops: rows past
 // M and entries past C load as 0 (ratio 0), and a zero K column of Fo adds
 // nothing to wh and receives 0.
+//
+// K buckets 8..64 hold the row in registers; any larger multiple of 8 runs a
+// wide variant (common.cuh) with the row read from F and the accumulators in
+// the output buffer, the same sums in the same order.
 
 #include "common.cuh"
 
@@ -131,6 +135,68 @@ kl_x_log_wh_kernel(const float* __restrict__ X, int M, int C, long long sxm,
   cnmf::block_sum_to(sum, part + (size_t)blockIdx.y * gridDim.x + b);
 }
 
+// kl_numerator_kernel for K above the register buckets.
+__global__ void __launch_bounds__(kThreads)
+kl_numerator_wide(const float* __restrict__ X, int M, int C, long long sxm,
+                  long long sxc, const float* __restrict__ Fo,
+                  const float* __restrict__ F, int K, float* __restrict__ out) {
+  __shared__ float xs[kChunk][kThreads + 1];
+  const int b = blockIdx.x;
+  const int m0 = blockIdx.y * kThreads;
+  const int row = m0 + threadIdx.x;
+  const bool live = row < M;
+  const float* fo = Fo + (size_t)b * C * K;
+  const float* f = F + ((size_t)b * M + row) * K;
+  float* acc = out + ((size_t)b * M + row) * K;
+  if (live)
+    for (int k = 0; k < K; ++k) acc[k] = 0.f;
+  for (int c0 = 0; c0 < C; c0 += kChunk) {
+    __syncthreads();
+    cnmf::stage_x<kThreads, kChunk>(xs, X, M, C, sxm, sxc, m0, c0);
+    __syncthreads();
+    if (!live) continue;
+    const int nc = min(kChunk, C - c0);
+    float wh[kChunk], ratio[kChunk];
+    cnmf::wide_dots<kChunk>(wh, f, fo + (size_t)c0 * K, K, nc);
+#pragma unroll
+    for (int c = 0; c < kChunk; ++c) {
+      const float x = xs[c][threadIdx.x];
+      ratio[c] = x == 0.f ? 0.f : x / fmaxf(wh[c], kEps);
+    }
+    cnmf::wide_accumulate<kChunk>(acc, ratio, fo + (size_t)c0 * K, K, nc);
+  }
+}
+
+// kl_x_log_wh_kernel for K above the register buckets.
+__global__ void __launch_bounds__(kThreads)
+kl_x_log_wh_wide(const float* __restrict__ X, int M, int C, long long sxm,
+                 long long sxc, const float* __restrict__ Fo,
+                 const float* __restrict__ F, int K, double* __restrict__ part) {
+  __shared__ float xs[kChunk][kThreads + 1];
+  const int b = blockIdx.x;
+  const int m0 = blockIdx.y * kThreads;
+  const int row = m0 + threadIdx.x;
+  const bool live = row < M;
+  const float* fo = Fo + (size_t)b * C * K;
+  const float* f = F + ((size_t)b * M + row) * K;
+  double sum = 0.0;
+  for (int c0 = 0; c0 < C; c0 += kChunk) {
+    __syncthreads();
+    cnmf::stage_x<kThreads, kChunk>(xs, X, M, C, sxm, sxc, m0, c0);
+    __syncthreads();
+    if (!live) continue;
+    const int nc = min(kChunk, C - c0);
+    float wh[kChunk];
+    cnmf::wide_dots<kChunk>(wh, f, fo + (size_t)c0 * K, K, nc);
+#pragma unroll
+    for (int c = 0; c < kChunk; ++c) {
+      const float x = xs[c][threadIdx.x];
+      if (c < nc && x > kEps) sum += (double)(x * logf(fmaxf(wh[c], kEps)));
+    }
+  }
+  cnmf::block_sum_to(sum, part + (size_t)blockIdx.y * gridDim.x + b);
+}
+
 dim3 grid_of(int B, int M) { return dim3(B, (M + kThreads - 1) / kThreads); }
 
 }  // namespace
@@ -153,7 +219,10 @@ int mu_kl_numerator(const float* X, int M, int C, long long sxm, long long sxc,
     return (int)cudaGetLastError();
   switch (K) { CNMF_K_BUCKETS(MU_CASE) }
 #undef MU_CASE
-  return (int)cudaErrorInvalidValue;
+  if (!cnmf::is_wide_k(K)) return (int)cudaErrorInvalidValue;
+  kl_numerator_wide<<<grid_of(B, M), kThreads, 0, (cudaStream_t)stream>>>(
+      X, M, C, sxm, sxc, F_other, F, K, out);
+  return (int)cudaGetLastError();
 }
 
 // part (tiles, B): per (row tile, restart) the sum over X(m, c) > eps of
@@ -169,7 +238,10 @@ int mu_kl_x_log_wh(const float* X, int M, int C, long long sxm, long long sxc,
     return (int)cudaGetLastError();
   switch (K) { CNMF_K_BUCKETS(MU_CASE) }
 #undef MU_CASE
-  return (int)cudaErrorInvalidValue;
+  if (!cnmf::is_wide_k(K)) return (int)cudaErrorInvalidValue;
+  kl_x_log_wh_wide<<<grid_of(B, M), kThreads, 0, (cudaStream_t)stream>>>(
+      X, M, C, sxm, sxc, F_other, F, K, part);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -6,8 +6,9 @@ wrapper here takes the unpadded solver layout — X (N, G) shared by every
 restart, W (B, N, K), Ht (B, G, K) — and dispatches on where its tensors lie:
 
 * CUDA tensors launch the hand-written kernel of ``csrc/cd_half_sweep.cu``
-  (f32, contiguous, K a multiple of 8 up to 64). Anything else on CUDA
-  raises; there is no fallback to the plain version.
+  (f32, contiguous, K a positive multiple of 8: registers up to 64, a wide
+  variant above). Anything else on CUDA raises; there is no fallback to the
+  plain version.
 * CPU tensors run the plain PyTorch version below: the same column-cyclic
   update as ``cnmf_tpu.ops.nmf._cd_half_sweep``, at the tensors' dtype. This
   is where ``compute_dtype=float64`` runs; the kernels are f32 only.
@@ -45,9 +46,9 @@ from cnmf_tpu_torch.ops.kernel_lib import (
 
 
 def pad_bucket(k: int) -> int:
-    """K zero-padded to the next multiple of 8, the buckets the kernels are
-    instantiated for (8 to 64). The padding is an exact no-op: a zero column
-    has a zero gram diagonal and is skipped."""
+    """K zero-padded to the next multiple of 8, the K the kernels take. The
+    padding is an exact no-op: a zero column has a zero gram diagonal and is
+    skipped."""
     return -(-int(k) // 8) * 8
 
 
@@ -140,13 +141,18 @@ def cd_sweep_from_products_plain(F, gram, P, *, l1_reg=0.0, l2_reg=0.0):
 # the CUDA kernels
 # ----------------------------------------------------------------------
 
-_FUSED_ARGS = (VP, I32, I32, I64, I64, VP, VP, VP, F32, I32, I32, VP, VP, VP)
+_FUSED_ARGS = (VP, I32, I32, I64, I64, VP, VP, VP, F32, I32, I32, VP, VP, VP,
+               VP)
 _PRODUCTS_ARGS = (VP, I32, VP, VP, F32, I32, I32, VP, VP, VP)
 
 
+# largest K whose rows the kernels hold in registers (csrc/common.cuh)
+REGISTER_MAX_K = 64
+
+
 def _tile_rows(name, K):
-    """Rows one block of the CD kernels owns at bucket K; raises for a K
-    that has no kernel."""
+    """Rows one block of the CD kernels owns at K; raises for a K that has
+    no kernel."""
     check_k(name, K)
     return library_constant("cd_tile_rows", K)
 
@@ -176,10 +182,12 @@ def _launch_fused(name, X, F, F_other, gram, l1_reg, transposed):
     tiles = -(-M // _tile_rows(name, K))
     out = torch.empty_like(F)
     part = torch.empty((tiles, B), dtype=torch.float32, device=F.device)
+    # a K above the register buckets accumulates X·F_other in device memory
+    scratch = torch.empty_like(F) if K > REGISTER_MAX_K else None
     raise_on(name, kernel_function("cd_half_sweep_fused", _FUSED_ARGS)(
         X.data_ptr(), M, C, sxm, sxc, F_other.data_ptr(), F.data_ptr(),
         gram.data_ptr(), float(l1_reg), B, K, out.data_ptr(), part.data_ptr(),
-        stream_of(F),
+        None if scratch is None else scratch.data_ptr(), stream_of(F),
     ))
     return out, part.sum(dim=0)
 

@@ -113,8 +113,8 @@ def kernel_function(name: str, argtypes: tuple):
 
 @functools.lru_cache(maxsize=None)
 def library_constant(name: str, *args: int) -> int:
-    """An int the library fixes at compile time (``cnmf_max_k``, the rows one
-    block owns), read once per argument."""
+    """An int the library fixes at compile time (the rows one block owns),
+    read once per argument."""
     return kernel_function(name, (I32,) * len(args))(*args)
 
 
@@ -154,11 +154,12 @@ def check_cuda(name, *tensors, strided=()):
 
 
 def check_k(name, K: int):
-    kmax = library_constant("cnmf_max_k")
-    if K % 8 or not 8 <= K <= kmax:
+    """K a positive multiple of 8 (the solvers zero-pad K to one): 8..64
+    run the register kernels, any larger multiple their wide variants."""
+    if K % 8 or K < 8:
         raise ValueError(
-            f"{name}: K={K} has no kernel; K must be a multiple of 8 up to "
-            f"{kmax} (the solvers zero-pad K to that bucket)"
+            f"{name}: K={K} has no kernel; K must be a positive multiple of 8 "
+            "(the solvers zero-pad K to one)"
         )
 
 

@@ -1,24 +1,25 @@
-"""Fused KL multiplicative-update terms: CUDA kernels and their plain twins.
+"""Fused multiplicative-update terms: CUDA kernels and their plain twins.
 
-Port of three of the five Pallas kernels of ``cnmf_tpu/ops/pallas_mu.py``:
+Port of the five Pallas kernels of ``cnmf_tpu/ops/pallas_mu.py``:
 ``kl_mu_w_numerator`` (:89), ``kl_mu_h_numerator`` (:394) and
-``kl_x_log_wh`` (:357). Each wrapper takes the solver layout — X (N, G)
-shared by every restart, W (B, N, K), Ht (B, G, K) — and dispatches on where
-its tensors lie:
+``kl_x_log_wh`` (:357) for the KL loss (beta=1), ``beta_mu_w_terms`` (:198)
+and ``beta_mu_h_terms`` (:281) for any other beta but 2 (0 is
+Itakura-Saito). Each wrapper takes the solver layout — X (N, G) shared by
+every restart, W (B, N, K), Ht (B, G, K) — and dispatches on where its
+tensors lie:
 
-* CUDA tensors launch the hand-written kernels of ``csrc/mu_kl.cu`` (f32;
-  W and Ht contiguous; X with any positive strides, so a transposed view of
-  X needs no copy; K a multiple of 8 up to 64). Anything else on CUDA
-  raises; there is no fallback to the plain version.
+* CUDA tensors launch the hand-written kernels of ``csrc/mu_kl.cu`` and
+  ``csrc/mu_beta.cu`` (f32; W and Ht contiguous; X with any positive
+  strides, so a transposed view of X needs no copy; K a positive multiple of
+  8). Anything else on CUDA raises; there is no fallback to the plain
+  version.
 * CPU tensors run the plain PyTorch versions below at the tensors' dtype.
 
 The plain versions follow the JAX package's XLA path (``_mu_w_terms_chunked``,
 ``_mu_h_terms_chunked`` and ``_beta_divergence_chunked`` of
 ``cnmf_tpu/ops/nmf.py``): they loop over chunks of restarts, so only a
 (CHUNK, N, G) reconstruction is ever live. ``mu_w_terms_plain`` and
-``mu_h_terms_plain`` give the numerator and denominator for any beta != 2;
-the Itakura-Saito / general-beta kernels (``beta_mu_w_terms``,
-``beta_mu_h_terms``) are not ported yet, so those betas run on the CPU only.
+``mu_h_terms_plain`` give the numerator and denominator for any beta != 2.
 
 Each wrapper counts its kernel launches in a ``launches`` attribute.
 """
@@ -29,6 +30,7 @@ import numpy as np
 import torch
 
 from cnmf_tpu_torch.ops.kernel_lib import (
+    F32,
     I32,
     I64,
     VP,
@@ -122,6 +124,11 @@ def kl_mu_h_numerator_plain(X, W, Ht):
     return mu_h_terms_plain(X, W, Ht, 1.0)[0]
 
 
+# plain versions of beta_mu_w_terms and beta_mu_h_terms (beta ∉ {1, 2})
+beta_mu_w_terms_plain = mu_w_terms_plain
+beta_mu_h_terms_plain = mu_h_terms_plain
+
+
 def kl_x_log_wh_plain(X, W, Ht):
     """Plain version of ``kl_x_log_wh``."""
     mask = X > EPSILON
@@ -137,11 +144,13 @@ def kl_x_log_wh_plain(X, W, Ht):
 # ----------------------------------------------------------------------
 
 _ARGS = (VP, I32, I32, I64, I64, VP, VP, I32, I32, VP, VP)
+_BETA_ARGS = (VP, I32, I32, I64, I64, VP, VP, I32, I32, F32, VP, VP, VP)
 
 
-def _launch(name, symbol, X, F, F_other, out, transposed):
+def _launch(name, symbol, X, F, F_other, outs, transposed, beta=None):
     """F (B, M, K) owns the rows, F_other (B, C, K) is contracted over: the W
-    side reads X as (M=N, C=G), the H side transposed as (M=G, C=N)."""
+    side reads X as (M=N, C=G), the H side transposed as (M=G, C=N).
+    ``outs``: the output tensors; ``beta``: the general-beta kernels' loss."""
     B, M, K = F.shape
     N, G = X.shape
     sn, sg = X.stride()
@@ -151,11 +160,14 @@ def _launch(name, symbol, X, F, F_other, out, transposed):
                          f"{tuple(F.shape)}, other {tuple(F_other.shape)}")
     check_cuda(name, F, F_other, strided=(X,))
     check_k(name, K)
-    raise_on(name, kernel_function(symbol, _ARGS)(
-        X.data_ptr(), M, C, sxm, sxc, F_other.data_ptr(), F.data_ptr(), B, K,
-        out.data_ptr(), stream_of(F),
-    ))
-    return out
+    args = [X.data_ptr(), M, C, sxm, sxc, F_other.data_ptr(), F.data_ptr(),
+            B, K]
+    if beta is not None:
+        args.append(float(beta))
+    raise_on(name, kernel_function(
+        symbol, _ARGS if beta is None else _BETA_ARGS
+    )(*args, *[o.data_ptr() for o in outs], stream_of(F)))
+    return outs
 
 
 # ----------------------------------------------------------------------
@@ -167,8 +179,8 @@ def kl_mu_w_numerator(X, W, Ht):
     cnmf_tpu/ops/pallas_mu.py:kl_mu_w_numerator."""
     if device_kind("kl_mu_w_numerator", W) == "cpu":
         return kl_mu_w_numerator_plain(X, W, Ht)
-    out = _launch("kl_mu_w_numerator", "mu_kl_numerator", X, W, Ht,
-                  torch.empty_like(W), transposed=False)
+    (out,) = _launch("kl_mu_w_numerator", "mu_kl_numerator", X, W, Ht,
+                     (torch.empty_like(W),), transposed=False)
     kl_mu_w_numerator.launches += 1
     return out
 
@@ -178,8 +190,8 @@ def kl_mu_h_numerator(X, W, Ht):
     Replaces cnmf_tpu/ops/pallas_mu.py:kl_mu_h_numerator."""
     if device_kind("kl_mu_h_numerator", Ht) == "cpu":
         return kl_mu_h_numerator_plain(X, W, Ht)
-    out = _launch("kl_mu_h_numerator", "mu_kl_numerator", X, Ht, W,
-                  torch.empty_like(Ht), transposed=True)
+    (out,) = _launch("kl_mu_h_numerator", "mu_kl_numerator", X, Ht, W,
+                     (torch.empty_like(Ht),), transposed=True)
     kl_mu_h_numerator.launches += 1
     return out
 
@@ -194,11 +206,50 @@ def kl_x_log_wh(X, W, Ht):
     tiles = -(-W.shape[1] // library_constant("mu_tile_rows"))
     part = torch.empty((tiles, W.shape[0]), dtype=torch.float64,
                        device=W.device)
-    _launch(name, "mu_kl_x_log_wh", X, W, Ht, part, transposed=False)
+    _launch(name, "mu_kl_x_log_wh", X, W, Ht, (part,), transposed=False)
     kl_x_log_wh.launches += 1
     return part.sum(dim=0).to(torch.float32)
+
+
+def _check_beta(name, beta):
+    if beta in (1.0, 2.0):
+        raise ValueError(f"{name}: beta={beta} has its own path (1: the KL "
+                         "kernels, 2: plain matmuls)")
+
+
+def beta_mu_w_terms(X, W, Ht, beta: float):
+    """W-update numerator ``(X ∘ WH^(β−2))·Hᵀ`` and denominator
+    ``WH^(β−1)·Hᵀ`` per restart, WH floored at eps where the exponent is
+    negative, β ∉ {1, 2} → (num, den), each (B, N, K). Replaces
+    cnmf_tpu/ops/pallas_mu.py:beta_mu_w_terms."""
+    name = "beta_mu_w_terms"
+    _check_beta(name, beta)
+    if device_kind(name, W) == "cpu":
+        return beta_mu_w_terms_plain(X, W, Ht, beta)
+    outs = _launch(name, "mu_beta_terms", X, W, Ht,
+                   (torch.empty_like(W), torch.empty_like(W)),
+                   transposed=False, beta=beta)
+    beta_mu_w_terms.launches += 1
+    return outs
+
+
+def beta_mu_h_terms(X, W, Ht, beta: float):
+    """Ht-update numerator ``Wᵀ·(X ∘ WH^(β−2))`` and denominator
+    ``Wᵀ·WH^(β−1)`` per restart in the Ht layout, β ∉ {1, 2} → (num, den),
+    each (B, G, K). Replaces cnmf_tpu/ops/pallas_mu.py:beta_mu_h_terms."""
+    name = "beta_mu_h_terms"
+    _check_beta(name, beta)
+    if device_kind(name, Ht) == "cpu":
+        return beta_mu_h_terms_plain(X, W, Ht, beta)
+    outs = _launch(name, "mu_beta_terms", X, Ht, W,
+                   (torch.empty_like(Ht), torch.empty_like(Ht)),
+                   transposed=True, beta=beta)
+    beta_mu_h_terms.launches += 1
+    return outs
 
 
 kl_mu_w_numerator.launches = 0
 kl_mu_h_numerator.launches = 0
 kl_x_log_wh.launches = 0
+beta_mu_w_terms.launches = 0
+beta_mu_h_terms.launches = 0

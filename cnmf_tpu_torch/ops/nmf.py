@@ -4,10 +4,11 @@ beta-divergence multiplicative updates (MU).
 The CD and MU solvers of ``cnmf_tpu.ops.nmf``: the whole restart batch is one
 solve whose factors carry a leading restart axis ``B`` and share the data
 matrix X (cells × genes). Every CD half-sweep goes through ``ops.cd_kernels``
-and every KL (beta=1) MU term through ``ops.mu_kernels``: the fused Hopper
-kernels for CUDA tensors, the plain PyTorch versions for CPU tensors. beta=2
-MU runs plain matmuls everywhere (the JAX package has no kernel there);
-any other beta has no kernel yet and runs on CPU tensors only.
+and every MU term at beta != 2 (KL, Itakura-Saito, any other beta) through
+``ops.mu_kernels``: the fused Hopper kernels for CUDA tensors, the plain
+PyTorch versions for CPU tensors. beta=2 MU runs plain matmuls everywhere,
+and the divergence at beta ∉ {1, 2} plain torch ops (the JAX package has no
+kernel for either).
 
 CD semantics mirror sklearn's, as in the JAX package:
 
@@ -43,13 +44,13 @@ from cnmf_tpu_torch.ops.cd_kernels import (  # noqa: F401  (re-exported)
 )
 from cnmf_tpu_torch.ops.init import nnls_w_init
 from cnmf_tpu_torch.ops.mu_kernels import (
+    beta_mu_h_terms,
+    beta_mu_w_terms,
     kl_h_denominator,
     kl_mu_h_numerator,
     kl_mu_w_numerator,
     kl_w_denominator,
     kl_x_log_wh,
-    mu_h_terms_plain,
-    mu_w_terms_plain,
     wh_chunks,
 )
 
@@ -207,6 +208,18 @@ def nnls_cd_fixed_spectra(
     )
 
 
+def reconstruction_sse(X, W, H, row_chunk: int = 4096):
+    """sum((X − W·H)²), computed directly on row chunks of X: X (N, G),
+    W (N, K), H (K, G). The K-selection prediction error (reference
+    cnmf.py:925-930); the gram-trick form would cancel in float32. Only a
+    (row_chunk × G) reconstruction is live at a time."""
+    sse = torch.zeros((), dtype=X.dtype, device=X.device)
+    for s in range(0, X.shape[0], row_chunk):
+        diff = X[s:s + row_chunk] - W[s:s + row_chunk] @ H
+        sse = sse + torch.sum(diff * diff)
+    return sse
+
+
 def frobenius_error(X, W, Ht, XHt: Optional[torch.Tensor] = None):
     """sqrt(||X - WH||²_F) per restart, computed via K×K grams."""
     X_sq = torch.sum(X * X)
@@ -224,21 +237,6 @@ def frobenius_error(X, W, Ht, XHt: Optional[torch.Tensor] = None):
 
 _EPS64 = float(np.finfo(np.float64).eps)
 _MU_CHECK_EVERY = 10   # sklearn's MU convergence check cadence
-
-_GENERAL_BETA_NOT_PORTED = (
-    "multiplicative updates at beta={beta} (beta_loss other than 'frobenius' "
-    "and 'kullback-leibler', e.g. 'itakura-saito') have no CUDA kernel yet "
-    "and run on CPU tensors only: see ROADMAP.md, Queue 1, 'The IS / "
-    "general-beta MU slice'"
-)
-
-
-def _check_beta_device(beta: float, t: torch.Tensor):
-    """beta ∉ {1, 2} has no kernel: refuse it on anything but the CPU rather
-    than run its plain version on the card."""
-    if beta not in (1.0, 2.0) and t.device.type != "cpu":
-        raise NotImplementedError(_GENERAL_BETA_NOT_PORTED.format(beta=beta))
-
 
 def _kl_x_terms(X):
     """The X-only terms of the KL divergence over X > eps: (Σ X·log X, Σ X)."""
@@ -282,7 +280,6 @@ def beta_divergence_error(X, W, Ht, beta: float, x_terms=None):
         sum_WH = (W.sum(dim=1) * Ht.sum(dim=1)).sum(dim=1)
         divs = -kl_x_log_wh(X, W, Ht) + X_log_X - sum_X + sum_WH
     else:
-        _check_beta_device(beta, W)
         divs = _beta_divergence_chunked(X, W, Ht, beta)
     return torch.sqrt((2.0 * divs).clamp(min=0.0))
 
@@ -309,7 +306,7 @@ def _mu_update_w(X, W, Ht, beta, gamma, l1_reg, l2_reg):
         numerator = kl_mu_w_numerator(X, W, Ht)
         denominator = kl_w_denominator(Ht)
     else:
-        numerator, denominator = mu_w_terms_plain(X, W, Ht, beta)
+        numerator, denominator = beta_mu_w_terms(X, W, Ht, beta)
     return _mu_step(W, numerator, denominator, gamma, l1_reg, l2_reg)
 
 
@@ -321,7 +318,7 @@ def _mu_update_h(X, W, Ht, beta, gamma, l1_reg, l2_reg):
         numerator = kl_mu_h_numerator(X, W, Ht)
         denominator = kl_h_denominator(W)
     else:
-        numerator, denominator = mu_h_terms_plain(X, W, Ht, beta)
+        numerator, denominator = beta_mu_h_terms(X, W, Ht, beta)
     return _mu_step(Ht, numerator, denominator, gamma, l1_reg, l2_reg)
 
 
@@ -347,7 +344,6 @@ def nmf_multiplicative_update(
     below tol stop (sklearn's rule); the all-done flag is read on the host at
     those checks only, and frozen restarts stop changing. Returns W, Ht and
     n_iter (B,) int32."""
-    _check_beta_device(beta, W0)
     B = W0.shape[0]
     dev = W0.device
     if beta < 1:

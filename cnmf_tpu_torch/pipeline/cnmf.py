@@ -1,13 +1,14 @@
 """The cNMF pipeline over a run directory, in PyTorch.
 
-The main path of ``cnmf_tpu.pipeline.cnmf.cNMF`` — prepare, factorize,
-combine and consensus at one K — with the same on-disk artifact contract
+The five stages of ``cnmf_tpu.pipeline.cnmf.cNMF`` — prepare, factorize,
+combine, consensus at one K and k_selection_plot — with the same on-disk
+artifact contract
 (pipeline/paths.py, reference cnmf.py:298-330): a run directory written by
 either package is read by the other. The methods here are file wrappers;
 the array work lives in ``pipeline.stages``.
 
 Every solve runs on the ``device`` the object was created with. On CUDA the
-HALS half-sweeps and the KL multiplicative-update terms go through the
+HALS half-sweeps and the multiplicative-update terms go through the
 hand-written kernels of ``ops.cd_kernels`` and ``ops.mu_kernels``, which take
 float32 only: ``compute_dtype=np.float64`` is a CPU setting.
 Artifacts are written synchronously, so ``flush_writes`` has nothing to do.
@@ -43,8 +44,10 @@ from cnmf_tpu_torch.ops.distance import pairwise_euclidean
 from cnmf_tpu_torch.pipeline import stages
 from cnmf_tpu_torch.pipeline.paths import build_paths
 
-# the consensus default density threshold (reference cnmf.py:823)
-DEFAULT_DENSITY_THRESHOLD = 0.5
+DEFAULT_DENSITY_THRESHOLD = stages.DEFAULT_DENSITY_THRESHOLD
+
+# row schema of the k_selection table (reference cnmf.py:932-934)
+K_STATS_FIELDS = ["k", "local_density_threshold", "silhouette", "prediction_error"]
 
 
 def worker_filter(iterable, worker_index, total_workers):
@@ -445,6 +448,34 @@ class cNMF:
             )
         if build_ref:
             self.build_reference(k, density_threshold)
+
+    # ==================================================================
+    # K selection
+    # ==================================================================
+
+    def k_selection_plot(self, close_fig=False):
+        """Stability (silhouette) vs reconstruction-error sweep over every K
+        of the run (reference cnmf.py:1119-1158; Alexandrov et al. 2013):
+        writes the ``k_selection_stats`` table and the ``k_selection_plot``
+        figure and returns the table."""
+        from cnmf_tpu_torch.pipeline.plots import k_selection_figure
+
+        run_params = load_df_from_npz(self.paths["nmf_replicate_parameters"])
+        norm_counts = read_h5ad(self.paths["normalized_counts"])
+        merged = {
+            int(k): load_df_from_npz(self.paths["merged_spectra"] % k).values
+            for k in sorted(set(run_params.n_components))
+        }
+        rows = stages.k_stats_arrays(
+            merged, self._to_device(self._host_dense(norm_counts.X)),
+            self._load_run_params(),
+        )
+        stats = pd.DataFrame(np.asarray(rows, dtype=np.float64),
+                             columns=K_STATS_FIELDS)
+        save_df_to_npz(stats, self.paths["k_selection_stats"])
+        k_selection_figure(stats, self.paths["k_selection_plot"],
+                           close_fig=close_fig)
+        return stats
 
     # ==================================================================
     # starCAT reference and results

@@ -1,10 +1,10 @@
-"""Diagnostic plot: the consensus clustergram.
+"""Diagnostic plots: the consensus clustergram and the K-selection figure.
 
-Host-side matplotlib, mirroring the reference's figure (cnmf.py:986-1079).
-Within-cluster leaf ordering uses scipy average-linkage on the
+Host-side matplotlib, mirroring the reference's figures (cnmf.py:986-1079,
+1137-1158). Within-cluster leaf ordering uses scipy average-linkage on the
 already-computed distance matrix. matplotlib is imported by the plotting
-function only, so the pipeline runs without it when ``show_clustering`` is
-off.
+functions only, so the pipeline runs without it when no figure is asked
+for.
 """
 
 from __future__ import annotations
@@ -132,3 +132,33 @@ def clustergram(
         plt.close(fig)
     return fig
 
+
+def k_selection_figure(stats, out_png: str, close_fig: bool = True):
+    """Stability (silhouette) and error (prediction error) against K, on two
+    axes; ``stats`` has columns k, silhouette and prediction_error."""
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    fig = plt.figure(figsize=(6, 4))
+    ax1 = fig.add_subplot(111)
+    ax2 = ax1.twinx()
+
+    ax1.plot(stats.k, stats.silhouette, "o-", color="b")
+    ax1.set_ylabel("Stability", color="b", fontsize=15)
+    for tl in ax1.get_yticklabels():
+        tl.set_color("b")
+
+    ax2.plot(stats.k, stats.prediction_error, "o-", color="r")
+    ax2.set_ylabel("Error", color="r", fontsize=15)
+    for tl in ax2.get_yticklabels():
+        tl.set_color("r")
+
+    ax1.set_xlabel("Number of Components", fontsize=15)
+    ax1.grid("on")
+    plt.tight_layout()
+    fig.savefig(out_png, dpi=250)
+    if close_fig:
+        plt.close(fig)
+    return fig

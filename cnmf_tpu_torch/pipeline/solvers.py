@@ -7,8 +7,9 @@ cnmf.py:618-631) and every stage rebuilds its solver from it: ``solver="cd"``
 its tensors: CUDA tensors go through the hand-written kernels of
 ``ops.cd_kernels`` and ``ops.mu_kernels``, CPU tensors through their plain
 PyTorch versions. That replaces the JAX package's ``cd_pallas_eligible`` /
-``mu_pallas_eligible`` gates. On CUDA, MU at beta=1 runs the kernels, at
-beta=2 plain matmuls, and any other beta raises ``NotImplementedError``.
+``mu_pallas_eligible`` gates. On CUDA every beta runs: MU at beta=2 runs
+plain matmuls, at beta=1 the KL kernels, at any other beta (0 is
+Itakura-Saito) the general-beta kernels.
 """
 
 from __future__ import annotations
@@ -86,6 +87,7 @@ def solve_nmf_batch(
     max_iter = int(nmf_kwargs.get("max_iter", 200))
     l1_reg_W, l1_reg_H, l2_reg_W, l2_reg_H = _regularization(nmf_kwargs, X.shape)
     if _is_mu(nmf_kwargs):
+        # any beta, on either device (ops.nmf picks the kernels per beta)
         return nmf_multiplicative_update(
             X, W0, Ht0,
             beta=beta_loss_to_float(nmf_kwargs.get("beta_loss", "frobenius")),

@@ -11,7 +11,9 @@ files; they can also be driven directly on in-memory data:
 * ``combine_arrays``: the per-restart spectra stacked into the merged matrix;
 * ``consensus_arrays``: KNN density filter, KMeans, cluster medians, the
   fixed-factor refits and the z-score OLS (the step-by-step consensus of
-  ``cnmf_tpu.pipeline.cnmf.consensus``).
+  ``cnmf_tpu.pipeline.cnmf.consensus``);
+* ``k_stats_arrays``: the K-selection table (silhouette and prediction error
+  of every K, ``cnmf_tpu.pipeline.cnmf.k_selection_plot``).
 
 Numerics follow the JAX package's CPU path: restart inits and the kmeans++
 seeding come from host ``np.random.RandomState`` draws, so both packages
@@ -31,6 +33,7 @@ from cnmf_tpu_torch.ops.cd_kernels import factors_from_numpy, pad_bucket
 from cnmf_tpu_torch.ops.distance import local_density_from_spectra
 from cnmf_tpu_torch.ops.init import random_init_batch
 from cnmf_tpu_torch.ops.kmeans import kmeans_fit
+from cnmf_tpu_torch.ops.kstats import consensus_k_stats
 from cnmf_tpu_torch.ops.normalize import (
     csr_column_subset,
     normalize_total,
@@ -39,10 +42,16 @@ from cnmf_tpu_torch.ops.normalize import (
 from cnmf_tpu_torch.ops.ols import efficient_ols_all_cols
 from cnmf_tpu_torch.ops.stats import fano_hvg_stats, mean_var
 from cnmf_tpu_torch.pipeline.solvers import (
+    _regularization,
+    beta_loss_to_float,
     refit_spectra_transposed,
     refit_usages,
     solve_nmf_batch,
 )
+
+# the consensus / K-selection default density threshold (reference
+# cnmf.py:823, 1127-1130)
+DEFAULT_DENSITY_THRESHOLD = 0.5
 
 
 # ----------------------------------------------------------------------
@@ -160,7 +169,7 @@ def factorize_k(X_host: np.ndarray, Xd: torch.Tensor, k: int, seeds,
     n_iter (B,)) as host arrays."""
     init = nmf_kwargs.get("init", "random")
     if init != "random":
-        raise NotImplementedError(
+        raise ValueError(
             f"init={init!r} is not ported to PyTorch yet (ROADMAP.md, "
             "Queue 1: nndsvd); use init='random'"
         )
@@ -287,3 +296,35 @@ def consensus_arrays(
 
     return Consensus(local_density, density_filter, l2_kept, labels, median,
                      usages, spectra_tpm, spectra_score)
+
+
+# ----------------------------------------------------------------------
+# K selection
+# ----------------------------------------------------------------------
+
+def k_stats_arrays(merged_by_k: dict, norm_counts: torch.Tensor,
+                   nmf_kwargs: dict) -> list:
+    """The K-selection table (reference cnmf.py:1119-1135): for each K of
+    ``merged_by_k`` ({K: merged (n_iter·K × HVGs) spectra}), in increasing
+    order, the row (K, density threshold 0.5, silhouette, prediction
+    error) of ``ops.kstats.consensus_k_stats`` on the L2-normalized spectra,
+    with the run's solver, beta, tolerance, iteration limit and W
+    regularization. norm_counts: (cells × HVGs) tensor on the solve's
+    device."""
+    l1_reg_W, _, l2_reg_W, _ = _regularization(nmf_kwargs,
+                                               tuple(norm_counts.shape))
+    dtype = torch.empty(0, dtype=norm_counts.dtype).numpy().dtype
+    rows = []
+    for k in sorted(merged_by_k):
+        l2 = np.ascontiguousarray(l2_normalize(np.asarray(merged_by_k[k])),
+                                  dtype=dtype)
+        sil, sse = consensus_k_stats(
+            norm_counts, l2, int(k),
+            solver=nmf_kwargs.get("solver", "cd"),
+            beta=beta_loss_to_float(nmf_kwargs.get("beta_loss", "frobenius")),
+            refit_tol=float(nmf_kwargs.get("tol", 1e-4)),
+            refit_max_iter=int(nmf_kwargs.get("max_iter", 200)),
+            l1_reg_W=l1_reg_W, l2_reg_W=l2_reg_W,
+        )
+        rows.append((int(k), DEFAULT_DENSITY_THRESHOLD, sil, sse))
+    return rows

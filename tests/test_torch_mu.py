@@ -2,10 +2,10 @@
 ops.nmf's MU solver, pipeline.solvers' MU branches) against the JAX package
 on the same numpy inputs, on the CPU.
 
-* The plain versions of the three KL kernels against the Pallas kernels of
+* The plain versions of the five MU kernels against the Pallas kernels of
   cnmf_tpu/ops/pallas_mu.py in interpret mode, in f32, at the bounds of
-  tests/test_pallas_kernels.py (rtol 2e-5 for the numerators, 1e-4 relative
-  for the divergence term).
+  tests/test_pallas_kernels.py (rtol 2e-5 for the KL numerators, 3e-5 for
+  the general-beta terms, 1e-4 relative for the divergence term).
 * The solvers against the JAX package's XLA path (use_pallas=False) in f64:
   identical iteration counts, factors to 1e-6.
 
@@ -29,14 +29,16 @@ from cnmf_tpu_torch.ops import nmf as pt_nmf
 from cnmf_tpu_torch.pipeline import solvers as pt_solvers
 
 NUM_RTOL = 2e-5
+BETA_RTOL = 3e-5
 XLOGWH_REL = 1e-4
 FACTOR_TOL = 1e-6
 KERNELS = ["kl_mu_w_numerator", "kl_mu_h_numerator", "kl_x_log_wh"]
+BETA_KERNELS = ["beta_mu_w_terms", "beta_mu_h_terms"]
 
 
 @pytest.fixture
 def interpret_mode(monkeypatch):
-    for name in KERNELS:
+    for name in KERNELS + BETA_KERNELS:
         monkeypatch.setattr(
             pm, name, functools.partial(getattr(pm, name), interpret=True)
         )
@@ -76,12 +78,41 @@ def test_kl_kernel_plain_matches_pallas_interpret(interpret_mode, name, B, K):
         assert not out[:, :, -2:].any()
 
 
+@pytest.mark.parametrize("K", [8, 16])
+@pytest.mark.parametrize("B", [3, 5])
+@pytest.mark.parametrize("beta", [0.0, 0.5, 1.5, 3.0])
+def test_beta_terms_plain_matches_pallas_interpret(interpret_mode, beta, B, K):
+    """Both general-beta kernels, numerator and denominator; beta 0 is
+    Itakura-Saito, 0.5 floors both exponents' bases, 1.5 the numerator's
+    only, 3 neither."""
+    X, W, Ht = kernel_problem(B, K, seed=1)
+    for name in BETA_KERNELS:
+        ref = getattr(pm, name)(jnp.asarray(X), jnp.asarray(W),
+                                jnp.asarray(Ht), beta)
+        out = getattr(mk, name)(_t(X), _t(W), _t(Ht), beta)
+        for a, b in zip(out, ref):
+            assert a.shape == b.shape
+            np.testing.assert_allclose(a.numpy(), np.asarray(b),
+                                       rtol=BETA_RTOL)
+            assert not a[:, :, -2:].any()
+
+
+def test_beta_wrappers_refuse_kl_and_frobenius():
+    X, W, Ht = (_t(a) for a in kernel_problem(3, 8))
+    for name in BETA_KERNELS:
+        for beta in (1.0, 2.0):
+            with pytest.raises(ValueError, match="own path"):
+                getattr(mk, name)(X, W, Ht, beta)
+
+
 def test_plain_versions_are_chunk_invariant(monkeypatch):
     """The restart chunking only bounds memory: one chunk and chunks of 2
     give the same bits."""
     X, W, Ht = (_t(a).double() for a in kernel_problem(5, 8, seed=3))
     for plain in (mk.kl_mu_w_numerator_plain, mk.kl_mu_h_numerator_plain,
-                  mk.kl_x_log_wh_plain):
+                  mk.kl_x_log_wh_plain,
+                  functools.partial(mk.beta_mu_w_terms_plain, beta=0.0),
+                  functools.partial(mk.beta_mu_h_terms_plain, beta=1.5)):
         one = plain(X, W, Ht)
         monkeypatch.setattr(mk, "CHUNK", 2)
         torch.testing.assert_close(plain(X, W, Ht), one, rtol=0, atol=0)
@@ -98,12 +129,15 @@ def test_cpu_tensors_launch_nothing(monkeypatch):
     monkeypatch.setitem(sys.modules, "triton", None)
     monkeypatch.setenv("PATH", "")
     monkeypatch.setenv("CUDA_HOME", "/nonexistent")
-    for name in KERNELS:
+    for name in KERNELS + BETA_KERNELS:
         monkeypatch.setattr(getattr(mk, name), "launches", 0)
     X, W, Ht = (_t(a) for a in kernel_problem(3, 8))
     for name in KERNELS:
         getattr(mk, name)(X, W, Ht)
-    assert [getattr(mk, name).launches for name in KERNELS] == [0, 0, 0]
+    for name in BETA_KERNELS:
+        getattr(mk, name)(X, W, Ht, 0.0)
+    assert [getattr(mk, name).launches for name in KERNELS + BETA_KERNELS] \
+        == [0] * 5
     assert load_library.cache_info().currsize == 0
 
 

@@ -138,20 +138,45 @@ def test_frobenius_error_matches_jax():
 
 
 def test_mu_solver_not_ported_raises():
-    """MU at a beta other than 1 and 2 has no kernel yet: on any device but
-    the CPU it raises before any work (meta tensors stand in for the card)
-    instead of running its plain version there."""
+    """Off the CPU, MU at every beta reaches a kernel wrapper, which refuses
+    a device it has no kernel for before any work (meta tensors stand in
+    for one) instead of running its plain version there. The divergence at
+    beta ∉ {1, 2} is plain torch ops on any device (the JAX package has no
+    kernel for it)."""
     W0 = torch.ones(1, 60, 8, device="meta")
     Ht0 = torch.ones(1, 40, 8, device="meta")
     X = torch.ones(60, 40, device="meta")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="no kernel for device meta"):
         pt_solvers.solve_nmf_batch(
             X, W0, Ht0, dict(solver="mu", beta_loss="itakura-saito"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pt_nmf.beta_divergence_error(X, W0, Ht0, 0.5)
+    err = pt_nmf.beta_divergence_error(X, W0, Ht0, 0.5)
+    assert err.shape == (1,) and err.device.type == "meta"
     with pytest.raises(ValueError, match="no kernel for device meta"):
         pt_solvers.solve_nmf_batch(
             X, W0, Ht0, dict(solver="mu", beta_loss="kullback-leibler"))
     assert pt_solvers.beta_loss_to_float("itakura-saito") == 0.0
     assert pt_solvers.compute_regularization(0.1, "same", 0.5, (10, 20)) == \
         jax_solvers.compute_regularization(0.1, "same", 0.5, (10, 20))
+
+
+@pytest.mark.parametrize("solver", ["cd", "mu"])
+def test_wide_k_solve_matches_jax(solver):
+    """K = 70, padded to 72 (the card runs the kernels' wide variants there):
+    the same iteration counts and factors as the JAX package at K = 70."""
+    X = make_counts(n=90, g=80, k=6, seed=8)
+    W0, Ht0 = jax_init.random_init_batch(X, 70, [3, 4], dtype=np.float64)
+    kwargs = dict(solver=solver, tol=1e-4, max_iter=40, alpha_W=0.0,
+                  alpha_H="same", l1_ratio=0.0,
+                  beta_loss="frobenius" if solver == "cd" else "itakura-saito")
+    W_j, Ht_j, n_j = jax_solvers.solve_nmf_batch(
+        jnp.asarray(X), jnp.asarray(W0), jnp.asarray(Ht0), kwargs,
+        allow_pallas=False)
+    pad = ((0, 0), (0, 0), (0, 2))
+    W0t, Ht0t = factors_from_numpy(np.pad(W0, pad), np.pad(Ht0, pad),
+                                   device="cpu", dtype=np.float64)
+    W_p, Ht_p, n_p = pt_solvers.solve_nmf_batch(torch.from_numpy(X), W0t,
+                                                Ht0t, kwargs)
+    np.testing.assert_array_equal(n_p.numpy(), np.asarray(n_j))
+    assert _rel(W_p[:, :, :70].numpy(), W_j) < FACTOR_TOL
+    assert _rel(Ht_p[:, :, :70].numpy(), Ht_j) < FACTOR_TOL
+    assert not W_p[:, :, 70:].any() and not Ht_p[:, :, 70:].any()

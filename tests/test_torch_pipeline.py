@@ -3,10 +3,12 @@ against the goldens, and across run directories, in float64 on the CPU.
 
 The recipe is the verify recipe (300×400 counts with 6 planted programs,
 components [5, 6], 5 restarts, 200 HVGs, consensus k=6 at density threshold
-0.5), with the default frobenius loss (CD solver) and with
-``beta_loss="kullback-leibler"`` (MU solver, 200 iterations at most).
-Consensus artifacts are compared at SSE < 1e-4 computed as in
-tests/test_golden.py; merged spectra at 1e-6."""
+0.5, then k_selection_plot), with the default frobenius loss (CD solver) and
+with ``beta_loss="kullback-leibler"`` and ``"itakura-saito"`` (MU solver,
+200 iterations at most). Consensus artifacts are compared at SSE < 1e-4
+computed as in tests/test_golden.py; merged spectra at 1e-6; the
+K-selection table's silhouettes at 1e-8 absolute and prediction errors at
+1e-6 relative (the Itakura-Saito refits' errors span many decades)."""
 
 import os
 import shutil
@@ -29,6 +31,8 @@ K = 6
 DT = "0_5"
 SSE_TOL = 1e-4
 MERGED_TOL = 1e-6
+SIL_ABS = 1e-8
+PRED_ERR_REL = 1e-6
 GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "goldens")
 CONSENSUS_ARTIFACTS = ["consensus_spectra", "consensus_usages",
                        "gene_spectra_tpm", "gene_spectra_score",
@@ -71,13 +75,14 @@ def workdir(tmp_path_factory):
 
 
 def run_recipe(workdir, tag, **prepare_kwargs):
-    """The recipe through each package end to end."""
+    """The recipe through each package end to end, k-selection included."""
     out = {}
     for pkg in ("jax", "torch"):
         obj = make(pkg, workdir / f"{pkg}{tag}")
         obj.prepare(counts_fn=str(workdir / "counts.txt"), components=[5, 6],
                     n_iter=5, seed=14, num_highvar_genes=200, **prepare_kwargs)
         out[pkg] = finish(obj)
+        obj.k_selection_plot(close_fig=True)
     return out
 
 
@@ -93,9 +98,20 @@ def kl_runs(workdir):
 
 
 @pytest.fixture(scope="module")
+def is_runs(workdir):
+    return run_recipe(workdir, "_is", beta_loss="itakura-saito",
+                      max_NMF_iter=200)
+
+
+RECIPES = {"frobenius": "runs", "kullback-leibler": "kl_runs",
+           "itakura-saito": "is_runs"}
+
+
+@pytest.fixture(scope="module")
 def crossed(workdir, runs):
     """Each package finishes (factorize → consensus) from a run directory the
-    other package prepared."""
+    other package prepared; then the preparing package runs
+    k_selection_plot on the directory the other one factorized."""
     out = {}
     for prep_pkg, fin_pkg in (("jax", "torch"), ("torch", "jax")):
         dst = workdir / f"{prep_pkg}_prepared"
@@ -106,6 +122,7 @@ def crossed(workdir, runs):
                         dst / NAME / "cnmf_tmp")
         shutil.copy(src["nmf_genes_list"], dst / NAME)
         out[prep_pkg] = finish(make(fin_pkg, dst))
+        make(prep_pkg, dst).k_selection_plot(close_fig=True)
     return out
 
 
@@ -209,6 +226,52 @@ def test_kl_run_persists_mu_kwargs(kl_runs):
     assert kw["max_iter"] == 200
 
 
+@pytest.mark.parametrize("k", [5, 6])
+def test_is_merged_spectra_match(is_runs, k):
+    assert_merged_match(is_runs, k)
+
+
+@pytest.mark.parametrize("artifact", CONSENSUS_ARTIFACTS)
+def test_is_consensus_artifacts_match_jax(is_runs, artifact):
+    assert_artifact_match(is_runs, artifact)
+
+
+def assert_k_stats_match(ref_obj, obj):
+    a = load_df_from_npz(ref_obj.paths["k_selection_stats"])
+    b = load_df_from_npz(obj.paths["k_selection_stats"])
+    assert list(b.columns) == list(a.columns) == [
+        "k", "local_density_threshold", "silhouette", "prediction_error"]
+    assert list(b.index) == list(a.index)
+    np.testing.assert_array_equal(b[["k", "local_density_threshold"]].values,
+                                  a[["k", "local_density_threshold"]].values)
+    np.testing.assert_allclose(b.silhouette.values, a.silhouette.values,
+                               rtol=0, atol=SIL_ABS)
+    np.testing.assert_allclose(b.prediction_error.values,
+                               a.prediction_error.values, rtol=PRED_ERR_REL)
+    assert os.path.getsize(obj.paths["k_selection_plot"]) > 0
+    return b
+
+
+@pytest.mark.parametrize("loss", list(RECIPES))
+def test_k_selection_stats_match_jax(request, loss):
+    recipe = request.getfixturevalue(RECIPES[loss])
+    stats = assert_k_stats_match(recipe["jax"], recipe["torch"])
+    assert list(stats.k) == [5, 6]
+    assert np.isfinite(stats.values).all()
+
+
+def test_k_selection_silhouette_peaks_at_planted_k(runs):
+    stats = load_df_from_npz(runs["torch"].paths["k_selection_stats"])
+    assert stats.k[stats.silhouette.idxmax()] == K
+
+
+@pytest.mark.parametrize("prepared_by", ["jax", "torch"])
+def test_k_selection_on_crossed_directories(runs, crossed, prepared_by):
+    """k_selection_plot on a directory the other package factorized agrees
+    with the JAX package's own run."""
+    assert_k_stats_match(runs["jax"], crossed[prepared_by])
+
+
 @pytest.mark.parametrize("prepared_by", ["jax", "torch"])
 @pytest.mark.parametrize("artifact", CONSENSUS_ARTIFACTS)
 def test_run_directories_cross_packages(runs, crossed, prepared_by, artifact):
@@ -290,7 +353,8 @@ def test_port_imports_without_jax():
     code = (
         "import sys, cnmf_tpu_torch\n"
         "import cnmf_tpu_torch.pipeline.stages, cnmf_tpu_torch.ops.cd_kernels\n"
-        "import cnmf_tpu_torch.ops.mu_kernels\n"
+        "import cnmf_tpu_torch.ops.mu_kernels, cnmf_tpu_torch.ops.kstats\n"
+        "import cnmf_tpu_torch.ops.silhouette\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'cnmf_tpu' or m.startswith('cnmf_tpu.')]\n"
         "assert not bad, bad\n"
@@ -339,6 +403,9 @@ def test_stages_run_without_file_packages():
         "    kw, density_threshold=2.0)\n"
         "assert res.usages.shape == (80, 3) and np.isfinite(res.usages).all()\n"
         "assert res.spectra_tpm.shape == (3, 120)\n"
+        "rows = stages.k_stats_arrays({3: merged}, torch.as_tensor(X), kw)\n"
+        "assert [r[:2] for r in rows] == [(3, 0.5)]\n"
+        "assert np.isfinite(rows[0][2:]).all()\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in BLOCKED]\n"
         "assert not bad, bad\n"
         "print('clean')\n"
