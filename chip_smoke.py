@@ -17,7 +17,8 @@ Phases, each printing its own line(s):
    the card's SMs; ragged cases with B off the restart groups), the KL
    multiplicative-update kernels and the general-beta kernels (at beta 0
    and 1.5) at the factorize shape (K=16, and K=8 with zero columns), the W
-   terms at the consensus refits' two shapes; then ragged shapes at every K
+   terms at the consensus refits' two shapes (the KL numerators with their
+   share of the bound and their kernel's grid); then ragged shapes at every K
    bucket 8..64 and at the wide K 72 and 136 of every entry point, one line
    per kernel and K range (each case asserts the bound, and that zero K
    columns stay exactly zero); then the slice at the verify recipe's size on
@@ -123,7 +124,8 @@ MU_REFIT = [(dict(B=1, N=2700, G=2000, K=16), "usage refit", False),
              "spectra refit, X a transposed view", True)]
 MU_RAGGED = [dict(B=3 + 2 * (i % 3), N=300 + 37 * i, G=150 + 29 * i, K=K)
              for i, K in enumerate(list(range(8, 65, 8)) + [72, 136])]
-KL_KERNELS = ("kl_mu_w_numerator", "kl_mu_h_numerator", "kl_x_log_wh")
+KL_NUMERATORS = ("kl_mu_w_numerator", "kl_mu_h_numerator")
+KL_KERNELS = KL_NUMERATORS + ("kl_x_log_wh",)
 BETA_KERNELS = ("beta_mu_w_terms", "beta_mu_h_terms")
 BETAS = (0.0, 1.5)   # Itakura-Saito, and a beta that takes powf
 MU_REFIT_KERNELS = ("kl_mu_w_numerator", "kl_x_log_wh", "beta_mu_w_terms")
@@ -239,17 +241,18 @@ def main_record(records, name, K, abs_err, suffix="", **values):
     rec.update({key + suffix: v for key, v in values.items()})
 
 
-def fused_grid(ck, name, B, N, G, K):
-    """The fused CD kernel's grid at this shape: (blocks, restarts per
-    block, rows per block, threads per block, blocks an SM holds, waves on
-    the card's SMs)."""
+def grid_text(tiling, B, M):
+    """A launch's grid over B restarts and M output rows, from its kernel's
+    tiling (rows a block owns, restarts, threads, blocks an SM holds): its
+    blocks and their waves on the card's SMs."""
     import torch
 
-    transposed = name == "cd_h_half_sweep"
-    rows, rb, threads, per_sm = ck.fused_tiling(K, transposed)
-    blocks = -(-(G if transposed else N) // rows) * -(-B // rb)
+    rows, rb, threads, per_sm = tiling
+    blocks = -(-M // rows) * -(-B // rb)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    return blocks, rb, rows, threads, per_sm, blocks / max(per_sm * sms, 1)
+    return (f"grid {blocks} blocks of {rb} restarts x {rows} rows ({threads} "
+            f"threads), {per_sm} per SM, {blocks / max(per_sm * sms, 1):.2f} "
+            "waves")
 
 
 def phase_kernels(dev, card):
@@ -295,16 +298,15 @@ def phase_kernels(dev, card):
                 (lambda: ck._shared_x_dot(X, Ht)) if name == "cd_w_half_sweep"
                 else (lambda: ck._shared_xt_dot(X, W)))
             bound_ms, by = bound(*kernel_work(name, X.cpu().numpy(), **shape))
-            blocks, rb, rows, threads, per_sm, waves = fused_grid(
-                ck, name, **shape)
+            transposed = name == "cd_h_half_sweep"
+            grid = grid_text(ck.fused_tiling(shape["K"], transposed),
+                             shape["B"], shape["G" if transposed else "N"])
             print(f"[kernel] {name} main {shape} zero K columns {pad}: "
                   f"max_rel_diff={rel_err:.3e} (bound {KERNEL_REL_BOUND:g}) "
                   f"max_abs_err={abs_err:.3e} kernel_ms={ms:.4f} "
                   f"plain_ms={plain_ms:.4f} product_ms={product_ms:.4f} "
                   f"bound_ms={bound_ms:.4f} share_of_bound={bound_ms / ms:.1%}; "
-                  f"grid {blocks} blocks of {rb} restarts x {rows} rows "
-                  f"({threads} threads), {per_sm} per SM, {waves:.2f} waves; "
-                  f"card: {card}", flush=True)
+                  f"{grid}; card: {card}", flush=True)
             main_record(records, name, shape["K"], abs_err, ms=ms,
                         plain_ms=plain_ms, product_ms=product_ms,
                         share_of_bound=bound_ms / ms)
@@ -405,17 +407,28 @@ def phase_mu_kernels(dev, card):
             ms = timed_ms(lambda: kernel(*args))
             plain_ms = timed_ms(lambda: plain(*args))
             beta_txt = "" if beta is None else f" beta={beta:g}"
+            bound_ms, by = bound(*kernel_work(name, X_host, **shape))
+            extra, share = "", {}
+            if name in KL_NUMERATORS:
+                # the KL numerators: share of the bound and the kernel's grid
+                transposed = name == "kl_mu_h_numerator"
+                share = dict(share_of_bound=bound_ms / ms)
+                extra = (f" bound_ms={bound_ms:.4f} share_of_bound="
+                         f"{bound_ms / ms:.1%}; " + grid_text(
+                             mk.kl_numerator_tiling(X, shape["B"], shape["K"],
+                                                    transposed),
+                             shape["B"], shape["G" if transposed else "N"]))
             print(f"[kernel] {name}{beta_txt} {tag} {shape} zero K columns "
                   f"{pad}: max_rel_diff={rel_err:.3e} (bound "
                   f"{KERNEL_REL_BOUND:g}) max_abs_err={abs_err:.3e} "
-                  f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f}; card: {card}",
-                  flush=True)
+                  f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f}{extra}; card: "
+                  f"{card}", flush=True)
             if tag == "main":
                 main_record(records, name, shape["K"], abs_err, suffix,
-                            ms=ms, plain_ms=plain_ms)
+                            ms=ms, plain_ms=plain_ms, **share)
                 if shape["K"] == 16 and suffix == "":
                     records[name]["bound_ms"], records[name]["bound_by"] = \
-                        bound(*kernel_work(name, X_host, **shape))
+                        bound_ms, by
     ragged_lines.print(card)
     return records
 
@@ -676,7 +689,8 @@ def mu_slice(label, counts, k_cons, n_iter, hvg, dev, kwargs, names, card,
 
 
 # what a kernel family's bool template argument selects, (false, true)
-BOOL_TAGS = {"beta_terms_kernel": ("beta", "IS"), "cd_fused_kernel": ("W", "H")}
+BOOL_TAGS = {"beta_terms_kernel": ("beta", "IS"), "cd_fused_kernel": ("W", "H"),
+             "kl_numerator_tiled_kernel": ("W", "H")}
 
 
 def ptxas_lines(log_path):

@@ -1,25 +1,35 @@
 #!/usr/bin/env python3
-"""Times the fused CD half-sweep kernel against other versions of it on one
-CUDA card.
+"""Times a restart-tiled kernel of the port against other versions of it on
+one CUDA card, and checks that every version gives the tree's bits.
 
-    python3 chip_tune_cd.py [--against NAME=CSRC_DIR ...] [--rounds 10]
+    python3 chip_tune_cd.py [--kernel cd|kl] [--against NAME=CSRC_DIR ...]
+                            [--rounds 10]
 
-Builds this checkout's cnmf_tpu_torch/csrc/cd_half_sweep.cu ("tree") and the
-cd_half_sweep.cu of every --against directory (an earlier kernel, or a copy
-with other tilings, with the same C entry point), one nvcc per build, all
-started together. At chip_smoke.py's main shape (B=100 restarts, N=2700
-cells, G=2000 genes) and every register bucket K = 8..64 (K=8 with 3 zero
-columns), each build runs the W and the H half-sweep on the same inputs: its
-result must be within 1e-4 of the plain PyTorch version and its factor the
-same bits as the tree's (the violations may differ by their summation
-order). Then the builds are timed in turns, the order reversed every round,
+Builds this checkout's source of the kernel ("tree") and the same file of
+every --against directory (an earlier csrc/, or a copy with other tilings,
+with the same C entry point), one nvcc per build, all started together.
+Each build then runs every case on the same inputs: its result must be
+within 1e-4 of the plain PyTorch version and have the same bits as the
+tree's. Then the builds are timed in turns, the order reversed every round,
 with CUDA events around LAUNCHES launches into buffers allocated once.
 
+--kernel cd (the default): the fused CD half-sweep (csrc/cd_half_sweep.cu)
+at chip_smoke.py's main shape (B=100 restarts, N=2700 cells, G=2000 genes)
+and every register bucket K = 8..64 (K=8 with 3 zero columns), W and H
+half; the violations are compared by value (their summation order may
+differ), the factor by bits.
+
+--kernel kl: the KL multiplicative-update numerator (csrc/mu_kl.cu,
+mu_kl_numerator) on X like normalized counts (a third of it zero): the
+factorize shape at K=16 and 8 (3 zero columns), W and H side; the two B=1
+consensus refits (row-major X, and X a transposed view); B=13 and 17 with G
+not a multiple of 4 (4-byte staging); bucket 24 and the wide K=72.
+
 Prints the registers and spills of every build, the instruction mix of the
-tree's main loop at K=8 and 16 (cuobjdump), one line per bucket and half
-with every build's median ms per launch and the tree's grid (blocks,
-restarts per block, waves on the card's SMs), and the card's name and power
-limit. Exits 1 if a check failed.
+tree's main loop at K=8 and 16 (cuobjdump), one line per case with every
+build's median ms per launch and the tree's grid (blocks, restarts per
+block, blocks per SM, waves on the card's SMs), and the card's name and
+power limit. Exits 1 if a check failed.
 """
 
 import argparse
@@ -33,18 +43,41 @@ import time
 
 import numpy as np
 
-BUCKETS = (8, 16, 24, 32, 40, 48, 56, 64)
+CD_BUCKETS = (8, 16, 24, 32, 40, 48, 56, 64)
 ZERO_COLS = {8: 3}                # the main path's K=5..8 run bucket 8
 SHAPE = dict(B=100, N=2700, G=2000)
+# (label, B, N, G, K, zero K columns, side, X a transposed view of a (G, N)
+# buffer): the KL factorize's buckets, its consensus refits (W side only),
+# restarts off the tiled kernel's restart groups with X's pitch not a
+# multiple of 4, and two buckets whose code this kernel does not change
+KL_CASES = [("factorize", 100, 2700, 2000, K, ZERO_COLS.get(K, 0), side, False)
+            for K in (16, 8) for side in "WH"] + [
+    ("usage refit", 1, 2700, 2000, 16, 0, "W", False),
+    ("spectra refit", 1, 10000, 2700, 16, 0, "W", True),
+    ("ragged", 13, 522, 97, 8, 2, "W", False),
+    ("ragged", 13, 522, 97, 8, 2, "H", False),
+    ("ragged", 17, 450, 333, 16, 2, "W", False),
+    ("ragged", 17, 450, 333, 16, 2, "H", False),
+    ("ragged", 13, 301, 129, 16, 2, "H", False),
+    ("ragged", 17, 389, 271, 8, 2, "W", False),
+    ("bucket 24", 20, 2700, 2000, 24, 0, "W", False),
+    ("bucket 24", 20, 2700, 2000, 24, 0, "H", False),
+    ("wide", 10, 2700, 2000, 72, 0, "W", False),
+    ("wide", 10, 2700, 2000, 72, 0, "H", False)]
 LAUNCHES = 5
 REL_BOUND = 1e-4
+# the kernel's source file and the kernel family whose ptxas lines and main
+# loop are reported
+KERNELS = {"cd": ("cd_half_sweep.cu", "cd_fused_kernel"),
+           "kl": ("mu_kl.cu", "kl_numerator_tiled_kernel")}
 
 
-def loop_mix(so_path, K):
-    """The instruction mix of the fused kernel's main loop at bucket K, each
-    half: {half: (instructions, FFMA, the five most common other opcodes)}
-    from cuobjdump's SASS. The main loop is the backward branch whose body
-    holds the most FFMA; a body counts both ways of a branch inside it."""
+def loop_mix(so_path, family, K):
+    """The instruction mix of the family's main loop at bucket K, for each
+    value of its bool template argument (W: false, H: true): {half:
+    (instructions, FFMA, the five most common other opcodes)} from
+    cuobjdump's SASS. The main loop is the backward branch whose body holds
+    the most FFMA; a body counts both ways of a branch inside it."""
     from torch.utils.cpp_extension import CUDA_HOME
 
     sass = subprocess.run([os.path.join(CUDA_HOME, "bin", "cuobjdump"), "-sass",
@@ -52,7 +85,7 @@ def loop_mix(so_path, K):
                           text=True).stdout
     out = {}
     for func in re.split(r"\n\s*Function : ", sass):
-        m = re.match(rf"\S*cd_fused_kernelILi{K}ELb([01])E", func)
+        m = re.match(rf"\S*{family}ILi{K}ELb([01])E", func)
         if not m:
             continue
         ops = [(int(a, 16), op, ln) for ln in func.split("\n") for a, op in
@@ -74,15 +107,15 @@ def loop_mix(so_path, K):
     return out
 
 
-def build_all(sources, out_dir):
-    """{name: source} -> {name: (so path, ptxas lines of the fused kernel)},
+def build_all(sources, out_dir, family):
+    """{name: source} -> {name: (so path, ptxas lines of the family)},
     compiled in parallel."""
     from chip_smoke import ptxas_lines
     from cnmf_tpu_torch.ops.kernel_lib import _NVCC_FLAGS, _nvcc
 
     procs = {}
     for name, src in sources.items():
-        so = os.path.join(out_dir, f"libcd_{name}.so")
+        so = os.path.join(out_dir, f"lib{family}_{name}.so")
         log = open(so + ".log", "w")
         procs[name] = (so, log, subprocess.Popen(
             [_nvcc(), *_NVCC_FLAGS, "-shared", "-o", so, src],
@@ -95,94 +128,56 @@ def build_all(sources, out_dir):
             with open(so + ".log") as fh:
                 raise RuntimeError(f"{name}: nvcc failed\n{fh.read()}")
         out[name] = (so, [ln for ln in ptxas_lines(so + ".log")
-                          if "cd_fused_kernel" in ln])
+                          if family in ln])
     return out
 
 
-def bind(so):
-    """The library's fused entry point, bound with the port's argument
-    types (cnmf_tpu_torch/ops/cd_kernels.py)."""
-    from cnmf_tpu_torch.ops import cd_kernels as ck
+def bind(so, symbol, argtypes):
+    """The library's entry point, bound with the port's argument types."""
     from cnmf_tpu_torch.ops.kernel_lib import I32
 
-    fn = ctypes.CDLL(so).cd_half_sweep_fused
-    fn.argtypes = list(ck._FUSED_ARGS)
+    fn = getattr(ctypes.CDLL(so), symbol)
+    fn.argtypes = list(argtypes)
     fn.restype = I32
     return fn
 
 
-def launcher(fn, X, F, Fo, gram, transposed):
-    """A call of one build's half-sweep on these inputs, writing into
-    buffers allocated here. The partials have a row for every row of F, so
-    no build's tiling needs to be read: the rows a build's grid does not
-    write stay 0 in the sum."""
-    import torch
-
-    B, M, K = F.shape
-    N, G = X.shape
-    C, sxm, sxc = (N, 1, G) if transposed else (G, G, 1)
-    out = torch.empty_like(F)
-    part = torch.zeros((M, B), dtype=torch.float32, device=F.device)
-    stream = torch.cuda.current_stream().cuda_stream
-
-    def call():
-        rc = fn(X.data_ptr(), M, C, sxm, sxc, Fo.data_ptr(), F.data_ptr(),
-                gram.data_ptr(), 0.0, B, K, out.data_ptr(), part.data_ptr(),
-                None, stream)
+def raising(fn, symbol):
+    def call(*args):
+        rc = fn(*args)
         if rc != 0:
-            raise RuntimeError(f"cd_half_sweep_fused: CUDA error {rc}")
+            raise RuntimeError(f"{symbol}: CUDA error {rc}")
+    return call
 
-    return call, out, part
 
-
-def main():
+def bound_call(fn, *args):
+    """fn(*args) as a call of no arguments, the arguments fixed now (a
+    lambda in a loop would read the loop's last values when it runs); a
+    tensor is passed as its data pointer and kept alive by the call."""
     import torch
 
-    from chip_smoke import card_line
+    ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    return lambda: (args, fn(*ptrs))[1]
+
+
+def cd_cases(sos, sms, failed):
+    """The fused CD half-sweep: (label, {build: call}, grid) per bucket and
+    half, each build checked against plain and the tree's factor bits."""
+    import torch
+
     from cnmf_tpu_torch.ops import cd_kernels as ck
 
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--against", action="append", default=[],
-                    metavar="NAME=CSRC_DIR",
-                    help="csrc directory of another version of the kernel")
-    ap.add_argument("--rounds", type=int, default=10)
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        print("chip_tune_cd: no CUDA device", file=sys.stderr)
-        return 2
-    card = card_line()
-    here = os.path.dirname(os.path.abspath(__file__))
-    sources = {"tree": os.path.join(here, "cnmf_tpu_torch", "csrc",
-                                    "cd_half_sweep.cu")}
-    for spec in args.against:
-        name, _, path = spec.partition("=")
-        sources[name] = os.path.join(path, "cd_half_sweep.cu")
-    out_dir = os.path.join(here, "cnmf_tpu_torch", "_build", "tune")
-    os.makedirs(out_dir, exist_ok=True)
-    t0 = time.perf_counter()
-    built = build_all(sources, out_dir)
-    print(f"[tune-build] {len(built)} builds in parallel in "
-          f"{time.perf_counter() - t0:.2f} s; card: {card}", flush=True)
-    for name, (so, lines) in built.items():
-        for ln in lines:
-            print(f"[tune-ptxas] {name}: {ln}", flush=True)
-    tree_so = built["tree"][0]
-    for K in (8, 16):
-        for half, (n, ffma, rest) in sorted(loop_mix(tree_so, K).items()):
-            print(f"[tune-sass] tree K={K} {half}: main loop {n} instructions, "
-                  f"FFMA {ffma} ({ffma / n:.0%}); then {rest}", flush=True)
-    fns = {name: bind(so) for name, (so, _) in built.items()}
-    tiling = ctypes.CDLL(tree_so).cd_fused_tiling
-    tiling.argtypes = [ctypes.c_int] * 3
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-
+    fns = {name: raising(bind(so, "cd_half_sweep_fused", ck._FUSED_ARGS),
+                         "cd_half_sweep_fused") for name, so in sos.items()}
+    tiling = bind(sos["tree"], "cd_fused_tiling", [ctypes.c_int] * 3)
+    stream = torch.cuda.current_stream().cuda_stream
     rng = np.random.RandomState(0)
     dev = torch.device("cuda")
     B, N, G = SHAPE["B"], SHAPE["N"], SHAPE["G"]
     X = torch.as_tensor(rng.gamma(1.0, 1.0, (N, G)).astype(np.float32),
                         device=dev)
-    cases, failed = [], []
-    for K in BUCKETS:
+    cases = []
+    for K in CD_BUCKETS:
         avg = np.sqrt(1.0 / K)
         W = (avg * np.abs(rng.randn(B, N, K))).astype(np.float32)
         Ht = (avg * np.abs(rng.randn(B, G, K))).astype(np.float32)
@@ -192,12 +187,18 @@ def main():
         W, Ht = (torch.as_tensor(a, device=dev) for a in (W, Ht))
         for half, transposed in (("W", False), ("H", True)):
             F, Fo = (Ht, W) if transposed else (W, Ht)
+            M, C, sxm, sxc = (G, N, 1, G) if transposed else (N, G, G, 1)
             gram = ck._with_l2(ck._gram(Fo), 0.0)
             plain = (ck.cd_h_half_sweep_plain if transposed
                      else ck.cd_w_half_sweep_plain)(X, W, Ht)
             calls, rels, sames, viols = {}, [], [], []
             for name, fn in fns.items():
-                call, out, part = launcher(fn, X, F, Fo, gram, transposed)
+                out = torch.empty_like(F)
+                # a partials row for every row of F, so no build's tiling
+                # needs to be read: rows its grid does not write stay 0
+                part = torch.zeros((M, B), dtype=torch.float32, device=dev)
+                call = bound_call(fn, X, M, C, sxm, sxc, Fo, F, gram, 0.0, B,
+                                  K, out, part, None, stream)
                 call()
                 torch.cuda.synchronize()
                 viol = part.sum(dim=0)
@@ -220,35 +221,149 @@ def main():
                   f"{', '.join(rels)}; factor bits equal to tree's: "
                   f"{', '.join(sames) or '-'}; violation max rel diff "
                   f"{', '.join(viols) or '-'}", flush=True)
-            cases.append((K, half, transposed, calls))
+            grid = [tiling(K, int(transposed), f) for f in range(4)]
+            cases.append((f"K={K} {half}", calls, grid_text(grid, B, M, sms)))
+    return cases
+
+
+def kl_cases(sos, sms, failed):
+    """The KL numerator: (label, {build: call}, grid) per case of KL_CASES,
+    each build checked against plain and the tree's bits."""
+    import torch
+
+    from cnmf_tpu_torch.ops import mu_kernels as mk
+    from cnmf_tpu_torch.ops.kernel_lib import I32, I64
+
+    fns = {name: raising(bind(so, "mu_kl_numerator", mk._ARGS),
+                         "mu_kl_numerator") for name, so in sos.items()}
+    tiling = bind(sos["tree"], "mu_kl_numerator_tiling",
+                  (I32, I32, I64, I64, I32))
+    stream = torch.cuda.current_stream().cuda_stream
+    rng = np.random.RandomState(1)
+    dev = torch.device("cuda")
+    cases = []
+    for label, B, N, G, K, pad, side, view in KL_CASES:
+        X = (rng.gamma(1.0, 1.0, (N, G)) * (rng.rand(N, G) > 0.3)).astype(
+            np.float32)
+        avg = np.sqrt(X.mean() / K)
+        W = (avg * np.abs(rng.randn(B, N, K))).astype(np.float32)
+        Ht = (avg * np.abs(rng.randn(B, G, K))).astype(np.float32)
+        W[:, :, K - pad:] = 0.0
+        Ht[:, :, K - pad:] = 0.0
+        X = (torch.as_tensor(np.ascontiguousarray(X.T), device=dev).T if view
+             else torch.as_tensor(X, device=dev))
+        W, Ht = (torch.as_tensor(a, device=dev) for a in (W, Ht))
+        transposed = side == "H"
+        F, Fo = (Ht, W) if transposed else (W, Ht)
+        M = F.shape[1]
+        C, sxm, sxc = mk._x_strides(X, transposed)
+        plain = (mk.kl_mu_h_numerator_plain if transposed
+                 else mk.kl_mu_w_numerator_plain)(X, W, Ht)
+        calls, rels, sames = {}, [], []
+        for name, fn in fns.items():
+            out = torch.empty_like(F)
+            call = bound_call(fn, X, M, C, sxm, sxc, Fo, F, B, K, out, stream)
+            call()
+            torch.cuda.synchronize()
+            rel = float((out - plain).abs().max() / plain.abs().max())
+            calls[name] = call
+            rels.append(f"{name} {rel:.3e}")
+            if name == "tree":
+                ref = out
+            else:
+                same = bool(torch.equal(out, ref))
+                sames.append(f"{name} {same}")
+                if not same:
+                    failed.append(f"{label} K={K} {side} {name}: bits differ")
+            if rel > REL_BOUND:
+                failed.append(f"{label} K={K} {side} {name}: {rel:.3e} from "
+                              "plain")
+        tag = f"{label} B={B} N={N} G={G} K={K} {side}"
+        print(f"[tune-check] {tag}: max_rel_diff vs plain {', '.join(rels)}; "
+              f"bits equal to tree's: {', '.join(sames) or '-'}", flush=True)
+        grid = [tiling(K, B, sxm, sxc, f) for f in range(4)]
+        cases.append((tag, calls, grid_text(grid, B, M, sms)))
+    return cases
+
+
+def grid_text(tiling, B, M, sms):
+    rows, rb, threads, per_sm = tiling
+    blocks = -(-M // rows) * -(-B // rb)
+    waves = f"{blocks / (per_sm * sms):.2f}" if per_sm else "n/a"
+    return (f"{rows} rows x {rb} restarts, {threads} threads, {blocks} "
+            f"blocks, {per_sm} per SM, waves {waves}")
+
+
+def main():
+    import torch
+
+    from chip_smoke import card_line
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--kernel", choices=sorted(KERNELS), default="cd")
+    ap.add_argument("--against", action="append", default=[],
+                    metavar="NAME=CSRC_DIR",
+                    help="csrc directory of another version of the kernel")
+    ap.add_argument("--rounds", type=int, default=10)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("chip_tune_cd: no CUDA device", file=sys.stderr)
+        return 2
+    card = card_line()
+    source, family = KERNELS[args.kernel]
+    here = os.path.dirname(os.path.abspath(__file__))
+    sources = {"tree": os.path.join(here, "cnmf_tpu_torch", "csrc", source)}
+    for spec in args.against:
+        name, _, path = spec.partition("=")
+        sources[name] = os.path.join(path, source)
+    out_dir = os.path.join(here, "cnmf_tpu_torch", "_build", "tune")
+    os.makedirs(out_dir, exist_ok=True)
+    t0 = time.perf_counter()
+    built = build_all(sources, out_dir, family)
+    print(f"[tune-build] {len(built)} builds of {source} in parallel in "
+          f"{time.perf_counter() - t0:.2f} s; card: {card}", flush=True)
+    for name, (so, lines) in built.items():
+        for ln in lines:
+            print(f"[tune-ptxas] {name}: {ln}", flush=True)
+    sos = {name: so for name, (so, _) in built.items()}
+    for K in (8, 16):
+        for half, (n, ffma, rest) in sorted(
+                loop_mix(sos["tree"], family, K).items()):
+            print(f"[tune-sass] tree {family} K={K} {half}: main loop {n} "
+                  f"instructions, FFMA {ffma} ({ffma / n:.0%}); then {rest}",
+                  flush=True)
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    failed = []
+    cases = (kl_cases if args.kernel == "kl" else cd_cases)(sos, sms, failed)
 
     times = collections.defaultdict(list)
-    names = list(fns)
+    names = list(sos)
     for rnd in range(args.rounds):
         order = names if rnd % 2 == 0 else names[::-1]
-        for K, half, _, calls in cases:
+        for tag, calls, _ in cases:
             for name in order:
-                calls[name]()
-                start = torch.cuda.Event(enable_timing=True)
-                end = torch.cuda.Event(enable_timing=True)
-                start.record()
-                for _ in range(LAUNCHES):
+                try:
                     calls[name]()
-                end.record()
-                end.synchronize()
-                times[(name, K, half)].append(start.elapsed_time(end) / LAUNCHES)
-    for K, half, transposed, _ in cases:
-        rows_b, rb, threads, per_sm = (tiling(K, int(transposed), f)
-                                       for f in range(4))
-        blocks = -(-(G if transposed else N) // rows_b) * -(-B // rb)
-        waves = f"{blocks / (per_sm * sms):.2f}" if per_sm else "n/a"
-        ms = {name: float(np.median(times[(name, K, half)])) for name in names}
+                    start = torch.cuda.Event(enable_timing=True)
+                    end = torch.cuda.Event(enable_timing=True)
+                    start.record()
+                    for _ in range(LAUNCHES):
+                        calls[name]()
+                    end.record()
+                    end.synchronize()
+                except Exception:
+                    print(f"[tune-fail] round {rnd}, {tag}, {name}: the "
+                          "launches failed", flush=True)
+                    raise
+                times[(name, tag)].append(start.elapsed_time(end) / LAUNCHES)
+    for tag, _, grid in cases:
+        ms = {name: float(np.median(times[(name, tag)])) for name in names}
         others = "".join(f" | {name} {ms[name]:.4f} ({ms[name] / ms['tree']:.2f}x)"
                          for name in names[1:])
-        print(f"[tune] K={K} {half}: tree {ms['tree']:.4f} ms ({rows_b} rows x "
-              f"{rb} restarts, {threads} threads, {blocks} blocks, {per_sm} per "
-              f"SM, waves {waves}){others}; median of {args.rounds} rounds x "
-              f"{LAUNCHES} launches", flush=True)
+        print(f"[tune] {tag}: tree {ms['tree']:.4f} ms ({grid}){others}; "
+              f"median of {args.rounds} rounds x {LAUNCHES} launches",
+              flush=True)
     for msg in failed:
         print(f"[tune-fail] {msg}", flush=True)
     print(card)

@@ -14,9 +14,13 @@ Float32 matrix products run in full float32: TF32 is switched off for
 matmuls and cuDNN when the package is imported, mirroring the JAX package's
 ``MATMUL_PRECISION='highest'`` (cnmf_tpu/ops/nmf.py:41-44).
 
-``cNMF`` and its file layer (pandas, yaml, h5py) load on first use, so
-``ops/`` and ``pipeline/stages.py`` import with numpy, scipy and torch only.
+``cNMF`` and the file layer it exports beside it (``AnnData``,
+``read_h5ad``, ``write_h5ad``, ``save_df_to_npz``, ``save_df_to_text``,
+``load_df_from_npz``; pandas, yaml, h5py) load on first use, so ``ops/`` and
+``pipeline/stages.py`` import with numpy, scipy and torch only.
 """
+
+import importlib
 
 import torch
 
@@ -24,12 +28,23 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 torch.set_float32_matmul_precision("highest")
 
-__all__ = ["cNMF"]
+__version__ = "0.1.0"
+
+# name -> the module that defines it, imported on first access
+_LAZY = {
+    "cNMF": "cnmf_tpu_torch.pipeline.cnmf",
+    "AnnData": "cnmf_tpu_torch.io.anndata_lite",
+    "read_h5ad": "cnmf_tpu_torch.io.h5ad",
+    "write_h5ad": "cnmf_tpu_torch.io.h5ad",
+    "save_df_to_npz": "cnmf_tpu_torch.io.dataframe",
+    "save_df_to_text": "cnmf_tpu_torch.io.dataframe",
+    "load_df_from_npz": "cnmf_tpu_torch.io.dataframe",
+}
+
+__all__ = [*_LAZY, "__version__"]
 
 
 def __getattr__(name):
-    if name == "cNMF":
-        from cnmf_tpu_torch.pipeline.cnmf import cNMF
-
-        return cNMF
+    if name in _LAZY:
+        return getattr(importlib.import_module(_LAZY[name]), name)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -65,6 +65,7 @@
 namespace {
 
 using cnmf::kThreads;
+using cnmf::ld4;
 constexpr int kChunk = 16;  // contraction entries staged per shared-memory round
 
 template <int K>
@@ -121,15 +122,6 @@ __device__ __forceinline__ void load_gram(float* gs, const float* __restrict__ g
 }
 
 // ---- the fused half-sweep of the register buckets ----
-
-// dst[0..3] = the float4 at src (16-byte aligned).
-__device__ __forceinline__ void ld4(float* dst, const float* src) {
-  const float4 v = *reinterpret_cast<const float4*>(src);
-  dst[0] = v.x;
-  dst[1] = v.y;
-  dst[2] = v.z;
-  dst[3] = v.w;
-}
 
 // One block owns kTM = 64 rows of RB restarts: a kTM x kTN tile of the data
 // product P = X . [F_other(b0) | ... | F_other(b0 + RB - 1)], kTN = RB * K

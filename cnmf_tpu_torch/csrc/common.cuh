@@ -54,6 +54,15 @@ __device__ __forceinline__ void store_rows(float* __restrict__ dst,
   }
 }
 
+// dst[0..3] = the float4 at src (16-byte aligned).
+__device__ __forceinline__ void ld4(float* dst, const float* src) {
+  const float4 v = *reinterpret_cast<const float4*>(src);
+  dst[0] = v.x;
+  dst[1] = v.y;
+  dst[2] = v.z;
+  dst[3] = v.w;
+}
+
 // xs[c][m] = X(m0 + m, c0 + c) for an X tile of TM rows, X element (m, c) at
 // X[m * sxm + c * sxc]. Entries past M or C load as 0, so a ragged edge is an
 // exact no-op. Neighbouring threads walk whichever axis of X is contiguous;

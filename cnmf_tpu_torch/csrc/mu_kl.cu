@@ -5,22 +5,19 @@
 //   kl_mu_h_numerator (:394, body _make_kl_h_terms_kernel :128) -> mu_kl_numerator, H side
 //   kl_x_log_wh (:357, body _make_kl_xlogwh_kernel :327)        -> mu_kl_x_log_wh
 // The two general-beta kernels of that file (beta_mu_w_terms,
-// beta_mu_h_terms) are in mu_beta.cu, on the same design.
+// beta_mu_h_terms) are in mu_beta.cu, on the one-row-per-thread design below.
 //
 // All three contract the reconstruction WH = W . Ht^T (N x G per restart)
-// against X without ever writing it to memory. One block owns one row tile of
-// one restart of the factor F whose rows index the output, and loops over the
-// whole contraction axis itself, staging chunks of X and of the other factor
-// Fo in shared memory. Each thread owns one row: it keeps the row of F (K
-// values) and, for the numerators, K accumulators in registers, and for each
-// staged contraction entry c computes
-//   wh    = F[m] . Fo[c]                      (K FMAs)
-//   ratio = X(m, c) / max(wh, eps)
+// against X without ever writing it to memory. For a factor F whose rows
+// index the output and the other factor Fo, contracted over, each (row m,
+// restart b) pair computes, for each contraction entry c in ascending order,
+//   wh    = F[m] . Fo[c]                      (K FMAs, k ascending from 0)
+//   ratio = X(m, c) / max(wh, eps)            (0 where X(m, c) is 0)
 //   acc  += ratio * Fo[c]                     (K FMAs)
 // so num[m] = sum_c X(m, c) / max(wh, eps) . Fo[c]. With F = W, Fo = Ht and X
 // read by rows this is (X / max(WH, eps)) . H^T; with F = Ht, Fo = W and X
 // read transposed it is W^T . (X / max(WH, eps)) in the Ht layout. X's strides
-// are arguments, so the same kernel also reads a transposed view of X (the
+// are arguments, so the same kernels also read a transposed view of X (the
 // consensus spectra refit of X^T) without a copy. The divergence term sums
 // X(m, c) . log(max(wh, eps)) over X > eps instead of accumulating; each
 // thread sums in double, the block reduces to one partial per (tile,
@@ -34,17 +31,33 @@
 // (pallas_mu.py:42).
 //
 // What bounds it on an H100: instruction throughput of the f32 pipe. Per
-// staged element and restart a numerator spends 2K FMAs plus one IEEE
-// division (about ten instructions; skipped where X is 0, which would take
-// the division's slow path); at the PBMC-3k factorize shape (B=100, N=2700,
+// element and restart a numerator spends 2K FMAs plus one IEEE division
+// (about ten instructions; skipped where X is 0, which would take the
+// division's slow path); at the PBMC-3k factorize shape (B=100, N=2700,
 // G=2000, K=16) that is 4.N.G.K.B = 34.6 GFLOP per launch against 67 TFLOP/s
-// of f32 FMA. X (21.6 MB there) is re-read by every (tile, restart) block; the
-// restart index is fastest in the grid so co-resident blocks share an X tile
-// in the 50 MB L2. The other factor's chunk is read from shared memory as a
-// broadcast. One row per thread keeps the row and its accumulators (2K
-// values) in registers (at K = 56 and 64 the compiler, caching the staged
-// row as well, spills 24-28 bytes), and makes the grid N/128 x B blocks: 79
-// blocks even for the B = 1 consensus spectra refit at 10000 genes.
+// of f32 FMA.
+//
+// Two designs:
+// - The restart-tiled numerator (kl_numerator_tiled_kernel), for the
+//   buckets the KL factorize runs (K = 8 and 16) when X has a unit stride
+//   and B fills a block's restarts. One block owns 64 rows of RB restarts:
+//   each X chunk is staged once for all RB restarts (a block of one restart
+//   would stream X from L2 B times a launch: 2.16 GB against 21.6 MB at
+//   B=100), with the RB restarts' Fo chunks beside it, through a 3-slot
+//   cp.async ring whose copy addresses each thread works out once. Each
+//   thread owns TR rows of one restart, their rows of F and accumulators in
+//   registers, so it has TR independent dot-division-accumulate chains and
+//   reads each staged Fo row once for TR rows; the block's RB restarts read
+//   each staged X value from shared memory. Every sum runs in the order
+//   above, so the output has the same bits as the one-row kernel's.
+// - One row per thread of one restart (kl_numerator_kernel, 128 rows a
+//   block): the other buckets, B below a block's restarts (the B = 1
+//   consensus refits), and an X without a unit stride. The other factor's
+//   chunk is read from shared memory as a broadcast; X is re-read by every
+//   (tile, restart) block, the restart index fastest in the grid so that
+//   co-resident blocks share an X tile in the 50 MB L2. At K = 56 and 64 the
+//   compiler, caching the staged row as well, spills 24-28 bytes. The
+//   divergence term takes this design at every K.
 //
 // Padded rows, contraction entries and K columns are exact no-ops: rows past
 // M and entries past C load as 0 (ratio 0), and a zero K column of Fo adds
@@ -59,8 +72,220 @@
 namespace {
 
 using cnmf::kThreads;
+using cnmf::ld4;
 constexpr int kChunk = 32;  // contraction entries staged per shared-memory round
 constexpr float kEps = 1.1920928955078125e-07f;  // float32 machine epsilon
+
+// ---- the restart-tiled numerator of the KL factorize's buckets ----
+
+// One contraction entry of one (row, restart) pair: the dot with k ascending
+// from 0, the ratio, then one fmaf into each accumulator.
+template <int K>
+__device__ __forceinline__ void kl_step(const float (&f)[K], float (&acc)[K],
+                                        float x, const float (&fo)[K]) {
+  float wh = 0.f;
+#pragma unroll
+  for (int k = 0; k < K; ++k) wh = fmaf(f[k], fo[k], wh);
+  // 0 / wh is 0; a zero numerator would send the IEEE division down its
+  // slow path, and normalized counts are mostly zeros
+  const float ratio = x == 0.f ? 0.f : x / fmaxf(wh, kEps);
+#pragma unroll
+  for (int k = 0; k < K; ++k) acc[k] = fmaf(ratio, fo[k], acc[k]);
+}
+
+// One block owns kTM = 64 rows of RB restarts; each thread TR rows of one
+// restart. Thread tid is restart rb = tid % RB of row group g = tid / RB,
+// whose rows are g.TR + i where the X tile keeps its rows contiguous (kT:
+// X's unit stride runs along the rows), else g + kGroups.i. A slot of the
+// ring holds the X tile of one 16-entry chunk, [chunk][kTM] (kT) or
+// [kTM][chunk + 4], then each restart's Fo chunk [chunk][K], 4 floats
+// apart: the paddings put the reads of neighbouring row groups and
+// restarts on other banks.
+template <int K_, int RB, int TR, int MINB, bool kT>
+struct KlTile {
+  static constexpr int K = K_;
+  static constexpr int kRB = RB, kTR = TR, kMinBlocks = MINB;
+  static constexpr int kTM = 64, kChunk = 16, kStages = 3;
+  static constexpr int kGroups = kTM / TR;
+  static constexpr int kThreads = kGroups * RB;
+  static constexpr int kXPitch = kT ? kTM : kChunk + 4;
+  static constexpr int kXFloats = kT ? kChunk * kTM : kTM * kXPitch;
+  static constexpr int kFPitch = kChunk * K + 4;
+  static constexpr int kSlotFloats = kXFloats + RB * kFPitch;
+  static_assert(K % 8 == 0 && kTM % TR == 0, "tiling");
+  static_assert(kThreads % 32 == 0, "whole warps");
+  static_assert(kStages * kSlotFloats * 4 <= 48 * 1024, "static shared memory");
+};
+
+// The tiling of each bucket, for both layouts of X: restarts per block, rows
+// per thread, and the blocks an SM must hold at once, which caps a thread's
+// registers at 65536 / (threads x blocks). Left to itself the compiler
+// keeps staged values of several entries in flight and takes all 255, and 4
+// blocks of 2 warps an SM are too few to hide the division chains'
+// latency. Of the tilings timed on an H100 at B=100, N=2700, G=2000, 128
+// threads with 4 rows (K=8) or 2 rows (K=16) each and 4 blocks an SM were
+// fastest at both buckets and both layouts.
+template <int K, bool kT>
+struct KlCfg;
+#define KL_TILED_CFG(KK, RB, TR, MINB) \
+  template <bool kT>                   \
+  struct KlCfg<KK, kT> : KlTile<KK, RB, TR, MINB, kT> {};
+KL_TILED_CFG(8, 8, 4, 4)
+KL_TILED_CFG(16, 4, 2, 4)
+#undef KL_TILED_CFG
+#define KL_TILED_BUCKETS(X) X(8) X(16)
+
+// grid (restart groups, row tiles); X element (m, c) at X[m * sxm + c * sxc]
+// with sxc = 1 or, for kT, sxm = 1. F (B, M, K) owns the rows, Fo (B, C, K)
+// is contracted over. out (B, M, K).
+template <int K, bool kT>
+__global__ void __launch_bounds__(KlCfg<K, kT>::kThreads,
+                                  KlCfg<K, kT>::kMinBlocks)
+kl_numerator_tiled_kernel(const float* __restrict__ X, int M, int C,
+                          long long sxm, long long sxc,
+                          const float* __restrict__ Fo,
+                          const float* __restrict__ F, int B,
+                          float* __restrict__ out) {
+  using T = KlCfg<K, kT>;
+  constexpr int TM = T::kTM, CH = T::kChunk, S = T::kStages, NT = T::kThreads;
+  constexpr int RB = T::kRB, TR = T::kTR, NG = T::kGroups;
+  __shared__ __align__(16) float smem[S * T::kSlotFloats];
+
+  const int tid = threadIdx.x, rb = tid % RB, g = tid / RB;
+  const int b0 = blockIdx.x * RB, m0 = blockIdx.y * TM;
+  const int nb = min(RB, B - b0);  // the block's live restarts
+
+  // Chunk q of the contraction into ring slot `slot`: X's tile along its
+  // unit stride, and the RB Fo chunks, each CH.K contiguous floats; zero
+  // past M, C and B. Copy unit j of a thread is unit tid + j * NT of the
+  // tile, so every address is the thread's first one plus a step fixed for
+  // the launch: the addresses are worked out once here, and a chunk only
+  // moves them on. X's tile moves in 16-byte units where X's pitch is a
+  // multiple of 4 floats and X is 16-byte aligned (vec); else each entry is
+  // a 4-byte copy.
+  constexpr int XOUT = kT ? CH : TM;          // tile rows ...
+  constexpr int XU = (kT ? TM : CH) / 4;      // ... of XU 16-byte units
+  constexpr int XSTEP = NT / XU;              // rows between a thread's units
+  constexpr int XN = (XOUT * XU + NT - 1) / NT;  // units per thread
+  constexpr int FU = CH * K / 4;              // Fo: units per restart
+  constexpr int FSTEP = NT / FU;              // restarts between its units
+  constexpr int FN = RB / FSTEP;              // units per thread
+  static_assert(NT % XU == 0 && NT % FU == 0 && RB % FSTEP == 0, "copy units");
+  const long long xpitch = kT ? sxc : sxm;    // X's stride between tile rows
+  const bool vec =
+      xpitch % 4 == 0 && reinterpret_cast<unsigned long long>(X) % 16 == 0;
+  const int xo = tid / XU, xi = tid % XU * 4;  // the thread's first X unit
+  const float* const x0 =
+      X + (kT ? m0 + xi + xo * xpitch : (m0 + xo) * xpitch + xi);
+  const long long xjump = XSTEP * xpitch, xchunk = kT ? CH * sxc : CH;
+  // live entries of a unit along the rows of the block (kT's units run
+  // along them; otherwise the tile rows are its rows)
+  const int xlive = kT ? min(max(M - m0 - xi, 0), 4) : M - m0;
+  const int frb = tid / FU, fw = tid % FU * 4;  // the thread's first Fo unit
+  const int fc = fw / K;                        // its contraction entry
+  const long long fjump = (long long)FSTEP * C * K;
+  const float* const f0 = Fo + (long long)(b0 + frb) * C * K + fw;
+  auto stage = [&](int slot, int q) {
+    float* const xs = smem + slot * T::kSlotFloats;
+    float* const fs = xs + T::kXFloats;
+    const int rem = C - q * CH;  // contraction entries from this chunk on
+    if (vec) {
+      const float* const xq = x0 + q * xchunk;
+#pragma unroll
+      for (int j = 0; j < XN; ++j) {
+        const int o = xo + j * XSTEP;
+        if (XOUT * XU % NT != 0 && o >= XOUT) break;
+        const int n = kT ? (o < rem ? xlive : 0)
+                         : (o < xlive ? min(max(rem - xi, 0), 4) : 0);
+        cnmf::cp_async16(xs + o * T::kXPitch + xi, n > 0 ? xq + j * xjump : X,
+                         4 * n);
+      }
+    } else if constexpr (kT) {
+      cnmf::stage_tile_async4<CH, TM, TM, NT>(
+          xs, X + (C - rem) * sxc + m0, sxc, rem, M - m0);
+    } else {
+      cnmf::stage_tile_async4<TM, CH, T::kXPitch, NT>(
+          xs, X + m0 * sxm + (C - rem), sxm, M - m0, rem);
+    }
+    const float* const fq = f0 + (long long)q * CH * K;
+    const bool cok = fc < rem;
+#pragma unroll
+    for (int j = 0; j < FN; ++j) {
+      const int rb = frb + j * FSTEP;
+      const bool ok = cok && rb < nb;
+      cnmf::cp_async16(fs + rb * T::kFPitch + fw, ok ? fq + j * fjump : Fo,
+                       ok ? 16 : 0);
+    }
+  };
+
+  const int nq = (C + CH - 1) / CH;
+#pragma unroll
+  for (int s = 0; s < S - 1; ++s) {
+    if (s < nq) stage(s, s);
+    cnmf::cp_async_commit();
+  }
+
+  // The thread's rows of F and its accumulators, while the first chunks
+  // are in flight; rows past M and a restart past B hold 0.
+  const bool live_b = rb < nb;
+  float f[TR][K], acc[TR][K];
+#pragma unroll
+  for (int i = 0; i < TR; ++i) {
+    const int m = m0 + (kT ? g * TR + i : g + NG * i);
+    const float* const src = F + ((long long)(b0 + rb) * M + m) * K;
+#pragma unroll
+    for (int k = 0; k < K; k += 4) {
+      if (live_b && m < M) {
+        ld4(&f[i][k], src + k);
+      } else {
+        f[i][k] = f[i][k + 1] = f[i][k + 2] = f[i][k + 3] = 0.f;
+      }
+      acc[i][k] = acc[i][k + 1] = acc[i][k + 2] = acc[i][k + 3] = 0.f;
+    }
+  }
+
+  // Chunk q + S - 1 is in flight while chunk q is consumed, c ascending.
+  for (int q = 0; q < nq; ++q) {
+    cnmf::cp_async_wait<S - 2>();
+    __syncthreads();  // chunk q has landed, and slot (q - 1) % S is consumed
+    if (q + S - 1 < nq) stage((q + S - 1) % S, q + S - 1);
+    cnmf::cp_async_commit();
+    const float* const xs = smem + (q % S) * T::kSlotFloats;
+    const float* const fs = xs + T::kXFloats + rb * T::kFPitch;
+    // four entries a trip, their shared-memory offsets fixed in the body
+#pragma unroll 1
+    for (int c4 = 0; c4 < CH; c4 += 4) {
+#pragma unroll
+      for (int cc = 0; cc < 4; ++cc) {
+        const int c = c4 + cc;
+        float x[TR], fo[K];
+#pragma unroll
+        for (int i = 0; i < TR; ++i)
+          x[i] = kT ? xs[c * TM + g * TR + i]
+                    : xs[(g + NG * i) * T::kXPitch + c];
+#pragma unroll
+        for (int k = 0; k < K; k += 4) ld4(fo + k, fs + c * K + k);
+#pragma unroll
+        for (int i = 0; i < TR; ++i) kl_step<K>(f[i], acc[i], x[i], fo);
+      }
+    }
+  }
+  cnmf::cp_async_wait<0>();
+
+  if (!live_b) return;
+#pragma unroll
+  for (int i = 0; i < TR; ++i) {
+    const int m = m0 + (kT ? g * TR + i : g + NG * i);
+    if (m >= M) continue;
+    float* const dst = out + ((long long)(b0 + rb) * M + m) * K;
+#pragma unroll
+    for (int k = 0; k < K; k += 4)
+      *reinterpret_cast<float4*>(dst + k) =
+          make_float4(acc[i][k], acc[i][k + 1], acc[i][k + 2], acc[i][k + 3]);
+  }
+}
+
+// ---- one row per thread ----
 
 // grid (B, tiles); X element (m, c) at X[m * sxm + c * sxc]; F (B, M, K) owns
 // the rows, Fo (B, C, K) is contracted over. out (B, M, K).
@@ -199,6 +424,60 @@ kl_x_log_wh_wide(const float* __restrict__ X, int M, int C, long long sxm,
 
 dim3 grid_of(int B, int M) { return dim3(B, (M + kThreads - 1) / kThreads); }
 
+// The numerator kernel a launch at bucket K takes: 1 the restart-tiled one
+// with X read along its unit stride by rows (sxc = 1), 2 the restart-tiled
+// one with X's unit stride along the rows (sxm = 1), 0 one row per thread
+// (another bucket, B below a block's restarts, or X without a unit stride).
+int tiled_layout(int K, int B, long long sxm, long long sxc) {
+  int rb = 0;
+#define KL_RB(KK) \
+  if (K == KK) rb = KlCfg<KK, false>::kRB;
+  KL_TILED_BUCKETS(KL_RB)
+#undef KL_RB
+  if (rb == 0 || B < rb) return 0;
+  return sxc == 1 ? 1 : sxm == 1 ? 2 : 0;
+}
+
+template <int K, bool kT>
+int launch_tiled(const float* X, int M, int C, long long sxm, long long sxc,
+                 const float* Fo, const float* F, int B, float* out,
+                 cudaStream_t stream) {
+  using T = KlCfg<K, kT>;
+  const dim3 grid((B + T::kRB - 1) / T::kRB, (M + T::kTM - 1) / T::kTM);
+  kl_numerator_tiled_kernel<K, kT><<<grid, T::kThreads, 0, stream>>>(
+      X, M, C, sxm, sxc, Fo, F, B, out);
+  return (int)cudaGetLastError();
+}
+
+// How many blocks of `threads` threads of `kernel` an SM holds at once; 0
+// where that cannot be read.
+template <typename Kernel>
+int blocks_per_sm(Kernel kernel, int threads) {
+  int n = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, threads, 0) !=
+      cudaSuccess) {
+    cudaGetLastError();  // leave no error for the next launch to report
+    return 0;
+  }
+  return n;
+}
+
+template <int K, bool kT>
+int tiled_field(int field) {
+  using T = KlCfg<K, kT>;
+  switch (field) {
+    case 0:
+      return T::kTM;
+    case 1:
+      return T::kRB;
+    case 2:
+      return T::kThreads;
+    case 3:
+      return blocks_per_sm(kl_numerator_tiled_kernel<K, kT>, T::kThreads);
+  }
+  return 0;
+}
+
 }  // namespace
 
 extern "C" {
@@ -206,22 +485,60 @@ extern "C" {
 // Rows one block owns (sizes the (tiles, B) partials of mu_kl_x_log_wh).
 int mu_tile_rows() { return kThreads; }
 
+// The tiling mu_kl_numerator takes for a launch at K, B and X's strides:
+// field 0 the rows a block owns, 1 the restarts it owns, 2 its threads, 3
+// how many of its blocks an SM holds at once. 0 for a K that has no kernel,
+// or a field that does not exist or cannot be read.
+int mu_kl_numerator_tiling(int K, int B, long long sxm, long long sxc,
+                           int field) {
+  const int layout = tiled_layout(K, B, sxm, sxc);
+#define KL_TILING_CASE(KK)                                        \
+  case KK:                                                        \
+    if (layout != 0)                                              \
+      return layout == 1 ? tiled_field<KK, false>(field)          \
+                         : tiled_field<KK, true>(field);          \
+    break;
+  switch (K) { KL_TILED_BUCKETS(KL_TILING_CASE) }
+#undef KL_TILING_CASE
+  if (field == 0 || field == 2) return kThreads;
+  if (field == 1) return 1;
+  if (field != 3) return 0;
+#define KL_OCC_CASE(KK) \
+  case KK:              \
+    return blocks_per_sm(kl_numerator_kernel<KK>, kThreads);
+  switch (K) { CNMF_K_BUCKETS(KL_OCC_CASE) }
+#undef KL_OCC_CASE
+  return cnmf::is_wide_k(K) ? blocks_per_sm(kl_numerator_wide, kThreads) : 0;
+}
+
 // out (B, M, K) = sum_c X(m, c) / max(F[m] . F_other[c], eps) . F_other[c],
 // X(m, c) = X[m * sxm + c * sxc]; F (B, M, K), F_other (B, C, K).
 int mu_kl_numerator(const float* X, int M, int C, long long sxm, long long sxc,
                     const float* F_other, const float* F, int B, int K,
                     float* out, void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  const int layout = tiled_layout(K, B, sxm, sxc);
+#define KL_TILED_CASE(KK)                                                  \
+  case KK:                                                                 \
+    if (layout == 1)                                                       \
+      return launch_tiled<KK, false>(X, M, C, sxm, sxc, F_other, F, B, out, \
+                                     s);                                   \
+    if (layout == 2)                                                       \
+      return launch_tiled<KK, true>(X, M, C, sxm, sxc, F_other, F, B, out,  \
+                                    s);                                    \
+    break;
+  switch (K) { KL_TILED_BUCKETS(KL_TILED_CASE) }
+#undef KL_TILED_CASE
 #define MU_CASE(KK)                                                       \
   case KK:                                                                \
-    kl_numerator_kernel<KK><<<grid_of(B, M), kThreads, 0,                 \
-                              (cudaStream_t)stream>>>(X, M, C, sxm, sxc,  \
-                                                      F_other, F, out);   \
+    kl_numerator_kernel<KK><<<grid_of(B, M), kThreads, 0, s>>>(           \
+        X, M, C, sxm, sxc, F_other, F, out);                              \
     return (int)cudaGetLastError();
   switch (K) { CNMF_K_BUCKETS(MU_CASE) }
 #undef MU_CASE
   if (!cnmf::is_wide_k(K)) return (int)cudaErrorInvalidValue;
-  kl_numerator_wide<<<grid_of(B, M), kThreads, 0, (cudaStream_t)stream>>>(
-      X, M, C, sxm, sxc, F_other, F, K, out);
+  kl_numerator_wide<<<grid_of(B, M), kThreads, 0, s>>>(X, M, C, sxm, sxc,
+                                                       F_other, F, K, out);
   return (int)cudaGetLastError();
 }
 

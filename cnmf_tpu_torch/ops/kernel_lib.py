@@ -3,8 +3,9 @@ every kernel wrapper makes before it launches.
 
 ``load_library`` builds every ``csrc/*.cu`` at first use with ``nvcc`` (one
 compiler process per source, all started together, then one link) into
-``_build/`` inside the package, keyed by a hash of the flags and of every
-source and header, and loads it with ctypes. ``ops/cd_kernels.py`` and
+``_build/`` inside the package (or the user's cache directory where the
+package's is not writable, ``build_dir``), keyed by a hash of the flags and
+of every source and header, and loads it with ctypes. ``ops/cd_kernels.py`` and
 ``ops/mu_kernels.py`` call their own symbols of it through
 ``kernel_function`` and ``library_constant``, which bind each symbol and
 read each constant once. Importing this module needs neither ``nvcc`` nor a
@@ -77,25 +78,56 @@ def _build(sources, so_path):
     os.replace(f"{tmp}.so", so_path)
 
 
+def _sources():
+    return sorted(
+        os.path.join(_CSRC_DIR, f) for f in os.listdir(_CSRC_DIR)
+        if f.endswith((".cu", ".cuh"))
+    )
+
+
+def _writable_dir(path) -> bool:
+    try:
+        os.makedirs(path, exist_ok=True)
+    except OSError:
+        return False
+    return os.access(path, os.W_OK | os.X_OK)
+
+
+def build_dir() -> str:
+    """Where the library is built: ``_build/`` inside the package, or, where
+    that cannot be created or written (a read-only install), the user's
+    cache directory (``$XDG_CACHE_HOME`` or ``~/.cache``) under
+    ``cnmf_tpu_torch/``."""
+    if _writable_dir(_BUILD_DIR):
+        return _BUILD_DIR
+    cache = os.environ.get("XDG_CACHE_HOME") or os.path.join(
+        os.path.expanduser("~"), ".cache")
+    path = os.path.join(cache, "cnmf_tpu_torch")
+    os.makedirs(path, exist_ok=True)
+    return path
+
+
+def library_path() -> str:
+    """The library's file, named by a hash of the flags and of every source
+    and header of ``csrc/``."""
+    import hashlib
+
+    digest = hashlib.sha256(" ".join(_NVCC_FLAGS).encode())
+    for path in _sources():
+        digest.update(os.path.basename(path).encode())
+        with open(path, "rb") as fh:
+            digest.update(fh.read())
+    return os.path.join(build_dir(),
+                        f"libcnmf_kernels_{digest.hexdigest()[:16]}.so")
+
+
 @functools.lru_cache(maxsize=None)
 def load_library():
     """Build (once per source hash) and load the kernels of ``csrc/``.
     Never runs while a module is imported."""
-    import hashlib
-
-    sources = sorted(
-        os.path.join(_CSRC_DIR, f) for f in os.listdir(_CSRC_DIR)
-        if f.endswith((".cu", ".cuh"))
-    )
-    digest = hashlib.sha256(" ".join(_NVCC_FLAGS).encode())
-    for path in sources:
-        digest.update(os.path.basename(path).encode())
-        with open(path, "rb") as fh:
-            digest.update(fh.read())
-    so_path = os.path.join(_BUILD_DIR, f"libcnmf_kernels_{digest.hexdigest()[:16]}.so")
+    so_path = library_path()
     if not os.path.exists(so_path):
-        os.makedirs(_BUILD_DIR, exist_ok=True)
-        _build(sources, so_path)
+        _build(_sources(), so_path)
     lib = ctypes.CDLL(so_path)
     lib.so_path = so_path
     return lib

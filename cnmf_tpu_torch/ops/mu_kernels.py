@@ -12,7 +12,8 @@ tensors lie:
   ``csrc/mu_beta.cu`` (f32; W and Ht contiguous; X with any positive
   strides, so a transposed view of X needs no copy; K a positive multiple of
   8). Anything else on CUDA raises; there is no fallback to the plain
-  version.
+  version. The KL numerators take one of two kernels by shape
+  (``kl_numerator_tiling``); both give the same bits.
 * CPU tensors run the plain PyTorch versions below at the tensors' dtype.
 
 The plain versions follow the JAX package's XLA path (``_mu_w_terms_chunked``,
@@ -147,14 +148,32 @@ _ARGS = (VP, I32, I32, I64, I64, VP, VP, I32, I32, VP, VP)
 _BETA_ARGS = (VP, I32, I32, I64, I64, VP, VP, I32, I32, F32, VP, VP, VP)
 
 
+def _x_strides(X, transposed):
+    """(C, sxm, sxc): the contraction length and X's strides along the
+    output's rows and along the contraction, as the kernels read X."""
+    N, G = X.shape
+    sn, sg = X.stride()
+    return (N, sg, sn) if transposed else (G, sn, sg)
+
+
+def kl_numerator_tiling(X, B, K, transposed=False):
+    """The tiling the KL numerator kernel takes at these inputs (the W
+    numerator, or the H numerator for ``transposed``): (rows a block owns,
+    restarts it owns, threads, blocks an SM holds at once). The KL
+    factorize's buckets (K = 8, 16) run the restart-tiled kernel where B
+    fills its restarts, everything else one row per thread."""
+    _, sxm, sxc = _x_strides(X, transposed)
+    fn = kernel_function("mu_kl_numerator_tiling", (I32, I32, I64, I64, I32))
+    return tuple(fn(K, B, sxm, sxc, field) for field in range(4))
+
+
 def _launch(name, symbol, X, F, F_other, outs, transposed, beta=None):
     """F (B, M, K) owns the rows, F_other (B, C, K) is contracted over: the W
     side reads X as (M=N, C=G), the H side transposed as (M=G, C=N).
     ``outs``: the output tensors; ``beta``: the general-beta kernels' loss."""
     B, M, K = F.shape
     N, G = X.shape
-    sn, sg = X.stride()
-    C, sxm, sxc = (N, sg, sn) if transposed else (G, sn, sg)
+    C, sxm, sxc = _x_strides(X, transposed)
     if M != (G if transposed else N) or F_other.shape != (B, C, K):
         raise ValueError(f"{name}: shapes X {tuple(X.shape)}, factor "
                          f"{tuple(F.shape)}, other {tuple(F_other.shape)}")

@@ -366,24 +366,50 @@ class cNMF:
         local_neighborhood_size=0.30,
         show_clustering=True,
         build_ref=True,
+        skip_density_and_return_after_stats=False,
         close_clustergram_fig=False,
         refit_usage=True,
         normalize_tpm_spectra=False,
+        norm_counts=None,
     ):
         """Consensus spectra/usages via density filtering + KMeans + medians
         (reference cnmf.py:823-1082): the step-by-step consensus of
         ``cnmf_tpu``, with the distance matrix, KNN density, KMeans, NNLS
-        refits and z-score OLS on the device."""
+        refits and z-score OLS on the device.
+
+        ``skip_density_and_return_after_stats``: skip the density filter and
+        return this K's K-selection row ``[k, density_threshold, silhouette,
+        prediction_error]`` (a one-column frame indexed by
+        ``K_STATS_FIELDS``) without writing anything. ``norm_counts``: the
+        normalized counts (AnnData), read from the run directory when None.
+        The local density is cached per K before the filter is applied, so a
+        threshold that keeps nothing still leaves the cache for a rerun."""
         merged = load_df_from_npz(self.paths["merged_spectra"] % k)
-        norm_counts = read_h5ad(self.paths["normalized_counts"])
-        tpm = read_h5ad(self.paths["tpm"])
-        tpm_stats = load_df_from_npz(self.paths["tpm_stats"])
+        if norm_counts is None:
+            norm_counts = read_h5ad(self.paths["normalized_counts"])
+        norm_counts_dev = self._to_device(self._host_dense(norm_counts.X))
         nmf_kwargs = self._load_run_params()
-        dt_tag = str(density_threshold).replace(".", "_")
+        if skip_density_and_return_after_stats:
+            ((_, _, silhouette, error),) = stages.k_stats_arrays(
+                {k: merged.values}, norm_counts_dev, nmf_kwargs)
+            return pd.DataFrame([k, density_threshold, silhouette, error],
+                                index=K_STATS_FIELDS, columns=["stats"])
 
         density_path = self.paths["local_density_cache"] % k
-        cached_density = (load_df_from_npz(density_path).values[:, 0]
-                          if os.path.isfile(density_path) else None)
+        if os.path.isfile(density_path):
+            local_density = load_df_from_npz(density_path).values[:, 0]
+        else:
+            local_density = stages.spectra_local_density(
+                merged.values, k, norm_counts_dev.device, norm_counts_dev.dtype,
+                local_neighborhood_size)
+            save_df_to_npz(
+                pd.DataFrame(local_density, columns=["local_density"],
+                             index=merged.index),
+                density_path,
+            )
+        tpm = read_h5ad(self.paths["tpm"])
+        tpm_stats = load_df_from_npz(self.paths["tpm_stats"])
+        dt_tag = str(density_threshold).replace(".", "_")
         with open(self.paths["nmf_genes_list"]) as fh:
             hvgs = fh.read().split("\n")
         hvg_idx = tpm.var.index.get_indexer(hvgs)
@@ -395,24 +421,17 @@ class cNMF:
             )
 
         result = stages.consensus_arrays(
-            merged.values, k,
-            self._to_device(self._host_dense(norm_counts.X)),
+            merged.values, k, norm_counts_dev,
             self._to_device(self._host_dense(tpm.X)),
             tpm_stats["__std"].values, hvg_idx, nmf_kwargs,
             density_threshold=density_threshold,
             local_neighborhood_size=local_neighborhood_size,
-            local_density=cached_density,
+            local_density=local_density,
             refit_usage=refit_usage,
             normalize_tpm_spectra=normalize_tpm_spectra,
             # the reference guards zero stds on its sparse path only
             zero_safe=sp.issparse(tpm.X),
         )
-        if cached_density is None:
-            save_df_to_npz(
-                pd.DataFrame(result.local_density, columns=["local_density"],
-                             index=merged.index),
-                density_path,
-            )
 
         gep_ids = np.arange(1, result.spectra.shape[0] + 1)
         median_spectra = pd.DataFrame(result.spectra, index=gep_ids,

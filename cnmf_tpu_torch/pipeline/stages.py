@@ -221,6 +221,17 @@ def l2_normalize(merged: np.ndarray) -> np.ndarray:
     return merged / norms[:, None]
 
 
+def spectra_local_density(merged: np.ndarray, k: int, device, dtype,
+                          local_neighborhood_size: float = 0.30) -> np.ndarray:
+    """(R,) f64 mean distance of every L2-normalized spectrum of ``merged``
+    to its nearest neighbours: what the density filter compares with its
+    threshold, computed at ``dtype`` on ``device``."""
+    n_neighbors = int(local_neighborhood_size * merged.shape[0] / k)
+    l2 = torch.as_tensor(np.ascontiguousarray(l2_normalize(merged)),
+                         device=device).to(dtype)
+    return local_density_from_spectra(l2, n_neighbors).astype(np.float64)
+
+
 def consensus_arrays(
     merged: np.ndarray,
     k: int,
@@ -241,7 +252,8 @@ def consensus_arrays(
     merged: (n_iter·k × HVGs) merged spectra; norm_counts: (cells × HVGs)
     tensor; tpm: (cells × all genes) tensor at the same dtype and device;
     tpm_std: per-gene TPM std; hvg_idx: HVG columns of the TPM.
-    ``local_density``: a cached density vector, used instead of computing it.
+    ``local_density``: a cached ``spectra_local_density`` vector, used
+    instead of computing it.
     ``zero_safe``: guard zero-std HVGs in the final refit (sparse inputs)."""
     dev, dtype = norm_counts.device, norm_counts.dtype
 
@@ -250,10 +262,8 @@ def consensus_arrays(
 
     l2 = l2_normalize(merged)
     if local_density is None:
-        n_neighbors = int(local_neighborhood_size * merged.shape[0] / k)
-        local_density = local_density_from_spectra(
-            to_dev(l2), n_neighbors
-        ).astype(np.float64)
+        local_density = spectra_local_density(merged, k, dev, dtype,
+                                              local_neighborhood_size)
     density_filter = local_density < density_threshold
     l2_kept = l2[density_filter]
     if l2_kept.shape[0] == 0:

@@ -222,3 +222,49 @@ def test_factors_from_numpy_layout():
     assert Wt.shape == (B, N, K) and Htt.shape == (B, G, K)
     assert Wt.is_contiguous() and Htt.is_contiguous()
     np.testing.assert_array_equal(Wt.numpy(), W.astype(np.float32))
+
+
+@pytest.mark.parametrize("cache_root", ["xdg", "home"])
+@pytest.mark.parametrize("denied", ["makedirs", "access"])
+def test_library_builds_in_user_cache_when_package_dir_read_only(
+        monkeypatch, tmp_path, denied, cache_root):
+    """Where the package's _build/ cannot be created (makedirs fails) or
+    written (access denies it), the library's path moves to the user's cache
+    directory ($XDG_CACHE_HOME, else ~/.cache) under cnmf_tpu_torch/, with the
+    same hashed file name."""
+    import os
+
+    from cnmf_tpu_torch.ops import kernel_lib
+
+    pkg_build = str(tmp_path / "pkg" / "_build")
+    monkeypatch.setattr(kernel_lib, "_BUILD_DIR", pkg_build)
+    if cache_root == "xdg":
+        monkeypatch.setenv("XDG_CACHE_HOME", str(tmp_path / "xdg"))
+        cache = tmp_path / "xdg" / "cnmf_tpu_torch"
+    else:
+        monkeypatch.delenv("XDG_CACHE_HOME", raising=False)
+        monkeypatch.setenv("HOME", str(tmp_path / "home"))
+        cache = tmp_path / "home" / ".cache" / "cnmf_tpu_torch"
+    in_package = kernel_lib.library_path()
+    assert os.path.dirname(in_package) == pkg_build
+
+    def denies(path):
+        return os.path.abspath(path).startswith(pkg_build)
+
+    if denied == "makedirs":
+        os.rmdir(pkg_build)
+        real_makedirs = os.makedirs
+
+        def makedirs(path, *args, **kwargs):
+            if denies(path):
+                raise PermissionError(13, "Read-only file system", path)
+            return real_makedirs(path, *args, **kwargs)
+
+        monkeypatch.setattr(os, "makedirs", makedirs)
+    else:
+        real_access = os.access
+        monkeypatch.setattr(os, "access", lambda path, mode, **kw: (
+            False if denies(path) else real_access(path, mode, **kw)))
+    in_cache = kernel_lib.library_path()
+    assert os.path.dirname(in_cache) == str(cache) and cache.is_dir()
+    assert os.path.basename(in_cache) == os.path.basename(in_package)

@@ -25,6 +25,7 @@ from cnmf_tpu.io.dataframe import load_df_from_npz, save_df_to_npz
 from cnmf_tpu.simulate import simulate_counts
 from cnmf_tpu_torch import cNMF as TorchCNMF
 from cnmf_tpu_torch.io.h5ad import read_h5ad, write_h5ad
+from cnmf_tpu_torch.pipeline import stages
 
 NAME = "v"
 K = 6
@@ -291,6 +292,69 @@ def test_load_results_and_usage_rows(runs):
 
 
 # ----------------------------------------------------------------------
+# consensus options
+# ----------------------------------------------------------------------
+
+STATS_REL = 1e-8
+
+
+def stats_row(obj, **kwargs):
+    return obj.consensus(k=K, density_threshold=0.7, show_clustering=False,
+                         skip_density_and_return_after_stats=True, **kwargs)
+
+
+@pytest.mark.parametrize("loss", list(RECIPES))
+def test_consensus_stats_row_matches_jax(request, loss):
+    """consensus(skip_density_and_return_after_stats=True) returns the
+    JAX package's K_STATS_FIELDS row, the threshold as given, and writes
+    nothing."""
+    recipe = request.getfixturevalue(RECIPES[loss])
+    before = _listing(recipe["torch"])
+    a, b = stats_row(recipe["jax"]), stats_row(recipe["torch"])
+    assert _listing(recipe["torch"]) == before
+    assert list(b.index) == list(a.index) == [
+        "k", "local_density_threshold", "silhouette", "prediction_error"]
+    assert list(b.columns) == list(a.columns) == ["stats"]
+    np.testing.assert_array_equal(b.values[:2, 0], [K, 0.7])
+    np.testing.assert_allclose(b.values[:, 0].astype(float),
+                               a.values[:, 0].astype(float), rtol=STATS_REL,
+                               atol=0)
+
+
+def test_consensus_stats_row_with_given_norm_counts(runs):
+    """A given norm_counts gives the row the run directory's file gives."""
+    obj = runs["torch"]
+    given = read_h5ad(obj.paths["normalized_counts"])
+    pd.testing.assert_frame_equal(stats_row(obj, norm_counts=given),
+                                  stats_row(obj))
+
+
+def test_density_cache_saved_before_empty_filter_raises(runs, tmp_path,
+                                                        monkeypatch):
+    """A threshold that keeps no spectrum raises "Zero components remain"
+    after the local density is cached; a rerun at 2.0 reads the cache
+    instead of computing the density again."""
+    shutil.copytree(os.path.join(runs["torch"].output_dir, NAME),
+                    tmp_path / NAME)
+    obj = make("torch", tmp_path)
+    cache = obj.paths["local_density_cache"] % K
+    os.remove(cache)
+    calls = []
+    density = stages.local_density_from_spectra
+    monkeypatch.setattr(stages, "local_density_from_spectra",
+                        lambda *a, **kw: calls.append(1) or density(*a, **kw))
+    with pytest.raises(RuntimeError, match="Zero components remain"):
+        obj.consensus(k=K, density_threshold=0.0, show_clustering=False)
+    assert os.path.isfile(cache) and len(calls) == 1
+    obj.consensus(k=K, density_threshold=2.0, show_clustering=False)
+    assert len(calls) == 1
+    np.testing.assert_array_equal(
+        load_df_from_npz(cache).values,
+        load_df_from_npz(runs["torch"].paths["local_density_cache"] % K).values)
+    assert os.path.isfile(obj.paths["consensus_usages"] % (K, "2_0"))
+
+
+# ----------------------------------------------------------------------
 # goldens (the pattern of tests/test_golden.py)
 # ----------------------------------------------------------------------
 
@@ -369,6 +433,31 @@ def test_port_imports_without_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "clean"
+
+
+def test_top_level_exports():
+    """The package exports cNMF, the file layer and its version, as the JAX
+    package does; the file-layer names are the cnmf_tpu_torch.io objects."""
+    import cnmf_tpu
+    import cnmf_tpu_torch
+    import cnmf_tpu_torch.io as tio
+    from cnmf_tpu_torch import (  # noqa: F401
+        AnnData,
+        __version__,
+        load_df_from_npz,
+        read_h5ad,
+        save_df_to_npz,
+        save_df_to_text,
+        write_h5ad,
+    )
+
+    file_layer = ["AnnData", "read_h5ad", "write_h5ad", "save_df_to_npz",
+                  "save_df_to_text", "load_df_from_npz"]
+    for name in file_layer:
+        assert getattr(cnmf_tpu_torch, name) is getattr(tio, name), name
+    assert set(cnmf_tpu_torch.__all__) == set(cnmf_tpu.__all__) - {"Preprocess"}
+    assert __version__ == cnmf_tpu.__version__
+    assert cnmf_tpu_torch.cNMF is TorchCNMF
 
 
 def test_stages_run_without_file_packages():
