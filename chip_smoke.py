@@ -17,14 +17,17 @@ Phases, each printing its own line(s):
    the card's SMs; ragged cases with B off the restart groups), the KL
    multiplicative-update kernels and the general-beta kernels (at beta 0
    and 1.5) at the factorize shape (K=16, and K=8 with zero columns), the W
-   terms at the consensus refits' two shapes (the KL numerators with their
-   share of the bound and their kernel's grid); then ragged shapes at every K
-   bucket 8..64 and at the wide K 72 and 136 of every entry point, one line
-   per kernel and K range (each case asserts the bound, and that zero K
-   columns stay exactly zero); then the slice at the verify recipe's size on
-   the card against the same code on the CPU, with the frobenius (CD), the
-   kullback-leibler and the itakura-saito (MU) loss, the K-selection stats
-   of K=5 and 6 included;
+   terms at the consensus refits' two shapes (the KL numerators and the
+   general-beta terms with their share of the bound and their kernel's
+   grid: its tiling, or how the contraction is split); then ragged shapes at
+   every K bucket 8..64 and at the wide K 72 and 136 of every entry point,
+   one line per kernel (each case asserts the bound, and that zero K
+   columns stay exactly zero; the general-beta lines count the kernel each
+   case ran, and every one of them must have run: whole and split at every
+   bucket, restart-tiled with a partial restart group, wide); then the
+   slice at the verify recipe's size on the card against the same code on
+   the CPU, with the frobenius (CD), the kullback-leibler and the
+   itakura-saito (MU) loss, the K-selection stats of K=5 and 6 included;
 4. the main path end to end at PBMC-3k scale — bench.py's make_counts(2700,
    10000), 2000 HVGs, K=5..13 × 100 restarts, consensus at K=10 (density
    threshold 0.5) — through cNMF(device="cuda") when pandas, h5py and yaml
@@ -37,15 +40,18 @@ Phases, each printing its own line(s):
 6. the KL path at bench.py's KL configuration — the same counts, K=10 × 100
    restarts with beta_loss="kullback-leibler" and at most 200 iterations,
    combine, consensus at K=10 — through pipeline/stages.py: stage walls,
-   iterations and the KL kernels' launch counts, each of which must be > 0;
-   then its factorize again under torch.profiler;
+   iterations and the KL kernels' launch counts, each of which must be > 0,
+   and of those the launches with one restart (the B=1 refits); then its
+   factorize again under torch.profiler;
 7. the Itakura-Saito path, the same configuration with
    beta_loss="itakura-saito", k-stats at K=10 as well, and consensus at
    density threshold IS_DENSITY_THRESHOLD: stage walls, iterations, the
-   local densities and the general-beta kernels' launches (> 0); then its
-   factorize under torch.profiler;
+   local densities and the general-beta kernels' launches (> 0), those of
+   the B=1 refits apart; then its factorize under torch.profiler, and its
+   k-stats and consensus (the stages of the B=1 refits);
 8. a JSON line of the kernels (times, the bound of the work at the main
-   shape, launches on the main path), the card line, and the result line
+   shape, launches on the main path, the MU kernels' B=1 launches apart),
+   the card line, and the result line
    {"ok": true, "device": {...}}.
 
 Each path's launch counts are set to 0 just before it runs and read just
@@ -124,6 +130,16 @@ MU_REFIT = [(dict(B=1, N=2700, G=2000, K=16), "usage refit", False),
              "spectra refit, X a transposed view", True)]
 MU_RAGGED = [dict(B=3 + 2 * (i % 3), N=300 + 37 * i, G=150 + 29 * i, K=K)
              for i, K in enumerate(list(range(8, 65, 8)) + [72, 136])]
+# general-beta cases the contraction is not split at (MU_RAGGED's split at
+# every bucket): B=90 restarts of 3-5 row tiles keep the one-row kernel's
+# grid at 2 waves or more on both sides at every register bucket, and the
+# restart-tiled kernel's grid too small for it; B off its restart groups
+# with X's pitch not a multiple of 4 on grids it takes (a partial restart
+# group, 4-byte staging)
+BETA_WHOLE = [dict(B=90, N=300 + 37 * i, G=260 + 29 * i, K=K)
+              for i, K in enumerate(range(8, 65, 8))]
+BETA_TILED_EDGE = [dict(B=33, N=2701, G=1999, K=16),
+                   dict(B=97, N=2701, G=1999, K=8)]
 KL_NUMERATORS = ("kl_mu_w_numerator", "kl_mu_h_numerator")
 KL_KERNELS = KL_NUMERATORS + ("kl_x_log_wh",)
 BETA_KERNELS = ("beta_mu_w_terms", "beta_mu_h_terms")
@@ -211,24 +227,37 @@ def kernel_work(name, X, B, N, G, K):
 
 
 class RaggedLines:
-    """Ragged cases folded into one line per kernel and K range; every case
-    has asserted its bound before it is added."""
+    """Ragged cases folded into one line per kernel, its register buckets
+    and its wide K apart; every case has asserted its bound before it is
+    added."""
 
     def __init__(self):
         self.rows = {}
 
-    def add(self, name, K, rel, abs_err):
-        key = (name, "72,136" if K > 64 else "8..64")
-        r = self.rows.setdefault(key, dict(n=0, rel=0.0, abs=0.0))
+    def add(self, name, K, rel, abs_err, kind=None):
+        """``kind``: the kernel the case ran, counted on the line."""
+        ranges = self.rows.setdefault(name, {})
+        r = ranges.setdefault("72,136" if K > 64 else "8..64",
+                              dict(n=0, rel=0.0, abs=0.0, kinds={}))
         r["n"] += 1
         r["rel"], r["abs"] = max(r["rel"], rel), max(r["abs"], abs_err)
+        if kind:
+            r["kinds"][kind] = r["kinds"].get(kind, 0) + 1
 
-    def print(self, card):
-        for (name, ks), r in self.rows.items():
-            print(f"[kernel] {name} ragged K={ks}: {r['n']} cases, "
-                  f"max_rel_diff={r['rel']:.3e} (bound {KERNEL_REL_BOUND:g}) "
-                  f"max_abs_err={r['abs']:.3e}, zero K columns stay 0; card: "
-                  f"{card}", flush=True)
+    def print(self):
+        for name, ranges in self.rows.items():
+            print(f"[kernel] {name} ragged (zero K columns stay 0): "
+                  + "; ".join(
+                      f"K={ks} {r['n']} cases" + (" (" + ", ".join(
+                          f"{k} {n}" for k, n in r["kinds"].items()) + ")"
+                          if r["kinds"] else "")
+                      + f" max_rel_diff={r['rel']:.3e} "
+                      f"max_abs_err={r['abs']:.3e}"
+                      for ks, r in ranges.items()), flush=True)
+
+
+def shape_text(shape):
+    return " ".join(f"{key}={v}" for key, v in shape.items())
 
 
 def main_record(records, name, K, abs_err, suffix="", **values):
@@ -243,16 +272,21 @@ def main_record(records, name, K, abs_err, suffix="", **values):
 
 def grid_text(tiling, B, M):
     """A launch's grid over B restarts and M output rows, from its kernel's
-    tiling (rows a block owns, restarts, threads, blocks an SM holds): its
-    blocks and their waves on the card's SMs."""
+    tiling (rows a block owns, restarts, threads, blocks an SM holds, and
+    for the general-beta kernels the contraction's splits and entries a
+    split): its blocks, their waves of as many blocks as an SM holds, and
+    the blocks on each SM."""
     import torch
 
-    rows, rb, threads, per_sm = tiling
-    blocks = -(-M // rows) * -(-B // rb)
+    rows, rb, threads, per_sm, *split = tiling
+    splits, per_split = split or (1, None)
+    blocks = -(-M // rows) * -(-B // rb) * splits
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    return (f"grid {blocks} blocks of {rb} restarts x {rows} rows ({threads} "
-            f"threads), {per_sm} per SM, {blocks / max(per_sm * sms, 1):.2f} "
-            "waves")
+    cut = f"split {splits} x {per_split} entries, " if splits > 1 else ""
+    return (f"grid {cut}{blocks} blocks ({rb} restarts x {rows} rows, "
+            f"{threads} threads), {per_sm} per SM, "
+            f"{blocks / max(per_sm * sms, 1):.2f} waves, {blocks / sms:.2f} "
+            "blocks an SM")
 
 
 def phase_kernels(dev, card):
@@ -301,8 +335,8 @@ def phase_kernels(dev, card):
             transposed = name == "cd_h_half_sweep"
             grid = grid_text(ck.fused_tiling(shape["K"], transposed),
                              shape["B"], shape["G" if transposed else "N"])
-            print(f"[kernel] {name} main {shape} zero K columns {pad}: "
-                  f"max_rel_diff={rel_err:.3e} (bound {KERNEL_REL_BOUND:g}) "
+            print(f"[kernel] {name} main {shape_text(shape)} zero K columns "
+                  f"{pad}: max_rel_diff={rel_err:.3e} "
                   f"max_abs_err={abs_err:.3e} kernel_ms={ms:.4f} "
                   f"plain_ms={plain_ms:.4f} product_ms={product_ms:.4f} "
                   f"bound_ms={bound_ms:.4f} share_of_bound={bound_ms / ms:.1%}; "
@@ -339,15 +373,37 @@ def phase_kernels(dev, card):
             continue
         ms = timed_ms(lambda: kernel(F, gram, P, **regs))
         plain_ms = timed_ms(lambda: plain(F, gram, P, **regs))
-        print(f"[kernel] {name} main {shape} {regs}: max_rel_diff={rel_err:.3e} "
-              f"(bound {KERNEL_REL_BOUND:g}) max_abs_err={abs_err:.3e} "
+        print(f"[kernel] {name} main {shape_text(shape)} {regs}: "
+              f"max_rel_diff={rel_err:.3e} max_abs_err={abs_err:.3e} "
               f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f}; card: {card}",
               flush=True)
         bound_ms, by = bound(2 * M * K * K * B, 4 * (3 * B * M * K + B * K * K))
         records[name] = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
                              bound_ms=bound_ms, bound_by=by)
-    ragged_lines.print(card)
+    ragged_lines.print()
     return records
+
+
+def beta_kind(tiling, B, K):
+    """Which general-beta kernel a launch of this tiling runs: "split" (the
+    one-row kernel over slices of the contraction), "tiled" ("tiled partial"
+    with a restart group B leaves part empty), "one-row" or "wide"."""
+    _, restarts, _, _, splits, _ = tiling
+    if splits > 1:
+        return "split"
+    if restarts > 1:
+        return "tiled partial" if B % restarts else "tiled"
+    return "wide" if K > 64 else "one-row"
+
+
+# the general-beta kernels every beta and side must have run in the ragged
+# cases: the one-row kernel whole and split at every register bucket, the
+# restart-tiled kernel with a partial restart group at both of its buckets,
+# and the wide variant
+BETA_COVER = ({("one-row", K) for K in range(8, 65, 8)}
+              | {("split", K) for K in range(8, 65, 8)}
+              | {("tiled partial", 8), ("tiled partial", 16),
+                 ("wide", 72), ("wide", 136)})
 
 
 def phase_mu_kernels(dev, card):
@@ -390,7 +446,10 @@ def phase_mu_kernels(dev, card):
              + [(m, tag, 0, tr, MU_REFIT_KERNELS, (0.0,))
                 for m, tag, tr in MU_REFIT]
              + [(r, "ragged", PAD_COLS, False, every, BETAS)
-                for r in MU_RAGGED])
+                for r in MU_RAGGED]
+             + [(r, "ragged", PAD_COLS, False, BETA_KERNELS, BETAS)
+                for r in BETA_WHOLE + BETA_TILED_EDGE])
+    covered = {}
     for shape, tag, pad, transposed, names, betas in cases:
         X_host, X, W, Ht = problem(**shape, pad=pad, transposed=transposed)
         for name, beta, suffix in runs(names, betas):
@@ -400,27 +459,36 @@ def phase_mu_kernels(dev, card):
             check_pad(out, pad)
             abs_err, rel_err = compare(out, plain(*args))
             assert rel_err <= KERNEL_REL_BOUND, (name, beta, tag, shape, rel_err)
+            h_side = name in ("kl_mu_h_numerator", "beta_mu_h_terms")
+            kind = None
+            if name in BETA_KERNELS:
+                tiling = mk.beta_terms_tiling(X, Ht if h_side else W, beta,
+                                              h_side)
+                kind = beta_kind(tiling, shape["B"], shape["K"])
             if tag == "ragged":
-                ragged_lines.add(name if beta is None else f"{name}(beta={beta:g})",
-                                 shape["K"], rel_err, abs_err)
+                label = name if beta is None else f"{name}(beta={beta:g})"
+                ragged_lines.add(label, shape["K"], rel_err, abs_err, kind)
+                if kind:
+                    covered.setdefault(label, set()).add((kind, shape["K"]))
                 continue
             ms = timed_ms(lambda: kernel(*args))
             plain_ms = timed_ms(lambda: plain(*args))
             beta_txt = "" if beta is None else f" beta={beta:g}"
             bound_ms, by = bound(*kernel_work(name, X_host, **shape))
             extra, share = "", {}
-            if name in KL_NUMERATORS:
-                # the KL numerators: share of the bound and the kernel's grid
-                transposed = name == "kl_mu_h_numerator"
+            if name != "kl_x_log_wh":
+                # the numerators and beta terms: share of the bound and the
+                # kernel's grid
                 share = dict(share_of_bound=bound_ms / ms)
+                if name not in BETA_KERNELS:
+                    tiling = mk.kl_numerator_tiling(X, shape["B"], shape["K"],
+                                                    h_side)
                 extra = (f" bound_ms={bound_ms:.4f} share_of_bound="
                          f"{bound_ms / ms:.1%}; " + grid_text(
-                             mk.kl_numerator_tiling(X, shape["B"], shape["K"],
-                                                    transposed),
-                             shape["B"], shape["G" if transposed else "N"]))
-            print(f"[kernel] {name}{beta_txt} {tag} {shape} zero K columns "
-                  f"{pad}: max_rel_diff={rel_err:.3e} (bound "
-                  f"{KERNEL_REL_BOUND:g}) max_abs_err={abs_err:.3e} "
+                             tiling, shape["B"], shape["G" if h_side else "N"]))
+            print(f"[kernel] {name}{beta_txt} {tag} {shape_text(shape)} zero K "
+                  f"columns {pad}: max_rel_diff={rel_err:.3e} "
+                  f"max_abs_err={abs_err:.3e} "
                   f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f}{extra}; card: "
                   f"{card}", flush=True)
             if tag == "main":
@@ -429,7 +497,13 @@ def phase_mu_kernels(dev, card):
                 if shape["K"] == 16 and suffix == "":
                     records[name]["bound_ms"], records[name]["bound_by"] = \
                         bound_ms, by
-    ragged_lines.print(card)
+            else:
+                refit = tag.split()[0]   # "usage" or "spectra"
+                records[name].update({f"{refit}_refit_ms": ms,
+                                      f"{refit}_refit_bound_ms": bound_ms})
+    ragged_lines.print()
+    for label, kinds in covered.items():
+        assert BETA_COVER <= kinds, (label, sorted(BETA_COVER - kinds))
     return records
 
 
@@ -543,14 +617,36 @@ def run_cnmf(counts, ks, n_iter, hvg, k_cons, workdir):
     return walls, usage.values, merged, Xd
 
 
+def profiled(fn, n_top=4):
+    """fn() under torch.profiler, synchronized: (its result, wall seconds,
+    device-busy seconds, the n_top ops that take most of the device)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = sorted(
+        ((e.self_device_time_total / 1e6, e.key)
+         for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+        reverse=True)
+    busy = sum(s for s, _ in events)
+    assert busy > 0, "the profiler saw no device time"
+    top = "; ".join(f"{key[:40]} {s:.3f} s" for s, key in events[:n_top])
+    return out, wall, busy, top
+
+
 def phase_profile(counts, hvg, dev, card, ks, n_iter, profile_ks,
                   nmf_kwargs=None, label="CD"):
     """The K of ``profile_ks`` factorized again under torch.profiler: the
     device-busy time of the run, its idle share, and the ops that take most
     of the device."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from cnmf_tpu_torch.pipeline import stages
 
@@ -561,24 +657,43 @@ def phase_profile(counts, hvg, dev, card, ks, n_iter, profile_ks,
     kwargs = nmf_kwargs or stages.nmf_run_params()
     for k in profile_ks:
         rows = [i for i, (kk, _) in enumerate(grid) if kk == k]
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            _, n_it = stages.factorize_k(X_host, Xd, k, seeds[rows], kwargs)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        events = sorted(
-            ((e.self_device_time_total / 1e6, e.key)
-             for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
-            reverse=True)
-        busy = sum(s for s, _ in events)
-        assert busy > 0, "the profiler saw no device time"
-        top = "; ".join(f"{key[:40]} {s:.3f} s" for s, key in events[:4])
+        (_, n_it), wall, busy, top = profiled(
+            lambda: stages.factorize_k(X_host, Xd, k, seeds[rows], kwargs))
         print(f"[profile] {label} factorize k={k}, {len(rows)} restarts, sweeps max "
               f"{n_it.max()}: wall {wall:.3f} s (profiled), device busy "
               f"{busy:.3f} s, idle share {1 - busy / wall:.2%}; top device "
               f"ops: {top}; card: {card}", flush=True)
+
+
+def phase_profile_refits(counts, hvg, dev, card, spectra, k, kwargs,
+                         density_threshold):
+    """The IS slice's k-stats and consensus at K=k on its merged spectra,
+    again under torch.profiler (their MU work is the B=1 refits): each
+    stage's wall, device-busy time, idle share, B=1 W-terms launches and
+    top device ops."""
+    import torch
+
+    from cnmf_tpu_torch.ops import mu_kernels as mk
+    from cnmf_tpu_torch.pipeline import stages
+
+    prep = stages.prepare_arrays(counts, num_highvar_genes=hvg)
+    Xd, tpm = (torch.as_tensor(np.ascontiguousarray(a, dtype=np.float32),
+                               device=dev) for a in (prep.norm, prep.tpm))
+    parts = []
+    for stage, fn in (
+        ("k_stats", lambda: stages.k_stats_arrays({k: spectra}, Xd, kwargs)),
+        ("consensus", lambda: stages.consensus_arrays(
+            spectra, k, Xd, tpm, prep.tpm_std, prep.hvg_idx, kwargs,
+            density_threshold=density_threshold)),
+    ):
+        mk.beta_mu_w_terms.launches_b1 = 0
+        _, wall, busy, top = profiled(fn, n_top=2)
+        parts.append(f"{stage} wall {wall:.3f} s, device busy {busy:.3f} s, "
+                     f"idle share {1 - busy / wall:.2%}, "
+                     f"{mk.beta_mu_w_terms.launches_b1} B=1 W-terms launches; "
+                     f"top device ops: {top}")
+    print("[profile] IS (profiled) " + " | ".join(parts) + f"; card: {card}",
+          flush=True)
 
 
 def phase_small_agreement(dev, nmf_kwargs=None, label="frobenius"):
@@ -658,17 +773,20 @@ def check_result(result, k, hvg):
 def mu_slice(label, counts, k_cons, n_iter, hvg, dev, kwargs, names, card,
              k_stats=(), density_threshold=0.5):
     """One MU path at bench.py's KL configuration through pipeline/stages.py;
-    returns the launches of ``names``' wrappers, each of which must be > 0."""
+    returns the launches of ``names``' wrappers, each of which must be > 0,
+    of those the launches with one restart (the refits), and the merged
+    spectra of K=k_cons."""
     from cnmf_tpu_torch.ops import mu_kernels as mk
 
     wrappers = {name: getattr(mk, name) for name in names}
     for fn in wrappers.values():
-        fn.launches = 0
-    walls, _, result, n_iters, _, k_rows = run_stages(
+        fn.launches = fn.launches_b1 = 0
+    walls, merged, result, n_iters, _, k_rows = run_stages(
         counts, [k_cons], n_iter, hvg, k_cons, dev, verbose=True,
         nmf_kwargs=kwargs, k_stats=k_stats,
         density_threshold=density_threshold)
     launches = {name: fn.launches for name, fn in wrappers.items()}
+    launches_b1 = {name: fn.launches_b1 for name, fn in wrappers.items()}
     usage = check_result(result, k_cons, hvg)
     assert np.allclose(usage.sum(axis=1), 1.0), "usage rows must sum to 1"
     its = n_iters[k_cons]
@@ -683,14 +801,26 @@ def mu_slice(label, counts, k_cons, n_iter, hvg, dev, kwargs, names, card,
           f"{len(result.density_filter)} kept), via pipeline/stages.py: walls_s "
           + json.dumps({k: round(v, 3) for k, v in walls.items()})
           + f"; iterations max {its.max()} mean {its.mean():.1f}{stats}; "
-          f"launches {launches}; card: {card}", flush=True)
+          f"launches {launches}, of which B=1 {launches_b1}; card: {card}",
+          flush=True)
     assert all(n > 0 for n in launches.values()), launches
-    return launches
+    return launches, launches_b1, merged[k_cons]
 
 
-# what a kernel family's bool template argument selects, (false, true)
-BOOL_TAGS = {"beta_terms_kernel": ("beta", "IS"), "cd_fused_kernel": ("W", "H"),
-             "kl_numerator_tiled_kernel": ("W", "H")}
+# what each bool template argument of a kernel family selects, (false,
+# true) in the arguments' order
+IS_TAG, SIDE_TAG = ("beta", "IS"), ("W", "H")
+BOOL_TAGS = {"beta_terms_kernel": (IS_TAG, ("1", "S")),
+             "cd_fused_kernel": (SIDE_TAG,),
+             "kl_numerator_tiled_kernel": (SIDE_TAG,),
+             "beta_terms_tiled_kernel": (IS_TAG, SIDE_TAG)}
+
+
+def template_tag(fam, args):
+    """An instantiation's tag from its mangled template arguments, (int,
+    '') or ('', bool digit) pairs: the ints, then each bool by its name."""
+    flags = iter(BOOL_TAGS.get(fam, ()))
+    return ",".join(a or next(flags, ("0", "1"))[int(b)] for a, b in args)
 
 
 def ptxas_lines(log_path):
@@ -706,8 +836,7 @@ def ptxas_lines(log_path):
                                 mangled)
                 args = re.findall(r"Li(\d+)E|Lb([01])E", mangled)
                 fam = fam.group(1) if fam else mangled
-                flags = BOOL_TAGS.get(fam, ("0", "1"))
-                tag = ",".join(a or flags[int(b)] for a, b in args) or "-"
+                tag = template_tag(fam, args) or "-"
                 name = (fam, tag)
                 fams.setdefault(name[0], {})[tag] = ["?", "?", "?"]
                 continue
@@ -755,6 +884,8 @@ def main():
         print(line, flush=True)
 
     # 3. kernels against plain, then the small slices against the CPU
+    print(f"[kernel] every case below: max_rel_diff <= {KERNEL_REL_BOUND:g}, "
+          "max |kernel - plain| / max |plain| (f32)", flush=True)
     records = phase_kernels(dev, card)
     records.update(phase_mu_kernels(dev, card))
     kl_kwargs = stages.nmf_run_params(beta_loss="kullback-leibler",
@@ -799,15 +930,21 @@ def main():
 
     # 6. the KL path and 7. the Itakura-Saito path at bench.py's KL
     # configuration
-    launches.update(mu_slice("kl", counts, k_cons, n_iter, hvg, dev,
-                             kl_kwargs, KL_KERNELS, card))
+    part, launches_b1, _ = mu_slice("kl", counts, k_cons, n_iter, hvg, dev,
+                                    kl_kwargs, KL_KERNELS, card)
+    launches.update(part)
     phase_profile(counts, hvg, dev, card, [k_cons], n_iter, [k_cons],
                   kl_kwargs, "KL")
-    launches.update(mu_slice("is", counts, k_cons, n_iter, hvg, dev,
-                             is_kwargs, BETA_KERNELS, card, k_stats=[k_cons],
-                             density_threshold=IS_DENSITY_THRESHOLD))
+    part, b1, is_spectra = mu_slice("is", counts, k_cons, n_iter, hvg, dev,
+                                    is_kwargs, BETA_KERNELS, card,
+                                    k_stats=[k_cons],
+                                    density_threshold=IS_DENSITY_THRESHOLD)
+    launches.update(part)
+    launches_b1.update(b1)
     phase_profile(counts, hvg, dev, card, [k_cons], n_iter, [k_cons],
                   is_kwargs, "IS")
+    phase_profile_refits(counts, hvg, dev, card, is_spectra, k_cons,
+                         is_kwargs, IS_DENSITY_THRESHOLD)
 
     # 8. results
     replaces = {"cd_w_half_sweep": "cnmf_tpu/ops/pallas_cd.py:118",
@@ -826,6 +963,8 @@ def main():
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=sources[name],
              replaces=replaces[name], launches=launches[name],
+             **({"launches_b1": launches_b1[name]} if name in launches_b1
+                else {}),
              library_ms=None, **records[name])
         for name in replaces
     ]}))

@@ -2,7 +2,7 @@
 """Times a restart-tiled kernel of the port against other versions of it on
 one CUDA card, and checks that every version gives the tree's bits.
 
-    python3 chip_tune_cd.py [--kernel cd|kl] [--against NAME=CSRC_DIR ...]
+    python3 chip_tune_cd.py [--kernel cd|kl|beta] [--against NAME=CSRC_DIR ...]
                             [--rounds 10]
 
 Builds this checkout's source of the kernel ("tree") and the same file of
@@ -25,11 +25,23 @@ factorize shape at K=16 and 8 (3 zero columns), W and H side; the two B=1
 consensus refits (row-major X, and X a transposed view); B=13 and 17 with G
 not a multiple of 4 (4-byte staging); bucket 24 and the wide K=72.
 
+--kernel beta: the general-beta terms (csrc/mu_beta.cu, mu_beta_terms) at
+beta 0 (Itakura-Saito) and 1.5 on the cases of --kernel kl, the ragged ones
+at N=2700 so that B=13 and 17 are not split, and small grids (K=16 B=9,
+K=8 B=25 and 49: 0.48, 0.57 and 1.06 waves of the restart-tiled kernel on
+an H100), about where the library stops choosing it. Where
+ops/mu_kernels.py's beta_terms_plan splits the contraction (the B=1 refits)
+the tree runs mu_beta_terms_split and every other build mu_beta_terms: the
+tree's result must have the same bits on two launches and be within 1e-6
+of each other build's in norm (‖a − b‖ / ‖b‖); the line also gives each
+build's largest difference from the float64 plain version, relative to
+its largest value. Every unsplit case must have the tree's bits.
+
 Prints the registers and spills of every build, the instruction mix of the
 tree's main loop at K=8 and 16 (cuobjdump), one line per case with every
 build's median ms per launch and the tree's grid (blocks, restarts per
-block, blocks per SM, waves on the card's SMs), and the card's name and
-power limit. Exits 1 if a check failed.
+block, blocks per SM, waves on the card's SMs, and a split's slices), and
+the card's name and power limit. Exits 1 if a check failed.
 """
 
 import argparse
@@ -64,28 +76,43 @@ KL_CASES = [("factorize", 100, 2700, 2000, K, ZERO_COLS.get(K, 0), side, False)
     ("bucket 24", 20, 2700, 2000, 24, 0, "H", False),
     ("wide", 10, 2700, 2000, 72, 0, "W", False),
     ("wide", 10, 2700, 2000, 72, 0, "H", False)]
+# (label, B, N, G, K, zero K columns, side, X a view): --kernel beta's cases
+BETA_CASES = [c for c in KL_CASES if c[0] != "ragged"] + [
+    ("ragged", 13, 2700, 1999, 8, 2, "W", False),
+    ("ragged", 17, 2700, 1999, 16, 2, "H", False),
+    ("ragged", 13, 2701, 1999, 16, 2, "W", False),
+    ("ragged", 17, 2701, 1998, 8, 2, "H", False),
+    ("small grid", 9, 2700, 2000, 16, 0, "W", False),
+    ("small grid", 25, 2700, 2000, 8, 3, "W", False),
+    ("small grid", 49, 2700, 2000, 8, 3, "W", False)]
+BETAS = (0.0, 1.5)
 LAUNCHES = 5
 REL_BOUND = 1e-4
+SPLIT_BOUND = 1e-6   # a split launch against the unsplit one, in norm
 # the kernel's source file and the kernel family whose ptxas lines and main
 # loop are reported
 KERNELS = {"cd": ("cd_half_sweep.cu", "cd_fused_kernel"),
-           "kl": ("mu_kl.cu", "kl_numerator_tiled_kernel")}
+           "kl": ("mu_kl.cu", "kl_numerator_tiled_kernel"),
+           "beta": ("mu_beta.cu", "beta_terms_tiled_kernel")}
 
 
 def loop_mix(so_path, family, K):
     """The instruction mix of the family's main loop at bucket K, for each
-    value of its bool template argument (W: false, H: true): {half:
-    (instructions, FFMA, the five most common other opcodes)} from
-    cuobjdump's SASS. The main loop is the backward branch whose body holds
-    the most FFMA; a body counts both ways of a branch inside it."""
+    value of its bool template arguments (chip_smoke.BOOL_TAGS: W or H, and
+    beta or IS): {tag: (instructions, FFMA, the five most common other
+    opcodes)} from cuobjdump's SASS. The main loop is the backward branch
+    whose body holds the most FFMA; a body counts both ways of a branch
+    inside it."""
     from torch.utils.cpp_extension import CUDA_HOME
+
+    from chip_smoke import template_tag
 
     sass = subprocess.run([os.path.join(CUDA_HOME, "bin", "cuobjdump"), "-sass",
                            so_path], check=True, capture_output=True,
                           text=True).stdout
     out = {}
     for func in re.split(r"\n\s*Function : ", sass):
-        m = re.match(rf"\S*{family}ILi{K}ELb([01])E", func)
+        m = re.match(rf"\S*{family}ILi{K}E((?:Lb[01]E)+)", func)
         if not m:
             continue
         ops = [(int(a, 16), op, ln) for ln in func.split("\n") for a, op in
@@ -102,8 +129,8 @@ def loop_mix(so_path, family, K):
         n, body = best
         rest = collections.Counter(o.split(".")[0] for o in body
                                    if not o.startswith("FFMA"))
-        out["H" if m.group(1) == "1" else "W"] = (len(body), n,
-                                                  rest.most_common(5))
+        bools = [("", b) for b in re.findall(r"Lb([01])E", m.group(1))]
+        out[template_tag(family, bools)] = (len(body), n, rest.most_common(5))
     return out
 
 
@@ -286,12 +313,117 @@ def kl_cases(sos, sms, failed):
     return cases
 
 
-def grid_text(tiling, B, M, sms):
+def beta_cases(sos, sms, failed):
+    """The general-beta terms: (label, {build: call}, grid) per case of
+    BETA_CASES and beta, each build checked against plain; unsplit cases
+    against the tree's bits, split ones (the tree only) against themselves
+    and, in norm, against every other build."""
+    import torch
+
+    from cnmf_tpu_torch.ops import mu_kernels as mk
+    whole = {name: raising(bind(so, "mu_beta_terms", mk._BETA_ARGS),
+                           "mu_beta_terms") for name, so in sos.items()}
+    split = raising(bind(sos["tree"], "mu_beta_terms_split",
+                         mk._BETA_SPLIT_ARGS), "mu_beta_terms_split")
+    tiling = bind(sos["tree"], "mu_beta_terms_tiling", mk._TILING_ARGS)
+    stream = torch.cuda.current_stream().cuda_stream
+    rng = np.random.RandomState(1)
+    dev = torch.device("cuda")
+    cases = []
+    for label, B, N, G, K, pad, side, view in BETA_CASES:
+        X = (rng.gamma(1.0, 1.0, (N, G)) * (rng.rand(N, G) > 0.3)).astype(
+            np.float32)
+        avg = np.sqrt(X.mean() / K)
+        W = (avg * np.abs(rng.randn(B, N, K))).astype(np.float32)
+        Ht = (avg * np.abs(rng.randn(B, G, K))).astype(np.float32)
+        W[:, :, K - pad:] = 0.0
+        Ht[:, :, K - pad:] = 0.0
+        X = (torch.as_tensor(np.ascontiguousarray(X.T), device=dev).T if view
+             else torch.as_tensor(X, device=dev))
+        W, Ht = (torch.as_tensor(a, device=dev) for a in (W, Ht))
+        transposed = side == "H"
+        F, Fo = (Ht, W) if transposed else (W, Ht)
+        M = F.shape[1]
+        C, sxm, sxc = mk._x_strides(X, transposed)
+        plain_fn = mk.mu_h_terms_plain if transposed else mk.mu_w_terms_plain
+        for beta in BETAS:
+            # the one-row kernel's rows a block, blocks an SM and split chunk
+            one_row = [tiling(K, 1, 1, 1, 1, beta, f) for f in (0, 3, 4)]
+            splits, per_split = mk.beta_terms_plan(B, M, C, sms, *one_row)
+            plain = plain_fn(X, W, Ht, beta)
+            exact = (plain_fn(X.double(), W.double(), Ht.double(), beta)
+                     if splits > 1 else None)
+            calls, rels, sames, notes = {}, [], [], []
+            for name, fn in whole.items():
+                outs = (torch.empty_like(F), torch.empty_like(F))
+                args = (X, M, C, sxm, sxc, Fo, F, B, K, beta)
+                if name == "tree" and splits > 1:
+                    work = torch.empty((2, splits, *F.shape), dtype=F.dtype,
+                                       device=dev)
+                    call = bound_call(split, *args, splits, per_split, work,
+                                      *outs, stream)
+                else:
+                    call = bound_call(fn, *args, *outs, stream)
+                call()
+                torch.cuda.synchronize()
+                rel = max(float((a - b).abs().max() / b.abs().max())
+                          for a, b in zip(outs, plain))
+                calls[name] = call
+                rels.append(f"{name} {rel:.3e}")
+                if rel > REL_BOUND:
+                    failed.append(f"{label} K={K} {side} beta={beta:g} "
+                                  f"{name}: {rel:.3e} from plain")
+                if exact is not None:
+                    err = max(float((a - b).abs().max() / b.abs().max())
+                              for a, b in zip(outs, exact))
+                    notes.append(f"{name} {err:.3e}")
+                if name == "tree":
+                    ref = [o.clone() for o in outs]
+                    if splits > 1:
+                        call()
+                        torch.cuda.synchronize()
+                        same = all(torch.equal(a, b) for a, b in zip(outs, ref))
+                        sames.append(f"tree again {same}")
+                        if not same:
+                            failed.append(f"{label} K={K} {side} beta={beta:g}"
+                                          ": split bits differ between launches")
+                    continue
+                if splits == 1:
+                    same = all(torch.equal(a, b) for a, b in zip(outs, ref))
+                    sames.append(f"{name} {same}")
+                    if not same:
+                        failed.append(f"{label} K={K} {side} beta={beta:g} "
+                                      f"{name}: bits differ")
+                    continue
+                dist = max(float(torch.linalg.vector_norm(a - b)
+                                 / torch.linalg.vector_norm(b))
+                           for a, b in zip(ref, outs))
+                sames.append(f"{name} in norm {dist:.3e}")
+                if dist > SPLIT_BOUND:
+                    failed.append(f"{label} K={K} {side} beta={beta:g}: split "
+                                  f"{dist:.3e} from {name}")
+            tag = f"{label} B={B} N={N} G={G} K={K} {side} beta={beta:g}"
+            cut = f" split {splits} x {per_split}" if splits > 1 else ""
+            print(f"[tune-check] {tag}{cut}: max_rel_diff vs plain "
+                  f"{', '.join(rels)}; bits equal to tree's: "
+                  f"{', '.join(sames) or '-'}"
+                  + (f"; max_rel_diff vs f64 {', '.join(notes)}" if notes
+                     else ""), flush=True)
+            b = 1 if splits > 1 else B
+            grid = [tiling(K, b, M, sxm, sxc, beta, f) for f in range(4)]
+            cases.append((tag, calls,
+                          grid_text(grid, B, M, sms, splits, per_split)))
+    return cases
+
+
+def grid_text(tiling, B, M, sms, splits=1, per_split=None):
     rows, rb, threads, per_sm = tiling
-    blocks = -(-M // rows) * -(-B // rb)
+    blocks = -(-M // rows) * -(-B // rb) * splits
     waves = f"{blocks / (per_sm * sms):.2f}" if per_sm else "n/a"
-    return (f"{rows} rows x {rb} restarts, {threads} threads, {blocks} "
-            f"blocks, {per_sm} per SM, waves {waves}")
+    cut = f"split {splits} x {per_split} entries, " if splits > 1 else ""
+    return (f"{cut}{rows} rows x {rb} restarts, {threads} threads, {blocks} "
+            f"blocks, {per_sm} per SM, waves {waves}, {blocks / sms:.2f} "
+            "blocks an SM")
 
 
 def main():
@@ -335,7 +467,8 @@ def main():
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     failed = []
-    cases = (kl_cases if args.kernel == "kl" else cd_cases)(sos, sms, failed)
+    cases = {"cd": cd_cases, "kl": kl_cases, "beta": beta_cases}[args.kernel](
+        sos, sms, failed)
 
     times = collections.defaultdict(list)
     names = list(sos)

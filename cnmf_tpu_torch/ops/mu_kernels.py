@@ -13,7 +13,11 @@ tensors lie:
   strides, so a transposed view of X needs no copy; K a positive multiple of
   8). Anything else on CUDA raises; there is no fallback to the plain
   version. The KL numerators take one of two kernels by shape
-  (``kl_numerator_tiling``); both give the same bits.
+  (``kl_numerator_tiling``); both give the same bits. The general-beta
+  terms do the same (``beta_terms_tiling``), and where ``beta_terms_plan``
+  finds the grid too small to fill the card (the B=1 consensus refits) the
+  contraction is split across blocks, whose partials are summed in a fixed
+  order.
 * CPU tensors run the plain PyTorch versions below at the tensors' dtype.
 
 The plain versions follow the JAX package's XLA path (``_mu_w_terms_chunked``,
@@ -22,10 +26,14 @@ The plain versions follow the JAX package's XLA path (``_mu_w_terms_chunked``,
 (CHUNK, N, G) reconstruction is ever live. ``mu_w_terms_plain`` and
 ``mu_h_terms_plain`` give the numerator and denominator for any beta != 2.
 
-Each wrapper counts its kernel launches in a ``launches`` attribute.
+Each wrapper counts its kernel launches in a ``launches`` attribute, and
+those with one restart (B=1, the consensus and k-stats refits) also in
+``launches_b1``.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -87,15 +95,30 @@ def kl_h_denominator(W):
     return torch.where(w_sum == 0, 1.0, w_sum)[:, None, :]
 
 
-def mu_w_terms_plain(X, W, Ht, beta: float):
+def _sliced_bmm(A, B, per_split):
+    """A·B over their shared axis in slices of ``per_split`` entries (None:
+    one slice), each slice's product and then the slices' sum in order."""
+    if per_split is None:
+        return torch.bmm(A, B)
+    out = None
+    for lo in range(0, A.shape[-1], per_split):
+        part = torch.bmm(A[..., lo:lo + per_split], B[:, lo:lo + per_split])
+        out = part if out is None else out + part
+    return out
+
+
+def mu_w_terms_plain(X, W, Ht, beta: float, per_split=None):
     """W-update numerator (X ∘ WH^(β−2))·Hᵀ and denominator (β=1:
-    ``kl_w_denominator``, else WH^(β−1)·Hᵀ), each (B, N, K); beta != 2."""
+    ``kl_w_denominator``, else WH^(β−1)·Hᵀ), each (B, N, K); beta != 2.
+    ``per_split``: sum the contraction (G) in slices of that many entries and
+    then the slices in order, as a split launch of the general-beta kernel
+    does (``beta_terms_plan``)."""
     num = torch.empty_like(W)
     den = None if beta == 1 else torch.empty_like(W)
     for sl, _, Htb, WH in wh_chunks(W, Ht):
-        num[sl] = torch.bmm(_num_ratio(X, WH, beta), Htb)
+        num[sl] = _sliced_bmm(_num_ratio(X, WH, beta), Htb, per_split)
         if den is not None:
-            den[sl] = torch.bmm(_den_factor(WH, beta), Htb)
+            den[sl] = _sliced_bmm(_den_factor(WH, beta), Htb, per_split)
     if den is None:
         den = kl_w_denominator(Ht).expand_as(num)
     return num, den
@@ -146,6 +169,8 @@ def kl_x_log_wh_plain(X, W, Ht):
 
 _ARGS = (VP, I32, I32, I64, I64, VP, VP, I32, I32, VP, VP)
 _BETA_ARGS = (VP, I32, I32, I64, I64, VP, VP, I32, I32, F32, VP, VP, VP)
+_BETA_SPLIT_ARGS = (VP, I32, I32, I64, I64, VP, VP, I32, I32, F32, I32, I32,
+                    VP, VP, VP, VP)
 
 
 def _x_strides(X, transposed):
@@ -167,10 +192,74 @@ def kl_numerator_tiling(X, B, K, transposed=False):
     return tuple(fn(K, B, sxm, sxc, field) for field in range(4))
 
 
-def _launch(name, symbol, X, F, F_other, outs, transposed, beta=None):
+def beta_terms_plan(B: int, M: int, C: int, sms: int, rows: int,
+                    per_sm: int, chunk: int):
+    """How the general-beta kernels split a contraction of C entries for B
+    restarts of M output rows on a card of ``sms`` SMs, given the one-row
+    kernel's ``rows`` a block, the blocks of it an SM holds at once and the
+    ``chunk`` of entries a slice holds a whole number of (0: it cannot
+    split) → (splits, entries_per_split).
+
+    A wave here is one block on each SM. Where the one-row kernel's grid,
+    B·⌈M/rows⌉ blocks, is under 2 waves, the contraction is split into slices
+    of whole chunks, at least 2 a slice, the last slice taking the rest: as
+    many slices as keep the grid within min(4, per_sm) waves, so every block
+    is resident at once (2-4 blocks on every SM at the B=1 refits). The
+    factorize's grids (B=100) are not split."""
+    blocks = B * -(-M // rows)
+    if chunk == 0 or blocks >= 2 * sms:
+        return 1, C
+    most = max(1, min(4, per_sm) * sms // blocks)
+    chunks = -(-C // chunk)
+    per_split = max(2, -(-chunks // most)) * chunk
+    splits = -(-C // per_split)
+    return (splits, per_split) if splits > 1 else (1, C)
+
+
+_TILING_ARGS = (I32, I32, I32, I64, I64, F32, I32)
+
+
+@functools.lru_cache(maxsize=None)
+def _one_row_plan_args(K: int, itakura_saito: bool, index: int):
+    """(SMs, rows a block, blocks an SM holds, split chunk) of the one-row
+    kernel at bucket K on device ``index``, read once from the library."""
+    fn = kernel_function("mu_beta_terms_tiling", _TILING_ARGS)
+    beta = 0.0 if itakura_saito else 0.5
+    with torch.cuda.device(index):
+        sms = torch.cuda.get_device_properties(index).multi_processor_count
+        return (sms,) + tuple(fn(K, 1, 1, 1, 1, beta, field)
+                              for field in (0, 3, 4))
+
+
+def _beta_split(X, F, beta, transposed):
+    """(splits, entries a split) of a general-beta launch, ``beta_terms_plan``
+    with what the library reports of the card and the kernel."""
+    B, M, K = F.shape
+    C = X.shape[0 if transposed else 1]
+    return beta_terms_plan(B, M, C, *_one_row_plan_args(
+        K, beta == 0, F.device.index))
+
+
+def beta_terms_tiling(X, F, beta, transposed=False):
+    """The grid the general-beta kernels take with F (B, M, K) owning the
+    rows (W, or Ht for ``transposed``): (rows a block owns, restarts it
+    owns, threads, blocks an SM holds at once, splits of the contraction,
+    entries a split)."""
+    B, M, K = F.shape
+    splits, per_split = _beta_split(X, F, beta, transposed)
+    _, sxm, sxc = _x_strides(X, transposed)
+    fn = kernel_function("mu_beta_terms_tiling", _TILING_ARGS)
+    b = 1 if splits > 1 else B   # a split runs the one-row kernel
+    return tuple(fn(K, b, M, sxm, sxc, float(beta), field)
+                 for field in range(4)) + (splits, per_split)
+
+
+def _launch(name, symbol, X, F, F_other, outs, transposed, beta=None,
+            split=None):
     """F (B, M, K) owns the rows, F_other (B, C, K) is contracted over: the W
     side reads X as (M=N, C=G), the H side transposed as (M=G, C=N).
-    ``outs``: the output tensors; ``beta``: the general-beta kernels' loss."""
+    ``outs``: the output tensors; ``beta``: the general-beta kernels' loss;
+    ``split``: (splits, entries a split, workspace) of a split launch."""
     B, M, K = F.shape
     N, G = X.shape
     C, sxm, sxc = _x_strides(X, transposed)
@@ -181,12 +270,36 @@ def _launch(name, symbol, X, F, F_other, outs, transposed, beta=None):
     check_k(name, K)
     args = [X.data_ptr(), M, C, sxm, sxc, F_other.data_ptr(), F.data_ptr(),
             B, K]
+    argtypes = _ARGS
     if beta is not None:
         args.append(float(beta))
-    raise_on(name, kernel_function(
-        symbol, _ARGS if beta is None else _BETA_ARGS
-    )(*args, *[o.data_ptr() for o in outs], stream_of(F)))
+        argtypes = _BETA_ARGS
+    if split is not None:
+        splits, per_split, work = split
+        args += [splits, per_split, work.data_ptr()]
+        argtypes = _BETA_SPLIT_ARGS
+    raise_on(name, kernel_function(symbol, argtypes)(
+        *args, *[o.data_ptr() for o in outs], stream_of(F)))
     return outs
+
+
+def _count(fn, B):
+    fn.launches += 1
+    fn.launches_b1 += int(B == 1)
+
+
+def _beta_launch(name, X, F, F_other, transposed, beta):
+    """(num, den) of the general-beta kernels, split as ``beta_terms_plan``
+    says."""
+    check_k(name, F.shape[2])
+    splits, per_split = _beta_split(X, F, beta, transposed)
+    outs = (torch.empty_like(F), torch.empty_like(F))
+    if splits == 1:
+        return _launch(name, "mu_beta_terms", X, F, F_other, outs, transposed,
+                       beta=beta)
+    work = torch.empty((2, splits, *F.shape), dtype=F.dtype, device=F.device)
+    return _launch(name, "mu_beta_terms_split", X, F, F_other, outs,
+                   transposed, beta=beta, split=(splits, per_split, work))
 
 
 # ----------------------------------------------------------------------
@@ -200,7 +313,7 @@ def kl_mu_w_numerator(X, W, Ht):
         return kl_mu_w_numerator_plain(X, W, Ht)
     (out,) = _launch("kl_mu_w_numerator", "mu_kl_numerator", X, W, Ht,
                      (torch.empty_like(W),), transposed=False)
-    kl_mu_w_numerator.launches += 1
+    _count(kl_mu_w_numerator, W.shape[0])
     return out
 
 
@@ -211,7 +324,7 @@ def kl_mu_h_numerator(X, W, Ht):
         return kl_mu_h_numerator_plain(X, W, Ht)
     (out,) = _launch("kl_mu_h_numerator", "mu_kl_numerator", X, Ht, W,
                      (torch.empty_like(Ht),), transposed=True)
-    kl_mu_h_numerator.launches += 1
+    _count(kl_mu_h_numerator, W.shape[0])
     return out
 
 
@@ -226,7 +339,7 @@ def kl_x_log_wh(X, W, Ht):
     part = torch.empty((tiles, W.shape[0]), dtype=torch.float64,
                        device=W.device)
     _launch(name, "mu_kl_x_log_wh", X, W, Ht, (part,), transposed=False)
-    kl_x_log_wh.launches += 1
+    _count(kl_x_log_wh, W.shape[0])
     return part.sum(dim=0).to(torch.float32)
 
 
@@ -245,10 +358,8 @@ def beta_mu_w_terms(X, W, Ht, beta: float):
     _check_beta(name, beta)
     if device_kind(name, W) == "cpu":
         return beta_mu_w_terms_plain(X, W, Ht, beta)
-    outs = _launch(name, "mu_beta_terms", X, W, Ht,
-                   (torch.empty_like(W), torch.empty_like(W)),
-                   transposed=False, beta=beta)
-    beta_mu_w_terms.launches += 1
+    outs = _beta_launch(name, X, W, Ht, False, beta)
+    _count(beta_mu_w_terms, W.shape[0])
     return outs
 
 
@@ -260,15 +371,12 @@ def beta_mu_h_terms(X, W, Ht, beta: float):
     _check_beta(name, beta)
     if device_kind(name, Ht) == "cpu":
         return beta_mu_h_terms_plain(X, W, Ht, beta)
-    outs = _launch(name, "mu_beta_terms", X, Ht, W,
-                   (torch.empty_like(Ht), torch.empty_like(Ht)),
-                   transposed=True, beta=beta)
-    beta_mu_h_terms.launches += 1
+    outs = _beta_launch(name, X, Ht, W, True, beta)
+    _count(beta_mu_h_terms, W.shape[0])
     return outs
 
 
-kl_mu_w_numerator.launches = 0
-kl_mu_h_numerator.launches = 0
-kl_x_log_wh.launches = 0
-beta_mu_w_terms.launches = 0
-beta_mu_h_terms.launches = 0
+WRAPPERS = (kl_mu_w_numerator, kl_mu_h_numerator, kl_x_log_wh,
+            beta_mu_w_terms, beta_mu_h_terms)
+for _fn in WRAPPERS:
+    _fn.launches = _fn.launches_b1 = 0

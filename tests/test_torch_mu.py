@@ -79,12 +79,12 @@ def test_kl_kernel_plain_matches_pallas_interpret(interpret_mode, name, B, K):
 
 
 @pytest.mark.parametrize("K", [8, 16])
-@pytest.mark.parametrize("B", [3, 5])
+@pytest.mark.parametrize("B", [1, 3, 5])
 @pytest.mark.parametrize("beta", [0.0, 0.5, 1.5, 3.0])
 def test_beta_terms_plain_matches_pallas_interpret(interpret_mode, beta, B, K):
     """Both general-beta kernels, numerator and denominator; beta 0 is
     Itakura-Saito, 0.5 floors both exponents' bases, 1.5 the numerator's
-    only, 3 neither."""
+    only, 3 neither. B=1 is the consensus refits' batch."""
     X, W, Ht = kernel_problem(B, K, seed=1)
     for name in BETA_KERNELS:
         ref = getattr(pm, name)(jnp.asarray(X), jnp.asarray(W),
@@ -95,6 +95,99 @@ def test_beta_terms_plain_matches_pallas_interpret(interpret_mode, beta, B, K):
             np.testing.assert_allclose(a.numpy(), np.asarray(b),
                                        rtol=BETA_RTOL)
             assert not a[:, :, -2:].any()
+
+
+SMS, ROWS, CHUNK = 132, 128, 32   # an H100's SMs; one-row rows, split chunk
+# blocks of the one-row kernel an H100 SM holds at once, by bucket, as its
+# build reports them (beta 0)
+PER_SM = {8: 7, 16: 4, 24: 3, 40: 2, 64: 2, 72: 2}
+REFITS = [(1, 2700, 2000), (1, 10000, 2700)]   # usage, spectra (B, M, C)
+
+
+def _plan(B, M, C, K):
+    """The plan on an H100; a wide K (> 64) cannot split (chunk 0)."""
+    return mk.beta_terms_plan(B, M, C, SMS, ROWS, PER_SM[K],
+                              0 if K > 64 else CHUNK)
+
+
+def _waves(B, M, splits, sms=SMS):
+    return B * -(-M // ROWS) * splits / sms
+
+
+@pytest.mark.parametrize("K", [8, 16])
+@pytest.mark.parametrize("B,M,C", REFITS)
+def test_beta_terms_plan_splits_the_refits(B, M, C, K):
+    """The B=1 refits' one-row grid (22 and 79 blocks) is split into 2-4
+    waves of one block an SM."""
+    splits, per_split = _plan(B, M, C, K)
+    assert splits > 1
+    assert 2 <= _waves(B, M, splits) <= 4
+
+
+@pytest.mark.parametrize("K", [8, 16])
+@pytest.mark.parametrize("transposed", [False, True])
+def test_beta_terms_plan_keeps_the_factorize_whole(transposed, K):
+    """B=100 restarts of the PBMC-3k shape, either side: one slice."""
+    N, G = 2700, 2000
+    M, C = (G, N) if transposed else (N, G)
+    assert _plan(100, M, C, K) == (1, C)
+
+
+@pytest.mark.parametrize("B,M,C,K", [
+    (1, 2700, 2000, 16), (1, 10000, 2700, 16), (1, 2700, 2000, 8),
+    (1, 2700, 2000, 40), (1, 2700, 2000, 64), (3, 300, 150, 8),
+    (13, 522, 97, 8), (1, 257, 61, 16), (1, 5000, 65, 16),
+    (7, 2700, 2000, 24), (1, 2700, 2000, 72)])
+def test_beta_terms_plan_slices_cover_the_contraction(B, M, C, K):
+    """Every slice but the last holds a whole number of 32-entry chunks, at
+    least 2; the last takes the rest, at least one entry; the grid stays
+    within the blocks an SM holds (and 4 waves). A wide K is never split."""
+    splits, per_split = _plan(B, M, C, K)
+    if K > 64 or splits == 1:
+        assert (splits, per_split) == (1, C)
+        return
+    assert per_split % CHUNK == 0 and per_split >= 2 * CHUNK
+    last = C - (splits - 1) * per_split
+    assert 1 <= last <= per_split
+    assert _waves(B, M, splits) <= min(4, PER_SM[K])
+
+
+def _per_split(C, splits):
+    """Entries a slice for ``splits`` slices of whole 32-entry chunks."""
+    chunks = -(-C // CHUNK)
+    per_split = -(-chunks // splits) * CHUNK
+    assert -(-C // per_split) == splits
+    return per_split
+
+
+@pytest.mark.parametrize("splits", [1, 3, 7])
+@pytest.mark.parametrize("beta", [0.0, 1.5])
+@pytest.mark.parametrize("view", [False, True])
+def test_split_order_plain_matches_pallas_interpret(interpret_mode, view,
+                                                    beta, splits):
+    """The split kernel's order in plain PyTorch (each slice's partial, then
+    the slices in order) at B=1 with C = 217, off the 32-entry chunks: f32
+    against the Pallas kernel in interpret mode, and f64 against the unsplit
+    plain version; X row-major or a transposed view."""
+    X, W, Ht = kernel_problem(1, 16, G=217, seed=4)
+    per_split = _per_split(X.shape[1], splits)
+    ref = pm.beta_mu_w_terms(jnp.asarray(X), jnp.asarray(W), jnp.asarray(Ht),
+                             beta)
+
+    def x_of(a):
+        return _t(a.T).T if view else _t(a)
+
+    out = mk.mu_w_terms_plain(x_of(X), _t(W), _t(Ht), beta,
+                              per_split=per_split)
+    for a, b in zip(out, ref):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=BETA_RTOL)
+        assert not a[:, :, -2:].any()
+    X64, W64, Ht64 = (a.astype(np.float64) for a in (X, W, Ht))
+    split = mk.mu_w_terms_plain(x_of(X64), _t(W64), _t(Ht64), beta,
+                                per_split=per_split)
+    whole = mk.mu_w_terms_plain(_t(X64), _t(W64), _t(Ht64), beta)
+    for a, b in zip(split, whole):
+        torch.testing.assert_close(a, b, rtol=1e-12, atol=0)
 
 
 def test_beta_wrappers_refuse_kl_and_frobenius():
@@ -131,6 +224,7 @@ def test_cpu_tensors_launch_nothing(monkeypatch):
     monkeypatch.setenv("CUDA_HOME", "/nonexistent")
     for name in KERNELS + BETA_KERNELS:
         monkeypatch.setattr(getattr(mk, name), "launches", 0)
+        monkeypatch.setattr(getattr(mk, name), "launches_b1", 0)
     X, W, Ht = (_t(a) for a in kernel_problem(3, 8))
     for name in KERNELS:
         getattr(mk, name)(X, W, Ht)
@@ -138,6 +232,7 @@ def test_cpu_tensors_launch_nothing(monkeypatch):
         getattr(mk, name)(X, W, Ht, 0.0)
     assert [getattr(mk, name).launches for name in KERNELS + BETA_KERNELS] \
         == [0] * 5
+    assert not any(fn.launches_b1 for fn in mk.WRAPPERS)
     assert load_library.cache_info().currsize == 0
 
 
