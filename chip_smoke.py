@@ -14,20 +14,22 @@ Phases, each printing its own line(s):
    main path's shapes: the CD half-sweeps (K=8 and K=16 buckets, each with
    the time of its data product alone as one flat matmul, its share of the
    bound and the fused kernel's grid: blocks, restarts per block, waves on
-   the card's SMs; ragged cases with B off the restart groups), the KL
-   multiplicative-update kernels and the general-beta kernels (at beta 0
-   and 1.5) at the factorize shape (K=16, and K=8 with zero columns), the W
-   terms at the consensus refits' two shapes (the KL numerators and the
-   general-beta terms with their share of the bound and their kernel's
-   grid: its tiling, or how the contraction is split); then ragged shapes at
-   every K bucket 8..64 and at the wide K 72 and 136 of every entry point,
-   one line per kernel (each case asserts the bound, and that zero K
-   columns stay exactly zero; the general-beta lines count the kernel each
-   case ran, and every one of them must have run: whole and split at every
-   bucket, restart-tiled with a partial restart group, wide); then the
-   slice at the verify recipe's size on the card against the same code on
-   the CPU, with the frobenius (CD), the kullback-leibler and the
-   itakura-saito (MU) loss, the K-selection stats of K=5 and 6 included;
+   the card's SMs; ragged cases with B off the restart groups; the
+   products-given sweep at the TPM-spectra refit's shape, per wrapper call
+   and its kernel alone), the KL multiplicative-update kernels and the
+   general-beta kernels (at beta 0 and 1.5) at the factorize shape (K=16,
+   and K=8 with zero columns), the W terms and the KL divergence at the
+   consensus refits' two shapes (each with its share of the bound and its
+   kernel's grid: its tiling, or how the contraction is split); then ragged
+   shapes at every K bucket 8..64 and at the wide K 72 and 136 of every
+   entry point, one line per kernel (each case asserts the bound, and that
+   zero K columns stay exactly zero; the general-beta and divergence lines
+   count the kernel each case ran, and every one of them must have run
+   (MU_COVER): whole and split at every bucket, restart-tiled with a
+   partial restart group, wide); then the slice at the verify recipe's size
+   on the card against the same code on the CPU, with the frobenius (CD),
+   the kullback-leibler and the itakura-saito (MU) loss, the K-selection
+   stats of K=5 and 6 included;
 4. the main path end to end at PBMC-3k scale — bench.py's make_counts(2700,
    10000), 2000 HVGs, K=5..13 × 100 restarts, consensus at K=10 (density
    threshold 0.5) — through cNMF(device="cuda") when pandas, h5py and yaml
@@ -42,7 +44,8 @@ Phases, each printing its own line(s):
    combine, consensus at K=10 — through pipeline/stages.py: stage walls,
    iterations and the KL kernels' launch counts, each of which must be > 0,
    and of those the launches with one restart (the B=1 refits); then its
-   factorize again under torch.profiler;
+   factorize and its consensus (the stage of the B=1 refits) again under
+   torch.profiler;
 7. the Itakura-Saito path, the same configuration with
    beta_loss="itakura-saito", k-stats at K=10 as well, and consensus at
    density threshold IS_DENSITY_THRESHOLD: stage walls, iterations, the
@@ -50,7 +53,8 @@ Phases, each printing its own line(s):
    the B=1 refits apart; then its factorize under torch.profiler, and its
    k-stats and consensus (the stages of the B=1 refits);
 8. a JSON line of the kernels (times, the bound of the work at the main
-   shape, launches on the main path, the MU kernels' B=1 launches apart),
+   shape, launches on the main path, the MU kernels' B=1 launches apart,
+   the refits' times, bounds and splits),
    the card line, and the result line
    {"ok": true, "device": {...}}.
 
@@ -130,16 +134,16 @@ MU_REFIT = [(dict(B=1, N=2700, G=2000, K=16), "usage refit", False),
              "spectra refit, X a transposed view", True)]
 MU_RAGGED = [dict(B=3 + 2 * (i % 3), N=300 + 37 * i, G=150 + 29 * i, K=K)
              for i, K in enumerate(list(range(8, 65, 8)) + [72, 136])]
-# general-beta cases the contraction is not split at (MU_RAGGED's split at
-# every bucket): B=90 restarts of 3-5 row tiles keep the one-row kernel's
-# grid at 2 waves or more on both sides at every register bucket, and the
-# restart-tiled kernel's grid too small for it; B off its restart groups
-# with X's pitch not a multiple of 4 on grids it takes (a partial restart
-# group, 4-byte staging)
-BETA_WHOLE = [dict(B=90, N=300 + 37 * i, G=260 + 29 * i, K=K)
-              for i, K in enumerate(range(8, 65, 8))]
-BETA_TILED_EDGE = [dict(B=33, N=2701, G=1999, K=16),
-                   dict(B=97, N=2701, G=1999, K=8)]
+# general-beta and divergence-term cases the contraction is not split at
+# (MU_RAGGED's split at every bucket): B=90 restarts of 3-5 row tiles keep
+# the one-row kernel's grid at 2 waves or more on both sides at every
+# register bucket, and the restart-tiled kernels' grids too small for them;
+# B off their restart groups with X's pitch not a multiple of 4 on grids
+# they take (a partial restart group, 4-byte staging)
+MU_WHOLE = [dict(B=90, N=300 + 37 * i, G=260 + 29 * i, K=K)
+            for i, K in enumerate(range(8, 65, 8))]
+TILED_EDGE = [dict(B=97, N=2701, G=1999, K=16),
+              dict(B=97, N=2701, G=1999, K=8)]
 KL_NUMERATORS = ("kl_mu_w_numerator", "kl_mu_h_numerator")
 KL_KERNELS = KL_NUMERATORS + ("kl_x_log_wh",)
 BETA_KERNELS = ("beta_mu_w_terms", "beta_mu_h_terms")
@@ -170,6 +174,27 @@ def timed_ms(fn, reps=10):
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def device_ms(fn, launches=50, reps=5):
+    """Median milliseconds one call of ``fn`` keeps the device busy:
+    ``launches`` calls queued behind a sleeping kernel, so that the host's
+    time to enqueue them stays outside the events."""
+    import torch
+
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda._sleep(10_000_000)   # a few ms: longer than the enqueue
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(launches):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / launches)
     return float(np.median(times))
 
 
@@ -289,11 +314,12 @@ def grid_text(tiling, B, M):
             "blocks an SM")
 
 
-def phase_kernels(dev, card):
+def phase_kernels(dev):
     """The CD kernels against plain on the card; returns {name: record}."""
     import torch
 
     from cnmf_tpu_torch.ops import cd_kernels as ck
+    from cnmf_tpu_torch.ops.kernel_lib import kernel_function, raise_on
 
     rng = np.random.RandomState(0)
     ragged_lines = RaggedLines()
@@ -340,7 +366,7 @@ def phase_kernels(dev, card):
                   f"max_abs_err={abs_err:.3e} kernel_ms={ms:.4f} "
                   f"plain_ms={plain_ms:.4f} product_ms={product_ms:.4f} "
                   f"bound_ms={bound_ms:.4f} share_of_bound={bound_ms / ms:.1%}; "
-                  f"{grid}; card: {card}", flush=True)
+                  f"{grid}", flush=True)
             main_record(records, name, shape["K"], abs_err, ms=ms,
                         plain_ms=plain_ms, product_ms=product_ms,
                         share_of_bound=bound_ms / ms)
@@ -373,21 +399,30 @@ def phase_kernels(dev, card):
             continue
         ms = timed_ms(lambda: kernel(F, gram, P, **regs))
         plain_ms = timed_ms(lambda: plain(F, gram, P, **regs))
+        # the kernel alone, on buffers allocated once: what of the wrapper's
+        # time the device takes
+        out, part = torch.empty_like(F), torch.empty((M, B), device=dev)
+        launch = kernel_function("cd_half_sweep_products", ck._PRODUCTS_ARGS)
+        ptrs = (P.data_ptr(), M, F.data_ptr(), gram.data_ptr(), 0.0, B, K,
+                out.data_ptr(), part.data_ptr(),
+                torch.cuda.current_stream().cuda_stream)
+        alone_ms = device_ms(lambda: raise_on(name, launch(*ptrs)))
+        bound_ms, by = bound(2 * M * K * K * B, 4 * (3 * B * M * K + B * K * K))
         print(f"[kernel] {name} main {shape_text(shape)} {regs}: "
               f"max_rel_diff={rel_err:.3e} max_abs_err={abs_err:.3e} "
-              f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f}; card: {card}",
-              flush=True)
-        bound_ms, by = bound(2 * M * K * K * B, 4 * (3 * B * M * K + B * K * K))
-        records[name] = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
-                             bound_ms=bound_ms, bound_by=by)
+              f"kernel_ms={ms:.4f} alone_ms={alone_ms:.4f} "
+              f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f}", flush=True)
+        records[name] = dict(max_abs_err=abs_err, ms=ms, alone_ms=alone_ms,
+                             plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by)
     ragged_lines.print()
     return records
 
 
-def beta_kind(tiling, B, K):
-    """Which general-beta kernel a launch of this tiling runs: "split" (the
-    one-row kernel over slices of the contraction), "tiled" ("tiled partial"
-    with a restart group B leaves part empty), "one-row" or "wide"."""
+def kernel_kind(tiling, B, K):
+    """Which kernel a general-beta or divergence-term launch of this tiling
+    runs: "split" (the one-row kernel over slices of the contraction),
+    "tiled" ("tiled partial" with a restart group B leaves part empty),
+    "one-row" or "wide"."""
     _, restarts, _, _, splits, _ = tiling
     if splits > 1:
         return "split"
@@ -396,17 +431,19 @@ def beta_kind(tiling, B, K):
     return "wide" if K > 64 else "one-row"
 
 
-# the general-beta kernels every beta and side must have run in the ragged
-# cases: the one-row kernel whole and split at every register bucket, the
-# restart-tiled kernel with a partial restart group at both of its buckets,
+# the kernels every general-beta entry point (each beta and side) and the
+# divergence term must have run in the ragged and main cases: the one-row
+# kernel whole and split at every register bucket, the restart-tiled kernel
+# with a partial restart group and 4-byte staging at both of its buckets,
 # and the wide variant
-BETA_COVER = ({("one-row", K) for K in range(8, 65, 8)}
-              | {("split", K) for K in range(8, 65, 8)}
-              | {("tiled partial", 8), ("tiled partial", 16),
-                 ("wide", 72), ("wide", 136)})
+MU_COVER = ({("one-row", K) for K in range(8, 65, 8)}
+            | {("split", K) for K in range(8, 65, 8)}
+            | {("tiled partial", 8), ("tiled partial", 16),
+               ("wide", 72), ("wide", 136)})
+SPLIT_KERNELS = BETA_KERNELS + ("kl_x_log_wh",)   # the kernels MU_COVER holds
 
 
-def phase_mu_kernels(dev, card):
+def phase_mu_kernels(dev):
     """The KL and general-beta multiplicative-update kernels against their
     plain versions on the card; returns {name: record}."""
     import torch
@@ -447,8 +484,8 @@ def phase_mu_kernels(dev, card):
                 for m, tag, tr in MU_REFIT]
              + [(r, "ragged", PAD_COLS, False, every, BETAS)
                 for r in MU_RAGGED]
-             + [(r, "ragged", PAD_COLS, False, BETA_KERNELS, BETAS)
-                for r in BETA_WHOLE + BETA_TILED_EDGE])
+             + [(r, "ragged", PAD_COLS, False, SPLIT_KERNELS, BETAS)
+                for r in MU_WHOLE + TILED_EDGE])
     covered = {}
     for shape, tag, pad, transposed, names, betas in cases:
         X_host, X, W, Ht = problem(**shape, pad=pad, transposed=transposed)
@@ -460,40 +497,37 @@ def phase_mu_kernels(dev, card):
             abs_err, rel_err = compare(out, plain(*args))
             assert rel_err <= KERNEL_REL_BOUND, (name, beta, tag, shape, rel_err)
             h_side = name in ("kl_mu_h_numerator", "beta_mu_h_terms")
-            kind = None
+            label = name if beta is None else f"{name}(beta={beta:g})"
             if name in BETA_KERNELS:
                 tiling = mk.beta_terms_tiling(X, Ht if h_side else W, beta,
                                               h_side)
-                kind = beta_kind(tiling, shape["B"], shape["K"])
+            elif name == "kl_x_log_wh":
+                tiling = mk.kl_x_log_wh_tiling(X, shape["B"], shape["K"])
+            else:
+                tiling = mk.kl_numerator_tiling(X, shape["B"], shape["K"],
+                                                h_side)
+            kind = None
+            if name in SPLIT_KERNELS:
+                kind = kernel_kind(tiling, shape["B"], shape["K"])
+                covered.setdefault(label, set()).add((kind, shape["K"]))
             if tag == "ragged":
-                label = name if beta is None else f"{name}(beta={beta:g})"
                 ragged_lines.add(label, shape["K"], rel_err, abs_err, kind)
-                if kind:
-                    covered.setdefault(label, set()).add((kind, shape["K"]))
                 continue
             ms = timed_ms(lambda: kernel(*args))
             plain_ms = timed_ms(lambda: plain(*args))
             beta_txt = "" if beta is None else f" beta={beta:g}"
             bound_ms, by = bound(*kernel_work(name, X_host, **shape))
-            extra, share = "", {}
-            if name != "kl_x_log_wh":
-                # the numerators and beta terms: share of the bound and the
-                # kernel's grid
-                share = dict(share_of_bound=bound_ms / ms)
-                if name not in BETA_KERNELS:
-                    tiling = mk.kl_numerator_tiling(X, shape["B"], shape["K"],
-                                                    h_side)
-                extra = (f" bound_ms={bound_ms:.4f} share_of_bound="
-                         f"{bound_ms / ms:.1%}; " + grid_text(
-                             tiling, shape["B"], shape["G" if h_side else "N"]))
             print(f"[kernel] {name}{beta_txt} {tag} {shape_text(shape)} zero K "
                   f"columns {pad}: max_rel_diff={rel_err:.3e} "
-                  f"max_abs_err={abs_err:.3e} "
-                  f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f}{extra}; card: "
-                  f"{card}", flush=True)
+                  f"max_abs_err={abs_err:.3e} kernel_ms={ms:.4f} "
+                  f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} "
+                  f"share_of_bound={bound_ms / ms:.1%}; " + grid_text(
+                      tiling, shape["B"], shape["G" if h_side else "N"]),
+                  flush=True)
             if tag == "main":
                 main_record(records, name, shape["K"], abs_err, suffix,
-                            ms=ms, plain_ms=plain_ms, **share)
+                            ms=ms, plain_ms=plain_ms,
+                            share_of_bound=bound_ms / ms)
                 if shape["K"] == 16 and suffix == "":
                     records[name]["bound_ms"], records[name]["bound_by"] = \
                         bound_ms, by
@@ -501,9 +535,13 @@ def phase_mu_kernels(dev, card):
                 refit = tag.split()[0]   # "usage" or "spectra"
                 records[name].update({f"{refit}_refit_ms": ms,
                                       f"{refit}_refit_bound_ms": bound_ms})
+                if name in SPLIT_KERNELS:
+                    records[name][f"{refit}_refit_splits"] = tiling[4]
     ragged_lines.print()
     for label, kinds in covered.items():
-        assert BETA_COVER <= kinds, (label, sorted(BETA_COVER - kinds))
+        assert MU_COVER <= kinds, (label, sorted(MU_COVER - kinds))
+    print(f"[kernel] coverage: {len(covered)} entry points ran every kernel "
+          "of MU_COVER", flush=True)
     return records
 
 
@@ -666,11 +704,11 @@ def phase_profile(counts, hvg, dev, card, ks, n_iter, profile_ks,
 
 
 def phase_profile_refits(counts, hvg, dev, card, spectra, k, kwargs,
-                         density_threshold):
-    """The IS slice's k-stats and consensus at K=k on its merged spectra,
-    again under torch.profiler (their MU work is the B=1 refits): each
-    stage's wall, device-busy time, idle share, B=1 W-terms launches and
-    top device ops."""
+                         density_threshold, label, wrapper, k_stats=True):
+    """A MU slice's k-stats (``k_stats``) and consensus at K=k on its merged
+    spectra, again under torch.profiler (their MU work is the B=1 refits):
+    each stage's wall, device-busy time, idle share, the B=1 launches of the
+    kernel ``wrapper`` names and the top device ops."""
     import torch
 
     from cnmf_tpu_torch.ops import mu_kernels as mk
@@ -679,21 +717,22 @@ def phase_profile_refits(counts, hvg, dev, card, spectra, k, kwargs,
     prep = stages.prepare_arrays(counts, num_highvar_genes=hvg)
     Xd, tpm = (torch.as_tensor(np.ascontiguousarray(a, dtype=np.float32),
                                device=dev) for a in (prep.norm, prep.tpm))
-    parts = []
-    for stage, fn in (
-        ("k_stats", lambda: stages.k_stats_arrays({k: spectra}, Xd, kwargs)),
-        ("consensus", lambda: stages.consensus_arrays(
-            spectra, k, Xd, tpm, prep.tpm_std, prep.hvg_idx, kwargs,
-            density_threshold=density_threshold)),
-    ):
-        mk.beta_mu_w_terms.launches_b1 = 0
+    stage_fns = [("consensus", lambda: stages.consensus_arrays(
+        spectra, k, Xd, tpm, prep.tpm_std, prep.hvg_idx, kwargs,
+        density_threshold=density_threshold))]
+    if k_stats:
+        stage_fns.insert(0, ("k_stats", lambda: stages.k_stats_arrays(
+            {k: spectra}, Xd, kwargs)))
+    fn_b1, parts = getattr(mk, wrapper), []
+    for stage, fn in stage_fns:
+        fn_b1.launches_b1 = 0
         _, wall, busy, top = profiled(fn, n_top=2)
         parts.append(f"{stage} wall {wall:.3f} s, device busy {busy:.3f} s, "
                      f"idle share {1 - busy / wall:.2%}, "
-                     f"{mk.beta_mu_w_terms.launches_b1} B=1 W-terms launches; "
+                     f"{fn_b1.launches_b1} B=1 {wrapper} launches; "
                      f"top device ops: {top}")
-    print("[profile] IS (profiled) " + " | ".join(parts) + f"; card: {card}",
-          flush=True)
+    print(f"[profile] {label} (profiled) " + " | ".join(parts)
+          + f"; card: {card}", flush=True)
 
 
 def phase_small_agreement(dev, nmf_kwargs=None, label="frobenius"):
@@ -811,6 +850,7 @@ def mu_slice(label, counts, k_cons, n_iter, hvg, dev, kwargs, names, card,
 # true) in the arguments' order
 IS_TAG, SIDE_TAG = ("beta", "IS"), ("W", "H")
 BOOL_TAGS = {"beta_terms_kernel": (IS_TAG, ("1", "S")),
+             "kl_x_log_wh_kernel": (("1", "S"),),
              "cd_fused_kernel": (SIDE_TAG,),
              "kl_numerator_tiled_kernel": (SIDE_TAG,),
              "beta_terms_tiled_kernel": (IS_TAG, SIDE_TAG)}
@@ -886,8 +926,8 @@ def main():
     # 3. kernels against plain, then the small slices against the CPU
     print(f"[kernel] every case below: max_rel_diff <= {KERNEL_REL_BOUND:g}, "
           "max |kernel - plain| / max |plain| (f32)", flush=True)
-    records = phase_kernels(dev, card)
-    records.update(phase_mu_kernels(dev, card))
+    records = phase_kernels(dev)
+    records.update(phase_mu_kernels(dev))
     kl_kwargs = stages.nmf_run_params(beta_loss="kullback-leibler",
                                       max_iter=200)
     is_kwargs = stages.nmf_run_params(beta_loss="itakura-saito", max_iter=200)
@@ -930,11 +970,14 @@ def main():
 
     # 6. the KL path and 7. the Itakura-Saito path at bench.py's KL
     # configuration
-    part, launches_b1, _ = mu_slice("kl", counts, k_cons, n_iter, hvg, dev,
-                                    kl_kwargs, KL_KERNELS, card)
+    part, launches_b1, kl_spectra = mu_slice("kl", counts, k_cons, n_iter,
+                                             hvg, dev, kl_kwargs, KL_KERNELS,
+                                             card)
     launches.update(part)
     phase_profile(counts, hvg, dev, card, [k_cons], n_iter, [k_cons],
                   kl_kwargs, "KL")
+    phase_profile_refits(counts, hvg, dev, card, kl_spectra, k_cons,
+                         kl_kwargs, 0.5, "KL", "kl_x_log_wh", k_stats=False)
     part, b1, is_spectra = mu_slice("is", counts, k_cons, n_iter, hvg, dev,
                                     is_kwargs, BETA_KERNELS, card,
                                     k_stats=[k_cons],
@@ -944,7 +987,8 @@ def main():
     phase_profile(counts, hvg, dev, card, [k_cons], n_iter, [k_cons],
                   is_kwargs, "IS")
     phase_profile_refits(counts, hvg, dev, card, is_spectra, k_cons,
-                         is_kwargs, IS_DENSITY_THRESHOLD)
+                         is_kwargs, IS_DENSITY_THRESHOLD, "IS",
+                         "beta_mu_w_terms")
 
     # 8. results
     replaces = {"cd_w_half_sweep": "cnmf_tpu/ops/pallas_cd.py:118",
@@ -959,13 +1003,16 @@ def main():
         "mu_kl.cu" if name in KL_KERNELS else
         "mu_beta.cu" if name in BETA_KERNELS else "cd_half_sweep.cu")
         for name in replaces}
-    # no single PyTorch call computes any of these functions
+    # no single PyTorch call computes any of these functions; measured
+    # values to 5 significant digits, well inside their run-to-run spread
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=sources[name],
              replaces=replaces[name], launches=launches[name],
              **({"launches_b1": launches_b1[name]} if name in launches_b1
                 else {}),
-             library_ms=None, **records[name])
+             library_ms=None,
+             **{key: float(f"{v:.5g}") if isinstance(v, float) else v
+                for key, v in records[name].items()})
         for name in replaces
     ]}))
     print(card)

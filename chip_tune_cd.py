@@ -2,8 +2,8 @@
 """Times a restart-tiled kernel of the port against other versions of it on
 one CUDA card, and checks that every version gives the tree's bits.
 
-    python3 chip_tune_cd.py [--kernel cd|kl|beta] [--against NAME=CSRC_DIR ...]
-                            [--rounds 10]
+    python3 chip_tune_cd.py [--kernel cd|kl|beta|xlogwh]
+                            [--against NAME=CSRC_DIR ...] [--rounds 10]
 
 Builds this checkout's source of the kernel ("tree") and the same file of
 every --against directory (an earlier csrc/, or a copy with other tilings,
@@ -30,12 +30,27 @@ beta 0 (Itakura-Saito) and 1.5 on the cases of --kernel kl, the ragged ones
 at N=2700 so that B=13 and 17 are not split, and small grids (K=16 B=9,
 K=8 B=25 and 49: 0.48, 0.57 and 1.06 waves of the restart-tiled kernel on
 an H100), about where the library stops choosing it. Where
-ops/mu_kernels.py's beta_terms_plan splits the contraction (the B=1 refits)
+ops/mu_kernels.py's split_plan splits the contraction (the B=1 refits)
 the tree runs mu_beta_terms_split and every other build mu_beta_terms: the
 tree's result must have the same bits on two launches and be within 1e-6
 of each other build's in norm (‖a − b‖ / ‖b‖); the line also gives each
 build's largest difference from the float64 plain version, relative to
 its largest value. Every unsplit case must have the tree's bits.
+
+--kernel xlogwh: the KL divergence term (csrc/mu_kl.cu, mu_kl_x_log_wh) on
+the W-side cases of --kernel kl, the restart-tiled kernel's edge (B=97 at
+K=16 and 8: a partial restart group, G not a multiple of 4; B=33 at K=16,
+half of whose lanes would be empty, runs the one-row kernel), and the
+factorize and both refits again on the KL path's own X
+(pipeline/stages.prepare_arrays of bench.py's counts: the normalized
+counts, 27 % of them > eps, and the TPM as the spectra refit's transposed
+view). Results are compared by value, per restart: every build within
+1e-6 of the float64 plain version and within 2e-7 of the tree's; where
+split_plan splits the contraction the tree runs mu_kl_x_log_wh_split (every
+other build mu_kl_x_log_wh) and must give the same bits on two launches.
+Also prints how many blocks of the one-row kernel's split build an SM
+holds at every bucket, and each case's bound (chip_smoke.kernel_work on
+its X).
 
 Prints the registers and spills of every build, the instruction mix of the
 tree's main loop at K=8 and 16 (cuobjdump), one line per case with every
@@ -86,23 +101,40 @@ BETA_CASES = [c for c in KL_CASES if c[0] != "ragged"] + [
     ("small grid", 25, 2700, 2000, 8, 3, "W", False),
     ("small grid", 49, 2700, 2000, 8, 3, "W", False)]
 BETAS = (0.0, 1.5)
+# (label, B, N, G, K, zero K columns, X a transposed view, X's source):
+# --kernel xlogwh's cases, W side only; "synthetic" X as --kernel kl makes
+# it, "path" the KL path's own (the spectra refit's: the TPM)
+XLW_CASES = [c[:6] + (c[7], "synthetic") for c in KL_CASES if c[6] == "W"] + [
+    ("tiled edge", 33, 2701, 1999, 16, 2, False, "synthetic"),
+    ("tiled edge", 97, 2701, 1999, 16, 2, False, "synthetic"),
+    ("tiled edge", 97, 2701, 1999, 8, 2, False, "synthetic"),
+    ("factorize", 100, 2700, 2000, 16, 0, False, "path"),
+    ("factorize", 100, 2700, 2000, 8, 3, False, "path"),
+    ("usage refit", 1, 2700, 2000, 16, 0, False, "path"),
+    ("spectra refit", 1, 10000, 2700, 16, 0, True, "path")]
 LAUNCHES = 5
 REL_BOUND = 1e-4
 SPLIT_BOUND = 1e-6   # a split launch against the unsplit one, in norm
-# the kernel's source file and the kernel family whose ptxas lines and main
-# loop are reported
-KERNELS = {"cd": ("cd_half_sweep.cu", "cd_fused_kernel"),
-           "kl": ("mu_kl.cu", "kl_numerator_tiled_kernel"),
-           "beta": ("mu_beta.cu", "beta_terms_tiled_kernel")}
+XLW_EXACT = 1e-6     # the divergence term against float64 plain, per restart
+XLW_BUILDS = 2e-7    # ... and against the tree's, per restart
+# the kernel's source file, the kernel family whose main loop is reported
+# and the families whose ptxas lines are
+KERNELS = {"cd": ("cd_half_sweep.cu", "cd_fused_kernel", ("cd_fused_kernel",)),
+           "kl": ("mu_kl.cu", "kl_numerator_tiled_kernel",
+                  ("kl_numerator_tiled_kernel",)),
+           "beta": ("mu_beta.cu", "beta_terms_tiled_kernel",
+                    ("beta_terms_tiled_kernel",)),
+           "xlogwh": ("mu_kl.cu", "kl_x_log_wh_tiled_kernel",
+                      ("kl_x_log_wh_tiled_kernel", "kl_x_log_wh_kernel"))}
 
 
 def loop_mix(so_path, family, K):
     """The instruction mix of the family's main loop at bucket K, for each
     value of its bool template arguments (chip_smoke.BOOL_TAGS: W or H, and
-    beta or IS): {tag: (instructions, FFMA, the five most common other
-    opcodes)} from cuobjdump's SASS. The main loop is the backward branch
-    whose body holds the most FFMA; a body counts both ways of a branch
-    inside it."""
+    beta or IS; "-" for a family without them): {tag: (instructions, FFMA,
+    the five most common other opcodes)} from cuobjdump's SASS. The main
+    loop is the backward branch whose body holds the most FFMA; a body
+    counts both ways of a branch inside it."""
     from torch.utils.cpp_extension import CUDA_HOME
 
     from chip_smoke import template_tag
@@ -112,7 +144,7 @@ def loop_mix(so_path, family, K):
                           text=True).stdout
     out = {}
     for func in re.split(r"\n\s*Function : ", sass):
-        m = re.match(rf"\S*{family}ILi{K}E((?:Lb[01]E)+)", func)
+        m = re.match(rf"\S*{family}ILi{K}E((?:Lb[01]E)*)E", func)
         if not m:
             continue
         ops = [(int(a, 16), op, ln) for ln in func.split("\n") for a, op in
@@ -130,19 +162,20 @@ def loop_mix(so_path, family, K):
         rest = collections.Counter(o.split(".")[0] for o in body
                                    if not o.startswith("FFMA"))
         bools = [("", b) for b in re.findall(r"Lb([01])E", m.group(1))]
-        out[template_tag(family, bools)] = (len(body), n, rest.most_common(5))
+        out[template_tag(family, bools) or "-"] = (len(body), n,
+                                                   rest.most_common(5))
     return out
 
 
-def build_all(sources, out_dir, family):
-    """{name: source} -> {name: (so path, ptxas lines of the family)},
+def build_all(sources, out_dir, families):
+    """{name: source} -> {name: (so path, ptxas lines of the families)},
     compiled in parallel."""
     from chip_smoke import ptxas_lines
     from cnmf_tpu_torch.ops.kernel_lib import _NVCC_FLAGS, _nvcc
 
     procs = {}
     for name, src in sources.items():
-        so = os.path.join(out_dir, f"lib{family}_{name}.so")
+        so = os.path.join(out_dir, f"lib{families[0]}_{name}.so")
         log = open(so + ".log", "w")
         procs[name] = (so, log, subprocess.Popen(
             [_nvcc(), *_NVCC_FLAGS, "-shared", "-o", so, src],
@@ -155,7 +188,7 @@ def build_all(sources, out_dir, family):
             with open(so + ".log") as fh:
                 raise RuntimeError(f"{name}: nvcc failed\n{fh.read()}")
         out[name] = (so, [ln for ln in ptxas_lines(so + ".log")
-                          if family in ln])
+                          if ln.split()[1] in families])
     return out
 
 
@@ -349,7 +382,7 @@ def beta_cases(sos, sms, failed):
         for beta in BETAS:
             # the one-row kernel's rows a block, blocks an SM and split chunk
             one_row = [tiling(K, 1, 1, 1, 1, beta, f) for f in (0, 3, 4)]
-            splits, per_split = mk.beta_terms_plan(B, M, C, sms, *one_row)
+            splits, per_split = mk.split_plan(B, M, C, sms, *one_row)
             plain = plain_fn(X, W, Ht, beta)
             exact = (plain_fn(X.double(), W.double(), Ht.double(), beta)
                      if splits > 1 else None)
@@ -416,6 +449,113 @@ def beta_cases(sos, sms, failed):
     return cases
 
 
+def path_inputs():
+    """The KL path's own X: the normalized counts (2700 cells x 2000 HVGs)
+    and the TPM (2700 x 10000) of bench.py's counts, as float32 arrays."""
+    from bench import make_counts
+    from cnmf_tpu_torch.pipeline import stages
+
+    prep = stages.prepare_arrays(make_counts(2700, 10000, seed=7),
+                                 num_highvar_genes=2000)
+    return {"norm": np.ascontiguousarray(prep.norm, dtype=np.float32),
+            "tpm": np.ascontiguousarray(prep.tpm, dtype=np.float32)}
+
+
+def xlogwh_cases(sos, sms, failed):
+    """The KL divergence term: (label, {build: call}, grid) per case of
+    XLW_CASES, every build checked against the float64 plain version and
+    the tree's result by value; the tree's split cases against themselves
+    by bits."""
+    import torch
+
+    from chip_smoke import bound, kernel_work
+    from cnmf_tpu_torch.ops import mu_kernels as mk
+
+    whole = {name: raising(bind(so, "mu_kl_x_log_wh", mk._ARGS),
+                           "mu_kl_x_log_wh") for name, so in sos.items()}
+    split = raising(bind(sos["tree"], "mu_kl_x_log_wh_split",
+                         mk._SPLIT_ARGS), "mu_kl_x_log_wh_split")
+    tiling = bind(sos["tree"], "mu_kl_x_log_wh_tiling", mk._XLW_TILING_ARGS)
+    print("[tune-occupancy] tree kl_x_log_wh_kernel (one row, split build): "
+          "blocks an SM " + " ".join(
+              f"K={K}:{tiling(K, 1, 1, 1, 3)}" for K in CD_BUCKETS + (72,)),
+          flush=True)
+    stream = torch.cuda.current_stream().cuda_stream
+    rng = np.random.RandomState(1)
+    dev = torch.device("cuda")
+    path = path_inputs()
+    cases = []
+    for label, B, N, G, K, pad, view, source in XLW_CASES:
+        if source == "path":
+            X = path["tpm"].T if view else path["norm"]
+        else:
+            X = (rng.gamma(1.0, 1.0, (N, G)) * (rng.rand(N, G) > 0.3)).astype(
+                np.float32)
+        assert X.shape == (N, G), (label, X.shape)
+        bound_ms, _ = bound(*kernel_work("kl_x_log_wh", X, B, N, G, K))
+        avg = np.sqrt(X.mean() / K)
+        W = (avg * np.abs(rng.randn(B, N, K))).astype(np.float32)
+        Ht = (avg * np.abs(rng.randn(B, G, K))).astype(np.float32)
+        W[:, :, K - pad:] = 0.0
+        Ht[:, :, K - pad:] = 0.0
+        X = (torch.as_tensor(np.ascontiguousarray(X.T), device=dev).T if view
+             else torch.as_tensor(X, device=dev))
+        W, Ht = (torch.as_tensor(a, device=dev) for a in (W, Ht))
+        C, sxm, sxc = mk._x_strides(X, False)
+        one_row = [tiling(K, 1, 1, 1, f) for f in (0, 3, 4)]
+        splits, per_split = mk.split_plan(B, N, C, sms, *one_row)
+        exact = mk.kl_x_log_wh_plain(X.double(), W.double(), Ht.double())
+        tag = (f"{label}{', path X' if source == 'path' else ''} B={B} N={N} "
+               f"G={G} K={K}")
+        calls, errs, diffs = {}, [], []
+        for name, fn in whole.items():
+            args = (X, N, C, sxm, sxc, Ht, W, B, K)
+            # a partials row for every row of W (and slice), so no build's
+            # tiling needs to be read: rows its grid does not write stay 0
+            if name == "tree" and splits > 1:
+                part = torch.zeros((splits * N, B), dtype=torch.float64,
+                                   device=dev)
+                call = bound_call(split, *args, splits, per_split, part,
+                                  stream)
+            else:
+                part = torch.zeros((N, B), dtype=torch.float64, device=dev)
+                call = bound_call(fn, *args, part, stream)
+            call()
+            torch.cuda.synchronize()
+            out = part.sum(dim=0).float()
+            calls[name] = call
+            err = float(((out.double() - exact).abs() / exact.abs()).max())
+            errs.append(f"{name} {err:.3e}")
+            if err > XLW_EXACT:
+                failed.append(f"{tag} {name}: {err:.3e} from f64")
+            if name == "tree":
+                ref = out
+                if splits > 1:
+                    bits = part.clone()
+                    call()
+                    torch.cuda.synchronize()
+                    same = bool(torch.equal(part, bits))
+                    diffs.append(f"tree again same bits {same}")
+                    if not same:
+                        failed.append(f"{tag}: split bits differ between "
+                                      "launches")
+                continue
+            d = float(((out - ref).abs() / ref.abs()).max())
+            diffs.append(f"{name} {d:.3e}")
+            if d > XLW_BUILDS:
+                failed.append(f"{tag} {name}: {d:.3e} from the tree's")
+        cut = f" split {splits} x {per_split}" if splits > 1 else ""
+        print(f"[tune-check] {tag}{cut}: max rel diff vs f64 "
+              f"{', '.join(errs)}; vs tree's {', '.join(diffs) or '-'}",
+              flush=True)
+        b = 1 if splits > 1 else B
+        grid = [tiling(K, b, N, sxc, f) for f in range(4)]
+        cases.append((tag, calls,
+                      grid_text(grid, B, N, sms, splits, per_split)
+                      + f"; bound {bound_ms:.4f} ms"))
+    return cases
+
+
 def grid_text(tiling, B, M, sms, splits=1, per_split=None):
     rows, rb, threads, per_sm = tiling
     blocks = -(-M // rows) * -(-B // rb) * splits
@@ -442,7 +582,7 @@ def main():
         print("chip_tune_cd: no CUDA device", file=sys.stderr)
         return 2
     card = card_line()
-    source, family = KERNELS[args.kernel]
+    source, family, families = KERNELS[args.kernel]
     here = os.path.dirname(os.path.abspath(__file__))
     sources = {"tree": os.path.join(here, "cnmf_tpu_torch", "csrc", source)}
     for spec in args.against:
@@ -451,7 +591,7 @@ def main():
     out_dir = os.path.join(here, "cnmf_tpu_torch", "_build", "tune")
     os.makedirs(out_dir, exist_ok=True)
     t0 = time.perf_counter()
-    built = build_all(sources, out_dir, family)
+    built = build_all(sources, out_dir, families)
     print(f"[tune-build] {len(built)} builds of {source} in parallel in "
           f"{time.perf_counter() - t0:.2f} s; card: {card}", flush=True)
     for name, (so, lines) in built.items():
@@ -467,8 +607,8 @@ def main():
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     failed = []
-    cases = {"cd": cd_cases, "kl": kl_cases, "beta": beta_cases}[args.kernel](
-        sos, sms, failed)
+    cases = {"cd": cd_cases, "kl": kl_cases, "beta": beta_cases,
+             "xlogwh": xlogwh_cases}[args.kernel](sos, sms, failed)
 
     times = collections.defaultdict(list)
     names = list(sos)

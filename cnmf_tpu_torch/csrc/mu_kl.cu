@@ -56,8 +56,29 @@
 //   chunk is read from shared memory as a broadcast; X is re-read by every
 //   (tile, restart) block, the restart index fastest in the grid so that
 //   co-resident blocks share an X tile in the 50 MB L2. At K = 56 and 64 the
-//   compiler, caching the staged row as well, spills 24-28 bytes. The
-//   divergence term takes this design at every K.
+//   compiler, caching the staged row as well, spills 24-28 bytes.
+//
+// The divergence term has three designs of its own:
+// - The restart-tiled one (kl_x_log_wh_tiled_kernel), for the KL
+//   factorize's buckets (K = 8 and 16) when X is read along its unit stride
+//   and the grid fills the card: the numerator's ring and staging, with no
+//   accumulators, so a block holds 32 restarts, one a lane. A warp's lanes
+//   are then restarts of the same rows and see the same X(m, c): one ballot
+//   a chunk gives two rows' masks of the entries with X > eps, the same in
+//   every lane, and the warp walks each row's mask two entries at a time,
+//   two independent dot and logf chains, with no divergence. Entries with
+//   X <= eps cost nothing (the normalized counts are 27 % > eps at PBMC-3k
+//   scale); a branch per entry instead would serialize those chains.
+// - One row per thread (kl_x_log_wh_kernel), as the numerator's, for every
+//   other launch; where its grid is under 2 waves (the B = 1 consensus
+//   refits: 22 or 79 blocks for 132 SMs) the launch splits the contraction
+//   into slices of whole 32-entry chunks, one per blockIdx.z, each writing
+//   its own partials (ops/mu_kernels.split_plan).
+// - The wide variant above the register buckets, never split.
+// Every (row, restart) pair adds its terms in ascending c, in a double, in
+// all three; only the grouping of those doubles into the partials differs.
+// Its bound is the f32 pipe too, counted where X > eps only: 2K + 2
+// operations a pair (the dot, the logf and the product).
 //
 // Padded rows, contraction entries and K columns are exact no-ops: rows past
 // M and entries past C load as 0 (ratio 0), and a zero K column of Fo adds
@@ -66,6 +87,8 @@
 // K buckets 8..64 hold the row in registers; any larger multiple of 8 runs a
 // wide variant (common.cuh) with the row read from F and the accumulators in
 // the output buffer, the same sums in the same order.
+
+#include <atomic>
 
 #include "common.cuh"
 
@@ -285,6 +308,217 @@ kl_numerator_tiled_kernel(const float* __restrict__ X, int M, int C,
   }
 }
 
+// ---- the restart-tiled divergence term of the KL factorize's buckets ----
+
+// One block owns TM rows of RB restarts, X read along its unit stride by
+// rows; thread tid is restart rb = tid % RB of row group g = tid / RB, whose
+// TR rows are g + kGroups.i. A slot of the ring holds the X tile of one
+// 16-entry chunk, [TM][chunk + 4], then each restart's Fo chunk [chunk][K],
+// 4 floats apart; after the loop the ring holds the threads' partials.
+template <int K_, int TM, int RB, int TR, int MINB, int HALF_WAVES>
+struct XlwTile {
+  static constexpr int K = K_;
+  static constexpr int kTM = TM, kRB = RB, kTR = TR, kMinBlocks = MINB;
+  static constexpr int kHalfWaves = HALF_WAVES;
+  static constexpr int kChunk = 16, kStages = 3;
+  static constexpr int kGroups = TM / TR;
+  static constexpr int kThreads = kGroups * RB;
+  static constexpr int kXPitch = kChunk + 4;
+  static constexpr int kXFloats = TM * kXPitch;
+  static constexpr int kFPitch = kChunk * K + 4;
+  static constexpr int kSlotFloats = kXFloats + RB * kFPitch;
+  static constexpr int kSmemBytes = kStages * kSlotFloats * 4;
+  static_assert(K % 8 == 0 && TM % TR == 0, "tiling");
+  static_assert(RB == 32, "a restart a lane: a warp's lanes share its rows");
+  static_assert(TR % 2 == 0 && kChunk == 16, "two rows' entries a ballot");
+  static_assert(kThreads * 8 <= kSmemBytes, "the partials fit the ring");
+};
+
+// The tiling of each bucket: rows a block owns, restarts (32: one a lane,
+// so a warp's X test is uniform), rows a thread, the blocks an SM must hold
+// at once (which caps a thread's registers at 65536 / (threads x blocks):
+// TR rows of F and TR doubles, two staged Fo rows, two logf chains), and
+// the grid the kernel needs, in half waves of the blocks the card holds at
+// once; smaller grids run the one-row kernel. The ring needs dynamic shared
+// memory: 105 KB at K = 16, 57 KB at K = 8, so an SM holds two blocks. On
+// an H100 at B=100, N=2700, G=2000 on the path's X, K=8 with 2 rows a
+// thread and 512 threads (64 registers, 8 bytes spilled) beat 4 rows and
+// 256 threads at 3 blocks an SM by 2 %; K=16 with 4 rows and 256 threads
+// (128 registers, 4 bytes spilled) beat 2 rows and 512 threads at one
+// block an SM by 7 %.
+template <int K>
+struct XlwCfg;
+#define XLW_TILED_CFG(KK, TM, RB, TR, MINB, HALF_WAVES) \
+  template <>                                            \
+  struct XlwCfg<KK> : XlwTile<KK, TM, RB, TR, MINB, HALF_WAVES> {};
+XLW_TILED_CFG(8, 32, 32, 2, 2, 1)
+XLW_TILED_CFG(16, 32, 32, 4, 2, 1)
+#undef XLW_TILED_CFG
+#define XLW_TILED_BUCKETS(X) X(8) X(16)
+
+// grid (restart groups, row tiles); X element (m, c) at X[m * sxm + c], F
+// (B, M, K) owns the rows, Fo (B, C, K) is contracted over. part (tiles, B):
+// per (row tile, restart) the sum over its rows of each row's terms, rows
+// summed in a fixed order.
+template <int K>
+__global__ void __launch_bounds__(XlwCfg<K>::kThreads, XlwCfg<K>::kMinBlocks)
+kl_x_log_wh_tiled_kernel(const float* __restrict__ X, int M, int C,
+                         long long sxm, const float* __restrict__ Fo,
+                         const float* __restrict__ F, int B,
+                         double* __restrict__ part) {
+  using T = XlwCfg<K>;
+  constexpr int TM = T::kTM, CH = T::kChunk, S = T::kStages, NT = T::kThreads;
+  constexpr int RB = T::kRB, TR = T::kTR, NG = T::kGroups;
+  extern __shared__ __align__(16) float smem[];
+
+  // the warp is row group g, its lane the restart rb
+  const int tid = threadIdx.x, rb = tid % RB, g = tid / RB, lane = rb;
+  const int b0 = blockIdx.x * RB, m0 = blockIdx.y * TM;
+  const int nb = min(RB, B - b0);  // the block's live restarts
+
+  // Chunk q of the contraction into ring slot `slot`, as the numerator's
+  // tiled kernel stages it: the X tile in 16-byte units (4-byte copies where
+  // X's pitch is not a multiple of 4 floats or X is not 16-byte aligned) and
+  // the RB Fo chunks, each CH.K contiguous floats; zero past M, C and B. The
+  // copy addresses are worked out once, a chunk only moves them on.
+  constexpr int XU = CH / 4;                  // 16-byte units of a tile row
+  constexpr int XSTEP = NT / XU;              // rows between a thread's units
+  constexpr int XN = (TM * XU + NT - 1) / NT;  // units per thread
+  constexpr int FU = CH * K / 4;              // Fo: units per restart
+  constexpr int FSTEP = NT / FU;              // restarts between its units
+  constexpr int FN = RB / FSTEP;              // units per thread
+  static_assert(NT % XU == 0 && NT % FU == 0 && RB % FSTEP == 0, "copy units");
+  const bool vec =
+      sxm % 4 == 0 && reinterpret_cast<unsigned long long>(X) % 16 == 0;
+  const int xo = tid / XU, xi = tid % XU * 4;  // the thread's first X unit
+  const float* const x0 = X + (m0 + xo) * sxm + xi;
+  const long long xjump = XSTEP * sxm;
+  const int frb = tid / FU, fw = tid % FU * 4;  // the thread's first Fo unit
+  const int fc = fw / K;                        // its contraction entry
+  const long long fjump = (long long)FSTEP * C * K;
+  const float* const f0 = Fo + (long long)(b0 + frb) * C * K + fw;
+  auto stage = [&](int slot, int q) {
+    float* const xs = smem + slot * T::kSlotFloats;
+    float* const fs = xs + T::kXFloats;
+    const int rem = C - q * CH;  // contraction entries from this chunk on
+    if (vec) {
+      const float* const xq = x0 + q * CH;
+#pragma unroll
+      for (int j = 0; j < XN; ++j) {
+        const int o = xo + j * XSTEP;
+        if (TM * XU % NT != 0 && o >= TM) break;
+        const int n = o < M - m0 ? min(max(rem - xi, 0), 4) : 0;
+        cnmf::cp_async16(xs + o * T::kXPitch + xi, n > 0 ? xq + j * xjump : X,
+                         4 * n);
+      }
+    } else {
+      cnmf::stage_tile_async4<TM, CH, T::kXPitch, NT>(
+          xs, X + m0 * sxm + (C - rem), sxm, M - m0, rem);
+    }
+    const float* const fq = f0 + (long long)q * CH * K;
+    const bool cok = fc < rem;
+#pragma unroll
+    for (int j = 0; j < FN; ++j) {
+      const int r = frb + j * FSTEP;
+      const bool ok = cok && r < nb;
+      cnmf::cp_async16(fs + r * T::kFPitch + fw, ok ? fq + j * fjump : Fo,
+                       ok ? 16 : 0);
+    }
+  };
+
+  const int nq = (C + CH - 1) / CH;
+#pragma unroll
+  for (int s = 0; s < S - 1; ++s) {
+    if (s < nq) stage(s, s);
+    cnmf::cp_async_commit();
+  }
+
+  // The thread's rows of F and their sums, while the first chunks are in
+  // flight; rows past M and a restart past B hold 0 (their X loads as 0, or
+  // their sums are never stored).
+  const bool live_b = rb < nb;
+  float f[TR][K];
+  double sum[TR];
+#pragma unroll
+  for (int i = 0; i < TR; ++i) {
+    const int m = m0 + g + NG * i;
+    const float* const src = F + ((long long)(b0 + rb) * M + m) * K;
+#pragma unroll
+    for (int k = 0; k < K; k += 4) {
+      if (live_b && m < M) {
+        ld4(&f[i][k], src + k);
+      } else {
+        f[i][k] = f[i][k + 1] = f[i][k + 2] = f[i][k + 3] = 0.f;
+      }
+    }
+    sum[i] = 0.0;
+  }
+
+  // Chunk q + S - 1 is in flight while chunk q is consumed, c ascending.
+  for (int q = 0; q < nq; ++q) {
+    cnmf::cp_async_wait<S - 2>();
+    __syncthreads();  // chunk q has landed, and slot (q - 1) % S is consumed
+    if (q + S - 1 < nq) stage((q + S - 1) % S, q + S - 1);
+    cnmf::cp_async_commit();
+    const float* const xs = smem + (q % S) * T::kSlotFloats;
+    const float* const fs = xs + T::kXFloats + rb * T::kFPitch;
+    // The entries of the chunk each row of the warp needs (X > eps), two
+    // rows a ballot: lane l tests entry l % 16 of row l / 16 of the pair.
+    // Every lane of the warp sees the same X, so all get the same masks
+    // and run the loops below alike.
+    unsigned need[TR / 2];
+#pragma unroll
+    for (int p = 0; p < TR / 2; ++p)
+      need[p] = __ballot_sync(
+          0xffffffffu,
+          xs[(g + NG * (2 * p + lane / CH)) * T::kXPitch + lane % CH] > kEps);
+#pragma unroll
+    for (int i = 0; i < TR; ++i) {
+      const float* const xrow = xs + (g + NG * i) * T::kXPitch;
+      unsigned m = need[i / 2] >> (i % 2 * CH) & 0xffffu;
+      // two needed entries a trip, c ascending: two independent dot and
+      // logf chains; an odd last entry is computed twice and added once
+      // (adding 0.0 leaves a sum that starts at +0.0 as it is)
+      while (m != 0) {
+        const int c1 = __ffs(m) - 1;
+        m &= m - 1;
+        const bool two = m != 0;
+        const int c2 = two ? __ffs(m) - 1 : c1;
+        m &= m - 1;
+        float fo1[K], fo2[K];
+#pragma unroll
+        for (int k = 0; k < K; k += 4) {
+          ld4(fo1 + k, fs + c1 * K + k);
+          ld4(fo2 + k, fs + c2 * K + k);
+        }
+        float w1 = 0.f, w2 = 0.f;
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          w1 = fmaf(f[i][k], fo1[k], w1);
+          w2 = fmaf(f[i][k], fo2[k], w2);
+        }
+        const float t1 = xrow[c1] * logf(fmaxf(w1, kEps));
+        const float t2 = xrow[c2] * logf(fmaxf(w2, kEps));
+        sum[i] += (double)t1;
+        sum[i] += two ? (double)t2 : 0.0;
+      }
+    }
+  }
+  cnmf::cp_async_wait<0>();
+  __syncthreads();  // every thread is done with the ring
+
+  // The thread's rows in order, then the row groups in order: no atomics.
+  double* const red = reinterpret_cast<double*>(smem);
+  double t = sum[0];
+#pragma unroll
+  for (int i = 1; i < TR; ++i) t += sum[i];
+  red[tid] = t;
+  __syncthreads();
+  if (g != 0 || !live_b) return;
+  for (int h = 1; h < NG; ++h) t += red[h * RB + rb];
+  part[(long long)blockIdx.y * B + b0 + rb] = t;
+}
+
 // ---- one row per thread ----
 
 // grid (B, tiles); X element (m, c) at X[m * sxm + c * sxc]; F (B, M, K) owns
@@ -327,26 +561,32 @@ kl_numerator_kernel(const float* __restrict__ X, int M, int C, long long sxm,
   cnmf::store_rows<K, 1>(out + off, acc, m0, M);
 }
 
-// The same loop without accumulators: part[tile, b] = sum over the tile's
-// rows and every c with X(m, c) > eps of X(m, c) . log(max(wh, eps)).
-template <int K>
+// The same loop without accumulators: part[z, tile, b] = sum over the
+// tile's rows and every c of slice z with X(m, c) > eps of X(m, c) .
+// log(max(wh, eps)). grid (B, tiles, S); kSplit: block z takes the entries
+// [z . per_split, min(C, (z + 1) . per_split)) (per_split a multiple of
+// kChunk), else every entry (S = 1).
+template <int K, bool kSplit>
 __global__ void __launch_bounds__(kThreads)
 kl_x_log_wh_kernel(const float* __restrict__ X, int M, int C, long long sxm,
                    long long sxc, const float* __restrict__ Fo,
-                   const float* __restrict__ F, double* __restrict__ part) {
+                   const float* __restrict__ F, int per_split,
+                   double* __restrict__ part) {
   __shared__ float xs[kChunk][kThreads + 1];
   __shared__ __align__(16) float fs[kChunk][K];
   const int b = blockIdx.x;
   const int m0 = blockIdx.y * kThreads;
+  const int c_begin = kSplit ? blockIdx.z * per_split : 0;
+  const int c_end = kSplit ? min(C, c_begin + per_split) : C;
   const float* fo = Fo + (size_t)b * C * K;
 
   float f[1][K];
   cnmf::load_rows<K, 1>(f, F + (size_t)b * M * K, m0, M);
   double sum = 0.0;
-  for (int c0 = 0; c0 < C; c0 += kChunk) {
+  for (int c0 = c_begin; c0 < c_end; c0 += kChunk) {
     __syncthreads();
-    cnmf::stage_chunk<K, kThreads, kChunk>(xs, fs, X, M, C, sxm, sxc, fo, m0,
-                                           c0);
+    cnmf::stage_chunk<K, kThreads, kChunk>(xs, fs, X, M, c_end, sxm, sxc, fo,
+                                           m0, c0);
     __syncthreads();
 #pragma unroll 4
     for (int c = 0; c < kChunk; ++c) {
@@ -357,7 +597,8 @@ kl_x_log_wh_kernel(const float* __restrict__ X, int M, int C, long long sxm,
       if (x > kEps) sum += (double)(x * logf(fmaxf(wh, kEps)));
     }
   }
-  cnmf::block_sum_to(sum, part + (size_t)blockIdx.y * gridDim.x + b);
+  cnmf::block_sum_to(
+      sum, part + ((size_t)blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + b);
 }
 
 // kl_numerator_kernel for K above the register buckets.
@@ -449,14 +690,26 @@ int launch_tiled(const float* X, int M, int C, long long sxm, long long sxc,
   return (int)cudaGetLastError();
 }
 
-// How many blocks of `threads` threads of `kernel` an SM holds at once; 0
-// where that cannot be read.
+// How many blocks of `threads` threads of `kernel`, with `smem` bytes of
+// dynamic shared memory, an SM holds at once; 0 where that cannot be read.
 template <typename Kernel>
-int blocks_per_sm(Kernel kernel, int threads) {
+int blocks_per_sm(Kernel kernel, int threads, int smem = 0) {
   int n = 0;
-  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, threads, 0) !=
-      cudaSuccess) {
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, threads,
+                                                    smem) != cudaSuccess) {
     cudaGetLastError();  // leave no error for the next launch to report
+    return 0;
+  }
+  return n;
+}
+
+// The SMs of the current device; 0 where that cannot be read.
+int sm_count() {
+  int dev = 0, n = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess) {
+    cudaGetLastError();
     return 0;
   }
   return n;
@@ -478,12 +731,104 @@ int tiled_field(int field) {
   return 0;
 }
 
+// Lifts the tiled divergence kernel's dynamic shared memory limit to its
+// ring's need (above the default 48 KB), once per device; returns the CUDA
+// error of that call, at every launch.
+template <int K>
+int xlw_prepare() {
+  constexpr int kDevices = 64;
+  static std::atomic<int> done[kDevices];  // 0: not yet set, else error + 1
+  int dev = 0;
+  if (const cudaError_t e = cudaGetDevice(&dev)) return (int)e;
+  if (dev >= kDevices) return (int)cudaErrorInvalidDevice;
+  int rc = done[dev].load(std::memory_order_acquire);
+  if (rc == 0) {
+    rc = 1 + (int)cudaFuncSetAttribute(
+                 kl_x_log_wh_tiled_kernel<K>,
+                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                 XlwCfg<K>::kSmemBytes);
+    done[dev].store(rc, std::memory_order_release);
+  }
+  return rc - 1;
+}
+
+// The tiled divergence kernel's field 0 rows a block owns, 1 restarts, 2
+// threads, 3 blocks an SM holds at once (0 where that cannot be read).
+template <int K>
+int xlw_tiled_field(int field) {
+  using T = XlwCfg<K>;
+  switch (field) {
+    case 0:
+      return T::kTM;
+    case 1:
+      return T::kRB;
+    case 2:
+      return T::kThreads;
+    case 3:
+      return xlw_prepare<K>() != 0
+                 ? 0
+                 : blocks_per_sm(kl_x_log_wh_tiled_kernel<K>, T::kThreads,
+                                 T::kSmemBytes);
+  }
+  return 0;
+}
+
+// Whether an unsplit divergence launch at bucket K takes the tiled kernel:
+// X read along its unit stride (sxc = 1), at least 3/4 of its lanes live
+// restarts (a lane past B costs what a live one does: at B = 33, about
+// half of them live, it took 1.19x the one-row kernel's time on an H100,
+// at B = 97 and 100 0.5-0.7x), and its grid over B restarts of M rows
+// fills the half waves of the card's blocks its tiling asks for.
+template <int K>
+bool xlw_tiled(int B, int M, long long sxc) {
+  using T = XlwCfg<K>;
+  static const int per_sm = xlw_tiled_field<K>(3);
+  const int groups = (B + T::kRB - 1) / T::kRB;
+  const long long blocks = (long long)groups * ((M + T::kTM - 1) / T::kTM);
+  return sxc == 1 && 4 * B >= 3 * T::kRB * groups &&
+         2 * blocks >= (long long)T::kHalfWaves * per_sm * sm_count();
+}
+
+template <int K>
+int launch_xlw_tiled(const float* X, int M, int C, long long sxm,
+                     const float* Fo, const float* F, int B, double* part,
+                     cudaStream_t stream) {
+  using T = XlwCfg<K>;
+  if (const int rc = xlw_prepare<K>()) return rc;
+  const dim3 grid((B + T::kRB - 1) / T::kRB, (M + T::kTM - 1) / T::kTM);
+  kl_x_log_wh_tiled_kernel<K><<<grid, T::kThreads, T::kSmemBytes, stream>>>(
+      X, M, C, sxm, Fo, F, B, part);
+  return (int)cudaGetLastError();
+}
+
+// The one-row divergence kernel over `splits` slices of per_split entries
+// into part (splits, tiles, B); the wide variant (splits = 1 only) above the
+// register buckets.
+int launch_xlw_one_row(const float* X, int M, int C, long long sxm,
+                       long long sxc, const float* Fo, const float* F, int B,
+                       int K, int splits, int per_split, double* part,
+                       cudaStream_t stream) {
+  const dim3 grid(B, (M + kThreads - 1) / kThreads, splits);
+#define XLW_CASE(KK)                                                       \
+  case KK:                                                                 \
+    if (splits > 1)                                                        \
+      kl_x_log_wh_kernel<KK, true><<<grid, kThreads, 0, stream>>>(         \
+          X, M, C, sxm, sxc, Fo, F, per_split, part);                      \
+    else                                                                   \
+      kl_x_log_wh_kernel<KK, false><<<grid, kThreads, 0, stream>>>(        \
+          X, M, C, sxm, sxc, Fo, F, per_split, part);                      \
+    return (int)cudaGetLastError();
+  switch (K) { CNMF_K_BUCKETS(XLW_CASE) }
+#undef XLW_CASE
+  if (splits != 1 || !cnmf::is_wide_k(K)) return (int)cudaErrorInvalidValue;
+  kl_x_log_wh_wide<<<grid, kThreads, 0, stream>>>(X, M, C, sxm, sxc, Fo, F, K,
+                                                  part);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
-
-// Rows one block owns (sizes the (tiles, B) partials of mu_kl_x_log_wh).
-int mu_tile_rows() { return kThreads; }
 
 // The tiling mu_kl_numerator takes for a launch at K, B and X's strides:
 // field 0 the rows a block owns, 1 the restarts it owns, 2 its threads, 3
@@ -542,23 +887,65 @@ int mu_kl_numerator(const float* X, int M, int C, long long sxm, long long sxc,
   return (int)cudaGetLastError();
 }
 
+// The grid mu_kl_x_log_wh takes for a launch at K, B restarts of M rows and
+// X's stride along the contraction: field 0 the rows a block owns (sizing
+// the (tiles, B) partials), 1 the restarts it owns, 2 its threads, 3 how
+// many of its blocks an SM holds at once (of the one-row kernel: its split
+// build's), 4 the entries each slice of a split contraction holds a whole
+// number of (0: the kernel does not split). mu_kl_x_log_wh_split runs the
+// one-row kernel, whose tiling is that of B = 1. 0 for a K that has no
+// kernel, or a field that does not exist or cannot be read.
+int mu_kl_x_log_wh_tiling(int K, int B, int M, long long sxc, int field) {
+#define XLW_TILING_CASE(KK)                                            \
+  case KK:                                                             \
+    if (xlw_tiled<KK>(B, M, sxc)) return xlw_tiled_field<KK>(field);   \
+    break;
+  switch (K) { XLW_TILED_BUCKETS(XLW_TILING_CASE) }
+#undef XLW_TILING_CASE
+  if (field == 0 || field == 2) return kThreads;
+  if (field == 1) return 1;
+  if (field == 4) return K <= cnmf::kRegMaxK ? kChunk : 0;
+  if (field != 3) return 0;
+#define XLW_OCC_CASE(KK) \
+  case KK:               \
+    return blocks_per_sm(kl_x_log_wh_kernel<KK, true>, kThreads);
+  switch (K) { CNMF_K_BUCKETS(XLW_OCC_CASE) }
+#undef XLW_OCC_CASE
+  return cnmf::is_wide_k(K) ? blocks_per_sm(kl_x_log_wh_wide, kThreads) : 0;
+}
+
 // part (tiles, B): per (row tile, restart) the sum over X(m, c) > eps of
-// X(m, c) . log(max(F[m] . F_other[c], eps)).
+// X(m, c) . log(max(F[m] . F_other[c], eps)), rows of a tile and tiles as
+// mu_kl_x_log_wh_tiling reports them. The contraction is not split: the
+// restart-tiled kernel or one row per thread.
 int mu_kl_x_log_wh(const float* X, int M, int C, long long sxm, long long sxc,
                    const float* F_other, const float* F, int B, int K,
                    double* part, void* stream) {
-#define MU_CASE(KK)                                                      \
-  case KK:                                                               \
-    kl_x_log_wh_kernel<KK><<<grid_of(B, M), kThreads, 0,                 \
-                             (cudaStream_t)stream>>>(X, M, C, sxm, sxc,  \
-                                                     F_other, F, part);  \
-    return (int)cudaGetLastError();
-  switch (K) { CNMF_K_BUCKETS(MU_CASE) }
-#undef MU_CASE
-  if (!cnmf::is_wide_k(K)) return (int)cudaErrorInvalidValue;
-  kl_x_log_wh_wide<<<grid_of(B, M), kThreads, 0, (cudaStream_t)stream>>>(
-      X, M, C, sxm, sxc, F_other, F, K, part);
-  return (int)cudaGetLastError();
+  const cudaStream_t s = (cudaStream_t)stream;
+#define XLW_TILED_CASE(KK)                                                \
+  case KK:                                                                \
+    if (xlw_tiled<KK>(B, M, sxc))                                         \
+      return launch_xlw_tiled<KK>(X, M, C, sxm, F_other, F, B, part, s);  \
+    break;
+  switch (K) { XLW_TILED_BUCKETS(XLW_TILED_CASE) }
+#undef XLW_TILED_CASE
+  return launch_xlw_one_row(X, M, C, sxm, sxc, F_other, F, B, K, 1, C, part,
+                            s);
+}
+
+// mu_kl_x_log_wh with the contraction split into `splits` >= 2 slices of
+// per_split entries (a multiple of 32; the last slice takes the rest), one
+// row per thread, K a register bucket (8..64): part (splits, tiles, B).
+int mu_kl_x_log_wh_split(const float* X, int M, int C, long long sxm,
+                         long long sxc, const float* F_other, const float* F,
+                         int B, int K, int splits, int per_split, double* part,
+                         void* stream) {
+  if (K > cnmf::kRegMaxK || splits < 2 || per_split <= 0 ||
+      per_split % kChunk != 0 || (long long)(splits - 1) * per_split >= C ||
+      (long long)splits * per_split < C)
+    return (int)cudaErrorInvalidValue;
+  return launch_xlw_one_row(X, M, C, sxm, sxc, F_other, F, B, K, splits,
+                            per_split, part, (cudaStream_t)stream);
 }
 
 }  // extern "C"

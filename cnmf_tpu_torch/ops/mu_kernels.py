@@ -14,10 +14,10 @@ tensors lie:
   8). Anything else on CUDA raises; there is no fallback to the plain
   version. The KL numerators take one of two kernels by shape
   (``kl_numerator_tiling``); both give the same bits. The general-beta
-  terms do the same (``beta_terms_tiling``), and where ``beta_terms_plan``
-  finds the grid too small to fill the card (the B=1 consensus refits) the
-  contraction is split across blocks, whose partials are summed in a fixed
-  order.
+  terms and the KL divergence term do the same (``beta_terms_tiling``,
+  ``kl_x_log_wh_tiling``), and where ``split_plan`` finds the grid too
+  small to fill the card (the B=1 consensus refits) the contraction is
+  split across blocks, whose partials are summed in a fixed order.
 * CPU tensors run the plain PyTorch versions below at the tensors' dtype.
 
 The plain versions follow the JAX package's XLA path (``_mu_w_terms_chunked``,
@@ -47,7 +47,6 @@ from cnmf_tpu_torch.ops.kernel_lib import (
     check_k,
     device_kind,
     kernel_function,
-    library_constant,
     raise_on,
     stream_of,
 )
@@ -112,7 +111,7 @@ def mu_w_terms_plain(X, W, Ht, beta: float, per_split=None):
     ``kl_w_denominator``, else WH^(β−1)·Hᵀ), each (B, N, K); beta != 2.
     ``per_split``: sum the contraction (G) in slices of that many entries and
     then the slices in order, as a split launch of the general-beta kernel
-    does (``beta_terms_plan``)."""
+    does (``split_plan``)."""
     num = torch.empty_like(W)
     den = None if beta == 1 else torch.empty_like(W)
     for sl, _, Htb, WH in wh_chunks(W, Ht):
@@ -153,13 +152,20 @@ beta_mu_w_terms_plain = mu_w_terms_plain
 beta_mu_h_terms_plain = mu_h_terms_plain
 
 
-def kl_x_log_wh_plain(X, W, Ht):
-    """Plain version of ``kl_x_log_wh``."""
+def kl_x_log_wh_plain(X, W, Ht, per_split=None):
+    """Plain version of ``kl_x_log_wh``. ``per_split``: sum the contraction
+    (G) in slices of that many entries, each slice's sum and then the slices'
+    in order, as a split launch does (``split_plan``)."""
     mask = X > EPSILON
     out = torch.empty(W.shape[0], dtype=W.dtype, device=W.device)
     for sl, _, _, WH in wh_chunks(W, Ht):
         term = torch.where(mask, X * torch.log(WH.clamp(min=EPSILON)), 0.0)
-        out[sl] = term.sum(dim=(1, 2))
+        if per_split is None:
+            out[sl] = term.sum(dim=(1, 2))
+            continue
+        slices = [term[..., lo:lo + per_split].sum(dim=(1, 2))
+                  for lo in range(0, term.shape[-1], per_split)]
+        out[sl] = functools.reduce(torch.add, slices)
     return out
 
 
@@ -168,9 +174,15 @@ def kl_x_log_wh_plain(X, W, Ht):
 # ----------------------------------------------------------------------
 
 _ARGS = (VP, I32, I32, I64, I64, VP, VP, I32, I32, VP, VP)
+_SPLIT_ARGS = (VP, I32, I32, I64, I64, VP, VP, I32, I32, I32, I32, VP, VP)
 _BETA_ARGS = (VP, I32, I32, I64, I64, VP, VP, I32, I32, F32, VP, VP, VP)
 _BETA_SPLIT_ARGS = (VP, I32, I32, I64, I64, VP, VP, I32, I32, F32, I32, I32,
                     VP, VP, VP, VP)
+# each entry point's argument types
+_ARGTYPES = {"mu_kl_numerator": _ARGS, "mu_kl_x_log_wh": _ARGS,
+             "mu_kl_x_log_wh_split": _SPLIT_ARGS,
+             "mu_beta_terms": _BETA_ARGS,
+             "mu_beta_terms_split": _BETA_SPLIT_ARGS}
 
 
 def _x_strides(X, transposed):
@@ -192,13 +204,13 @@ def kl_numerator_tiling(X, B, K, transposed=False):
     return tuple(fn(K, B, sxm, sxc, field) for field in range(4))
 
 
-def beta_terms_plan(B: int, M: int, C: int, sms: int, rows: int,
-                    per_sm: int, chunk: int):
-    """How the general-beta kernels split a contraction of C entries for B
-    restarts of M output rows on a card of ``sms`` SMs, given the one-row
-    kernel's ``rows`` a block, the blocks of it an SM holds at once and the
-    ``chunk`` of entries a slice holds a whole number of (0: it cannot
-    split) → (splits, entries_per_split).
+def split_plan(B: int, M: int, C: int, sms: int, rows: int, per_sm: int,
+               chunk: int):
+    """How the general-beta kernels and the KL divergence term split a
+    contraction of C entries for B restarts of M output rows on a card of
+    ``sms`` SMs, given their one-row kernel's ``rows`` a block, the blocks
+    of it an SM holds at once and the ``chunk`` of entries a slice holds a
+    whole number of (0: it cannot split) → (splits, entries_per_split).
 
     A wave here is one block on each SM. Where the one-row kernel's grid,
     B·⌈M/rows⌉ blocks, is under 2 waves, the contraction is split into slices
@@ -217,27 +229,51 @@ def beta_terms_plan(B: int, M: int, C: int, sms: int, rows: int,
 
 
 _TILING_ARGS = (I32, I32, I32, I64, I64, F32, I32)
+_XLW_TILING_ARGS = (I32, I32, I32, I64, I32)
+
+
+def _tiling_report(beta):
+    """The library's tiling report of the general-beta kernels at ``beta``,
+    or of the KL divergence term for None, as (K, B, M, sxm, sxc, field) →
+    int."""
+    if beta is None:
+        fn = kernel_function("mu_kl_x_log_wh_tiling", _XLW_TILING_ARGS)
+        return lambda K, B, M, sxm, sxc, field: fn(K, B, M, sxc, field)
+    fn = kernel_function("mu_beta_terms_tiling", _TILING_ARGS)
+    return lambda K, B, M, sxm, sxc, field: fn(K, B, M, sxm, sxc,
+                                               float(beta), field)
 
 
 @functools.lru_cache(maxsize=None)
-def _one_row_plan_args(K: int, itakura_saito: bool, index: int):
+def _one_row_plan_args(K: int, beta, index: int):
     """(SMs, rows a block, blocks an SM holds, split chunk) of the one-row
-    kernel at bucket K on device ``index``, read once from the library."""
-    fn = kernel_function("mu_beta_terms_tiling", _TILING_ARGS)
-    beta = 0.0 if itakura_saito else 0.5
+    kernel at bucket K on device ``index`` (``beta`` as ``_tiling_report``
+    takes it), read once from the library."""
+    fn = _tiling_report(beta)
     with torch.cuda.device(index):
         sms = torch.cuda.get_device_properties(index).multi_processor_count
-        return (sms,) + tuple(fn(K, 1, 1, 1, 1, beta, field)
-                              for field in (0, 3, 4))
+        return (sms,) + tuple(fn(K, 1, 1, 1, 1, field) for field in (0, 3, 4))
 
 
-def _beta_split(X, F, beta, transposed):
-    """(splits, entries a split) of a general-beta launch, ``beta_terms_plan``
-    with what the library reports of the card and the kernel."""
-    B, M, K = F.shape
+def _split(X, B, M, K, transposed, beta):
+    """(splits, entries a split) of a launch with B restarts of M rows,
+    ``split_plan`` with what the library reports of the card and the
+    kernel (``beta`` as ``_tiling_report`` takes it)."""
+    # the one-row general-beta kernel has two builds: beta = 0 and any other
+    key = None if beta is None else 0.0 if beta == 0 else 0.5
     C = X.shape[0 if transposed else 1]
-    return beta_terms_plan(B, M, C, *_one_row_plan_args(
-        K, beta == 0, F.device.index))
+    return split_plan(B, M, C, *_one_row_plan_args(K, key, X.device.index))
+
+
+def _tiling(X, B, M, K, transposed, beta):
+    """(rows a block owns, restarts it owns, threads, blocks an SM holds at
+    once, splits of the contraction, entries a split) of a launch."""
+    splits, per_split = _split(X, B, M, K, transposed, beta)
+    _, sxm, sxc = _x_strides(X, transposed)
+    fn = _tiling_report(beta)
+    b = 1 if splits > 1 else B   # a split runs the one-row kernel
+    return tuple(fn(K, b, M, sxm, sxc, field)
+                 for field in range(4)) + (splits, per_split)
 
 
 def beta_terms_tiling(X, F, beta, transposed=False):
@@ -246,20 +282,23 @@ def beta_terms_tiling(X, F, beta, transposed=False):
     owns, threads, blocks an SM holds at once, splits of the contraction,
     entries a split)."""
     B, M, K = F.shape
-    splits, per_split = _beta_split(X, F, beta, transposed)
-    _, sxm, sxc = _x_strides(X, transposed)
-    fn = kernel_function("mu_beta_terms_tiling", _TILING_ARGS)
-    b = 1 if splits > 1 else B   # a split runs the one-row kernel
-    return tuple(fn(K, b, M, sxm, sxc, float(beta), field)
-                 for field in range(4)) + (splits, per_split)
+    return _tiling(X, B, M, K, transposed, beta)
 
 
-def _launch(name, symbol, X, F, F_other, outs, transposed, beta=None,
-            split=None):
+def kl_x_log_wh_tiling(X, B, K):
+    """The grid ``kl_x_log_wh`` takes for X (N, G) and B restarts at bucket
+    K, as ``beta_terms_tiling`` reports it. The KL factorize's buckets (K =
+    8, 16) run the restart-tiled kernel where X is read along its unit
+    stride and the grid fills the card, the B=1 refits a split contraction,
+    everything else one row per thread."""
+    return _tiling(X, B, X.shape[0], K, False, None)
+
+
+def _launch(name, symbol, X, F, F_other, outs, transposed, *extra):
     """F (B, M, K) owns the rows, F_other (B, C, K) is contracted over: the W
     side reads X as (M=N, C=G), the H side transposed as (M=G, C=N).
-    ``outs``: the output tensors; ``beta``: the general-beta kernels' loss;
-    ``split``: (splits, entries a split, workspace) of a split launch."""
+    ``outs``: the output tensors; ``extra``: the entry point's arguments
+    between K and its outputs (a tensor passes its pointer)."""
     B, M, K = F.shape
     N, G = X.shape
     C, sxm, sxc = _x_strides(X, transposed)
@@ -268,18 +307,11 @@ def _launch(name, symbol, X, F, F_other, outs, transposed, beta=None,
                          f"{tuple(F.shape)}, other {tuple(F_other.shape)}")
     check_cuda(name, F, F_other, strided=(X,))
     check_k(name, K)
-    args = [X.data_ptr(), M, C, sxm, sxc, F_other.data_ptr(), F.data_ptr(),
-            B, K]
-    argtypes = _ARGS
-    if beta is not None:
-        args.append(float(beta))
-        argtypes = _BETA_ARGS
-    if split is not None:
-        splits, per_split, work = split
-        args += [splits, per_split, work.data_ptr()]
-        argtypes = _BETA_SPLIT_ARGS
-    raise_on(name, kernel_function(symbol, argtypes)(
-        *args, *[o.data_ptr() for o in outs], stream_of(F)))
+    ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a
+            for a in (*extra, *outs)]
+    raise_on(name, kernel_function(symbol, _ARGTYPES[symbol])(
+        X.data_ptr(), M, C, sxm, sxc, F_other.data_ptr(), F.data_ptr(), B, K,
+        *ptrs, stream_of(F)))
     return outs
 
 
@@ -289,17 +321,18 @@ def _count(fn, B):
 
 
 def _beta_launch(name, X, F, F_other, transposed, beta):
-    """(num, den) of the general-beta kernels, split as ``beta_terms_plan``
+    """(num, den) of the general-beta kernels, split as ``split_plan``
     says."""
-    check_k(name, F.shape[2])
-    splits, per_split = _beta_split(X, F, beta, transposed)
+    B, M, K = F.shape
+    check_k(name, K)
+    splits, per_split = _split(X, B, M, K, transposed, beta)
     outs = (torch.empty_like(F), torch.empty_like(F))
     if splits == 1:
         return _launch(name, "mu_beta_terms", X, F, F_other, outs, transposed,
-                       beta=beta)
+                       float(beta))
     work = torch.empty((2, splits, *F.shape), dtype=F.dtype, device=F.device)
     return _launch(name, "mu_beta_terms_split", X, F, F_other, outs,
-                   transposed, beta=beta, split=(splits, per_split, work))
+                   transposed, float(beta), splits, per_split, work)
 
 
 # ----------------------------------------------------------------------
@@ -335,12 +368,22 @@ def kl_x_log_wh(X, W, Ht):
     name = "kl_x_log_wh"
     if device_kind(name, W) == "cpu":
         return kl_x_log_wh_plain(X, W, Ht)
-    tiles = -(-W.shape[1] // library_constant("mu_tile_rows"))
-    part = torch.empty((tiles, W.shape[0]), dtype=torch.float64,
+    B, M, K = W.shape
+    check_k(name, K)
+    splits, per_split = _split(X, B, M, K, False, None)
+    # the rows a block owns (a split runs the one-row kernel, B = 1's)
+    rows = kernel_function("mu_kl_x_log_wh_tiling", _XLW_TILING_ARGS)(
+        K, 1 if splits > 1 else B, M, X.stride(1), 0)
+    part = torch.empty((splits, -(-M // rows), B), dtype=torch.float64,
                        device=W.device)
-    _launch(name, "mu_kl_x_log_wh", X, W, Ht, (part,), transposed=False)
-    _count(kl_x_log_wh, W.shape[0])
-    return part.sum(dim=0).to(torch.float32)
+    if splits == 1:
+        _launch(name, "mu_kl_x_log_wh", X, W, Ht, (part,), False)
+    else:
+        _launch(name, "mu_kl_x_log_wh_split", X, W, Ht, (part,), False,
+                splits, per_split)
+    _count(kl_x_log_wh, B)
+    # the partials of every slice and row tile, summed in a fixed order
+    return part.view(-1, B).sum(dim=0).to(torch.float32)
 
 
 def _check_beta(name, beta):

@@ -98,16 +98,19 @@ def test_beta_terms_plain_matches_pallas_interpret(interpret_mode, beta, B, K):
 
 
 SMS, ROWS, CHUNK = 132, 128, 32   # an H100's SMs; one-row rows, split chunk
-# blocks of the one-row kernel an H100 SM holds at once, by bucket, as its
-# build reports them (beta 0)
-PER_SM = {8: 7, 16: 4, 24: 3, 40: 2, 64: 2, 72: 2}
+# blocks of each one-row kernel an H100 SM holds at once, by bucket, as its
+# split build reports them (the general-beta terms at beta 0, and the KL
+# divergence term)
+PER_SM = {"beta_terms": {8: 7, 16: 4, 24: 3, 40: 2, 64: 2, 72: 2},
+          "kl_x_log_wh": {8: 9, 16: 8, 24: 10, 40: 5, 64: 4, 72: 5}}
+PLANNED = sorted(PER_SM)   # the kernels that split their contraction
 REFITS = [(1, 2700, 2000), (1, 10000, 2700)]   # usage, spectra (B, M, C)
 
 
-def _plan(B, M, C, K):
+def _plan(kernel, B, M, C, K):
     """The plan on an H100; a wide K (> 64) cannot split (chunk 0)."""
-    return mk.beta_terms_plan(B, M, C, SMS, ROWS, PER_SM[K],
-                              0 if K > 64 else CHUNK)
+    return mk.split_plan(B, M, C, SMS, ROWS, PER_SM[kernel][K],
+                         0 if K > 64 else CHUNK)
 
 
 def _waves(B, M, splits, sms=SMS):
@@ -116,21 +119,23 @@ def _waves(B, M, splits, sms=SMS):
 
 @pytest.mark.parametrize("K", [8, 16])
 @pytest.mark.parametrize("B,M,C", REFITS)
-def test_beta_terms_plan_splits_the_refits(B, M, C, K):
+@pytest.mark.parametrize("kernel", PLANNED)
+def test_beta_terms_plan_splits_the_refits(kernel, B, M, C, K):
     """The B=1 refits' one-row grid (22 and 79 blocks) is split into 2-4
     waves of one block an SM."""
-    splits, per_split = _plan(B, M, C, K)
+    splits, per_split = _plan(kernel, B, M, C, K)
     assert splits > 1
     assert 2 <= _waves(B, M, splits) <= 4
 
 
 @pytest.mark.parametrize("K", [8, 16])
 @pytest.mark.parametrize("transposed", [False, True])
-def test_beta_terms_plan_keeps_the_factorize_whole(transposed, K):
+@pytest.mark.parametrize("kernel", PLANNED)
+def test_beta_terms_plan_keeps_the_factorize_whole(kernel, transposed, K):
     """B=100 restarts of the PBMC-3k shape, either side: one slice."""
     N, G = 2700, 2000
     M, C = (G, N) if transposed else (N, G)
-    assert _plan(100, M, C, K) == (1, C)
+    assert _plan(kernel, 100, M, C, K) == (1, C)
 
 
 @pytest.mark.parametrize("B,M,C,K", [
@@ -138,18 +143,19 @@ def test_beta_terms_plan_keeps_the_factorize_whole(transposed, K):
     (1, 2700, 2000, 40), (1, 2700, 2000, 64), (3, 300, 150, 8),
     (13, 522, 97, 8), (1, 257, 61, 16), (1, 5000, 65, 16),
     (7, 2700, 2000, 24), (1, 2700, 2000, 72)])
-def test_beta_terms_plan_slices_cover_the_contraction(B, M, C, K):
+@pytest.mark.parametrize("kernel", PLANNED)
+def test_beta_terms_plan_slices_cover_the_contraction(kernel, B, M, C, K):
     """Every slice but the last holds a whole number of 32-entry chunks, at
     least 2; the last takes the rest, at least one entry; the grid stays
     within the blocks an SM holds (and 4 waves). A wide K is never split."""
-    splits, per_split = _plan(B, M, C, K)
+    splits, per_split = _plan(kernel, B, M, C, K)
     if K > 64 or splits == 1:
         assert (splits, per_split) == (1, C)
         return
     assert per_split % CHUNK == 0 and per_split >= 2 * CHUNK
     last = C - (splits - 1) * per_split
     assert 1 <= last <= per_split
-    assert _waves(B, M, splits) <= min(4, PER_SM[K])
+    assert _waves(B, M, splits) <= min(4, PER_SM[kernel][K])
 
 
 def _per_split(C, splits):
@@ -188,6 +194,34 @@ def test_split_order_plain_matches_pallas_interpret(interpret_mode, view,
     whole = mk.mu_w_terms_plain(_t(X64), _t(W64), _t(Ht64), beta)
     for a, b in zip(split, whole):
         torch.testing.assert_close(a, b, rtol=1e-12, atol=0)
+
+
+@pytest.mark.parametrize("splits", [1, 3, 7])
+@pytest.mark.parametrize("view", [False, True])
+def test_x_log_wh_split_order_plain_matches_pallas_interpret(interpret_mode,
+                                                             view, splits):
+    """The divergence term's split order in plain PyTorch (each slice's sum,
+    then the slices in order) at B=1 with C = 217, off the 32-entry chunks:
+    f32 against the Pallas kernel in interpret mode, and f64 against the
+    unsplit plain version; X row-major or a transposed view (the spectra
+    refit's X)."""
+    X, W, Ht = kernel_problem(1, 16, G=217, seed=5)
+    per_split = _per_split(X.shape[1], splits)
+    ref = np.asarray(pm.kl_x_log_wh(jnp.asarray(X), jnp.asarray(W),
+                                    jnp.asarray(Ht)))
+
+    def x_of(a):
+        return _t(a.T).T if view else _t(a)
+
+    out = mk.kl_x_log_wh_plain(x_of(X), _t(W), _t(Ht), per_split=per_split)
+    assert out.shape == ref.shape == (1,)
+    np.testing.assert_array_less(np.abs(out.numpy() - ref) / np.abs(ref),
+                                 XLOGWH_REL)
+    X64, W64, Ht64 = (a.astype(np.float64) for a in (X, W, Ht))
+    split = mk.kl_x_log_wh_plain(x_of(X64), _t(W64), _t(Ht64),
+                                 per_split=per_split)
+    whole = mk.kl_x_log_wh_plain(_t(X64), _t(W64), _t(Ht64))
+    torch.testing.assert_close(split, whole, rtol=1e-12, atol=0)
 
 
 def test_beta_wrappers_refuse_kl_and_frobenius():
