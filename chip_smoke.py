@@ -8,7 +8,8 @@ Phases, each printing its own line(s):
 1. environment: the card's name and power limit, torch/CUDA versions, and
    which of pandas, h5py, yaml and matplotlib import;
 2. build: every kernel of csrc/ into one library (build seconds; one ptxas
-   line per kernel family: registers, stack and spills of each K);
+   line per kernel family: its registers, and the builds that keep a stack
+   frame or spill);
 3. each kernel against its plain PyTorch version on the card (max relative
    difference, f32, bounded by KERNEL_REL_BOUND), with median times at the
    main path's shapes: the CD half-sweeps (K=8 and K=16 buckets, each with
@@ -33,26 +34,36 @@ Phases, each printing its own line(s):
 4. the main path end to end at PBMC-3k scale — bench.py's make_counts(2700,
    10000), 2000 HVGs, K=5..13 × 100 restarts, consensus at K=10 (density
    threshold 0.5) — through cNMF(device="cuda") when pandas, h5py and yaml
-   import, else through the same stages in pipeline/stages.py; the wall and
-   sweeps of each K, stage walls and the CD kernels' launch counts, each of
-   which must be > 0; then the smallest and largest K again under
-   torch.profiler (device-busy time and idle share);
+   import, else through the same stages in pipeline/stages.py, on the
+   default schedule (factorize runs the device ladder): one line of each
+   K's wall, sweeps and executed restart-sweeps, stage walls and the CD
+   kernels' launch counts, each of which must be > 0;
 5. k-selection over that run's merged spectra of K=5..13: silhouette,
    prediction error and wall of each K, and the products kernel's launches;
-6. the KL path at bench.py's KL configuration — the same counts, K=10 × 100
+6. the CD factorize of every K again with the plain solver and on the
+   device ladder, in paired turns: per K its wall, sweeps, executed
+   restart-sweeps and idle share (torch.profiler); the ladder must give the
+   plain solver's n_iter and, as the CUDA default, its bits; then the
+   kernels each ladder rung takes at the MU slices' bucket, and the batch
+   check: every
+   launch of a step gives a restart the same bits on 100 of 104 restarts in
+   place and on 56, 32 or 16 of them shuffled as inside the 104, at every
+   bucket 8..64;
+7. the KL path at bench.py's KL configuration — the same counts, K=10 × 100
    restarts with beta_loss="kullback-leibler" and at most 200 iterations,
    combine, consensus at K=10 — through pipeline/stages.py: stage walls,
    iterations and the KL kernels' launch counts, each of which must be > 0,
    and of those the launches with one restart (the B=1 refits); then its
-   factorize and its consensus (the stage of the B=1 refits) again under
-   torch.profiler;
-7. the Itakura-Saito path, the same configuration with
+   factorize plain and on the ladder, and its consensus (the stage of the
+   B=1 refits) under torch.profiler;
+8. the Itakura-Saito path, the same configuration with
    beta_loss="itakura-saito", k-stats at K=10 as well, and consensus at
    density threshold IS_DENSITY_THRESHOLD: stage walls, iterations, the
    local densities and the general-beta kernels' launches (> 0), those of
-   the B=1 refits apart; then its factorize under torch.profiler, and its
-   k-stats and consensus (the stages of the B=1 refits);
-8. a JSON line of the kernels (times, the bound of the work at the main
+   the B=1 refits apart; then its factorize plain and on the ladder, and
+   its k-stats and consensus (the stages of the B=1 refits) under
+   torch.profiler;
+9. a JSON line of the kernels (times, the bound of the work at the main
    shape, launches on the main path, the MU kernels' B=1 launches apart,
    the refits' times, bounds and splits),
    the card line, and the result line
@@ -299,8 +310,7 @@ def grid_text(tiling, B, M):
     """A launch's grid over B restarts and M output rows, from its kernel's
     tiling (rows a block owns, restarts, threads, blocks an SM holds, and
     for the general-beta kernels the contraction's splits and entries a
-    split): its blocks, their waves of as many blocks as an SM holds, and
-    the blocks on each SM."""
+    split): its blocks and their waves of as many blocks as an SM holds."""
     import torch
 
     rows, rb, threads, per_sm, *split = tiling
@@ -308,10 +318,9 @@ def grid_text(tiling, B, M):
     blocks = -(-M // rows) * -(-B // rb) * splits
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     cut = f"split {splits} x {per_split} entries, " if splits > 1 else ""
-    return (f"grid {cut}{blocks} blocks ({rb} restarts x {rows} rows, "
-            f"{threads} threads), {per_sm} per SM, "
-            f"{blocks / max(per_sm * sms, 1):.2f} waves, {blocks / sms:.2f} "
-            "blocks an SM")
+    return (f"grid {cut}{blocks} blocks of {rb} restarts x {rows} rows, "
+            f"{threads} threads, {per_sm}/SM, "
+            f"{blocks / max(per_sm * sms, 1):.2f} waves")
 
 
 def phase_kernels(dev):
@@ -559,8 +568,8 @@ def run_stages(counts, ks, n_iter, hvg, k_cons, dev, dtype=np.float32,
     frobenius); ``k_stats``: the K whose K-selection stats run. Returns
     (stage walls after a device synchronize, {K: merged spectra}, consensus
     result, {K: sweeps of each restart}, the normalized counts tensor, the
-    k-stats rows). ``verbose``: a line per K with its wall and sweeps, as
-    cNMF.factorize prints."""
+    k-stats rows). ``verbose``: one line of every K's wall, sweeps and
+    executed restart-sweeps, as cNMF.factorize prints them."""
     import torch
 
     from cnmf_tpu_torch.pipeline import stages
@@ -582,17 +591,20 @@ def run_stages(counts, ks, n_iter, hvg, k_cons, dev, dtype=np.float32,
     walls["prepare"] = wall(t0)
 
     t0 = time.perf_counter()
-    spectra, n_iters = {}, {}
+    spectra, n_iters, parts = {}, {}, []
     for k in sorted(set(ks)):
         rows = [i for i, (kk, _) in enumerate(grid) if kk == k]
         t_k = time.perf_counter()
-        spectra[k], n_it = stages.factorize_k(X_host, Xd, k, seeds[rows], kwargs)
+        spectra[k], n_it, executed = stages.factorize_k(X_host, Xd, k,
+                                                        seeds[rows], kwargs)
         n_iters[k] = n_it
-        if verbose:
-            print(f"[factorize] k={k}: {len(rows)} restarts in "
-                  f"{time.perf_counter() - t_k:.3f} s, sweeps max {n_it.max()} "
-                  f"mean {n_it.mean():.1f}", flush=True)
+        parts.append(f"{k}: {time.perf_counter() - t_k:.3f}s "
+                     f"{n_it.max()}/{n_it.mean():.1f} {executed}")
     walls["factorize"] = wall(t0)
+    if verbose:
+        print(f"[factorize] {len(rows)} restarts, {kwargs['beta_loss']}, "
+              "default schedule (K: wall, sweeps max/mean, executed "
+              "restart-sweeps) " + "; ".join(parts), flush=True)
 
     t0 = time.perf_counter()
     merged = {k: stages.combine_arrays(list(s)) for k, s in spectra.items()}
@@ -679,28 +691,197 @@ def profiled(fn, n_top=4):
     return out, wall, busy, top
 
 
-def phase_profile(counts, hvg, dev, card, ks, n_iter, profile_ks,
-                  nmf_kwargs=None, label="CD"):
-    """The K of ``profile_ks`` factorized again under torch.profiler: the
-    device-busy time of the run, its idle share, and the ops that take most
-    of the device."""
+def path_input(counts, hvg, dev):
+    """(X on the host, X on the card): the slice's normalized counts, f32."""
     import torch
 
     from cnmf_tpu_torch.pipeline import stages
 
     prep = stages.prepare_arrays(counts, num_highvar_genes=hvg)
     X_host = np.ascontiguousarray(prep.norm, dtype=np.float32)
-    Xd = torch.as_tensor(X_host, device=dev)
+    return X_host, torch.as_tensor(X_host, device=dev)
+
+
+def phase_schedules(X_host, Xd, card, ks, n_iter, kwargs, label):
+    """Every K of ``ks`` (n_iter restarts each) factorized with the plain
+    batched solver and on the device ladder, in paired turns (plain, ladder,
+    ladder, plain): per K the mean wall of the two turns (synchronized),
+    sweeps max / mean, the restart-sweeps the device executed and the idle
+    share (1 - device busy / wall of a third, profiled run); per schedule
+    each turn's total wall. Each schedule's two turns must give the same
+    bits; the ladder must give the plain solver's n_iter at every restart,
+    and, as the CUDA default, its spectra's bits. Returns {"plain" |
+    "ladder": {K: spectra}}."""
+    import torch
+
+    from cnmf_tpu_torch.pipeline import stages
+    from cnmf_tpu_torch.pipeline.solvers import device_ladder_enabled
+
     grid, seeds = stages.replicate_seeds(ks, n_iter, 14)
-    kwargs = nmf_kwargs or stages.nmf_run_params()
-    for k in profile_ks:
-        rows = [i for i, (kk, _) in enumerate(grid) if kk == k]
-        (_, n_it), wall, busy, top = profiled(
-            lambda: stages.factorize_k(X_host, Xd, k, seeds[rows], kwargs))
-        print(f"[profile] {label} factorize k={k}, {len(rows)} restarts, sweeps max "
-              f"{n_it.max()}: wall {wall:.3f} s (profiled), device busy "
-              f"{busy:.3f} s, idle share {1 - busy / wall:.2%}; top device "
-              f"ops: {top}; card: {card}", flush=True)
+    runs = {"plain": {}, "ladder": {}}
+    for k in ks:
+        k_seeds = seeds[[i for i, (kk, _) in enumerate(grid) if kk == k]]
+        for name in ("plain", "ladder", "ladder", "plain"):
+            def run():
+                return stages.factorize_k(X_host, Xd, k, k_seeds, kwargs,
+                                          ladder=name == "ladder")
+
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            spec, n_it, executed = run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            row = runs[name].get(k)
+            if row is None:
+                _, wall_p, busy, _ = profiled(run, n_top=0)
+                runs[name][k] = dict(spec=spec, n=n_it, walls=[wall],
+                                     busy=busy, wall_p=wall_p,
+                                     executed=executed)
+            else:
+                assert (np.array_equal(spec, row["spec"])
+                        and np.array_equal(n_it, row["n"])), (label, name, k)
+                row["walls"].append(wall)
+    lines = []
+    for name, rows in runs.items():
+        parts = [f"{k}: {np.mean(r['walls']):.3f}s {r['n'].max()}/"
+                 f"{r['n'].mean():.1f} {r['executed']} "
+                 f"{1 - r['busy'] / r['wall_p']:.1%}" for k, r in rows.items()]
+        total = "+".join(f"{sum(r['walls'][i] for r in rows.values()):.3f}"
+                         for i in range(2))
+        executed = (f", {sum(r['executed'] for r in rows.values())} "
+                    "restart-sweeps" if len(ks) > 1 else "")
+        lines.append(f"{name} " + "; ".join(parts) + f"; turns {total} s"
+                     + executed + ", device busy "
+                     f"{sum(r['busy'] for r in rows.values()):.3f} s")
+    head = (f"[schedule] {label} (K: wall, sweeps max/mean, executed "
+            "restart-sweeps, idle share)")
+    if len(ks) == 1:
+        lines = [head + " " + " | ".join(lines)]
+    else:
+        lines = [f"{head} {line}" for line in lines]
+    plain, lad = runs["plain"], runs["ladder"]
+    same_n = all(np.array_equal(lad[k]["n"], plain[k]["n"]) for k in ks)
+    diff = max(float(np.abs(lad[k]["spec"] - plain[k]["spec"]).max())
+               for k in ks)
+    default = device_ladder_enabled(Xd)
+    lines[-1] += (f"; ladder vs plain: same n_iter at every restart: "
+                  f"{same_n}, spectra max |diff| {diff:.3e}; ladder the CUDA "
+                  f"default: {default}; card: {card}")
+    for line in lines:
+        print(line, flush=True)
+    assert not default or (same_n and diff == 0.0), (label, same_n, diff)
+    return {name: {k: r["spec"] for k, r in rows.items()}
+            for name, rows in runs.items()}
+
+
+def phase_ladder_tilings(Xd, k, card):
+    """The kernel each MU launch takes at each ladder rung at the KL and IS
+    slices' bucket, and the rungs ``solvers.ladder_rungs`` keeps."""
+    import torch
+
+    from cnmf_tpu_torch.ops import mu_kernels as mk
+    from cnmf_tpu_torch.ops.cd_kernels import pad_bucket
+    from cnmf_tpu_torch.ops.nmf import _ladder
+    from cnmf_tpu_torch.pipeline import stages
+    from cnmf_tpu_torch.pipeline.solvers import ladder_rungs
+
+    K, (N, G) = pad_bucket(k), Xd.shape
+    parts = []
+    for beta, loss in ((1.0, "kullback-leibler"), (0.0, "itakura-saito")):
+        kinds = {}
+        for B in _ladder(100, 16):
+            W = torch.empty((B, N, K), device=Xd.device)
+            Ht = torch.empty((B, G, K), device=Xd.device)
+            if beta == 1:
+                of = {"num W": "tiled" if mk.kl_numerator_tiling(Xd, B, K)[1]
+                      > 1 else "one-row",
+                      "num H": "tiled" if mk.kl_numerator_tiling(
+                          Xd, B, K, True)[1] > 1 else "one-row",
+                      "div": kernel_kind(mk.kl_x_log_wh_tiling(Xd, B, K), B, K)}
+            else:
+                of = {side: kernel_kind(mk.beta_terms_tiling(
+                    Xd, F, beta, side == "H"), B, K)
+                    for side, F in (("W", W), ("H", Ht))}
+            for launch, kind in of.items():
+                kinds.setdefault(launch, {}).setdefault(kind, []).append(B)
+        kept = ladder_rungs(Xd, 100, K, stages.nmf_run_params(beta_loss=loss))
+        parts.append(f"{'KL' if beta else 'IS'} K={K} " + "; ".join(
+            f"{launch} " + ", ".join(f"{kind} at {'/'.join(map(str, Bs))}"
+                                     for kind, Bs in by.items())
+            for launch, by in kinds.items())
+            + f" (rungs kept {'/'.join(map(str, kept))})")
+    print("[ladder-tilings] " + " | ".join(parts) + f"; card: {card}",
+          flush=True)
+
+
+def phase_batch(dev, card):
+    """Whether a restart's bits depend on the batch it shares, at every
+    launch of a solver step on the device ladder: each wrapper,
+    ``cd_kernels._gram``, the KL denominators and the KL and IS divergences
+    (``nmf.beta_divergence_error``), each called on B of 104 restarts
+    against the same restarts' rows of its call on all 104: B=100 in place
+    (the plain solver's batch), and B each later rung of ``_ladder(100,
+    16)``, drawn at random and shuffled, as the ladder's gathers leave them;
+    at every register bucket 8..64 with the main path's X shape (2700 ×
+    2000, 30 % zeros). A MU launch may differ only where its family's
+    contraction splits (``mu_kernels.launch_splits``) at B otherwise than at
+    104: ``solvers.ladder_rungs`` drops those rungs. Any other difference
+    fails."""
+    import torch
+
+    from cnmf_tpu_torch.ops import cd_kernels as ck
+    from cnmf_tpu_torch.ops import mu_kernels as mk
+    from cnmf_tpu_torch.ops.nmf import _ladder, beta_divergence_error
+
+    g = torch.Generator(device="cpu").manual_seed(0)
+    X = torch.rand(2700, 2000, generator=g)
+    X = (X * (torch.rand(X.shape, generator=g) > 0.3)).to(dev)
+    full, *rungs = _ladder(100, 16)
+    launches = {
+        "gram": (None, lambda X, W, Ht: (ck._gram(W), ck._gram(Ht))),
+        "cd W": (None, ck.cd_w_half_sweep),
+        "cd H": (None, ck.cd_h_half_sweep),
+        "kl num W": (None, mk.kl_mu_w_numerator),
+        "kl num H": (None, mk.kl_mu_h_numerator),
+        "kl den": (None, lambda X, W, Ht: (mk.kl_w_denominator(Ht),
+                                          mk.kl_h_denominator(W))),
+        "kl div": (1.0, mk.kl_x_log_wh),
+        "kl err": (1.0, lambda X, W, Ht: beta_divergence_error(X, W, Ht, 1.0)),
+        "is err": (None, lambda X, W, Ht: beta_divergence_error(X, W, Ht,
+                                                                0.0)),
+        "beta0 W": (0.0, lambda X, W, Ht: mk.beta_mu_w_terms(X, W, Ht, 0.0)),
+        "beta0 H": (0.0, lambda X, W, Ht: mk.beta_mu_h_terms(X, W, Ht, 0.0)),
+    }
+    same, split, other = 0, [], []
+    for K in range(8, 65, 8):
+        W = (torch.rand(full, 2700, K, generator=g) * 0.2).to(dev)
+        Ht = (torch.rand(full, 2000, K, generator=g) * 0.2).to(dev)
+        picks = [torch.arange(100)] + [torch.randperm(full, generator=g)[:B]
+                                       for B in rungs]
+        for name, (beta, fn) in launches.items():
+            whole = fn(X, W, Ht)
+            whole = whole if isinstance(whole, tuple) else (whole,)
+            for idx in picks:
+                B, idx = len(idx), idx.to(dev)
+                part = fn(X, W[idx], Ht[idx])
+                part = part if isinstance(part, tuple) else (part,)
+                if all(torch.equal(a, b[idx]) for a, b in zip(part, whole)):
+                    same += 1
+                elif beta is not None and (mk.launch_splits(X, B, K, beta)
+                                           != mk.launch_splits(X, full, K,
+                                                               beta)):
+                    split.append(f"{name} K={K} B={B}")
+                else:
+                    other.append(f"{name} K={K} B={B}")
+        del W, Ht
+    print(f"[batch] B of {full} restarts against their rows of the "
+          f"{full}-restart call, B=100 in place and "
+          f"{'/'.join(map(str, rungs))} shuffled, X 2700x2000 30% zeros, "
+          f"K=8..64, {', '.join(launches)}: {same} same bits; differ where "
+          f"the split differs (rung dropped): {', '.join(split) or 'none'}; "
+          f"any other: {', '.join(other) or 'none'}; card: {card}",
+          flush=True)
+    assert not other, other
 
 
 def phase_profile_refits(counts, hvg, dev, card, spectra, k, kwargs,
@@ -864,8 +1045,9 @@ def template_tag(fam, args):
 
 
 def ptxas_lines(log_path):
-    """One line per kernel family of the build log: each instantiation's
-    registers, stack frame and spill bytes."""
+    """One line per kernel family of the build log: its instantiations'
+    registers (least and most), and each instantiation that keeps a stack
+    frame or spills, with its registers, stack frame and spill bytes."""
     fams, name = {}, None
     with open(log_path) as fh:
         for ln in fh:
@@ -888,11 +1070,18 @@ def ptxas_lines(log_path):
             m = re.search(r"Used (\d+) registers", ln)
             if m:
                 fams[name[0]][name[1]][0] = m.group(1)
-    return [f"[ptxas] {fam} (registers/stack/spill bytes): "
-            + " ".join(f"{tag}:{'/'.join(v)}" for tag, v in sorted(
+    lines = []
+    for fam, tags in fams.items():
+        regs = [int(v[0]) for v in tags.values() if v[0].isdigit()]
+        stack = " ".join(
+            f"{tag}:{'/'.join(v)}" for tag, v in sorted(
                 tags.items(), key=lambda kv: [int(x) if x.isdigit() else 0
-                                               for x in kv[0].split(",")]))
-            for fam, tags in fams.items()]
+                                              for x in kv[0].split(",")])
+            if v[1:] != ["0", "0"])
+        lines.append(f"[ptxas] {fam}: {len(tags)} builds, registers "
+                     f"{min(regs, default=0)}-{max(regs, default=0)}; "
+                     f"stack/spill bytes: {stack or 'none'}")
+    return lines
 
 
 def main():
@@ -962,20 +1151,26 @@ def main():
           "walls_s " + json.dumps({k: round(v, 3) for k, v in walls.items()})
           + f"; launches {launches}; card: {card}", flush=True)
     assert all(n > 0 for n in launches.values()), launches
-    phase_profile(counts, hvg, dev, card, ks, n_iter, (min(ks), max(ks)))
 
     # 5. k-selection over the CD slice's merged spectra
     phase_k_selection(merged, Xd, card)
     del merged, Xd
 
-    # 6. the KL path and 7. the Itakura-Saito path at bench.py's KL
-    # configuration
+    # 6. the CD factorize on each schedule, the MU ladder's rungs and the
+    # batch check
+    X_host, Xd = path_input(counts, hvg, dev)
+    phase_schedules(X_host, Xd, card, ks, n_iter, stages.nmf_run_params(),
+                    "CD")
+    phase_ladder_tilings(Xd, k_cons, card)
+    phase_batch(dev, card)
+
+    # 7. the KL path and 8. the Itakura-Saito path at bench.py's KL
+    # configuration, each factorize again plain and on the ladder
     part, launches_b1, kl_spectra = mu_slice("kl", counts, k_cons, n_iter,
                                              hvg, dev, kl_kwargs, KL_KERNELS,
                                              card)
     launches.update(part)
-    phase_profile(counts, hvg, dev, card, [k_cons], n_iter, [k_cons],
-                  kl_kwargs, "KL")
+    phase_schedules(X_host, Xd, card, [k_cons], n_iter, kl_kwargs, "KL")
     phase_profile_refits(counts, hvg, dev, card, kl_spectra, k_cons,
                          kl_kwargs, 0.5, "KL", "kl_x_log_wh", k_stats=False)
     part, b1, is_spectra = mu_slice("is", counts, k_cons, n_iter, hvg, dev,
@@ -984,13 +1179,12 @@ def main():
                                     density_threshold=IS_DENSITY_THRESHOLD)
     launches.update(part)
     launches_b1.update(b1)
-    phase_profile(counts, hvg, dev, card, [k_cons], n_iter, [k_cons],
-                  is_kwargs, "IS")
+    phase_schedules(X_host, Xd, card, [k_cons], n_iter, is_kwargs, "IS")
     phase_profile_refits(counts, hvg, dev, card, is_spectra, k_cons,
                          is_kwargs, IS_DENSITY_THRESHOLD, "IS",
                          "beta_mu_w_terms")
 
-    # 8. results
+    # 9. results
     replaces = {"cd_w_half_sweep": "cnmf_tpu/ops/pallas_cd.py:118",
                 "cd_h_half_sweep": "cnmf_tpu/ops/pallas_cd.py:162",
                 "cd_sweep_from_products": "cnmf_tpu/ops/pallas_cd.py:58",

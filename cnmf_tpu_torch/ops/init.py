@@ -25,11 +25,10 @@ def _x_mean(X) -> float:
     return float(np.mean(X))
 
 
-def random_init(X, n_components: int, seed: int, dtype=np.float32):
-    """sklearn init='random': H then W from RandomState(seed), |N(0,1)|·avg."""
-    avg = np.sqrt(_x_mean(X) / n_components)
+def _draw(avg: float, shape, n_components: int, seed: int, dtype):
+    """H then W from RandomState(seed), |N(0,1)|·avg, X of ``shape``."""
     rng = np.random.RandomState(seed)
-    n_samples, n_features = X.shape
+    n_samples, n_features = shape
     H = avg * rng.standard_normal(size=(n_components, n_features))
     W = avg * rng.standard_normal(size=(n_samples, n_components))
     np.abs(H, out=H)
@@ -37,13 +36,22 @@ def random_init(X, n_components: int, seed: int, dtype=np.float32):
     return W.astype(dtype, copy=False), H.astype(dtype, copy=False)
 
 
+def random_init(X, n_components: int, seed: int, dtype=np.float32):
+    """sklearn init='random': H then W from RandomState(seed), |N(0,1)|·avg."""
+    avg = np.sqrt(_x_mean(X) / n_components)
+    return _draw(avg, X.shape, n_components, seed, dtype)
+
+
 def random_init_batch(
     X, n_components: int, seeds: Sequence[int], dtype=np.float32
 ) -> Tuple[np.ndarray, np.ndarray]:
-    """Stack sklearn-compatible random inits: W0 (B,N,K), Ht0 (B,G,K)."""
+    """Stack sklearn-compatible random inits: W0 (B,N,K), Ht0 (B,G,K). X's
+    mean is taken once for the batch (the same value ``random_init`` takes
+    per seed)."""
+    avg = np.sqrt(_x_mean(X) / n_components)
     Ws, Hts = [], []
     for seed in seeds:
-        W, H = random_init(X, n_components, int(seed), dtype=dtype)
+        W, H = _draw(avg, X.shape, n_components, int(seed), dtype)
         Ws.append(W)
         Hts.append(np.ascontiguousarray(H.T))
     return np.stack(Ws), np.stack(Hts)

@@ -82,15 +82,37 @@ def _den_factor(WH, beta):
     return WH_den.pow(beta - 1.0)
 
 
+# segments of a factor's rows that ``restart_sums`` sums apart
+SUM_SEGMENTS = 32
+
+
+def restart_sums(F):
+    """Σ over dim 1 of F (B, M, K) → (B, K), in an order that depends on
+    neither B nor a restart's place in the batch. A PyTorch reduction picks
+    its split from its output count (on one H100, ``F.sum(dim=1)`` gave
+    other bits at K=64 for 56 of 104 restarts than inside the 104), so a
+    device ladder's smaller batches would change the bits. Here each of
+    ``SUM_SEGMENTS`` contiguous segments of the rows is summed in row order
+    by one thread (a scan along an outer dimension runs sequentially), then
+    the segments in order; rows past M are zeros."""
+    B, M, K = F.shape
+    rows = -(-M // SUM_SEGMENTS)
+    pad = rows * SUM_SEGMENTS - M
+    if pad:
+        F = torch.cat([F, F.new_zeros((B, pad, K))], dim=1)
+    seg = F.reshape(B, SUM_SEGMENTS, rows, K).cumsum(dim=2)[:, :, -1]
+    return seg.cumsum(dim=1)[:, -1]
+
+
 def kl_w_denominator(Ht):
     """The KL W-update denominator Σ_g H, (B, 1, K) (nmf.py:1071)."""
-    return Ht.sum(dim=1)[:, None, :]
+    return restart_sums(Ht)[:, None, :]
 
 
 def kl_h_denominator(W):
     """The KL Ht-update denominator Σ_n W with 0 mapped to 1, (B, 1, K)
     (nmf.py:1147-1148)."""
-    w_sum = W.sum(dim=1)
+    w_sum = restart_sums(W)
     return torch.where(w_sum == 0, 1.0, w_sum)[:, None, :]
 
 
@@ -263,6 +285,17 @@ def _split(X, B, M, K, transposed, beta):
     key = None if beta is None else 0.0 if beta == 0 else 0.5
     C = X.shape[0 if transposed else 1]
     return split_plan(B, M, C, *_one_row_plan_args(K, key, X.device.index))
+
+
+def launch_splits(X, B: int, K: int, beta: float) -> tuple:
+    """The contraction splits (``split_plan``) of the kernel launches one MU
+    iteration on CUDA makes with B restarts at bucket K: the divergence
+    term's at beta 1, the general-beta terms' W and H sides at any other
+    beta but 2 (which runs no kernel)."""
+    if beta == 1:
+        return (_split(X, B, X.shape[0], K, False, None)[0],)
+    return (_split(X, B, X.shape[0], K, False, beta)[0],
+            _split(X, B, X.shape[1], K, True, beta)[0])
 
 
 def _tiling(X, B, M, K, transposed, beta):

@@ -20,10 +20,16 @@ CD semantics mirror sklearn's, as in the JAX package:
   which matches the serial solver's early ``break``;
 * ``n_iter`` counts sweeps per restart.
 
-The JAX ``while_loop`` is a Python loop with masked ``torch.where`` updates.
-Reading the all-done flag costs a device→host sync, so on a GPU it is read
-every ``_DONE_CHECK_EVERY`` sweeps only; frozen restarts do not change, so
-the results are the same as checking every sweep.
+The JAX ``while_loop`` becomes blocks of ``BLOCK`` steps with masked
+``torch.where`` updates, a function of tensors only: the global step index
+is a device counter and the ``max_iter`` guard sits in the keep mask, so a
+block is the same code at every position, and the host reads the all-done
+flag between blocks only. Frozen restarts do not change, so n_iter and the
+factors are those of checking every step. (Replaying a block as a CUDA
+graph was measured on an H100 and did not pay: PERF.md.)
+
+The device ladders (``nmf_cd_device_ladder``, ``nmf_mu_device_ladder``) run
+the same blocks on a batch that shrinks as restarts finish.
 """
 
 from __future__ import annotations
@@ -44,6 +50,7 @@ from cnmf_tpu_torch.ops.cd_kernels import (  # noqa: F401  (re-exported)
 )
 from cnmf_tpu_torch.ops.init import nnls_w_init
 from cnmf_tpu_torch.ops.mu_kernels import (
+    CHUNK,
     beta_mu_h_terms,
     beta_mu_w_terms,
     kl_h_denominator,
@@ -51,31 +58,51 @@ from cnmf_tpu_torch.ops.mu_kernels import (
     kl_mu_w_numerator,
     kl_w_denominator,
     kl_x_log_wh,
+    restart_sums,
     wh_chunks,
 )
 
 EPSILON = float(np.finfo(np.float32).eps)
-
-_DONE_CHECK_EVERY = 10
-
-
-def _check_every(t: torch.Tensor) -> int:
-    return 1 if t.device.type == "cpu" else _DONE_CHECK_EVERY
+# steps a block: the stop rules' check cadence (sklearn's MU checks every 10
+# iterations; the CD loop reads its done flags as often)
+BLOCK = 10
 
 
-def _update_state(j_global, violation, violation_init, done, n_iter, tol):
-    """Shared stop rule of the full solver and the products refit: returns
-    (violation_init, keep mask, n_iter, done) after global sweep ``j_global``."""
-    if j_global == 0:
-        violation_init = violation
-    keep = ~done
-    n_iter = torch.where(keep, j_global + 1, n_iter)
-    newly_done = torch.where(
-        violation_init == 0,
-        True,
-        violation / violation_init.clamp(min=EPSILON) <= tol,
-    )
-    return violation_init, keep, n_iter, done | newly_done
+def _run_solve(block, state, steps: int):
+    """Blocks of ``block()`` over ``state`` (done flags at ``state[-2]``)
+    until every restart is done or ``steps`` steps have run."""
+    for n in range(-(-max(steps, 0) // BLOCK)):
+        if n and bool(state[-2].all()):
+            break
+        block()
+
+
+def _cd_block(sweep, state, tol: float, limit: int):
+    """``BLOCK`` CD sweeps (the JAX body, cnmf_tpu/ops/nmf.py:400-418) of
+    ``state`` = [*factors, violation_init, n_iter, done, git], replaced in
+    the list. ``sweep(*factors)`` returns (*new factors, violation); ``git``
+    is the global sweep index (sweep 0 sets violation_init), a 0-d int32
+    tensor, and no sweep at ``limit`` or past it changes anything."""
+    *factors, vi, n_iter, done, git = state
+    for _ in range(BLOCK):
+        *new, violation = sweep(*factors)
+        violation = violation.to(vi.dtype)
+        vi = torch.where(git == 0, violation, vi)
+        keep = ~done & (git < limit)
+        factors = [torch.where(keep[:, None, None], f_new, f)
+                   for f_new, f in zip(new, factors)]
+        n_iter = torch.where(keep, git + 1, n_iter)
+        newly_done = torch.where(
+            vi == 0, True, violation / vi.clamp(min=EPSILON) <= tol)
+        done = done | (keep & newly_done)
+        git = git + 1
+    state[:] = (*factors, vi, n_iter, done, git)
+
+
+def _cd_state(factors, violation_init, n_iter, done, it0: int):
+    """A CD solve's state list."""
+    git = torch.full((), it0, dtype=torch.int32, device=done.device)
+    return [*factors, violation_init, n_iter, done, git]
 
 
 def _half_sweeps(X, W, Ht, update_H, l1_reg_W, l1_reg_H, l2_reg_W, l2_reg_H):
@@ -99,20 +126,17 @@ def nmf_cd_segment(
 
     The convergence state (violation_init, per-restart sweep counts, done
     mask) is carried in and out; ``it0`` is the global sweep offset (sweep 0
-    defines violation_init). Returns (W, Ht, violation_init, n_iter, done)."""
-    check = _check_every(W)
-    for j in range(seg_len):
-        if j % check == 0 and bool(done.all()):
-            break
-        W_new, Ht_new, viol = _half_sweeps(
-            X, W, Ht, update_H, l1_reg_W, l1_reg_H, l2_reg_W, l2_reg_H
-        )
-        violation_init, keep, n_iter, done = _update_state(
-            it0 + j, viol.to(W.dtype), violation_init, done, n_iter, tol
-        )
-        W = torch.where(keep[:, None, None], W_new, W)
-        Ht = torch.where(keep[:, None, None], Ht_new, Ht)
-    return W, Ht, violation_init, n_iter, done
+    defines violation_init). Returns (W, Ht, violation_init, n_iter,
+    done)."""
+    state = _cd_state((W, Ht), violation_init, n_iter, done, it0)
+
+    def sweep(W, Ht):
+        return _half_sweeps(X, W, Ht, update_H, l1_reg_W, l1_reg_H, l2_reg_W,
+                            l2_reg_H)
+
+    _run_solve(lambda: _cd_block(sweep, state, tol, it0 + seg_len), state,
+               seg_len)
+    return tuple(state[:5])
 
 
 def nmf_coordinate_descent(
@@ -166,22 +190,16 @@ def nnls_cd_from_products(
     Returns (W, n_iter)."""
     B = W0.shape[0]
     dev = W0.device
-    W = W0
-    violation_init = torch.zeros(B, dtype=W0.dtype, device=dev)
-    n_iter = torch.zeros(B, dtype=torch.int32, device=dev)
-    done = torch.zeros(B, dtype=torch.bool, device=dev)
-    check = _check_every(W0)
-    for j in range(max_iter):
-        if j % check == 0 and bool(done.all()):
-            break
-        W_new, viol = cd_sweep_from_products(
-            W, gram, P, l1_reg=l1_reg, l2_reg=l2_reg
-        )
-        violation_init, keep, n_iter, done = _update_state(
-            j, viol.to(W.dtype), violation_init, done, n_iter, tol
-        )
-        W = torch.where(keep[:, None, None], W_new, W)
-    return W, n_iter
+    state = _cd_state((W0,), torch.zeros(B, dtype=W0.dtype, device=dev),
+                      torch.zeros(B, dtype=torch.int32, device=dev),
+                      torch.zeros(B, dtype=torch.bool, device=dev), 0)
+
+    def sweep(W):
+        return cd_sweep_from_products(W, gram, P, l1_reg=l1_reg, l2_reg=l2_reg)
+
+    _run_solve(lambda: _cd_block(sweep, state, tol, max_iter), state,
+               max_iter)
+    return state[0], state[2]
 
 
 def fixed_factor_gram(F):
@@ -236,7 +254,7 @@ def frobenius_error(X, W, Ht, XHt: Optional[torch.Tensor] = None):
 # ----------------------------------------------------------------------
 
 _EPS64 = float(np.finfo(np.float64).eps)
-_MU_CHECK_EVERY = 10   # sklearn's MU convergence check cadence
+
 
 def _kl_x_terms(X):
     """The X-only terms of the KL divergence over X > eps: (Σ X·log X, Σ X)."""
@@ -248,9 +266,14 @@ def _kl_x_terms(X):
 def _beta_divergence_chunked(X, W, Ht, beta: float):
     """beta ∉ {1, 2}: beta_div per restart from chunked reconstructions
     (sklearn's dense _beta_divergence: X <= eps excluded from the elementwise
-    terms, WH floored at eps)."""
+    terms, WH floored at eps). The batch is padded with copies of its first
+    restart to whole chunks of ``mu_kernels.CHUNK``, so every chunk's
+    reduction has one shape and a restart's bits do not depend on B."""
+    B = W.shape[0]
+    size = -(-B // CHUNK) * CHUNK
+    W, Ht = _padded(W, size), _padded(Ht, size)
     mask = X > EPSILON
-    divs = torch.empty(W.shape[0], dtype=W.dtype, device=W.device)
+    divs = torch.empty(size, dtype=W.dtype, device=W.device)
     for sl, _, _, WH in wh_chunks(W, Ht):
         WH_safe = WH.clamp(min=EPSILON)
         if beta == 0:
@@ -266,7 +289,7 @@ def _beta_divergence_chunked(X, W, Ht, beta: float):
             sum_X_beta = torch.where(mask, X.pow(beta), 0.0).sum()
             divs[sl] = (sum_X_beta - beta * sum_X_WH
                         + sum_WH_beta * (beta - 1.0)) / (beta * (beta - 1.0))
-    return divs
+    return divs[:B]
 
 
 def beta_divergence_error(X, W, Ht, beta: float, x_terms=None):
@@ -276,8 +299,10 @@ def beta_divergence_error(X, W, Ht, beta: float, x_terms=None):
         return frobenius_error(X, W, Ht)
     if beta == 1:
         X_log_X, sum_X = x_terms if x_terms is not None else _kl_x_terms(X)
-        # the full Σ(W·H) by the rank-K identity
-        sum_WH = (W.sum(dim=1) * Ht.sum(dim=1)).sum(dim=1)
+        # the full Σ(W·H) by the rank-K identity, in an order that does not
+        # depend on the batch
+        sum_WH = restart_sums(
+            (restart_sums(W) * restart_sums(Ht))[:, :, None])[:, 0]
         divs = -kl_x_log_wh(X, W, Ht) + X_log_X - sum_X + sum_WH
     else:
         divs = _beta_divergence_chunked(X, W, Ht, beta)
@@ -322,6 +347,58 @@ def _mu_update_h(X, W, Ht, beta, gamma, l1_reg, l2_reg):
     return _mu_step(Ht, numerator, denominator, gamma, l1_reg, l2_reg)
 
 
+def _mu_state(W0, Ht0, error_init, done):
+    """A MU solve's state list: [W, Ht, prev_error, error_init, n_iter,
+    done, git]."""
+    dev = W0.device
+    return [W0, Ht0, error_init, error_init,
+            torch.zeros(W0.shape[0], dtype=torch.int32, device=dev),
+            done, torch.zeros((), dtype=torch.int32, device=dev)]
+
+
+def _mu_block(X, state, beta, tol, limit, update_H, x_terms,
+              l1_reg_W, l1_reg_H, l2_reg_W, l2_reg_H):
+    """A function running ``BLOCK`` MU iterations (the JAX body,
+    cnmf_tpu/ops/nmf.py:1277-1308) of ``state`` (``_mu_state``), replaced
+    in the list.
+    Blocks start at multiples of ``BLOCK`` of the global counter ``git``, so
+    sklearn's every-10 check falls on each block's last iteration; no
+    iteration at ``limit`` or past it, and no check past it, changes
+    anything."""
+    if beta < 1:
+        gamma = 1.0 / (2.0 - beta)
+    elif beta > 2:
+        gamma = 1.0 / (beta - 1.0)
+    else:
+        gamma = 1.0
+
+    def block():
+        W, Ht, prev_error, error_init, n_iter, done, git = state
+        for _ in range(BLOCK):
+            W_new = _mu_update_w(X, W, Ht, beta, gamma, l1_reg_W, l2_reg_W)
+            if beta < 1:
+                W_new = torch.where(W_new < _EPS64, 0.0, W_new)
+            keep = ~done & (git < limit)
+            if update_H:
+                Ht_new = _mu_update_h(X, W_new, Ht, beta, gamma, l1_reg_H,
+                                      l2_reg_H)
+                if beta <= 1:
+                    Ht_new = torch.where(Ht_new < _EPS64, 0.0, Ht_new)
+                Ht = torch.where(keep[:, None, None], Ht_new, Ht)
+            W = torch.where(keep[:, None, None], W_new, W)
+            n_iter = torch.where(keep, git + 1, n_iter)
+            git = git + 1
+        if tol > 0:
+            error = beta_divergence_error(X, W, Ht, beta, x_terms).to(W.dtype)
+            check = git <= limit
+            done = done | (check & ((prev_error - error)
+                                    / error_init.clamp(min=EPSILON) < tol))
+            prev_error = torch.where(check, error, prev_error)
+        state[:] = (W, Ht, prev_error, error_init, n_iter, done, git)
+
+    return block
+
+
 def nmf_multiplicative_update(
     X: torch.Tensor,
     W0: torch.Tensor,
@@ -346,40 +423,14 @@ def nmf_multiplicative_update(
     n_iter (B,) int32."""
     B = W0.shape[0]
     dev = W0.device
-    if beta < 1:
-        gamma = 1.0 / (2.0 - beta)
-    elif beta > 2:
-        gamma = 1.0 / (beta - 1.0)
-    else:
-        gamma = 1.0
     x_terms = _kl_x_terms(X) if beta == 1 else None
-    error_init = beta_divergence_error(X, W0, Ht0, beta, x_terms)
-    prev_error = error_init
-    done = torch.zeros(B, dtype=torch.bool, device=dev)
-    n_iter = torch.zeros(B, dtype=torch.int32, device=dev)
-    W, Ht = W0, Ht0
-    for it in range(1, max_iter + 1):
-        W_new = _mu_update_w(X, W, Ht, beta, gamma, l1_reg_W, l2_reg_W)
-        if beta < 1:
-            W_new = torch.where(W_new < _EPS64, 0.0, W_new)
-        keep = ~done
-        if update_H:
-            Ht_new = _mu_update_h(X, W_new, Ht, beta, gamma, l1_reg_H,
-                                  l2_reg_H)
-            if beta <= 1:
-                Ht_new = torch.where(Ht_new < _EPS64, 0.0, Ht_new)
-            Ht = torch.where(keep[:, None, None], Ht_new, Ht)
-        W = torch.where(keep[:, None, None], W_new, W)
-        n_iter = torch.where(keep, it, n_iter)
-        if tol > 0 and it % _MU_CHECK_EVERY == 0:
-            error = beta_divergence_error(X, W, Ht, beta,
-                                          x_terms).to(W0.dtype)
-            done = done | ((prev_error - error)
-                           / error_init.clamp(min=EPSILON) < tol)
-            prev_error = error
-            if bool(done.all()):
-                break
-    return W, Ht, n_iter
+    error_init = beta_divergence_error(X, W0, Ht0, beta, x_terms).to(W0.dtype)
+    state = _mu_state(W0, Ht0, error_init,
+                      torch.zeros(B, dtype=torch.bool, device=dev))
+    block = _mu_block(X, state, beta, tol, max_iter, update_H, x_terms,
+                      l1_reg_W, l1_reg_H, l2_reg_W, l2_reg_H)
+    _run_solve(block, state, max_iter)
+    return state[0], state[1], state[4]
 
 
 def nnls_multiplicative_update(X, H, *, beta=1.0, tol=1e-4, max_iter=200,
@@ -393,3 +444,135 @@ def nnls_multiplicative_update(X, H, *, beta=1.0, tol=1e-4, max_iter=200,
         l1_reg_W=l1_reg_W, l2_reg_W=l2_reg_W,
     )
     return W[0], int(n_iter[0])
+
+
+# ----------------------------------------------------------------------
+# the device ladders: restart compaction on the card
+# ----------------------------------------------------------------------
+
+def _ladder(b0: int, min_bucket: int = 32):
+    """Descending batch-size ladder (each a multiple of 8, halving down to
+    ``min_bucket``): the rungs the device ladders shrink the batch through
+    (cnmf_tpu/ops/nmf.py:_ladder)."""
+    sizes = [max(8 * ((b0 + 7) // 8), 8)]
+    while sizes[-1] > min_bucket:
+        sizes.append(max(min_bucket, 8 * ((sizes[-1] // 2 + 7) // 8)))
+    return sizes
+
+
+def _padded(F0, size):
+    """F0 (B0, M, K) with copies of its first restart appended up to
+    ``size``."""
+    pad = size - F0.shape[0]
+    return torch.cat([F0, F0[:1].expand(pad, *F0.shape[1:])]) if pad else F0
+
+
+def _check_ladder(ladder, B0):
+    ladder = tuple(int(s) for s in ladder) or (B0,)
+    if ladder[0] < B0 or any(a <= b for a, b in zip(ladder, ladder[1:])):
+        raise ValueError(f"ladder {ladder}: descending sizes, the first at "
+                         f"least the batch's {B0}")
+    return ladder
+
+
+def _run_ladder(state, make_block, ladder, B0: int, max_iter: int):
+    """The ladder's rungs (cnmf_tpu/ops/nmf.py:772-817) over ``state`` =
+    [W, Ht, ..., n_iter, done, git] at batch ``ladder[0]``, its rows past B0
+    padding that starts done. Each rung runs ``make_block(state)``'s blocks
+    until its live restarts fit the next rung or ``max_iter`` sweeps have
+    run; then every row's spectra and n_iter land in a (B0 + 1)-row buffer
+    under its original position (padding in the last row), and a stable
+    argsort on ``done`` gathers the live restarts to the front of the next
+    rung's batch. Returns (spectra (B0, K, G), n_iter (B0,), the sweeps run
+    at each rung)."""
+    Ht = state[1]
+    dev, (_, G, K) = Ht.device, Ht.shape
+    pos = torch.arange(ladder[0], device=dev).clamp(max=B0)
+    out = torch.zeros((B0 + 1, K, G), dtype=Ht.dtype, device=dev)
+    out_n = torch.zeros(B0 + 1, dtype=torch.int32, device=dev)
+    stage_sweeps, it = [], 0
+    for si, size in enumerate(ladder):
+        nxt = ladder[si + 1] if si + 1 < len(ladder) else 0
+        block, n = make_block(state), 0
+        while (it + n * BLOCK < max_iter
+               and size - int(state[-2].sum()) > nxt):
+            block()
+            n += 1
+        stage_sweeps.append(min(it + n * BLOCK, max_iter) - min(it, max_iter))
+        it += n * BLOCK
+        # finished rows are final here; rows that ride on are overwritten by
+        # a later rung
+        out[pos] = state[1].transpose(1, 2)
+        out_n[pos] = state[-3]
+        if nxt:
+            order = torch.argsort(state[-2].to(torch.int8), stable=True)[:nxt]
+            state = [t[order] for t in state[:-1]] + [state[-1]]
+            pos = pos[order]
+    return out[:B0], out_n[:B0], stage_sweeps
+
+
+def nmf_cd_device_ladder(
+    X, W0, Ht0, *, tol: float = 1e-4, max_iter: int = 200,
+    ladder: tuple = (), l1_reg_W: float = 0.0, l1_reg_H: float = 0.0,
+    l2_reg_W: float = 0.0, l2_reg_H: float = 0.0,
+):
+    """Batched CD whose batch shrinks on the card as restarts finish
+    (cnmf_tpu/ops/nmf.py:nmf_cd_device_ladder :710): ``_run_ladder`` over
+    the rungs of ``ladder`` (descending, the first at least B0), the sweep
+    blocks of ``nmf_cd_segment`` at each. The plain solver's batch runs as
+    long as its slowest restart; here the work follows the distribution of
+    sweeps. Frozen restarts never change and every row leaves the batch only
+    once it is done or at ``max_iter``, so n_iter and the spectra are the
+    plain solver's where the arithmetic of a restart does not depend on the
+    batch it shares. A rung stops at a block boundary, up to 9 sweeps past
+    the point where its live restarts fit the next one: the sweeps run sum
+    to min(max_iter, 10·⌈max n_iter / 10⌉).
+
+    Returns (spectra (B0, K, G), n_iter (B0,), stage_sweeps): the executed
+    restart-sweeps are Σ ladder[i]·stage_sweeps[i]."""
+    B0 = W0.shape[0]
+    ladder = _check_ladder(ladder, B0)
+    Bp = ladder[0]
+    dev = W0.device
+    state = _cd_state((_padded(W0, Bp), _padded(Ht0, Bp)),
+                      torch.zeros(Bp, dtype=W0.dtype, device=dev),
+                      torch.zeros(Bp, dtype=torch.int32, device=dev),
+                      torch.arange(Bp, device=dev) >= B0, 0)
+
+    def sweep(W, Ht):
+        return _half_sweeps(X, W, Ht, True, l1_reg_W, l1_reg_H, l2_reg_W,
+                            l2_reg_H)
+
+    def make_block(st):
+        return lambda: _cd_block(sweep, st, tol, max_iter)
+
+    return _run_ladder(state, make_block, ladder, B0, max_iter)
+
+
+def nmf_mu_device_ladder(
+    X, W0, Ht0, *, beta: float = 2.0, tol: float = 1e-4,
+    max_iter: int = 200, ladder: tuple = (),
+    l1_reg_W: float = 0.0, l1_reg_H: float = 0.0,
+    l2_reg_W: float = 0.0, l2_reg_H: float = 0.0,
+):
+    """Batched MU on a shrinking batch, the MU twin of
+    ``nmf_cd_device_ladder`` (cnmf_tpu/ops/nmf.py:nmf_mu_device_ladder
+    :1393): prev_error and error_init ride the gathers, and the every-10
+    check follows the global counter, so done changes only at multiples of
+    10 and each rung ends where the JAX package's does. The error at init is
+    taken over the padded batch, as there. Returns (spectra (B0, K, G),
+    n_iter (B0,), stage_sweeps)."""
+    B0 = W0.shape[0]
+    ladder = _check_ladder(ladder, B0)
+    Bp = ladder[0]
+    W, Ht = _padded(W0, Bp), _padded(Ht0, Bp)
+    x_terms = _kl_x_terms(X) if beta == 1 else None
+    error_init = beta_divergence_error(X, W, Ht, beta, x_terms).to(W0.dtype)
+    state = _mu_state(W, Ht, error_init,
+                      torch.arange(Bp, device=W0.device) >= B0)
+
+    def make_block(st):
+        return _mu_block(X, st, beta, tol, max_iter, True, x_terms,
+                         l1_reg_W, l1_reg_H, l2_reg_W, l2_reg_H)
+
+    return _run_ladder(state, make_block, ladder, B0, max_iter)

@@ -10,7 +10,9 @@ the array work lives in ``pipeline.stages``.
 Every solve runs on the ``device`` the object was created with. On CUDA the
 HALS half-sweeps and the multiplicative-update terms go through the
 hand-written kernels of ``ops.cd_kernels`` and ``ops.mu_kernels``, which take
-float32 only: ``compute_dtype=np.float64`` is a CPU setting.
+float32 only: ``compute_dtype=np.float64`` is a CPU setting. There
+factorize runs the device ladder (``CNMF_TPU_DEVICE_LADDER=0`` turns it
+off; ``pipeline.solvers``).
 Artifacts are written synchronously, so ``flush_writes`` has nothing to do.
 """
 
@@ -289,14 +291,14 @@ class cNMF:
             k = int(k)
             seeds = group["nmf_seed"].values
             t0 = time.perf_counter()
-            spectra, n_iter = stages.factorize_k(
+            spectra, n_iter, executed = stages.factorize_k(
                 X_host, Xd, k, seeds, nmf_kwargs, restart_chunk=restart_chunk
             )
             if verbose:
                 print("[Worker %d] k=%d: %d restarts in %.3f s, sweeps max %d "
-                      "mean %.1f" % (worker_i, k, len(seeds),
-                                     time.perf_counter() - t0, n_iter.max(),
-                                     n_iter.mean()))
+                      "mean %.1f, executed restart-sweeps %d"
+                      % (worker_i, k, len(seeds), time.perf_counter() - t0,
+                         n_iter.max(), n_iter.mean(), executed))
             for i, it in enumerate(group["iter"].values):
                 save_df_to_npz(
                     pd.DataFrame(spectra[i], index=np.arange(1, k + 1),

@@ -10,21 +10,30 @@ PyTorch versions. That replaces the JAX package's ``cd_pallas_eligible`` /
 ``mu_pallas_eligible`` gates. On CUDA every beta runs: MU at beta=2 runs
 plain matmuls, at beta=1 the KL kernels, at any other beta (0 is
 Itakura-Saito) the general-beta kernels.
+
+On the card a factorize solve takes the device ladder
+(``solve_nmf_batch_ladder``) unless ``CNMF_TPU_DEVICE_LADDER=0``
+(``device_ladder_enabled``).
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import os
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
+from cnmf_tpu_torch.ops import mu_kernels
 from cnmf_tpu_torch.ops.cd_kernels import pad_bucket
 from cnmf_tpu_torch.ops.init import nnls_w_init
 from cnmf_tpu_torch.ops.nmf import (
+    _ladder,
     fixed_factor_gram,
     fixed_factor_product_transposed,
+    nmf_cd_device_ladder,
     nmf_coordinate_descent,
+    nmf_mu_device_ladder,
     nmf_multiplicative_update,
     nnls_cd_fixed_spectra,
     nnls_cd_from_products,
@@ -107,6 +116,70 @@ def solve_nmf_batch(
         l1_reg_W=l1_reg_W, l1_reg_H=l1_reg_H,
         l2_reg_W=l2_reg_W, l2_reg_H=l2_reg_H,
     )
+
+
+def device_ladder_enabled(X: torch.Tensor, ladder: Optional[bool] = None) -> bool:
+    """Whether a factorize solve on X's device takes the device ladder:
+    ``ladder`` as given, else the CNMF_TPU_DEVICE_LADDER knob ('1' on, '0'
+    off), else on for CUDA tensors and off on the CPU, where the plain
+    batched solver stays (cnmf_tpu/pipeline/solvers.py:531)."""
+    if ladder is not None:
+        return bool(ladder)
+    env = os.environ.get("CNMF_TPU_DEVICE_LADDER", "")
+    return env == "1" or (env != "0" and X.device.type == "cuda")
+
+
+def ladder_rungs(X: torch.Tensor, B: int, K: int, nmf_kwargs: dict,
+                 min_bucket: int = 16) -> tuple:
+    """The batch sizes a factorize solve of B restarts at bucket K shrinks
+    through: ``ops.nmf._ladder``'s, less, for MU on CUDA, every rung whose
+    arithmetic would differ from the first rung's. At beta 2 that is every
+    later rung: its products are cuBLAS GEMMs over the whole batch
+    (``cd_kernels._shared_x_dot``), whose split of the contraction may follow
+    the batch's width. At any other beta it is every rung whose kernels
+    would split their contraction otherwise than the first rung's
+    (``mu_kernels.split_plan`` splits a small grid).
+
+    The ladder keeps the plain solver's n_iter and bits where every other
+    launch of a step gives each restart the same bits at every rung's size
+    and place in the batch: the kernels, ``cd_kernels._gram``'s ``bmm``, the
+    kernels' partial sums, and the factor sums and divergences that
+    ``mu_kernels.restart_sums`` and whole chunks give a fixed order.
+    ``chip_smoke.py``'s ``[batch]`` line checks that at every bucket 8..64
+    with the main path's X (2700 × 2000) on an H100; other shapes and cards
+    are not checked."""
+    ladder = _ladder(int(B), min_bucket)
+    if not _is_mu(nmf_kwargs) or X.device.type != "cuda":
+        return tuple(ladder)
+    beta = beta_loss_to_float(nmf_kwargs.get("beta_loss", "frobenius"))
+    if beta == 2:
+        return tuple(ladder[:1])
+    plan = mu_kernels.launch_splits(X, ladder[0], K, beta)
+    return tuple(ladder[:1] + [s for s in ladder[1:] if
+                               mu_kernels.launch_splits(X, s, K, beta) == plan])
+
+
+def solve_nmf_batch_ladder(X, W0, Ht0, nmf_kwargs: dict, min_bucket: int = 16):
+    """The factorize solve on a batch that shrinks as restarts finish
+    (``ops.nmf.nmf_cd_device_ladder`` / ``nmf_mu_device_ladder``) through
+    ``ladder_rungs``, CD or MU by the sklearn-style kwargs
+    (cnmf_tpu/pipeline/solvers.py:540); update_H=True only. Returns
+    (spectra (B, K, G), n_iter (B,), (ladder sizes, stage_sweeps))."""
+    tol = float(nmf_kwargs.get("tol", 1e-4))
+    max_iter = int(nmf_kwargs.get("max_iter", 200))
+    l1_reg_W, l1_reg_H, l2_reg_W, l2_reg_H = _regularization(nmf_kwargs, X.shape)
+    regs = dict(l1_reg_W=l1_reg_W, l1_reg_H=l1_reg_H, l2_reg_W=l2_reg_W,
+                l2_reg_H=l2_reg_H)
+    ladder = ladder_rungs(X, W0.shape[0], W0.shape[2], nmf_kwargs, min_bucket)
+    if not _is_mu(nmf_kwargs):
+        spec, n_iter, sweeps = nmf_cd_device_ladder(
+            X, W0, Ht0, tol=tol, max_iter=max_iter, ladder=ladder, **regs)
+        return spec, n_iter, (ladder, sweeps)
+    beta = beta_loss_to_float(nmf_kwargs.get("beta_loss", "frobenius"))
+    spec, n_iter, sweeps = nmf_mu_device_ladder(
+        X, W0, Ht0, beta=beta, tol=tol, max_iter=max_iter, ladder=ladder,
+        **regs)
+    return spec, n_iter, (ladder, sweeps)
 
 
 def refit_spectra_transposed(X: torch.Tensor, usages: np.ndarray,

@@ -7,7 +7,7 @@ files; they can also be driven directly on in-memory data:
   ``replicate_seeds`` and ``nmf_run_params``: the replicate grid and the
   solver kwargs;
 * ``factorize_k``: every restart of one K as one batched solve (CD or MU, as
-  the kwargs say);
+  the kwargs say), on the device ladder on CUDA;
 * ``combine_arrays``: the per-restart spectra stacked into the merged matrix;
 * ``consensus_arrays``: KNN density filter, KMeans, cluster medians, the
   fixed-factor refits and the z-score OLS (the step-by-step consensus of
@@ -34,6 +34,7 @@ from cnmf_tpu_torch.ops.distance import local_density_from_spectra
 from cnmf_tpu_torch.ops.init import random_init_batch
 from cnmf_tpu_torch.ops.kmeans import kmeans_fit
 from cnmf_tpu_torch.ops.kstats import consensus_k_stats
+from cnmf_tpu_torch.ops.nmf import BLOCK
 from cnmf_tpu_torch.ops.normalize import (
     csr_column_subset,
     normalize_total,
@@ -44,9 +45,11 @@ from cnmf_tpu_torch.ops.stats import fano_hvg_stats, mean_var
 from cnmf_tpu_torch.pipeline.solvers import (
     _regularization,
     beta_loss_to_float,
+    device_ladder_enabled,
     refit_spectra_transposed,
     refit_usages,
     solve_nmf_batch,
+    solve_nmf_batch_ladder,
 )
 
 # the consensus / K-selection default density threshold (reference
@@ -160,13 +163,17 @@ def nmf_run_params(beta_loss="frobenius", alpha_usage=0.0, alpha_spectra=0.0,
 # ----------------------------------------------------------------------
 
 def factorize_k(X_host: np.ndarray, Xd: torch.Tensor, k: int, seeds,
-                nmf_kwargs: dict, restart_chunk: Optional[int] = None):
+                nmf_kwargs: dict, restart_chunk: Optional[int] = None,
+                ladder: Optional[bool] = None):
     """All restarts of one K: sklearn-RNG inits on the host, one batched solve
     per restart chunk on Xd's device, K zero-padded to its bucket of 8.
 
     X_host: (cells × HVGs) array at the compute dtype (the inits scale by its
-    mean); Xd: the same values as a tensor. Returns (spectra (B, k, G),
-    n_iter (B,)) as host arrays."""
+    mean); Xd: the same values as a tensor. ``ladder``: solve on the device
+    ladder (None: ``solvers.device_ladder_enabled``, on for CUDA tensors).
+    Returns (spectra (B, k, G), n_iter (B,)) as host arrays and the
+    restart-sweeps the device executed: the ladder's Σ rung · sweeps at it,
+    the plain solver's B · min(max_iter, its sweep blocks)."""
     init = nmf_kwargs.get("init", "random")
     if init != "random":
         raise ValueError(
@@ -181,17 +188,28 @@ def factorize_k(X_host: np.ndarray, Xd: torch.Tensor, k: int, seeds,
         # 4 × B×N×K buffers) within ~4 GB of device memory
         per_restart = X_host.shape[0] * pad_k * X_host.dtype.itemsize * 4
         restart_chunk = max(1, int(4e9 / max(per_restart, 1)))
-    spectra, n_iters = [], []
+    use_ladder = device_ladder_enabled(Xd, ladder)
+    max_iter = int(nmf_kwargs.get("max_iter", 200))
+    spectra, n_iters, executed = [], [], 0
     for start in range(0, B, restart_chunk):
         W0, Ht0 = random_init_batch(X_host, k, seeds[start:start + restart_chunk],
                                     dtype=X_host.dtype)
         pad = ((0, 0), (0, 0), (0, pad_k - k))
         W0, Ht0 = factors_from_numpy(np.pad(W0, pad), np.pad(Ht0, pad),
                                      device=Xd.device, dtype=Xd.dtype)
-        _, Ht, n_iter = solve_nmf_batch(Xd, W0, Ht0, nmf_kwargs)
-        spectra.append(Ht[:, :, :k].transpose(1, 2).cpu().numpy())
+        if use_ladder:
+            spec, n_iter, (rungs, sweeps) = solve_nmf_batch_ladder(
+                Xd, W0, Ht0, nmf_kwargs)
+            spec = spec[:, :k]
+            executed += sum(r * s for r, s in zip(rungs, sweeps))
+        else:
+            _, Ht, n_iter = solve_nmf_batch(Xd, W0, Ht0, nmf_kwargs)
+            spec = Ht[:, :, :k].transpose(1, 2)
+            blocks = -(-int(n_iter.max()) // BLOCK) if len(n_iter) else 0
+            executed += len(n_iter) * min(max_iter, BLOCK * blocks)
+        spectra.append(spec.cpu().numpy())
         n_iters.append(n_iter.cpu().numpy())
-    return np.concatenate(spectra), np.concatenate(n_iters)
+    return np.concatenate(spectra), np.concatenate(n_iters), executed
 
 
 def combine_arrays(spectra: Sequence[np.ndarray]) -> np.ndarray:

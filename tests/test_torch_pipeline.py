@@ -485,7 +485,7 @@ def test_stages_run_without_file_packages():
         "X = np.ascontiguousarray(prep.norm)\n"
         "kw = stages.nmf_run_params(max_iter=200)\n"
         "_, seeds = stages.replicate_seeds([3], 4, 14)\n"
-        "spectra, n_iter = stages.factorize_k(X, torch.as_tensor(X), 3, seeds, kw)\n"
+        "spectra, n_iter, _ = stages.factorize_k(X, torch.as_tensor(X), 3, seeds, kw)\n"
         "merged = stages.combine_arrays(list(spectra))\n"
         "res = stages.consensus_arrays(merged, 3, torch.as_tensor(X),\n"
         "    torch.as_tensor(np.asarray(prep.tpm)), prep.tpm_std, prep.hvg_idx,\n"
