@@ -7,9 +7,10 @@ Phases, each printing its own line(s):
 
 1. environment: the card's name and power limit, torch/CUDA versions, and
    which of pandas, h5py, yaml and matplotlib import;
-2. build: every kernel of csrc/ into one library (build seconds; one ptxas
-   line per kernel family: its registers, and the builds that keep a stack
-   frame or spill);
+2. build: every kernel of csrc/ into one library (build seconds; ptxas
+   lines of the kernel families' registers: one line for the families
+   without a stack frame or spill, one for each other family with the
+   builds that keep a stack frame or spill);
 3. each kernel against its plain PyTorch version on the card (max relative
    difference, f32, bounded by KERNEL_REL_BOUND), with median times at the
    main path's shapes: the CD half-sweeps (K=8 and K=16 buckets, each with
@@ -23,9 +24,11 @@ Phases, each printing its own line(s):
    consensus refits' two shapes (each with its share of the bound and its
    kernel's grid: its tiling, or how the contraction is split); then ragged
    shapes at every K bucket 8..64 and at the wide K 72 and 136 of every
-   entry point, one line per kernel (each case asserts the bound, and that
-   zero K columns stay exactly zero; the general-beta and divergence lines
-   count the kernel each case ran, and every one of them must have run
+   entry point, one line for the CD kernels and one for the MU kernels,
+   each entry point's worst case and count (each case asserts the bound,
+   and that zero K columns stay exactly zero; the general-beta and
+   divergence entries count the kernel each case ran, and every one of
+   them must have run
    (MU_COVER): whole and split at every bucket, restart-tiled with a
    partial restart group, wide); then the slice at the verify recipe's size
    on the card against the same code on the CPU, with the frobenius (CD),
@@ -63,7 +66,25 @@ Phases, each printing its own line(s):
    the B=1 refits apart; then its factorize plain and on the ladder, and
    its k-stats and consensus (the stages of the B=1 refits) under
    torch.profiler;
-9. a JSON line of the kernels (times, the bound of the work at the main
+9. Preprocess with Harmony at a 4-sample study's size (4 batches of 5,000
+   cells × 10,000 genes, tests/test_preprocess.py's recipe; 2,000 seurat_v3
+   HVGs, PCA 50, Harmony's 100 clusters) through
+   Preprocess(device="cuda").preprocess_for_cnmf, and again on the CPU:
+   stage walls (HVG and scaling on the host; PCA, Harmony with its
+   iterations and rounds, the MOE ridge on X on the card), the batch
+   separation (must fall below PP_SEPARATION of the uncorrected), and the
+   card-vs-CPU difference of the corrected matrix and of R (printed only);
+   Harmony's starting clusters from each device's PCs (printed), and
+   Harmony on the card's PCs on the CPU and again on the card: the same
+   iterations, rounds within PP_ONE_ROUNDS, Z_corr within PP_ONE_Z_REL of
+   max, the matched top cluster the same for PP_ONE_MATCHED of the cells,
+   the card repeating its R;
+   then cNMF on the corrected HVGs (TP10K as the TPM): K=10 × 20 restarts
+   from nndsvd inits (host init seconds apart from the solve; the CD
+   kernels' launches must be > 0), consensus at density threshold 0.5, and
+   cNMF.refit_usage / refit_spectra against the solver calls they wrap
+   (within PP_REFIT_REL; the products-given sweep must launch);
+10. a JSON line of the kernels (times, the bound of the work at the main
    shape, launches on the main path, the MU kernels' B=1 launches apart,
    the refits' times, bounds and splits),
    the card line, and the result line
@@ -263,33 +284,39 @@ def kernel_work(name, X, B, N, G, K):
 
 
 class RaggedLines:
-    """Ragged cases folded into one line per kernel, its register buckets
-    and its wide K apart; every case has asserted its bound before it is
-    added."""
+    """Ragged cases folded into one line for a phase's kernels: for each
+    entry point its cases (register buckets and wide K together), the
+    kernels they ran, and the worst case; every case has asserted its bound
+    before it is added."""
 
     def __init__(self):
         self.rows = {}
 
     def add(self, name, K, rel, abs_err, kind=None):
         """``kind``: the kernel the case ran, counted on the line."""
-        ranges = self.rows.setdefault(name, {})
-        r = ranges.setdefault("72,136" if K > 64 else "8..64",
-                              dict(n=0, rel=0.0, abs=0.0, kinds={}))
+        r = self.rows.setdefault(name, dict(n=0, rel=0.0, abs=0.0, kinds={}))
         r["n"] += 1
         r["rel"], r["abs"] = max(r["rel"], rel), max(r["abs"], abs_err)
         if kind:
             r["kinds"][kind] = r["kinds"].get(kind, 0) + 1
 
     def print(self):
-        for name, ranges in self.rows.items():
-            print(f"[kernel] {name} ragged (zero K columns stay 0): "
-                  + "; ".join(
-                      f"K={ks} {r['n']} cases" + (" (" + ", ".join(
-                          f"{k} {n}" for k, n in r["kinds"].items()) + ")"
-                          if r["kinds"] else "")
-                      + f" max_rel_diff={r['rel']:.3e} "
-                      f"max_abs_err={r['abs']:.3e}"
-                      for ks, r in ranges.items()), flush=True)
+        def text(kinds):
+            return ", ".join(f"{k} {n}" for k, n in kinds.items())
+
+        # the kernels each case ran, once for the line when every entry
+        # point that counts them ran the same ones
+        kinds = {text(r["kinds"]) for r in self.rows.values() if r["kinds"]}
+        shared = kinds.pop() if len(kinds) == 1 else None
+        print("[kernel] ragged, K=8..64 and 72,136, zero K columns stay 0 "
+              "(cases, worst max_rel_diff / max_abs_err"
+              + (f"; * cases by kernel: {shared}" if shared else "")
+              + "): " + "; ".join(
+                  f"{name} {r['n']}" + ("*" if shared and r["kinds"] else
+                                        f" ({text(r['kinds'])})"
+                                        if r["kinds"] else "")
+                  + f" {r['rel']:.3e} / {r['abs']:.3e}"
+                  for name, r in self.rows.items()), flush=True)
 
 
 def shape_text(shape):
@@ -1027,6 +1054,263 @@ def mu_slice(label, counts, k_cons, n_iter, hvg, dev, kwargs, names, card,
     return launches, launches_b1, merged[k_cons]
 
 
+# the [preprocess] phase: a 4-sample study for cNMF with Harmony —
+# tests/test_preprocess.py:make_batched_adata's recipe at 4 batches of 5,000
+# cells × 10,000 genes, Preprocess at its published defaults (2,000 seurat_v3
+# HVGs, PCA 50, Harmony theta 1, 20 iterations of at most 20 rounds, K =
+# min(N/30, 100) = 100 clusters), then cNMF on the corrected HVGs at K=10 ×
+# 20 restarts from nndsvd inits (each a host randomized SVD of the 20,000 ×
+# 2,000 matrix, so 20 and not 100)
+PP_BATCHES, PP_CELLS, PP_GENES, PP_SHIFT = 4, 5000, 10000, 300
+PP_HVG, PP_K, PP_RESTARTS = 2000, 10, 20
+PP_SEPARATION = 0.7      # corrected / uncorrected batch separation, at most
+PP_REFIT_REL = 1e-6      # cNMF's refits against the solver calls, f32
+# Harmony on one embedding, CPU against the card: rounds apart, Z_corr's
+# max diff / max, the share of cells whose matched top cluster agrees
+PP_ONE_ROUNDS, PP_ONE_Z_REL, PP_ONE_MATCHED = 2, 1e-3, 0.9
+
+
+def batched_counts(n_batches, per_batch, n_genes, shift_genes, programs=8,
+                   seed=0):
+    """Poisson counts of ``programs`` gamma programs over a sparse gamma H,
+    lam = W·H + 0.5, with a block of ``shift_genes`` genes, its own for each
+    batch b >= 1, multiplied by 2.5 there; built batch by batch as CSR on the
+    host. Returns the port's AnnData with obs["batch"]."""
+    import pandas as pd
+    import scipy.sparse as sp
+
+    from cnmf_tpu_torch.io.anndata_lite import AnnData
+
+    rng = np.random.RandomState(seed)
+    H = (rng.gamma(1.0, 1.0, size=(programs, n_genes))
+         * (rng.rand(programs, n_genes) < 0.4))
+    blocks = []
+    for b in range(n_batches):
+        lam = rng.gamma(1.0, 1.0, size=(per_batch, programs)) @ H + 0.5
+        if b:
+            lam[:, b * shift_genes:(b + 1) * shift_genes] *= 2.5
+        X = rng.poisson(lam).astype(np.float32)
+        X[X.sum(axis=1) == 0, 0] = 1
+        blocks.append(sp.csr_matrix(X))
+    n = n_batches * per_batch
+    obs = pd.DataFrame({"batch": np.repeat([f"s{b}" for b in range(n_batches)],
+                                           per_batch)},
+                       index=[f"c{i}" for i in range(n)])
+    var = pd.DataFrame(index=[f"g{j}" for j in range(n_genes)])
+    return AnnData(sp.vstack(blocks).tocsr(), obs=obs, var=var)
+
+
+def batch_separation(M, batch):
+    """tests/test_preprocess.py's batch-centroid separation over every batch:
+    the root sum of squares of each batch's centroid distance from the other
+    cells', in units of each gene's std."""
+    s = M.std(axis=0) + 1e-9
+    return float(np.sqrt(sum(
+        np.sum(((M[batch == b].mean(0) - M[batch != b].mean(0)) / s) ** 2)
+        for b in np.unique(batch))))
+
+
+def label_agreement(la, lb, K):
+    """(cells with the same label, cells left in agreement once each label
+    of ``la`` is matched to the label of ``lb`` that shares most of its
+    cells), of two labelings of the same cells into K clusters."""
+    overlap = np.zeros((K, K), dtype=np.int64)
+    np.add.at(overlap, (la, lb), 1)
+    return int((la == lb).sum()), int(overlap.max(axis=1).sum())
+
+
+def phase_harmony_one_embedding(pp, cpu_pp, obs, dev):
+    """What parts the card's and the CPU's Preprocess runs. (1) Harmony's
+    starting clusters (kmeans++ on the host, Lloyd on the card) from each
+    device's PCs: printed. (2) Harmony on one input, the card's PCs, on the
+    CPU as ``Preprocess.harmony_correct_X`` runs it and again on the card:
+    the same iterations, rounds within PP_ONE_ROUNDS, Z_corr within
+    PP_ONE_Z_REL of max, the top cluster the same for PP_ONE_MATCHED of the
+    cells once clusters are matched, and the card repeating its R."""
+    import torch
+
+    from cnmf_tpu_torch.harmony import _cells, _init_centroids, run_harmony
+
+    hr = pp.harmony_result
+    pcs = pp.pca_embedding
+    pc_diff = float(np.abs(pcs - cpu_pp.pca_embedding).max()
+                    / np.abs(cpu_pp.pca_embedding).max())
+    seeds = [_init_centroids(torch.as_tensor(_cells(p.pca_embedding)[1],
+                                             device=dev), hr.K, 0)
+             for p in (pp, cpu_pp)]
+    seed_same, seed_matched = label_agreement(seeds[0][0], seeds[1][0], hr.K)
+    y_diff = float(np.abs(seeds[0][1] - seeds[1][1]).max())
+    runs, walls = {}, {}
+    for where, d in (("card", dev), ("cpu", "cpu")):
+        t0 = time.perf_counter()
+        runs[where] = run_harmony(pcs, obs, "batch", theta=1,
+                                  max_iter_harmony=20, random_state=0,
+                                  device=d)
+        if where == "card":
+            torch.cuda.synchronize()
+        walls[where] = time.perf_counter() - t0
+    a, b = runs["cpu"], hr
+    same, matched = label_agreement(a.R.argmax(0), b.R.argmax(0), hr.K)
+    z_diff = float(np.abs(a.Z_corr - b.Z_corr).max() / np.abs(a.Z_corr).max())
+    repeats = np.array_equal(runs["card"].R, hr.R)
+    n = hr.R.shape[1]
+    print(f"[preprocess-harmony] the CPU's PCs {pc_diff:.3e} of max from the "
+          f"card's; starting clusters from each: labels the same for "
+          f"{seed_same} of {n} cells ({seed_matched} matched), centroids "
+          f"max diff {y_diff:.3e}. Harmony on the card's PCs, CPU / card "
+          f"again: {walls['cpu']:.3f} / {walls['card']:.3f} s, iterations "
+          f"{a.iterations} / {b.iterations}, rounds {a.rounds} / {b.rounds}; "
+          f"R max diff {float(np.abs(a.R - b.R).max()):.3e}, Z_corr "
+          f"{z_diff:.3e} of max (bound {PP_ONE_Z_REL:g}); top cluster the "
+          f"same for {same} cells, {matched} matched (bound "
+          f"{PP_ONE_MATCHED:g} of {n}); the card repeats its R: {repeats}",
+          flush=True)
+    assert a.iterations == b.iterations, (a.iterations, b.iterations)
+    assert abs(a.rounds - b.rounds) <= PP_ONE_ROUNDS, (a.rounds, b.rounds)
+    assert z_diff <= PP_ONE_Z_REL, z_diff
+    assert matched >= PP_ONE_MATCHED * n, matched
+    assert repeats
+
+
+def phase_preprocess(dev):
+    """Preprocess with Harmony on the card (and again on the CPU, to print
+    how far the two differ), then cNMF on the corrected HVGs from nndsvd
+    inits, consensus, and cNMF.refit_usage / refit_spectra against the
+    solver calls they wrap."""
+    import pandas as pd
+    import scipy.sparse as sp
+    import torch
+
+    from cnmf_tpu_torch import Preprocess, cNMF
+    from cnmf_tpu_torch.io.anndata_lite import AnnData
+    from cnmf_tpu_torch.ops import cd_kernels as ck
+    from cnmf_tpu_torch.pipeline import solvers, stages
+
+    t0 = time.perf_counter()
+    adata = batched_counts(PP_BATCHES, PP_CELLS, PP_GENES, PP_SHIFT)
+    sim_s = time.perf_counter() - t0
+    runs = {}
+    for where, device in (("card", dev), ("cpu", "cpu")):
+        pp = Preprocess(random_seed=14, device=device)
+        t0 = time.perf_counter()
+        out = pp.preprocess_for_cnmf(
+            AnnData(adata.X, obs=adata.obs.copy(), var=adata.var.copy()),
+            harmony_vars="batch", n_top_rna_genes=PP_HVG)
+        runs[where] = (*out, pp, time.perf_counter() - t0)
+    corrected, tp10k, hvgs, pp, wall = runs["card"]
+    Xc = np.asarray(corrected.X)
+    n = PP_BATCHES * PP_CELLS
+    assert Xc.shape == (n, PP_HVG) and len(hvgs) == PP_HVG, Xc.shape
+    assert np.isfinite(Xc).all() and (Xc >= 0).all()
+    batch = adata.obs["batch"].values
+    raw = adata.X[:, adata.var.index.get_indexer(hvgs)].toarray()
+    raw = raw / raw.std(axis=0, ddof=1)
+    sep = batch_separation(Xc, batch), batch_separation(raw, batch)
+    cpu_x, cpu_pp = np.asarray(runs["cpu"][0].X), runs["cpu"][3]
+    x_diff = float(np.abs(Xc - cpu_x).max() / np.abs(cpu_x).max())
+    r_diff = float(np.abs(pp.harmony_result.R - cpu_pp.harmony_result.R).max()
+                   / np.abs(cpu_pp.harmony_result.R).max())
+    hr, hc = pp.harmony_result, cpu_pp.harmony_result
+    same, matched = label_agreement(hr.R.argmax(0), hc.R.argmax(0), hr.K)
+    print(f"[preprocess] {PP_BATCHES}x{PP_CELLS} cells x {PP_GENES} genes "
+          f"({adata.X.nnz} nonzeros, simulated in {sim_s:.1f} s), "
+          f"{PP_HVG} HVGs, Harmony K={hr.K}: walls_s "
+          + json.dumps({k: round(v, 3) for k, v in pp.timings.items()})
+          + f" total {wall:.3f} (CPU {runs['cpu'][4]:.3f}: "
+          + json.dumps({k: round(v, 3) for k, v in cpu_pp.timings.items()})
+          + f"); Harmony {hr.iterations} iterations, {hr.rounds} rounds "
+          f"(CPU {hc.iterations}, {hc.rounds}); batch separation "
+          f"{sep[0]:.4f} of {sep[1]:.4f} uncorrected "
+          f"(ratio {sep[0] / sep[1]:.4f}, bound {PP_SEPARATION}); card vs "
+          f"CPU max diff / max: corrected X {x_diff:.3e}, R {r_diff:.3e} "
+          f"(top cluster the same for {same} cells, {matched} matched)",
+          flush=True)
+    assert sep[0] < PP_SEPARATION * sep[1], sep
+    phase_harmony_one_embedding(pp, cpu_pp, adata.obs, dev)
+
+    # cNMF on the corrected matrix, as the reference's batch-correction
+    # tutorial feeds it: corrected HVGs as counts, TP10K as the TPM
+    genes = corrected.var.index
+    prep = stages.prepare_arrays(
+        Xc, tpm=tp10k.X, tpm_cols=genes.get_indexer(tp10k.var.index),
+        hvg_idx=np.arange(len(hvgs)))
+    X_host = np.ascontiguousarray(prep.norm, dtype=np.float32)
+    Xd = torch.as_tensor(X_host, device=dev)
+    kwargs = stages.nmf_run_params(init="nndsvd")
+    _, seeds = stages.replicate_seeds([PP_K], PP_RESTARTS, 14)
+    wrappers = {name: getattr(ck, name) for name in
+                ("cd_w_half_sweep", "cd_h_half_sweep",
+                 "cd_sweep_from_products")}
+    for fn in wrappers.values():
+        fn.launches = 0
+    timings = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    spectra, n_iter, executed = stages.factorize_k(X_host, Xd, PP_K, seeds,
+                                                   kwargs, timings=timings)
+    torch.cuda.synchronize()
+    fact_s = time.perf_counter() - t0
+    fact_launches = {k: fn.launches for k, fn in wrappers.items()}
+    tpm_hvg_idx = tp10k.var.index.get_indexer(hvgs)
+    tpm = torch.as_tensor(tp10k.X.toarray().astype(np.float32, copy=False),
+                          device=dev)
+    t0 = time.perf_counter()
+    result = stages.consensus_arrays(
+        stages.combine_arrays(list(spectra)), PP_K, Xd, tpm, prep.tpm_std,
+        tpm_hvg_idx, kwargs, density_threshold=0.5, zero_safe=True)
+    torch.cuda.synchronize()
+    cons_s = time.perf_counter() - t0
+    for name in ("spectra", "usages", "spectra_tpm", "spectra_score"):
+        assert np.isfinite(getattr(result, name)).all(), name
+    assert result.spectra.shape == (PP_K, PP_HVG)
+    assert result.usages.shape == (n, PP_K)
+
+    # cNMF.refit_usage / refit_spectra on the card against the solver calls
+    for fn in wrappers.values():
+        fn.launches = 0
+    tpm_hvg = tp10k.X[:, tpm_hvg_idx].toarray()
+    with tempfile.TemporaryDirectory(dir=os.getcwd()) as workdir:
+        obj = cNMF(output_dir=workdir, name="pp", device=dev)
+        obj.save_nmf_iter_params(*obj.get_nmf_iter_params(
+            ks=[PP_K], n_iter=PP_RESTARTS, random_state_seed=14,
+            beta_loss="frobenius", init="nndsvd"))
+        gep = np.arange(1, PP_K + 1)
+        t0 = time.perf_counter()
+        usage = obj.refit_usage(
+            pd.DataFrame(X_host, index=corrected.obs.index, columns=hvgs),
+            pd.DataFrame(result.spectra, index=gep, columns=hvgs))
+        spectra_rf = obj.refit_spectra(
+            pd.DataFrame(tpm_hvg, index=corrected.obs.index, columns=hvgs),
+            usage)
+        refit_s = time.perf_counter() - t0
+        run_kwargs = obj._load_run_params()
+    refit_launches = wrappers["cd_sweep_from_products"].launches
+    want_u = solvers.refit_usages(Xd, result.spectra, run_kwargs)
+    want_s = solvers.refit_spectra_transposed(
+        torch.as_tensor(np.ascontiguousarray(tpm_hvg, dtype=np.float32),
+                        device=dev), usage.values, run_kwargs).T
+    assert list(usage.columns) == list(gep) and list(spectra_rf.columns) == hvgs
+    u_diff = float(np.abs(usage.values - want_u).max() / np.abs(want_u).max())
+    s_diff = float(np.abs(spectra_rf.values - want_s).max()
+                   / np.abs(want_s).max())
+    print(f"[preprocess-cnmf] corrected HVGs, K={PP_K} x {PP_RESTARTS} "
+          f"restarts init=nndsvd: host inits {timings['init']:.3f} s "
+          f"({timings['init'] / PP_RESTARTS:.3f} s a restart), factorize "
+          f"{fact_s:.3f} s of which solve {fact_s - timings['init']:.3f} s, "
+          f"sweeps max {n_iter.max()} mean {n_iter.mean():.1f}, executed "
+          f"restart-sweeps {executed}, launches {fact_launches}; consensus "
+          f"dt 0.5 {cons_s:.3f} s ({int(result.density_filter.sum())} of "
+          f"{len(result.density_filter)} kept); cNMF.refit_usage + "
+          f"refit_spectra {refit_s:.3f} s, {refit_launches} "
+          f"cd_sweep_from_products launches, against the solver calls max "
+          f"diff / max {u_diff:.3e} / {s_diff:.3e} (bound {PP_REFIT_REL:g})",
+          flush=True)
+    assert u_diff <= PP_REFIT_REL and s_diff <= PP_REFIT_REL, (u_diff, s_diff)
+    assert fact_launches["cd_w_half_sweep"] > 0, fact_launches
+    assert fact_launches["cd_h_half_sweep"] > 0, fact_launches
+    assert refit_launches > 0
+
+
 # what each bool template argument of a kernel family selects, (false,
 # true) in the arguments' order
 IS_TAG, SIDE_TAG = ("beta", "IS"), ("W", "H")
@@ -1045,9 +1329,11 @@ def template_tag(fam, args):
 
 
 def ptxas_lines(log_path):
-    """One line per kernel family of the build log: its instantiations'
-    registers (least and most), and each instantiation that keeps a stack
-    frame or spills, with its registers, stack frame and spill bytes."""
+    """The build log's kernel families: each one's instantiations'
+    registers (least and most), one line for the families where no
+    instantiation keeps a stack frame or spills, and a line for each other
+    family with each such instantiation's registers, stack frame and spill
+    bytes."""
     fams, name = {}, None
     with open(log_path) as fh:
         for ln in fh:
@@ -1070,18 +1356,22 @@ def ptxas_lines(log_path):
             m = re.search(r"Used (\d+) registers", ln)
             if m:
                 fams[name[0]][name[1]][0] = m.group(1)
-    lines = []
+    lines, clean = [], []
     for fam, tags in fams.items():
         regs = [int(v[0]) for v in tags.values() if v[0].isdigit()]
+        span = f"{min(regs, default=0)}-{max(regs, default=0)}"
         stack = " ".join(
             f"{tag}:{'/'.join(v)}" for tag, v in sorted(
                 tags.items(), key=lambda kv: [int(x) if x.isdigit() else 0
                                               for x in kv[0].split(",")])
             if v[1:] != ["0", "0"])
-        lines.append(f"[ptxas] {fam}: {len(tags)} builds, registers "
-                     f"{min(regs, default=0)}-{max(regs, default=0)}; "
-                     f"stack/spill bytes: {stack or 'none'}")
-    return lines
+        if stack:
+            lines.append(f"[ptxas] {fam}: {len(tags)} builds, registers "
+                         f"{span}; stack/spill bytes: {stack}")
+        else:
+            clean.append(f"{fam} {len(tags)}, {span}")
+    return (["[ptxas] no stack frame or spill (builds, registers): "
+             + "; ".join(clean)] if clean else []) + lines
 
 
 def main():
@@ -1184,7 +1474,10 @@ def main():
                          is_kwargs, IS_DENSITY_THRESHOLD, "IS",
                          "beta_mu_w_terms")
 
-    # 9. results
+    # 9. Preprocess with Harmony, and cNMF on its output
+    phase_preprocess(dev)
+
+    # 10. results
     replaces = {"cd_w_half_sweep": "cnmf_tpu/ops/pallas_cd.py:118",
                 "cd_h_half_sweep": "cnmf_tpu/ops/pallas_cd.py:162",
                 "cd_sweep_from_products": "cnmf_tpu/ops/pallas_cd.py:58",

@@ -7,7 +7,8 @@ artifact contract
 either package is read by the other. The methods here are file wrappers;
 the array work lives in ``pipeline.stages``.
 
-Every solve runs on the ``device`` the object was created with. On CUDA the
+Every solve runs on the ``device`` the object was created with, the CUDA
+card unless the CPU is asked for. On CUDA the
 HALS half-sweeps and the multiplicative-update terms go through the
 hand-written kernels of ``ops.cd_kernels`` and ``ops.mu_kernels``, which take
 float32 only: ``compute_dtype=np.float64`` is a CPU setting. There
@@ -41,9 +42,13 @@ from cnmf_tpu_torch.io.dataframe import (
 )
 from cnmf_tpu_torch.io.h5ad import read_h5ad, write_h5ad
 from cnmf_tpu_torch.io.loaders import load_counts
-from cnmf_tpu_torch.ops.cd_kernels import torch_dtype
+from cnmf_tpu_torch.ops.cd_kernels import (
+    factors_from_numpy,
+    pad_bucket,
+    torch_dtype,
+)
 from cnmf_tpu_torch.ops.distance import pairwise_euclidean
-from cnmf_tpu_torch.pipeline import stages
+from cnmf_tpu_torch.pipeline import solvers, stages
 from cnmf_tpu_torch.pipeline.paths import build_paths
 
 DEFAULT_DENSITY_THRESHOLD = stages.DEFAULT_DENSITY_THRESHOLD
@@ -70,12 +75,13 @@ class cNMF:
     compute_dtype : numpy dtype of the solves (default float32). float64
         gives exact sklearn parity and runs on the CPU only: the CUDA
         kernels are float32.
-    device : the torch device every solve runs on ("cuda", "cpu", ...).
-        There is no default.
+    device : the torch device every solve runs on (default "cuda"). There
+        is no fallback: without a CUDA device the first solve raises unless
+        ``device="cpu"`` was asked for.
     """
 
     def __init__(self, output_dir=".", name=None, compute_dtype=np.float32,
-                 *, device):
+                 *, device="cuda"):
         self.output_dir = output_dir
         if name is None:
             now = datetime.datetime.now()
@@ -290,21 +296,60 @@ class cNMF:
         for k, group in run_params.iloc[jobs].groupby("n_components", sort=True):
             k = int(k)
             seeds = group["nmf_seed"].values
-            t0 = time.perf_counter()
+            t0, timings = time.perf_counter(), {}
             spectra, n_iter, executed = stages.factorize_k(
-                X_host, Xd, k, seeds, nmf_kwargs, restart_chunk=restart_chunk
+                X_host, Xd, k, seeds, nmf_kwargs, restart_chunk=restart_chunk,
+                timings=timings,
             )
             if verbose:
-                print("[Worker %d] k=%d: %d restarts in %.3f s, sweeps max %d "
-                      "mean %.1f, executed restart-sweeps %d"
+                print("[Worker %d] k=%d: %d restarts in %.3f s (host inits "
+                      "%.3f s), sweeps max %d mean %.1f, executed "
+                      "restart-sweeps %d"
                       % (worker_i, k, len(seeds), time.perf_counter() - t0,
-                         n_iter.max(), n_iter.mean(), executed))
+                         timings["init"], n_iter.max(), n_iter.mean(),
+                         executed))
             for i, it in enumerate(group["iter"].values):
                 save_df_to_npz(
                     pd.DataFrame(spectra[i], index=np.arange(1, k + 1),
                                  columns=gene_index),
                     self.paths["iter_spectra"] % (k, it),
                 )
+
+    def factorize_multi_process(self, total_workers=None):
+        """Compat shim: the batched solve replaces the reference's
+        multiprocessing pool (reference cnmf.py:677-689); one call does all
+        the work."""
+        if total_workers is not None and total_workers != 1:
+            print(
+                "factorize_multi_process: total_workers=%s ignored — the "
+                "batched device program already runs every restart in one "
+                "dispatch (no process pool needed)." % total_workers
+            )
+        self.factorize(worker_i=0, total_workers=1)
+
+    def _nmf(self, X, nmf_kwargs):
+        """Single NMF solve mirroring sklearn's return convention
+        (spectra, usages) — kept for API compatibility (reference
+        cnmf.py:661-674). ``nmf_kwargs`` holds the run's solver kwargs plus
+        ``n_components`` and ``random_state``, or ``H`` with
+        ``update_H=False`` for a fixed-spectra refit."""
+        X = self._host_dense(X)
+        Xd = self._to_device(X)
+        kwargs = dict(nmf_kwargs)
+        H = kwargs.pop("H", None)
+        update_H = kwargs.pop("update_H", True)
+        if not update_H:
+            return np.asarray(H), solvers.refit_usages(Xd, np.asarray(H),
+                                                       kwargs)
+        k = int(kwargs.pop("n_components"))
+        seed = kwargs.pop("random_state", None)
+        W0, Ht0 = stages.restart_inits(X, k, [seed],
+                                       kwargs.get("init", "random"))
+        pad = ((0, 0), (0, 0), (0, pad_bucket(k) - k))
+        W0, Ht0 = factors_from_numpy(np.pad(W0, pad), np.pad(Ht0, pad),
+                                     device=self.device, dtype=Xd.dtype)
+        W, Ht, _ = solvers.solve_nmf_batch(Xd, W0, Ht0, kwargs)
+        return (Ht[0, :, :k].T.cpu().numpy(), W[0, :, :k].cpu().numpy())
 
     # ==================================================================
     # combine
@@ -356,6 +401,40 @@ class cNMF:
             for _, path in files:
                 os.remove(path)
         return combined
+
+    # ==================================================================
+    # refits
+    # ==================================================================
+
+    def refit_usage(self, X, spectra):
+        """Fixed-spectra NNLS usage refit with the run's solver kwargs
+        (reference cnmf.py:776-802). X: (cells × genes) DataFrame, array or
+        sparse matrix (densified); spectra: (k × genes). Returns (cells × k)
+        usages, a DataFrame when X and spectra both are."""
+        spectra_values = (spectra.values if isinstance(spectra, pd.DataFrame)
+                          else spectra)
+        X_values = X.values if isinstance(X, pd.DataFrame) else X
+        usages = solvers.refit_usages(
+            self._to_device(self._host_dense(X_values)),
+            np.asarray(spectra_values), self._load_run_params())
+        if isinstance(X, pd.DataFrame) and isinstance(spectra, pd.DataFrame):
+            usages = pd.DataFrame(usages, index=X.index, columns=spectra.index)
+        return usages
+
+    def refit_spectra(self, X, usage):
+        """Fixed-usage NNLS spectra refit, the usage refit of Xᵀ (reference
+        cnmf.py:805-820), through ``solvers.refit_spectra_transposed`` (Xᵀ is
+        never materialized). X: (cells × genes); usage: (cells × k). Returns
+        (k × genes) spectra, a DataFrame when X and usage both are."""
+        usage_values = usage.values if isinstance(usage, pd.DataFrame) else usage
+        X_values = X.values if isinstance(X, pd.DataFrame) else X
+        spectra = solvers.refit_spectra_transposed(
+            self._to_device(self._host_dense(X_values)),
+            np.asarray(usage_values), self._load_run_params()).T
+        if isinstance(X, pd.DataFrame) and isinstance(usage, pd.DataFrame):
+            spectra = pd.DataFrame(spectra, index=usage.columns,
+                                   columns=X.columns)
+        return spectra
 
     # ==================================================================
     # consensus

@@ -22,6 +22,7 @@ start from bit-identical inputs.
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 from typing import Optional, Sequence
 
@@ -31,7 +32,7 @@ import torch
 
 from cnmf_tpu_torch.ops.cd_kernels import factors_from_numpy, pad_bucket
 from cnmf_tpu_torch.ops.distance import local_density_from_spectra
-from cnmf_tpu_torch.ops.init import random_init_batch
+from cnmf_tpu_torch.ops.init import nndsvd_init_batch, random_init_batch
 from cnmf_tpu_torch.ops.kmeans import kmeans_fit
 from cnmf_tpu_torch.ops.kstats import consensus_k_stats
 from cnmf_tpu_torch.ops.nmf import BLOCK
@@ -162,24 +163,35 @@ def nmf_run_params(beta_loss="frobenius", alpha_usage=0.0, alpha_spectra=0.0,
 # factorize and combine
 # ----------------------------------------------------------------------
 
+def restart_inits(X_host: np.ndarray, k: int, seeds, init: str):
+    """Per-restart initial factors W0 (B, N, k), Ht0 (B, G, k) on the host,
+    at X_host's dtype: one sklearn init per replicate seed
+    (cnmf_tpu/pipeline/cnmf.py:2034-2062)."""
+    if init == "random":
+        return random_init_batch(X_host, k, seeds, dtype=X_host.dtype)
+    if init in ("nndsvd", "nndsvda", "nndsvdar"):
+        return nndsvd_init_batch(X_host, k, seeds, variant=init,
+                                 dtype=X_host.dtype)
+    raise ValueError(f"unsupported init: {init}")
+
+
 def factorize_k(X_host: np.ndarray, Xd: torch.Tensor, k: int, seeds,
                 nmf_kwargs: dict, restart_chunk: Optional[int] = None,
-                ladder: Optional[bool] = None):
-    """All restarts of one K: sklearn-RNG inits on the host, one batched solve
-    per restart chunk on Xd's device, K zero-padded to its bucket of 8.
+                ladder: Optional[bool] = None,
+                timings: Optional[dict] = None):
+    """All restarts of one K: sklearn-RNG inits on the host (``init`` of the
+    kwargs: random or nndsvd*), one batched solve per restart chunk on Xd's
+    device, K zero-padded to its bucket of 8 (the padded columns start at
+    zero and stay there).
 
-    X_host: (cells × HVGs) array at the compute dtype (the inits scale by its
-    mean); Xd: the same values as a tensor. ``ladder``: solve on the device
-    ladder (None: ``solvers.device_ladder_enabled``, on for CUDA tensors).
-    Returns (spectra (B, k, G), n_iter (B,)) as host arrays and the
-    restart-sweeps the device executed: the ladder's Σ rung · sweeps at it,
-    the plain solver's B · min(max_iter, its sweep blocks)."""
+    X_host: (cells × HVGs) array at the compute dtype (the inits are made
+    from it); Xd: the same values as a tensor. ``ladder``: solve on the
+    device ladder (None: ``solvers.device_ladder_enabled``, on for CUDA
+    tensors). ``timings``: a dict whose "init" entry gains the host seconds
+    the inits took. Returns (spectra (B, k, G), n_iter (B,)) as host arrays
+    and the restart-sweeps the device executed: the ladder's Σ rung · sweeps
+    at it, the plain solver's B · min(max_iter, its sweep blocks)."""
     init = nmf_kwargs.get("init", "random")
-    if init != "random":
-        raise ValueError(
-            f"init={init!r} is not ported to PyTorch yet (ROADMAP.md, "
-            "Queue 1: nndsvd); use init='random'"
-        )
     seeds = np.asarray(seeds)
     B = len(seeds)
     pad_k = pad_bucket(k)
@@ -192,8 +204,11 @@ def factorize_k(X_host: np.ndarray, Xd: torch.Tensor, k: int, seeds,
     max_iter = int(nmf_kwargs.get("max_iter", 200))
     spectra, n_iters, executed = [], [], 0
     for start in range(0, B, restart_chunk):
-        W0, Ht0 = random_init_batch(X_host, k, seeds[start:start + restart_chunk],
-                                    dtype=X_host.dtype)
+        t0 = time.perf_counter()
+        W0, Ht0 = restart_inits(X_host, k, seeds[start:start + restart_chunk],
+                                init)
+        if timings is not None:
+            timings["init"] = timings.get("init", 0.0) + time.perf_counter() - t0
         pad = ((0, 0), (0, 0), (0, pad_k - k))
         W0, Ht0 = factors_from_numpy(np.pad(W0, pad), np.pad(Ht0, pad),
                                      device=Xd.device, dtype=Xd.dtype)

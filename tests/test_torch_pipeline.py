@@ -419,6 +419,9 @@ def test_port_imports_without_jax():
         "import cnmf_tpu_torch.pipeline.stages, cnmf_tpu_torch.ops.cd_kernels\n"
         "import cnmf_tpu_torch.ops.mu_kernels, cnmf_tpu_torch.ops.kstats\n"
         "import cnmf_tpu_torch.ops.silhouette\n"
+        "import cnmf_tpu_torch.preprocess, cnmf_tpu_torch.harmony\n"
+        "import cnmf_tpu_torch.cli, cnmf_tpu_torch.simulate\n"
+        "import cnmf_tpu_torch.ops.pca, cnmf_tpu_torch.ops.hvg_seurat\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'cnmf_tpu' or m.startswith('cnmf_tpu.')]\n"
         "assert not bad, bad\n"
@@ -436,8 +439,9 @@ def test_port_imports_without_jax():
 
 
 def test_top_level_exports():
-    """The package exports cNMF, the file layer and its version, as the JAX
-    package does; the file-layer names are the cnmf_tpu_torch.io objects."""
+    """The package exports what the JAX package does (cNMF, Preprocess, the
+    file layer and its version); the file-layer names are the
+    cnmf_tpu_torch.io objects."""
     import cnmf_tpu
     import cnmf_tpu_torch
     import cnmf_tpu_torch.io as tio
@@ -455,9 +459,38 @@ def test_top_level_exports():
                   "save_df_to_text", "load_df_from_npz"]
     for name in file_layer:
         assert getattr(cnmf_tpu_torch, name) is getattr(tio, name), name
-    assert set(cnmf_tpu_torch.__all__) == set(cnmf_tpu.__all__) - {"Preprocess"}
+    assert set(cnmf_tpu_torch.__all__) == set(cnmf_tpu.__all__)
     assert __version__ == cnmf_tpu.__version__
     assert cnmf_tpu_torch.cNMF is TorchCNMF
+    from cnmf_tpu_torch.preprocess import Preprocess
+
+    assert cnmf_tpu_torch.Preprocess is Preprocess
+
+
+def test_entry_points_default_to_the_card(workdir):
+    """cNMF and Preprocess run on CUDA unless the CPU is asked for; on a
+    machine without a CUDA device, factorize raises rather than solving on
+    the CPU."""
+    import inspect
+
+    import torch
+
+    from cnmf_tpu_torch import Preprocess
+
+    for cls in (TorchCNMF, Preprocess):
+        assert inspect.signature(cls).parameters["device"].default == "cuda"
+    obj = TorchCNMF(output_dir=str(workdir / "default_device"), name=NAME)
+    assert obj.device.type == "cuda"
+    assert Preprocess(random_seed=0).device.type == "cuda"
+    if torch.cuda.is_available():
+        return
+    obj.prepare(counts_fn=str(workdir / "counts.txt"), components=[5],
+                n_iter=2, seed=14, num_highvar_genes=200)
+    with pytest.raises((RuntimeError, AssertionError)):
+        obj.factorize(verbose=False)
+    run_params = load_df_from_npz(obj.paths["nmf_replicate_parameters"])
+    assert not any(os.path.exists(obj.paths["iter_spectra"] % (5, it))
+                   for it in run_params["iter"])
 
 
 def test_stages_run_without_file_packages():
