@@ -84,11 +84,23 @@ Phases, each printing its own line(s):
    kernels' launches must be > 0), consensus at density threshold 0.5, and
    cNMF.refit_usage / refit_spectra against the solver calls they wrap
    (within PP_REFIT_REL; the products-given sweep must launch);
-10. a JSON line of the kernels (times, the bound of the work at the main
-   shape, launches on the main path, the MU kernels' B=1 launches apart,
-   the refits' times, bounds and splits),
-   the card line, and the result line
-   {"ok": true, "device": {...}}.
+10. the atlas path (``[atlas]``): extras/atlas_validate.synthesize's
+   recipe at its defaults, 100,000 cells × 20,000 genes at about 12 % fill,
+   drawn on the card and kept as CSR on the host; prepare (2,000 HVGs, the
+   TPM sparse on the host), K=12 × 30 restarts from the CSR, combine, and
+   consensus at K=12 twice: with the TPM device-densified on the card, and
+   forced over the device limit onto the host-SpMM products and the
+   products-given kernel. Stage walls, the forced consensus's sub-stages,
+   device against host densify and upload of the TPM, peak device memory
+   and the CD kernels' launches over the path; the forced artifacts must be
+   within ATLAS_FORCED_SSE of the resident ones, the device densify
+   bit-equal to the native host densify, the native library loaded, and the
+   products-given kernel within its bound of plain at M=100,000 and 20,000;
+11. a JSON line of the kernels (times, the bound of the work at the main
+   shape, launches on the main path, the MU kernels' B=1 launches and the
+   CD kernels' atlas-path launches apart, the refits' times, bounds and
+   splits, the products-given kernel's atlas times), the card line, and the
+   result line {"ok": true, "device": {...}}.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after.
@@ -397,11 +409,10 @@ def phase_kernels(dev):
             transposed = name == "cd_h_half_sweep"
             grid = grid_text(ck.fused_tiling(shape["K"], transposed),
                              shape["B"], shape["G" if transposed else "N"])
-            print(f"[kernel] {name} main {shape_text(shape)} zero K columns "
-                  f"{pad}: max_rel_diff={rel_err:.3e} "
-                  f"max_abs_err={abs_err:.3e} kernel_ms={ms:.4f} "
+            print(f"[kernel] {name} main {shape_text(shape)} K0={pad}: "
+                  f"rel={rel_err:.3e} abs={abs_err:.3e} kernel_ms={ms:.4f} "
                   f"plain_ms={plain_ms:.4f} product_ms={product_ms:.4f} "
-                  f"bound_ms={bound_ms:.4f} share_of_bound={bound_ms / ms:.1%}; "
+                  f"bound_ms={bound_ms:.4f} of_bound={bound_ms / ms:.1%}; "
                   f"{grid}", flush=True)
             main_record(records, name, shape["K"], abs_err, ms=ms,
                         plain_ms=plain_ms, product_ms=product_ms,
@@ -445,7 +456,7 @@ def phase_kernels(dev):
         alone_ms = device_ms(lambda: raise_on(name, launch(*ptrs)))
         bound_ms, by = bound(2 * M * K * K * B, 4 * (3 * B * M * K + B * K * K))
         print(f"[kernel] {name} main {shape_text(shape)} {regs}: "
-              f"max_rel_diff={rel_err:.3e} max_abs_err={abs_err:.3e} "
+              f"rel={rel_err:.3e} abs={abs_err:.3e} "
               f"kernel_ms={ms:.4f} alone_ms={alone_ms:.4f} "
               f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f}", flush=True)
         records[name] = dict(max_abs_err=abs_err, ms=ms, alone_ms=alone_ms,
@@ -553,11 +564,11 @@ def phase_mu_kernels(dev):
             plain_ms = timed_ms(lambda: plain(*args))
             beta_txt = "" if beta is None else f" beta={beta:g}"
             bound_ms, by = bound(*kernel_work(name, X_host, **shape))
-            print(f"[kernel] {name}{beta_txt} {tag} {shape_text(shape)} zero K "
-                  f"columns {pad}: max_rel_diff={rel_err:.3e} "
-                  f"max_abs_err={abs_err:.3e} kernel_ms={ms:.4f} "
-                  f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} "
-                  f"share_of_bound={bound_ms / ms:.1%}; " + grid_text(
+            print(f"[kernel] {name}{beta_txt} {tag} {shape_text(shape)} "
+                  f"K0={pad}: rel={rel_err:.3e} abs={abs_err:.3e} "
+                  f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+                  f"bound_ms={bound_ms:.4f} "
+                  f"of_bound={bound_ms / ms:.1%}; " + grid_text(
                       tiling, shape["B"], shape["G" if h_side else "N"]),
                   flush=True)
             if tag == "main":
@@ -689,8 +700,7 @@ def run_cnmf(counts, ks, n_iter, hvg, k_cons, workdir):
         assert np.isfinite(frame.values).all(), key
     merged = {k: load_df_from_npz(obj.paths["merged_spectra"] % k).values
               for k in ks}
-    Xd = obj._to_device(obj._host_dense(
-        read_h5ad(obj.paths["normalized_counts"]).X))
+    Xd = obj._to_device_dense(read_h5ad(obj.paths["normalized_counts"]).X)
     return walls, usage.values, merged, Xd
 
 
@@ -1311,6 +1321,322 @@ def phase_preprocess(dev):
     assert refit_launches > 0
 
 
+# the [atlas] phase: extras/atlas_validate.synthesize's recipe at its
+# defaults — 100,000 cells × 20,000 genes, 12 planted gamma programs over a
+# sparse gamma H (8 % of entries), a gamma base rate, Poisson counts (about
+# 12 % fill) — drawn on the card in blocks of cells from a seeded generator;
+# then 2,000 HVGs, K=12 × 30 restarts and consensus at K=12, density
+# threshold 0.5, with the TPM on the card and forced over the device limit
+ATLAS_CELLS, ATLAS_GENES, ATLAS_K_TRUE, ATLAS_H_DENSITY = 100_000, 20_000, 12, 0.08
+ATLAS_HVG, ATLAS_K, ATLAS_RESTARTS, ATLAS_BLOCK = 2000, 12, 30, 2000
+ATLAS_FORCED_SSE = 1e-6   # forced against resident, relative SSE, f32
+
+
+def atlas_counts(dev, seed=11):
+    """The recipe's counts as a float32 CSR matrix on the host, drawn on the
+    card block by block (W and H gamma, H's mask, the base rate, Poisson)
+    with one seeded torch.Generator; a cell without counts gets one count of
+    gene 0, as the recipe does."""
+    import scipy.sparse as sp
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def gamma(shape, size):
+        return torch._standard_gamma(torch.full(size, shape, device=dev),
+                                     generator=g)
+
+    W = gamma(0.5, (ATLAS_CELLS, ATLAS_K_TRUE))
+    H = gamma(0.45, (ATLAS_K_TRUE, ATLAS_GENES)) * (
+        torch.rand(ATLAS_K_TRUE, ATLAS_GENES, device=dev, generator=g)
+        < ATLAS_H_DENSITY)
+    base = gamma(0.3, (ATLAS_GENES,)) * 0.02
+    data, indices, indptr = [], [], [np.zeros(1, np.int64)]
+    for start in range(0, ATLAS_CELLS, ATLAS_BLOCK):
+        counts = torch.poisson(W[start:start + ATLAS_BLOCK] @ H + base,
+                               generator=g)
+        counts[counts.sum(dim=1) == 0, 0] = 1.0
+        rows, cols = counts.nonzero(as_tuple=True)   # row-major order
+        data.append(counts[rows, cols].cpu().numpy())
+        indices.append(cols.to(torch.int32).cpu().numpy())
+        per_row = torch.bincount(rows, minlength=counts.shape[0])
+        indptr.append(torch.cumsum(per_row, 0).cpu().numpy() + indptr[-1][-1])
+    return sp.csr_matrix((np.concatenate(data), np.concatenate(indices),
+                          np.concatenate(indptr)),
+                         shape=(ATLAS_CELLS, ATLAS_GENES))
+
+
+def rel_sse(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(((a - b) ** 2).sum() / (b ** 2).sum())
+
+
+def phase_atlas_products_kernel(dev, shapes):
+    """The products-given sweep against its plain version at the atlas
+    refits' shapes (B=1, K=12 padded to 16 with 4 zero columns): max
+    relative difference, ms per wrapper call, the kernel alone and the
+    plain version, and the bound. Returns {M: values}."""
+    import torch
+
+    from cnmf_tpu_torch.ops import cd_kernels as ck
+    from cnmf_tpu_torch.ops.kernel_lib import kernel_function, raise_on
+
+    rng = np.random.RandomState(1)
+    out = {}
+    for M in shapes:
+        K, pad, B = 16, 16 - ATLAS_K, 1
+        avg = np.sqrt(1.0 / ATLAS_K)
+        F = (avg * np.abs(rng.randn(B, M, K))).astype(np.float32)
+        Hfix = (avg * np.abs(rng.randn(B, 2000, K))).astype(np.float32)
+        F[:, :, -pad:] = 0.0
+        Hfix[:, :, -pad:] = 0.0
+        F, Hfix = (torch.as_tensor(a, device=dev) for a in (F, Hfix))
+        gram = ck._gram(Hfix)
+        P = torch.as_tensor(rng.gamma(1.0, 1.0, (B, M, K)).astype(np.float32),
+                            device=dev) * gram.diagonal(dim1=1, dim2=2)[:, None]
+        kernel, plain = ck.cd_sweep_from_products, ck.cd_sweep_from_products_plain
+        res = kernel(F, gram, P)
+        check_pad(res, pad)
+        abs_err, rel_err = compare(res, plain(F, gram, P))
+        assert rel_err <= KERNEL_REL_BOUND, ("atlas products", M, rel_err)
+        ms = timed_ms(lambda: kernel(F, gram, P))
+        plain_ms = timed_ms(lambda: plain(F, gram, P))
+        res, part = torch.empty_like(F), torch.empty((M, B), device=dev)
+        launch = kernel_function("cd_half_sweep_products", ck._PRODUCTS_ARGS)
+        ptrs = (P.data_ptr(), M, F.data_ptr(), gram.data_ptr(), 0.0, B, K,
+                res.data_ptr(), part.data_ptr(),
+                torch.cuda.current_stream().cuda_stream)
+        alone_ms = device_ms(lambda: raise_on("products", launch(*ptrs)))
+        bound_ms, by = bound(2 * M * K * K * B, 4 * (3 * B * M * K + B * K * K))
+        out[M] = dict(rel=rel_err, abs=abs_err, ms=ms, alone_ms=alone_ms,
+                      plain_ms=plain_ms, bound_ms=bound_ms, by=by)
+    return out
+
+
+def phase_atlas_fused_kernels(Xd, restarts, pad):
+    """The fused half-sweeps against their plain versions at the atlas
+    factorize's shape: the path's normalized counts Xd (100,000 x 2,000),
+    ``restarts`` (the ladder's first rung) and K=16 with ``pad`` zero
+    columns, factors at sklearn's random-init scale. Returns {name: values}
+    (relative and absolute error, ms of the wrapper and of plain, bound)."""
+    import torch
+
+    from cnmf_tpu_torch.ops import cd_kernels as ck
+
+    N, G = Xd.shape
+    B, K = restarts, 16
+    g = torch.Generator(device=Xd.device).manual_seed(5)
+    avg = float(torch.sqrt(Xd.mean() / (K - pad)))
+    W, Ht = (avg * torch.randn(B, M, K, device=Xd.device, generator=g).abs()
+             for M in (N, G))
+    W[:, :, K - pad:] = 0.0
+    Ht[:, :, K - pad:] = 0.0
+    out = {}
+    for name in ("cd_w_half_sweep", "cd_h_half_sweep"):
+        kernel, plain = getattr(ck, name), getattr(ck, name + "_plain")
+        res = kernel(Xd, W, Ht)
+        check_pad(res, pad)
+        abs_err, rel_err = compare(res, plain(Xd, W, Ht))
+        assert rel_err <= KERNEL_REL_BOUND, ("atlas", name, rel_err)
+        bound_ms, by = bound(*kernel_work(name, Xd, B, N, G, K))
+        out[name] = dict(rel=rel_err, abs=abs_err,
+                         ms=timed_ms(lambda: kernel(Xd, W, Ht)),
+                         plain_ms=timed_ms(lambda: plain(Xd, W, Ht)),
+                         bound_ms=bound_ms, by=by)
+    return out
+
+
+def phase_atlas_stop_rule(X_host, Xd, seeds, kwargs, path_n_iter):
+    """The path's first two restarts solved again on the card without the
+    ladder: by the kernels, and by their plain versions in float32 and in
+    float64. Returns {route: sweeps of each restart}, the path's first."""
+    import torch
+
+    from cnmf_tpu_torch.ops import cd_kernels as ck
+    from cnmf_tpu_torch.ops import nmf
+    from cnmf_tpu_torch.pipeline import stages
+
+    W0, Ht0 = stages.restart_inits(X_host, ATLAS_K, seeds[:2], "random",
+                                   np.float32)
+    pad = ((0, 0), (0, 0), (0, 16 - ATLAS_K))
+    W0, Ht0 = (torch.as_tensor(np.pad(a, pad), device=Xd.device)
+               for a in (W0, Ht0))
+    solve = dict(tol=float(kwargs["tol"]), max_iter=int(kwargs["max_iter"]))
+    sweeps = {"path": [int(n) for n in path_n_iter[:2]]}
+    sweeps["kernels"] = nmf.nmf_coordinate_descent(Xd, W0, Ht0, **solve)[2]
+    kernels = nmf.cd_w_half_sweep, nmf.cd_h_half_sweep
+    nmf.cd_w_half_sweep = ck.cd_w_half_sweep_plain
+    nmf.cd_h_half_sweep = ck.cd_h_half_sweep_plain
+    try:
+        sweeps["plain_f32"] = nmf.nmf_coordinate_descent(Xd, W0, Ht0,
+                                                         **solve)[2]
+        sweeps["plain_f64"] = nmf.nmf_coordinate_descent(
+            Xd.double(), W0.double(), Ht0.double(), **solve)[2]
+    finally:
+        nmf.cd_w_half_sweep, nmf.cd_h_half_sweep = kernels
+    return {k: [int(n) for n in v] for k, v in sweeps.items()}
+
+
+def phase_atlas(dev, card):
+    """The atlas path through pipeline/stages.py: the recipe's CSR counts,
+    prepare with the TPM kept sparse on the host, factorize from the CSR
+    (the normalized counts reach the card through
+    ops.device_densify.to_device_dense), combine, consensus with the TPM
+    device-densified on the card and again forced over the device limit
+    (override 1: the host-SpMM products and the products-given kernel). The
+    forced artifacts must be within ATLAS_FORCED_SSE of the resident ones,
+    the device densify of the TPM bit-equal to the native host densify, the
+    native library loaded and the products-given kernel within its bound of
+    plain at M=100,000 and 20,000. The CD kernels' launches are counted over
+    the path (set to 0 before it). Returns the kernel values by M and the
+    path's launches."""
+    import torch
+
+    from cnmf_tpu_torch import native
+    from cnmf_tpu_torch.ops import cd_kernels as ck
+    from cnmf_tpu_torch.ops.device_densify import (
+        device_densify_csr,
+        device_densify_eligible,
+        to_device_dense,
+    )
+    from cnmf_tpu_torch.pipeline import stages
+    from cnmf_tpu_torch.utils.timing import reset_timings, timings
+
+    def sync_wall(t0):
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    assert native.library_loaded(), "the native host library did not load"
+    wrappers = {name: getattr(ck, name) for name in
+                ("cd_w_half_sweep", "cd_h_half_sweep",
+                 "cd_sweep_from_products")}
+    t0 = time.perf_counter()
+    X = atlas_counts(dev)
+    walls = {"synthesize": sync_wall(t0)}
+    torch.cuda.reset_peak_memory_stats()
+    for fn in wrappers.values():
+        fn.launches = 0
+    reset_timings()
+
+    t0 = time.perf_counter()
+    prep = stages.prepare_arrays(X, num_highvar_genes=ATLAS_HVG)
+    walls["prepare"] = sync_wall(t0)
+    prep_parts = {k.split(".")[1]: round(v[0], 3) for k, v in timings().items()
+                  if k.startswith("prepare.")}
+    norm_route = ("device" if device_densify_eligible(prep.norm, np.float32,
+                                                      dev) else "host")
+    kwargs = stages.nmf_run_params()
+    _, seeds = stages.replicate_seeds([ATLAS_K], ATLAS_RESTARTS, 14)
+    t0 = time.perf_counter()
+    Xd = to_device_dense(prep.norm, np.float32, dev)
+    walls["norm_to_device"] = sync_wall(t0)
+    t0 = time.perf_counter()
+    spectra, n_iter, executed = stages.factorize_k(prep.norm, Xd, ATLAS_K,
+                                                   seeds, kwargs)
+    walls["factorize"] = sync_wall(t0)
+    fact_launches = {k: fn.launches for k, fn in wrappers.items()}
+    t0 = time.perf_counter()
+    merged = stages.combine_arrays(list(spectra))
+    walls["combine"] = sync_wall(t0)
+
+    # the TPM on the card by each route, and the resident consensus
+    tpm = prep.tpm
+    tpm_route = device_densify_eligible(tpm, np.float32, dev)
+    t0 = time.perf_counter()
+    tpm_dev = device_densify_csr(tpm, np.float32, dev)
+    dev_s = sync_wall(t0)
+    t0 = time.perf_counter()
+    host = native.densify_csr(tpm, out_dtype=np.float32)
+    host_densify_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tpm_host_dev = torch.as_tensor(host, device=dev)
+    upload_s = sync_wall(t0)
+    del host
+    same_bits = bool(torch.equal(tpm_dev, tpm_host_dev))
+    del tpm_host_dev
+    sparse_bytes = tpm.data.nbytes + tpm.indices.nbytes + tpm.indptr.nbytes
+    dense_bytes = tpm.shape[0] * tpm.shape[1] * 4
+    limit = stages.tpm_device_limit(dev)
+    assert stages.tpm_fits_device(tpm.shape, dev), (tpm.shape, limit)
+    assert not stages.tpm_fits_device(tpm.shape, dev, override=1)
+
+    results, subs = {}, {}
+    for branch, tpm_src in (("resident", tpm_dev), ("forced", tpm)):
+        subs[branch] = {}
+        launches0 = ck.cd_sweep_from_products.launches
+        t0 = time.perf_counter()
+        results[branch] = stages.consensus_arrays(
+            merged, ATLAS_K, Xd, tpm_src, prep.tpm_std, prep.hvg_idx, kwargs,
+            density_threshold=0.5, zero_safe=True, timings=subs[branch])
+        walls["consensus_" + branch] = sync_wall(t0)
+        subs[branch]["products_launches"] = (ck.cd_sweep_from_products.launches
+                                             - launches0)
+        del tpm_src
+    del tpm_dev
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    sse = {name: rel_sse(getattr(results["forced"], name),
+                         getattr(results["resident"], name))
+           for name in ("spectra_tpm", "spectra_score", "usages")}
+    forced = results["forced"]
+    for name in ("spectra", "usages", "spectra_tpm", "spectra_score"):
+        assert np.isfinite(getattr(forced, name)).all(), name
+    assert forced.spectra_tpm.shape == (ATLAS_K, ATLAS_GENES)
+    assert forced.usages.shape == (ATLAS_CELLS, ATLAS_K)
+    kernel = phase_atlas_products_kernel(dev, (ATLAS_CELLS, ATLAS_GENES))
+    fused = phase_atlas_fused_kernels(Xd, -(-ATLAS_RESTARTS // 8) * 8,
+                                      16 - ATLAS_K)
+    stop_rule = phase_atlas_stop_rule(prep.norm, Xd, seeds, kwargs, n_iter)
+
+    def secs(d):
+        return ", ".join(f"{k} {v:.3f}" if isinstance(v, float) else f"{k} {v}"
+                         for k, v in d.items())
+
+    print(f"[atlas] {ATLAS_CELLS}x{ATLAS_GENES} counts (synthesize's recipe, "
+          f"k_true {ATLAS_K_TRUE}, h_density {ATLAS_H_DENSITY}): {X.nnz} "
+          f"nonzeros, fill {X.nnz / (ATLAS_CELLS * ATLAS_GENES):.4f}, drawn on "
+          f"the card in {walls['synthesize']:.3f} s; {ATLAS_HVG} HVGs, K="
+          f"{ATLAS_K} x {ATLAS_RESTARTS} restarts from the CSR (normalized "
+          f"counts to the card by the {norm_route} route in "
+          f"{walls['norm_to_device']:.3f} s): walls_s prepare "
+          f"{walls['prepare']:.3f} ({secs(prep_parts)}), factorize "
+          f"{walls['factorize']:.3f}, combine {walls['combine']:.3f}; sweeps "
+          f"max {n_iter.max()} mean {n_iter.mean():.1f}, executed "
+          f"restart-sweeps {executed}; factorize launches {fact_launches}; "
+          f"card: {card}", flush=True)
+    print(f"[atlas] consensus K={ATLAS_K} dt 0.5 "
+          f"({int(forced.density_filter.sum())} of {len(merged)} kept): "
+          f"resident {walls['consensus_resident']:.3f} s ({secs(subs['resident'])}) "
+          f"| forced over the limit {walls['consensus_forced']:.3f} s "
+          f"({secs(subs['forced'])}); forced vs resident relative SSE "
+          + json.dumps({k: float(f"{v:.3e}") for k, v in sse.items()})
+          + f" (bound {ATLAS_FORCED_SSE:g}); path launches {launches}",
+          flush=True)
+    print(f"[atlas] TPM {tpm.shape[0]}x{tpm.shape[1]} (device limit "
+          f"{limit / 1e9:.2f} GB): device densify {dev_s:.3f} s shipping "
+          f"{sparse_bytes / 1e9:.3f} GB (eligible: {tpm_route}) vs native host "
+          f"densify {host_densify_s:.3f} s + upload {upload_s:.3f} s shipping "
+          f"{dense_bytes / 1e9:.3f} GB; bit-equal: {same_bits}; native library "
+          f"loaded: True; peak device memory {peak_gb:.2f} GB", flush=True)
+    print("[atlas] cd_sweep_from_products B=1 K=16 (12 + 4 zero columns): "
+          + "; ".join(f"M={M} rel={v['rel']:.3e} kernel_ms="
+                      f"{v['ms']:.4f} alone_ms={v['alone_ms']:.4f} plain_ms="
+                      f"{v['plain_ms']:.4f} bound_ms={v['bound_ms']:.4f} "
+                      f"({v['by']})" for M, v in kernel.items())
+          + f"; B={-(-ATLAS_RESTARTS // 8) * 8} K=16 on the path's X: "
+          + "; ".join(f"{name} rel={v['rel']:.3e} kernel_ms={v['ms']:.4f} "
+                      f"plain_ms={v['plain_ms']:.4f} bound_ms="
+                      f"{v['bound_ms']:.4f} ({v['by']})"
+                      for name, v in fused.items())
+          + "; sweeps of restarts 0-1 without the ladder "
+          + json.dumps(stop_rule), flush=True)
+    assert same_bits, "device densify differs from the host densify"
+    assert max(sse.values()) <= ATLAS_FORCED_SSE, sse
+    assert all(n > 0 for n in launches.values()), launches
+    assert subs["forced"]["products_launches"] > 0, subs
+    return kernel, launches
+
+
 # what each bool template argument of a kernel family selects, (false,
 # true) in the arguments' order
 IS_TAG, SIDE_TAG = ("beta", "IS"), ("W", "H")
@@ -1403,8 +1729,10 @@ def main():
         print(line, flush=True)
 
     # 3. kernels against plain, then the small slices against the CPU
-    print(f"[kernel] every case below: max_rel_diff <= {KERNEL_REL_BOUND:g}, "
-          "max |kernel - plain| / max |plain| (f32)", flush=True)
+    print(f"[kernel] every case below: rel <= {KERNEL_REL_BOUND:g}: rel = "
+          "max |kernel - plain| / max |plain|, abs = max |kernel - plain| "
+          "(f32); K0: zero K columns; of_bound: bound_ms / kernel_ms",
+          flush=True)
     records = phase_kernels(dev)
     records.update(phase_mu_kernels(dev))
     kl_kwargs = stages.nmf_run_params(beta_loss="kullback-leibler",
@@ -1477,7 +1805,15 @@ def main():
     # 9. Preprocess with Harmony, and cNMF on its output
     phase_preprocess(dev)
 
-    # 10. results
+    # 10. the atlas path: sparse counts at 100,000 x 20,000, the TPM on the
+    # card and over the device limit
+    atlas_kernel, atlas_launches = phase_atlas(dev, card)
+    for M, v in atlas_kernel.items():
+        records["cd_sweep_from_products"].update({
+            f"{key}_atlas_m{M}": float(f"{v[key]:.5g}")
+            for key in ("ms", "alone_ms", "plain_ms", "bound_ms")})
+
+    # 11. results
     replaces = {"cd_w_half_sweep": "cnmf_tpu/ops/pallas_cd.py:118",
                 "cd_h_half_sweep": "cnmf_tpu/ops/pallas_cd.py:162",
                 "cd_sweep_from_products": "cnmf_tpu/ops/pallas_cd.py:58",
@@ -1497,11 +1833,13 @@ def main():
              replaces=replaces[name], launches=launches[name],
              **({"launches_b1": launches_b1[name]} if name in launches_b1
                 else {}),
+             **({"launches_atlas": atlas_launches[name]}
+                if name in atlas_launches else {}),
              library_ms=None,
              **{key: float(f"{v:.5g}") if isinstance(v, float) else v
                 for key, v in records[name].items()})
         for name in replaces
-    ]}))
+    ]}, separators=(",", ":")))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

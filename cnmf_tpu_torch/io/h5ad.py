@@ -245,6 +245,27 @@ def _read_mapping(group: h5py.Group) -> dict:
     return out
 
 
+def read_h5ad_shape(filename: str) -> tuple:
+    """X's (n_obs, n_vars) from the file's header, without reading any data:
+    a sizing decision should not cost a multi-GB load."""
+    import h5py
+
+    with h5py.File(filename, "r") as f:
+        node = f["X"]
+        if isinstance(node, h5py.Group):
+            key = "shape" if "shape" in node.attrs else "h5sparse_shape"
+            return tuple(int(s) for s in np.asarray(node.attrs[key]).ravel())
+        return tuple(int(s) for s in node.shape)
+
+
+def read_h5ad_x_is_sparse(filename: str) -> bool:
+    """Whether X is stored sparse (a CSR/CSC group), from the header only."""
+    import h5py
+
+    with h5py.File(filename, "r") as f:
+        return isinstance(f["X"], h5py.Group)
+
+
 def read_h5ad(filename: str) -> AnnData:
     import h5py
 

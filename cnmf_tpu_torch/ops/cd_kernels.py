@@ -59,6 +59,13 @@ def torch_dtype(dtype) -> torch.dtype:
     return torch.from_numpy(np.empty(0, dtype=np.dtype(dtype))).dtype
 
 
+def numpy_dtype(dtype) -> np.dtype:
+    """numpy dtype of a torch dtype (or of a numpy dtype, as np.dtype)."""
+    if isinstance(dtype, torch.dtype):
+        return torch.empty(0, dtype=dtype).numpy().dtype
+    return np.dtype(dtype)
+
+
 def factors_from_numpy(W0, Ht0, *, device, dtype):
     """The JAX package's (B, N, K) / (B, G, K) numpy factors as contiguous
     tensors on ``device`` — the same inits then feed both solvers."""

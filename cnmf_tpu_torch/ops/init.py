@@ -23,6 +23,8 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
+from cnmf_tpu_torch.ops.cd_kernels import torch_dtype
+
 
 def _x_mean(X) -> float:
     if sp.issparse(X):
@@ -183,14 +185,27 @@ def nndsvd_init_batch(X, n_components: int, seeds: Sequence[int],
             np.stack([np.ascontiguousarray(h.T) for _, h in inits]))
 
 
-def nnls_w_init(X: torch.Tensor, k: int, solver: str,
+def nnls_w_init(X, n_components: int, solver: str, dtype=None,
                 pad_k: Optional[int] = None) -> torch.Tensor:
     """W init for fixed-H refits (sklearn _check_w_h, update_H=False), a
-    (1, N, pad_k) tensor of X's device and dtype: zeros for CD; for MU
-    sqrt(X.mean()/k) with the real k, over every column of the zero-padded
-    bucket (cnmf_tpu/pipeline/solvers.py:1008-1023) — a padded column has
-    zero spectra, so its W goes to 0 at the first update."""
-    shape = (1, X.shape[0], k if pad_k is None else pad_k)
+    (1, N, pad_k) tensor (pad_k defaults to n_components): zeros for CD; for
+    MU sqrt(X.mean()/n_components) with the real k, over every column of the
+    zero-padded bucket (cnmf_tpu/pipeline/solvers.py:1008-1023) — a padded
+    column has zero spectra, so its W goes to 0 at the first update.
+
+    X: a tensor (the init takes its device, and its dtype unless ``dtype``
+    is given) or a host array or sparse matrix (a CPU tensor at ``dtype``,
+    float32 by default, as the JAX package's ``nnls_w_init``, which returns
+    the (N, K) host array this tensor holds in its first restart)."""
+    shape = (1, X.shape[0], n_components if pad_k is None else pad_k)
+    if not isinstance(X, torch.Tensor):
+        tdtype = torch_dtype(np.float32 if dtype is None else dtype)
+        if solver == "mu":
+            avg = np.sqrt(_x_mean(X) / n_components)
+            return torch.full(shape, avg, dtype=tdtype)
+        return torch.zeros(shape, dtype=tdtype)
+    tdtype = X.dtype if dtype is None else torch_dtype(dtype)
     if solver == "mu":
-        return torch.sqrt(X.sum() / X.numel() / k).expand(shape).contiguous()
-    return torch.zeros(shape, dtype=X.dtype, device=X.device)
+        avg = torch.sqrt(X.sum() / X.numel() / n_components)
+        return avg.to(tdtype).expand(shape).contiguous()
+    return torch.zeros(shape, dtype=tdtype, device=X.device)

@@ -87,7 +87,7 @@ def consensus_k_stats(
     H = torch.zeros((k_pad, X.shape[1]), dtype=dtype, device=dev)
     H[:k] = torch.as_tensor(median, device=dev).to(dtype)
     Ht0 = H.T.contiguous()[None]
-    W0 = nnls_w_init(Xnc, k, solver, k_pad)
+    W0 = nnls_w_init(Xnc, k, solver, pad_k=k_pad)
     if solver == "cd":
         W, _ = nnls_cd_fixed_spectra(Xnc, Ht0, W0, tol=refit_tol,
                                      max_iter=refit_max_iter, l1_reg=l1_reg_W,

@@ -47,6 +47,7 @@ from cnmf_tpu_torch.ops.cd_kernels import (  # noqa: F401  (re-exported)
     cd_h_half_sweep,
     cd_sweep_from_products,
     cd_w_half_sweep,
+    pad_bucket,
 )
 from cnmf_tpu_torch.ops.init import nnls_w_init
 from cnmf_tpu_torch.ops.mu_kernels import (
@@ -412,6 +413,10 @@ def nmf_multiplicative_update(
     l1_reg_H: float = 0.0,
     l2_reg_W: float = 0.0,
     l2_reg_H: float = 0.0,
+    chunk: int = CHUNK,
+    error_init0: Optional[torch.Tensor] = None,
+    prev_error0: Optional[torch.Tensor] = None,
+    done0: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Batched beta-divergence NMF via multiplicative updates.
 
@@ -420,28 +425,69 @@ def nmf_multiplicative_update(
     relative error improvement (previous_error - error) / error_at_init is
     below tol stop (sklearn's rule); the all-done flag is read on the host at
     those checks only, and frozen restarts stop changing. Returns W, Ht and
-    n_iter (B,) int32."""
+    n_iter (B,) int32.
+
+    ``chunk``: the JAX package's restart chunk of the reconstruction; here
+    the reconstructions always go in chunks of ``mu_kernels.CHUNK``
+    restarts, the fixed order the kernels' sums take, whatever is passed.
+    ``error_init0`` / ``prev_error0``: (B,) starting values of the stopping
+    rule's denominator and previous error (default: the divergence at W0,
+    Ht0); ``done0``: (B,) bool, restarts that start stopped
+    (cnmf_tpu/ops/nmf.py:1246-1253)."""
     B = W0.shape[0]
     dev = W0.device
     x_terms = _kl_x_terms(X) if beta == 1 else None
-    error_init = beta_divergence_error(X, W0, Ht0, beta, x_terms).to(W0.dtype)
+    error_init = (error_init0 if error_init0 is not None else
+                  beta_divergence_error(X, W0, Ht0, beta, x_terms)).to(W0.dtype)
     state = _mu_state(W0, Ht0, error_init,
-                      torch.zeros(B, dtype=torch.bool, device=dev))
+                      torch.zeros(B, dtype=torch.bool, device=dev)
+                      if done0 is None else done0.to(torch.bool))
+    if prev_error0 is not None:
+        state[2] = prev_error0.to(W0.dtype)
     block = _mu_block(X, state, beta, tol, max_iter, update_H, x_terms,
                       l1_reg_W, l1_reg_H, l2_reg_W, l2_reg_H)
     _run_solve(block, state, max_iter)
     return state[0], state[1], state[4]
 
 
+def _data_and_fixed(X, H, device):
+    """X and the fixed factor H as tensors on one device: a tensor X keeps
+    its own; host arrays (the JAX API's arguments) go to ``device``."""
+    X = X if isinstance(X, torch.Tensor) else torch.as_tensor(X, device=device)
+    return X, torch.as_tensor(H, device=X.device)
+
+
+def nnls_coordinate_descent(X, H, *, tol=1e-4, max_iter=200,
+                            l1_reg_W=0.0, l2_reg_W=0.0, device="cuda"):
+    """Solve min_{W>=0} ||X - W·H|| with H fixed via CD; W starts at zeros
+    (the reference's refit path, cnmf.py:776-802 → sklearn update_H=False,
+    zeros init for the CD solver). X (N, G), H (K, G): tensors, solved on
+    X's device, or host arrays, put on ``device``. K is zero-padded to its
+    bucket of 8 for the solve. Returns W (N, K) and the sweep count."""
+    X, H = _data_and_fixed(X, H, device)
+    k = H.shape[0]
+    Ht0 = torch.nn.functional.pad(H.T.to(X.dtype), (0, pad_bucket(k) - k))
+    W0 = nnls_w_init(X, k, "cd", pad_k=Ht0.shape[1])
+    W, n_iter = nnls_cd_fixed_spectra(
+        X, Ht0.contiguous()[None], W0, tol=tol, max_iter=max_iter,
+        l1_reg=l1_reg_W, l2_reg=l2_reg_W,
+    )
+    return W[0, :, :k], int(n_iter[0])
+
+
 def nnls_multiplicative_update(X, H, *, beta=1.0, tol=1e-4, max_iter=200,
-                               l1_reg_W=0.0, l2_reg_W=0.0):
+                               l1_reg_W=0.0, l2_reg_W=0.0, chunk=CHUNK,
+                               device="cuda"):
     """Fixed-H NNLS via MU; W starts at sqrt(X.mean()/K) (sklearn 'mu'
-    rule). X (N, G), H (K, G). Returns W (N, K) and the iteration count."""
+    rule). X (N, G), H (K, G), placed as in ``nnls_coordinate_descent``.
+    Returns W (N, K) and the iteration count. ``chunk`` as in
+    ``nmf_multiplicative_update`` (one restart here)."""
+    X, H = _data_and_fixed(X, H, device)
     W0 = nnls_w_init(X, H.shape[0], "mu")
     Ht0 = H.T.to(X.dtype).contiguous()[None]
     W, _, n_iter = nmf_multiplicative_update(
         X, W0, Ht0, beta=beta, tol=tol, max_iter=max_iter, update_H=False,
-        l1_reg_W=l1_reg_W, l2_reg_W=l2_reg_W,
+        l1_reg_W=l1_reg_W, l2_reg_W=l2_reg_W, chunk=chunk,
     )
     return W[0], int(n_iter[0])
 

@@ -14,6 +14,8 @@ from __future__ import annotations
 import numpy as np
 import scipy.sparse as sp
 
+from cnmf_tpu_torch import native
+
 
 def normalize_total(X, target_sum: float = 1e6):
     """Scale each row (cell) to sum to ``target_sum``. Returns a new matrix.
@@ -124,24 +126,29 @@ def csr_column_subset(X: sp.csr_matrix, cols: np.ndarray) -> sp.csr_matrix:
     cols = np.asarray(cols)
     lookup = np.full(X.shape[1], -1, dtype=np.int32)
     lookup[cols] = np.arange(len(cols), dtype=np.int32)
-    new_cols = lookup[X.indices]
-    mask = new_cols >= 0
-    # per-ROW survivor counts, then a cumsum over n_rows — NOT over nnz.
-    # reduceat runs over the NONEMPTY rows' start offsets only: those are
-    # strictly increasing and all < nnz, so every segment covers exactly one
-    # row — clamping empty-row starts instead would steal elements from the
-    # preceding row's segment.
-    n_rows = X.shape[0]
-    counts = np.zeros(n_rows, dtype=np.int64)
-    nonempty = np.diff(X.indptr) > 0
-    if mask.size and nonempty.any():
-        counts[nonempty] = np.add.reduceat(
-            mask, X.indptr[:-1][nonempty], dtype=np.int64
+    native_out = native.csr_col_subset(X, lookup)
+    if native_out is not None:
+        # two streaming C passes with exact-size outputs (the native library)
+        data, indices, indptr = native_out
+    else:
+        new_cols = lookup[X.indices]
+        mask = new_cols >= 0
+        # per-ROW survivor counts, then a cumsum over n_rows — NOT over nnz.
+        # reduceat runs over the NONEMPTY rows' start offsets only: those
+        # are strictly increasing and all < nnz, so every segment covers
+        # exactly one row — clamping empty-row starts instead would steal
+        # elements from the preceding row's segment.
+        n_rows = X.shape[0]
+        counts = np.zeros(n_rows, dtype=np.int64)
+        nonempty = np.diff(X.indptr) > 0
+        if mask.size and nonempty.any():
+            counts[nonempty] = np.add.reduceat(
+                mask, X.indptr[:-1][nonempty], dtype=np.int64
+            )
+        indptr = np.concatenate(
+            [np.zeros(1, dtype=np.int64), np.cumsum(counts, dtype=np.int64)]
         )
-    indptr = np.concatenate(
-        [np.zeros(1, dtype=np.int64), np.cumsum(counts, dtype=np.int64)]
-    )
-    data, indices = X.data[mask], new_cols[mask]
+        data, indices = X.data[mask], new_cols[mask]
     out = sp.csr_matrix(
         (data, indices, indptr),
         shape=(X.shape[0], len(cols)),

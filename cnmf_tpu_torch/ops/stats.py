@@ -3,8 +3,10 @@
 Implements the reference's Fano-factor overdispersion selection
 (reference cnmf.py:136-242, both the sparse and dense twins share this single
 code path) on plain mean/variance vectors, plus mean/var reductions for
-dense and sparse host matrices. Same math as ``cnmf_tpu.ops.stats``; the
-statistics come back as a dict of arrays (the pipeline builds any frame).
+dense and sparse host matrices (the sparse moments by the native library,
+``cnmf_tpu_torch.native``, where it loads). Same math as
+``cnmf_tpu.ops.stats``; the statistics come back as a dict of arrays (the
+pipeline builds any frame).
 """
 
 from __future__ import annotations
@@ -13,6 +15,8 @@ from typing import Optional, Tuple
 
 import numpy as np
 import scipy.sparse as sp
+
+from cnmf_tpu_torch.native import csr_col_moments
 
 
 def mean_var(X, ddof: int = 0) -> Tuple[np.ndarray, np.ndarray]:
@@ -23,13 +27,18 @@ def mean_var(X, ddof: int = 0) -> Tuple[np.ndarray, np.ndarray]:
         # one pass over the nonzeros — X.multiply(X) would allocate a full
         # transient copy of the matrix
         Xc = X.tocsr() if not (sp.isspmatrix_csr(X) or sp.isspmatrix_csc(X)) else X
-        if sp.isspmatrix_csr(Xc):
-            cols = Xc.indices
+        # threaded C++ where the native library loads (None: numpy below)
+        moments = csr_col_moments(Xc)
+        if moments is not None:
+            mean, sq = moments[0] / n, moments[1] / n
         else:
-            cols = np.repeat(np.arange(Xc.shape[1]), np.diff(Xc.indptr))
-        g = X.shape[1]
-        mean = np.bincount(cols, weights=Xc.data, minlength=g) / n
-        sq = np.bincount(cols, weights=np.square(Xc.data), minlength=g) / n
+            if sp.isspmatrix_csr(Xc):
+                cols = Xc.indices
+            else:
+                cols = np.repeat(np.arange(Xc.shape[1]), np.diff(Xc.indptr))
+            g = X.shape[1]
+            mean = np.bincount(cols, weights=Xc.data, minlength=g) / n
+            sq = np.bincount(cols, weights=np.square(Xc.data), minlength=g) / n
         var = sq - mean**2
     else:
         # two-pass (no sq−mean² cancellation), accumulated over COLUMN

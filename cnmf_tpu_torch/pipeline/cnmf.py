@@ -14,6 +14,16 @@ hand-written kernels of ``ops.cd_kernels`` and ``ops.mu_kernels``, which take
 float32 only: ``compute_dtype=np.float64`` is a CPU setting. There
 factorize runs the device ladder (``CNMF_TPU_DEVICE_LADDER=0`` turns it
 off; ``pipeline.solvers``).
+
+Sparse (CSR) counts never get a dense host copy on the CD path: a matrix
+goes to the device through ``ops.device_densify.to_device_dense`` (the CSR
+components expanded on the card when that is eligible, else the native host
+densify and one upload), the inits read the CSR, and consensus keeps the
+full-gene TPM on the device only under ``stages.tpm_device_limit`` (or
+``tpm_device_bytes_limit``); above it the refits and the OLS take host-SpMM
+products (``stages.consensus_arrays``). The stages record their walls
+(``utils.timing``: ``timings()``, ``CNMF_TPU_TIMINGS=1``,
+``CNMF_TPU_PROFILE_DIR``).
 Artifacts are written synchronously, so ``flush_writes`` has nothing to do.
 """
 
@@ -23,6 +33,7 @@ import datetime
 import errno
 import os
 import shutil
+import sys
 import time
 import uuid
 import warnings
@@ -40,16 +51,23 @@ from cnmf_tpu_torch.io.dataframe import (
     save_df_to_npz,
     save_df_to_text,
 )
-from cnmf_tpu_torch.io.h5ad import read_h5ad, write_h5ad
+from cnmf_tpu_torch.io.h5ad import (
+    read_h5ad,
+    read_h5ad_shape,
+    read_h5ad_x_is_sparse,
+    write_h5ad,
+)
 from cnmf_tpu_torch.io.loaders import load_counts
 from cnmf_tpu_torch.ops.cd_kernels import (
     factors_from_numpy,
     pad_bucket,
     torch_dtype,
 )
+from cnmf_tpu_torch.ops.device_densify import to_device_dense
 from cnmf_tpu_torch.ops.distance import pairwise_euclidean
 from cnmf_tpu_torch.pipeline import solvers, stages
 from cnmf_tpu_torch.pipeline.paths import build_paths
+from cnmf_tpu_torch.utils.timing import stage_timer, timed, timings_verbose
 
 DEFAULT_DENSITY_THRESHOLD = stages.DEFAULT_DENSITY_THRESHOLD
 
@@ -78,7 +96,13 @@ class cNMF:
     device : the torch device every solve runs on (default "cuda"). There
         is no fallback: without a CUDA device the first solve raises unless
         ``device="cpu"`` was asked for.
+
+    ``tpm_device_bytes_limit``: set on the object to override
+    ``stages.tpm_device_limit`` (bytes of the float32 TPM kept on the
+    device in consensus; 1 forces the host-TPM branch).
     """
+
+    tpm_device_bytes_limit = None
 
     def __init__(self, output_dir=".", name=None, compute_dtype=np.float32,
                  *, device="cuda"):
@@ -99,16 +123,75 @@ class cNMF:
             check_dir_exists(os.path.join(self.output_dir, self.name, "cnmf_tmp"))
             self.paths = build_paths(self.output_dir, self.name)
 
-    def _host_dense(self, X) -> np.ndarray:
-        """A (cells × features) matrix as a dense host array at the compute
-        dtype."""
-        if sp.issparse(X):
-            X = X.toarray()
-        return np.ascontiguousarray(X, dtype=self.compute_dtype)
+    def _to_device_dense(self, X) -> torch.Tensor:
+        """A (cells × features) host matrix as a dense tensor on the device
+        at the compute dtype: a CSR input's components expanded on the card
+        where ``device_densify_eligible``, else the native host densify and
+        one upload (ops/device_densify.py)."""
+        return to_device_dense(X, self.compute_dtype, self.device)
 
-    def _to_device(self, X_host: np.ndarray) -> torch.Tensor:
-        return torch.as_tensor(X_host, device=self.device).to(
-            torch_dtype(self.compute_dtype))
+    def _solve_inputs(self, X):
+        """(the inits' host source, the dense device tensor) of a (cells ×
+        features) matrix: a CSR input stays CSR on the host (the inits take
+        either), a dense one is cast to the compute dtype once for both."""
+        if sp.issparse(X):
+            return X, self._to_device_dense(X)
+        X_host = np.ascontiguousarray(X, dtype=self.compute_dtype)
+        return X_host, torch.as_tensor(X_host, device=self.device)
+
+    def clear_device_caches(self, host_caches: bool = False):
+        """Free the device memory PyTorch's caching allocator holds
+        (``torch.cuda.empty_cache``): the port keeps no device tensors
+        between stages, so that is all there is to drop. ``host_caches``:
+        accepted for the JAX package's API; the port has no host read
+        cache."""
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()
+
+    def warmup(self, components=None, verbose=True, parallel=4):
+        """Build what the port compiles before its first solve, and time it:
+        the native host library (``native``, g++) and, on a CUDA device, the
+        kernel library (``ops.kernel_lib.load_library``: every ``csrc/``
+        source compiled by its own ``nvcc`` at once, then linked), the
+        port's cold start. Nothing executes. ``components`` and ``parallel``
+        are accepted for the JAX package's API (cnmf_tpu/pipeline/cnmf.py:
+        2274): one library serves every K, and its sources always compile
+        together.
+
+        When the run is prepared, ``verbose`` also prints, from the files'
+        headers (no data read), the normalized counts' and the TPM's shapes
+        and whether consensus will keep the TPM on the device.
+
+        Returns ``{label: build seconds}`` (-1.0: the native library could
+        not be built and the scipy/numpy fallbacks run)."""
+        from cnmf_tpu_torch import native
+        from cnmf_tpu_torch.ops.kernel_lib import load_library
+
+        done = {}
+        t0 = time.perf_counter()
+        done["native_library"] = (round(time.perf_counter() - t0, 2)
+                                  if native.library_loaded() else -1.0)
+        if self.device.type == "cuda":
+            t0 = time.perf_counter()
+            load_library()
+            done["kernel_library"] = round(time.perf_counter() - t0, 2)
+        if verbose:
+            for label, sec in done.items():
+                print(f"warmup: {label} " + (f"built in {sec:.2f}s" if sec >= 0
+                                             else "unavailable (scipy fallback)"))
+        norm_fn, tpm_fn = self.paths["normalized_counts"], self.paths["tpm"]
+        if verbose and os.path.exists(norm_fn) and os.path.exists(tpm_fn):
+            n_cells, n_hvgs = read_h5ad_shape(norm_fn)
+            tpm_shape = read_h5ad_shape(tpm_fn)
+            tpm_kind = "CSR" if read_h5ad_x_is_sparse(tpm_fn) else "dense"
+            resident = stages.tpm_fits_device(tpm_shape, self.device,
+                                              self.tpm_device_bytes_limit)
+            print(f"warmup: normalized counts {n_cells} x {n_hvgs}; "
+                  f"{tpm_kind} TPM {tpm_shape[0]} x {tpm_shape[1]} "
+                  + ("kept on the device" if resident else
+                     "kept on the host (over the device limit)")
+                  + " in consensus")
+        return done
 
     def _load_run_params(self) -> dict:
         with open(self.paths["nmf_run_parameters"]) as fh:
@@ -122,6 +205,7 @@ class cNMF:
     # prepare
     # ==================================================================
 
+    @timed("prepare")
     def prepare(
         self,
         counts_fn,
@@ -143,14 +227,16 @@ class cNMF:
         Produces the same six artifacts as the reference (cnmf.py:333-459):
         tpm + tpm_stats, norm_counts, the HVG list, the replicate-parameter
         table and the YAML solver kwargs."""
-        input_counts = load_counts(counts_fn, densify=densify)
+        with stage_timer("prepare.load_counts"):
+            input_counts = load_counts(counts_fn, densify=densify)
         tpm = None  # computed from the counts by stages.prepare_arrays
         if tpm_fn is not None and tpm_fn.endswith(".h5ad"):
             shutil.copy(tpm_fn, self.paths["tpm"])
             tpm = read_h5ad(self.paths["tpm"])
         elif tpm_fn is not None:
             tpm = load_counts(tpm_fn, densify=densify)
-            write_h5ad(self.paths["tpm"], tpm)
+            with stage_timer("prepare.write_tpm"):
+                write_h5ad(self.paths["tpm"], tpm)
 
         if genes_file is not None:
             with open(genes_file) as fh:
@@ -163,31 +249,38 @@ class cNMF:
         if tpm is None:
             tpm = AnnData(prep.tpm, obs=input_counts.obs.copy(),
                           var=input_counts.var.copy())
-            write_h5ad(self.paths["tpm"], tpm)
+            with stage_timer("prepare.write_tpm"):
+                write_h5ad(self.paths["tpm"], tpm)
         input_tpm_stats = pd.DataFrame(
             [prep.tpm_mean, prep.tpm_std],
             index=["__mean", "__std"],
             columns=tpm.var.index,
         ).T
         save_df_to_npz(input_tpm_stats, self.paths["tpm_stats"])
-        self.save_norm_counts(norm_counts)
-        replicate_params, run_params = self.get_nmf_iter_params(
-            ks=components, n_iter=n_iter, random_state_seed=seed,
-            beta_loss=beta_loss, alpha_usage=alpha_usage,
-            alpha_spectra=alpha_spectra, init=init, max_iter=max_NMF_iter,
-        )
-        self.save_nmf_iter_params(replicate_params, run_params)
+        with stage_timer("prepare.write_norm_counts"):
+            self.save_norm_counts(norm_counts)
+        with stage_timer("prepare.iter_params"):
+            replicate_params, run_params = self.get_nmf_iter_params(
+                ks=components, n_iter=n_iter, random_state_seed=seed,
+                beta_loss=beta_loss, alpha_usage=alpha_usage,
+                alpha_spectra=alpha_spectra, init=init,
+                max_iter=max_NMF_iter,
+            )
+            self.save_nmf_iter_params(replicate_params, run_params)
 
     def get_norm_counts(self, counts, tpm, high_variance_genes_filter=None,
-                        num_highvar_genes=None) -> AnnData:
+                        num_highvar_genes=None, tpm_moments=None) -> AnnData:
         """Subset to HVGs and scale genes to unit variance without centering
         (reference cnmf.py:487-556: f64 cast, ddof=1 scaling, zero-std genes
         guarded only for sparse input, the HVG list file, and the zero-HVG-cell
-        error)."""
+        error). ``tpm_moments``: the per-gene (mean, variance) of ``tpm.X``
+        at ddof 0, when known, so the Fano HVG selection skips its own pass
+        over the TPM (cnmf_tpu/pipeline/cnmf.py:967-985)."""
         return self._prepare(counts, tpm, high_variance_genes_filter,
-                             num_highvar_genes)[1]
+                             num_highvar_genes, tpm_moments)[1]
 
-    def _prepare(self, counts, tpm, hvgs, num_highvar_genes):
+    def _prepare(self, counts, tpm, hvgs, num_highvar_genes,
+                 tpm_moments=None):
         """``stages.prepare_arrays`` on AnnData, genes matched by name
         (``tpm`` None: the TPM of the counts); writes the HVG list. Returns
         (Prepared, the normalized counts as AnnData)."""
@@ -205,6 +298,7 @@ class cNMF:
             tpm_cols=None if same_genes else genes.get_indexer(tpm.var.index),
             hvg_idx=hvg_idx,
             cell_names=counts.obs.index,
+            tpm_moments=tpm_moments,
         )
         with open(self.paths["nmf_genes_list"], "w") as fh:
             fh.write("\n".join(genes[prep.hvg_idx]))
@@ -274,12 +368,16 @@ class cNMF:
     # factorize
     # ==================================================================
 
+    @timed("factorize")
     def factorize(self, worker_i=0, total_workers=1, skip_completed_runs=False,
-                  restart_chunk=None, verbose=True):
+                  restart_chunk=None, use_mesh=None, verbose=True):
         """Run this worker's share of the replicate grid (round-robin, as the
         reference's workers split it, cnmf.py:692-745): all restarts of one K
         as one batched solve, K zero-padded to a bucket of 8. Spectra land in
-        the per-(K, iter) npz files."""
+        the per-(K, iter) npz files. Sparse normalized counts reach the
+        device through ``_to_device_dense`` and the inits read the CSR.
+        ``use_mesh``: accepted for the JAX package's API; the port solves on
+        its one device."""
         run_params = load_df_from_npz(self.paths["nmf_replicate_parameters"])
         norm_counts = read_h5ad(self.paths["normalized_counts"])
         nmf_kwargs = self._load_run_params()
@@ -290,8 +388,7 @@ class cNMF:
         jobs = list(worker_filter(rows, worker_i, total_workers))
         if not jobs:
             return
-        X_host = self._host_dense(norm_counts.X)
-        Xd = self._to_device(X_host)
+        X_host, Xd = self._solve_inputs(norm_counts.X)
         gene_index = norm_counts.var.index
         for k, group in run_params.iloc[jobs].groupby("n_components", sort=True):
             k = int(k)
@@ -333,18 +430,19 @@ class cNMF:
         cnmf.py:661-674). ``nmf_kwargs`` holds the run's solver kwargs plus
         ``n_components`` and ``random_state``, or ``H`` with
         ``update_H=False`` for a fixed-spectra refit."""
-        X = self._host_dense(X)
-        Xd = self._to_device(X)
         kwargs = dict(nmf_kwargs)
         H = kwargs.pop("H", None)
         update_H = kwargs.pop("update_H", True)
         if not update_H:
-            return np.asarray(H), solvers.refit_usages(Xd, np.asarray(H),
-                                                       kwargs)
+            return np.asarray(H), solvers.refit_usages(
+                X, np.asarray(H), kwargs, device=self.device,
+                dtype=self.compute_dtype)
+        X, Xd = self._solve_inputs(X)
         k = int(kwargs.pop("n_components"))
         seed = kwargs.pop("random_state", None)
         W0, Ht0 = stages.restart_inits(X, k, [seed],
-                                       kwargs.get("init", "random"))
+                                       kwargs.get("init", "random"),
+                                       self.compute_dtype)
         pad = ((0, 0), (0, 0), (0, pad_bucket(k) - k))
         W0, Ht0 = factors_from_numpy(np.pad(W0, pad), np.pad(Ht0, pad),
                                      device=self.device, dtype=Xd.dtype)
@@ -355,6 +453,7 @@ class cNMF:
     # combine
     # ==================================================================
 
+    @timed("combine")
     def combine(self, components=None, skip_missing_files=False):
         run_params = load_df_from_npz(self.paths["nmf_replicate_parameters"])
         if type(components) is int:
@@ -409,28 +508,38 @@ class cNMF:
     def refit_usage(self, X, spectra):
         """Fixed-spectra NNLS usage refit with the run's solver kwargs
         (reference cnmf.py:776-802). X: (cells × genes) DataFrame, array or
-        sparse matrix (densified); spectra: (k × genes). Returns (cells × k)
+        sparse matrix (CD: host-SpMM products, never dense; MU: densified
+        natively on the host); spectra: (k × genes). Returns (cells × k)
         usages, a DataFrame when X and spectra both are."""
         spectra_values = (spectra.values if isinstance(spectra, pd.DataFrame)
                           else spectra)
         X_values = X.values if isinstance(X, pd.DataFrame) else X
         usages = solvers.refit_usages(
-            self._to_device(self._host_dense(X_values)),
-            np.asarray(spectra_values), self._load_run_params())
+            X_values, np.asarray(spectra_values), self._load_run_params(),
+            device=self.device, dtype=self.compute_dtype)
         if isinstance(X, pd.DataFrame) and isinstance(spectra, pd.DataFrame):
             usages = pd.DataFrame(usages, index=X.index, columns=spectra.index)
         return usages
 
     def refit_spectra(self, X, usage):
         """Fixed-usage NNLS spectra refit, the usage refit of Xᵀ (reference
-        cnmf.py:805-820), through ``solvers.refit_spectra_transposed`` (Xᵀ is
-        never materialized). X: (cells × genes); usage: (cells × k). Returns
-        (k × genes) spectra, a DataFrame when X and usage both are."""
-        usage_values = usage.values if isinstance(usage, pd.DataFrame) else usage
+        cnmf.py:805-820). X: (cells × genes); a sparse X is the usage refit
+        of its transpose (``refit_usage``'s routes), a dense X goes through
+        ``solvers.refit_spectra_transposed`` (Xᵀ is never materialized);
+        usage: (cells × k). Returns (k × genes) spectra, a DataFrame when X
+        and usage both are."""
+        usage_values = np.asarray(
+            usage.values if isinstance(usage, pd.DataFrame) else usage)
         X_values = X.values if isinstance(X, pd.DataFrame) else X
-        spectra = solvers.refit_spectra_transposed(
-            self._to_device(self._host_dense(X_values)),
-            np.asarray(usage_values), self._load_run_params()).T
+        nmf_kwargs = self._load_run_params()
+        on = dict(device=self.device, dtype=self.compute_dtype)
+        if sp.issparse(X_values):
+            spectra = solvers.refit_usages(
+                X_values.T, np.ascontiguousarray(usage_values.T),
+                nmf_kwargs, **on).T
+        else:
+            spectra = solvers.refit_spectra_transposed(
+                X_values, usage_values, nmf_kwargs, **on).T
         if isinstance(X, pd.DataFrame) and isinstance(usage, pd.DataFrame):
             spectra = pd.DataFrame(spectra, index=usage.columns,
                                    columns=X.columns)
@@ -440,6 +549,7 @@ class cNMF:
     # consensus
     # ==================================================================
 
+    @timed("consensus")
     def consensus(
         self,
         k,
@@ -464,11 +574,17 @@ class cNMF:
         ``K_STATS_FIELDS``) without writing anything. ``norm_counts``: the
         normalized counts (AnnData), read from the run directory when None.
         The local density is cached per K before the filter is applied, so a
-        threshold that keeps nothing still leaves the cache for a rerun."""
+        threshold that keeps nothing still leaves the cache for a rerun.
+
+        The full-gene TPM goes to the device when its float32 bytes are under
+        ``stages.tpm_device_limit`` (``tpm_device_bytes_limit`` overrides);
+        above it consensus reads it on the host (``stages.consensus_arrays``'
+        atlas branches). ``CNMF_TPU_TIMINGS=1`` prints the sub-stages'
+        seconds."""
         merged = load_df_from_npz(self.paths["merged_spectra"] % k)
         if norm_counts is None:
             norm_counts = read_h5ad(self.paths["normalized_counts"])
-        norm_counts_dev = self._to_device(self._host_dense(norm_counts.X))
+        norm_counts_dev = self._to_device_dense(norm_counts.X)
         nmf_kwargs = self._load_run_params()
         if skip_density_and_return_after_stats:
             ((_, _, silhouette, error),) = stages.k_stats_arrays(
@@ -501,9 +617,14 @@ class cNMF:
                 f"TPM var index (stale gene list / re-prepared TPM?): {missing}"
             )
 
+        if stages.tpm_fits_device(tpm.X.shape, self.device,
+                                  self.tpm_device_bytes_limit):
+            tpm_src = self._to_device_dense(tpm.X)
+        else:
+            tpm_src = tpm.X
+        sub_stages = {} if timings_verbose() else None
         result = stages.consensus_arrays(
-            merged.values, k, norm_counts_dev,
-            self._to_device(self._host_dense(tpm.X)),
+            merged.values, k, norm_counts_dev, tpm_src,
             tpm_stats["__std"].values, hvg_idx, nmf_kwargs,
             density_threshold=density_threshold,
             local_neighborhood_size=local_neighborhood_size,
@@ -512,7 +633,13 @@ class cNMF:
             normalize_tpm_spectra=normalize_tpm_spectra,
             # the reference guards zero stds on its sparse path only
             zero_safe=sp.issparse(tpm.X),
+            timings=sub_stages,
         )
+        del tpm_src
+        if sub_stages is not None:
+            print(f"[cnmf-tpu timing] consensus k={k}: " + " ".join(
+                f"{label} {sec:.2f}s" for label, sec in sub_stages.items()),
+                file=sys.stderr, flush=True)
 
         gep_ids = np.arange(1, result.spectra.shape[0] + 1)
         median_spectra = pd.DataFrame(result.spectra, index=gep_ids,
@@ -553,6 +680,7 @@ class cNMF:
     # K selection
     # ==================================================================
 
+    @timed("k_selection_plot")
     def k_selection_plot(self, close_fig=False):
         """Stability (silhouette) vs reconstruction-error sweep over every K
         of the run (reference cnmf.py:1119-1158; Alexandrov et al. 2013):
@@ -567,7 +695,7 @@ class cNMF:
             for k in sorted(set(run_params.n_components))
         }
         rows = stages.k_stats_arrays(
-            merged, self._to_device(self._host_dense(norm_counts.X)),
+            merged, self._to_device_dense(norm_counts.X),
             self._load_run_params(),
         )
         stats = pd.DataFrame(np.asarray(rows, dtype=np.float64),

@@ -22,10 +22,12 @@ import os
 from typing import Optional, Tuple
 
 import numpy as np
+import scipy.sparse as sp
 import torch
 
+from cnmf_tpu_torch.native import densify_csr
 from cnmf_tpu_torch.ops import mu_kernels
-from cnmf_tpu_torch.ops.cd_kernels import pad_bucket
+from cnmf_tpu_torch.ops.cd_kernels import numpy_dtype, pad_bucket, torch_dtype
 from cnmf_tpu_torch.ops.init import nnls_w_init
 from cnmf_tpu_torch.ops.nmf import (
     _ladder,
@@ -182,48 +184,104 @@ def solve_nmf_batch_ladder(X, W0, Ht0, nmf_kwargs: dict, min_bucket: int = 16):
     return spec, n_iter, (ladder, sweeps)
 
 
-def refit_spectra_transposed(X: torch.Tensor, usages: np.ndarray,
-                             nmf_kwargs: dict) -> np.ndarray:
+def _placement(X, device, dtype):
+    """(device, numpy dtype) of a refit: a tensor X's own, or ``device`` and
+    ``dtype`` (numpy or torch) for a host X."""
+    if isinstance(X, torch.Tensor):
+        device, dtype = X.device, X.dtype
+    elif device is None or dtype is None:
+        raise ValueError("a host X needs device= and dtype=")
+    return torch.device(device), numpy_dtype(dtype)
+
+
+def _dense_on(X, device, np_dtype) -> torch.Tensor:
+    """A tensor X as it is; a host X densified (natively, when sparse) at
+    ``np_dtype`` and put on ``device``."""
+    if isinstance(X, torch.Tensor):
+        return X
+    return torch.as_tensor(
+        np.ascontiguousarray(densify_csr(X, out_dtype=np_dtype)), device=device)
+
+
+def _cd_from_products(gram, P, nmf_kwargs, l1_reg, l2_reg):
+    """The products-given CD NNLS from zeros (sklearn's CD refit init)."""
+    W0 = torch.zeros_like(P)
+    W, _ = nnls_cd_from_products(
+        gram, P, W0, tol=float(nmf_kwargs.get("tol", 1e-4)),
+        max_iter=int(nmf_kwargs.get("max_iter", 200)),
+        l1_reg=l1_reg, l2_reg=l2_reg,
+    )
+    return W
+
+
+def refit_spectra_transposed(X, usages: np.ndarray, nmf_kwargs: dict, *,
+                             device=None, dtype=None) -> np.ndarray:
     """Fixed-usage spectra refit via the transpose trick (reference
     cnmf.py:805-820, 948-955) without materializing Xᵀ: the CD refit needs
     only the usage gram and Xᵀ·U; the MU refit is the usage refit of Xᵀ, a
     transposed view that the kernels read through its strides.
 
-    X: (cells × genes) tensor; usages: (cells × k). Returns spectra in X's
-    units, transposed: (genes × k), as a host array."""
+    X: (cells × genes) tensor, or a host matrix with ``device`` and
+    ``dtype`` given. A sparse host X (the atlas consensus) is the usage
+    refit of its transpose, whose CD path takes Xᵀ·U by host SpMM, so it
+    never goes dense anywhere; it is CD-only, as in the JAX package
+    (cnmf_tpu/pipeline/solvers.py:806-879). usages: (cells × k). Returns
+    spectra in X's units, transposed: (genes × k), as a host array."""
+    dev, np_dtype = _placement(X, device, dtype)
+    if sp.issparse(X):
+        if _is_mu(nmf_kwargs):
+            raise ValueError(
+                "refit_spectra_transposed: sparse X is CD-only; the MU "
+                "spectra refit of a host TPM goes in gene chunks "
+                "(stages.consensus_arrays)")
+        return refit_usages(X.T, np.ascontiguousarray(usages.T), nmf_kwargs,
+                            device=dev, dtype=np_dtype)
     if _is_mu(nmf_kwargs):
-        return refit_usages(X.T, np.ascontiguousarray(usages.T), nmf_kwargs)
+        Xd = _dense_on(X, dev, np_dtype)
+        return refit_usages(Xd.T, np.ascontiguousarray(usages.T), nmf_kwargs)
     k = usages.shape[1]
     pad_k = pad_bucket(k)
-    U = np.pad(np.asarray(usages), ((0, 0), (0, pad_k - k)))
-    Ud = torch.as_tensor(U, device=X.device).to(X.dtype)
+    U = np.pad(np.ascontiguousarray(usages, dtype=np_dtype),
+               ((0, 0), (0, pad_k - k)))
+    Ud = torch.as_tensor(U, device=dev)
     # the materialized-transpose solve's X is (genes × cells): n_features is
     # the cell count
     l1_reg_W, _, l2_reg_W, _ = _regularization(
         nmf_kwargs, (X.shape[1], X.shape[0])
     )
-    P = fixed_factor_product_transposed(Ud, X)
-    W, _ = nnls_cd_from_products(
-        fixed_factor_gram(Ud[None]), P, nnls_w_init(X.T, k, "cd", pad_k),
-        tol=float(nmf_kwargs.get("tol", 1e-4)),
-        max_iter=int(nmf_kwargs.get("max_iter", 200)),
-        l1_reg=l1_reg_W, l2_reg=l2_reg_W,
-    )
+    P = fixed_factor_product_transposed(Ud, _dense_on(X, dev, np_dtype))
+    W = _cd_from_products(fixed_factor_gram(Ud[None]), P, nmf_kwargs,
+                          l1_reg_W, l2_reg_W)
     return W[0, :, :k].cpu().numpy()
 
 
-def refit_usages(X: torch.Tensor, spectra: np.ndarray,
-                 nmf_kwargs: dict) -> np.ndarray:
+def refit_usages(X, spectra: np.ndarray, nmf_kwargs: dict, *, device=None,
+                 dtype=None) -> np.ndarray:
     """Fixed-spectra NNLS usage refit (sklearn update_H=False semantics;
     reference cnmf.py:776-802), W started by ``nnls_w_init``.
 
-    X: (cells × genes) tensor; spectra: (k × genes). Returns usages
-    (cells × k) as a host array."""
+    X: (cells × genes) tensor, or a host matrix with ``device`` and
+    ``dtype`` given. A sparse host X never goes dense on the CD path: the
+    refit takes the spectra gram and P = X·Hᵀ by one host SpMM at the
+    compute dtype, and the device runs the (cells × k) products-given loop
+    from zeros (cnmf_tpu/pipeline/solvers.py:963-996). MU needs the
+    reconstruction against X itself, so a sparse X is densified on the host
+    (natively) and uploaded. spectra: (k × genes). Returns usages (cells ×
+    k) as a host array."""
+    dev, np_dtype = _placement(X, device, dtype)
     k = spectra.shape[0]
     pad_k = pad_bucket(k)
-    Ht = np.pad(np.asarray(spectra).T, ((0, 0), (0, pad_k - k)))
-    Ht0 = torch.as_tensor(np.ascontiguousarray(Ht), device=X.device)
-    Ht0 = Ht0.to(X.dtype)[None]
-    W0 = nnls_w_init(X, k, "mu" if _is_mu(nmf_kwargs) else "cd", pad_k)
-    W, _, _ = solve_nmf_batch(X, W0, Ht0, nmf_kwargs, update_H=False)
+    Ht = np.pad(np.ascontiguousarray(np.asarray(spectra).T, dtype=np_dtype),
+                ((0, 0), (0, pad_k - k)))
+    Ht0 = torch.as_tensor(Ht, device=dev)[None]
+    if sp.issparse(X) and not _is_mu(nmf_kwargs):
+        l1_reg_W, _, l2_reg_W, _ = _regularization(nmf_kwargs, X.shape)
+        P = torch.as_tensor(np.ascontiguousarray(X @ Ht, dtype=np_dtype),
+                            device=dev)[None]
+        W = _cd_from_products(fixed_factor_gram(Ht0), P, nmf_kwargs,
+                              l1_reg_W, l2_reg_W)
+        return W[0, :, :k].cpu().numpy()
+    Xd = _dense_on(X, dev, np_dtype)
+    W0 = nnls_w_init(Xd, k, "mu" if _is_mu(nmf_kwargs) else "cd", pad_k=pad_k)
+    W, _, _ = solve_nmf_batch(Xd, W0, Ht0, nmf_kwargs, update_H=False)
     return W[0, :, :k].cpu().numpy()

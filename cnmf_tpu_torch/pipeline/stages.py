@@ -30,7 +30,12 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
-from cnmf_tpu_torch.ops.cd_kernels import factors_from_numpy, pad_bucket
+from cnmf_tpu_torch.native import densify_csr
+from cnmf_tpu_torch.ops.cd_kernels import (
+    factors_from_numpy,
+    numpy_dtype,
+    pad_bucket,
+)
 from cnmf_tpu_torch.ops.distance import local_density_from_spectra
 from cnmf_tpu_torch.ops.init import nndsvd_init_batch, random_init_batch
 from cnmf_tpu_torch.ops.kmeans import kmeans_fit
@@ -52,6 +57,7 @@ from cnmf_tpu_torch.pipeline.solvers import (
     solve_nmf_batch,
     solve_nmf_batch_ladder,
 )
+from cnmf_tpu_torch.utils.timing import stage_timer
 
 # the consensus / K-selection default density threshold (reference
 # cnmf.py:823, 1127-1130)
@@ -104,7 +110,8 @@ def check_zero_cells(norm, cell_names: Optional[Sequence[str]] = None):
 
 
 def prepare_arrays(counts, num_highvar_genes: int = 2000, *, tpm=None,
-                   tpm_cols=None, hvg_idx=None, cell_names=None) -> Prepared:
+                   tpm_cols=None, hvg_idx=None, cell_names=None,
+                   tpm_moments=None) -> Prepared:
     """prepare on in-memory counts (cells × genes, dense or CSR): TPM, the
     ``num_highvar_genes`` Fano-overdispersed genes, their scaled counts.
 
@@ -112,21 +119,28 @@ def prepare_arrays(counts, num_highvar_genes: int = 2000, *, tpm=None,
     scaled to 1e6 per cell; tpm_cols: the counts' column of each TPM gene
     (-1 where absent), when the TPM's genes are not the counts'; hvg_idx: a
     given HVG list as positions among the counts' columns, kept in its order;
-    cell_names: for the zero-HVG-cell error."""
+    cell_names: for the zero-HVG-cell error; tpm_moments: the TPM's per-gene
+    (mean, variance) at ddof 0, when known, instead of a pass over it. The
+    steps record their walls as the ``prepare.tpm``, ``prepare.tpm_stats``
+    and ``prepare.norm_counts`` stages (``utils.timing``)."""
     if tpm is None:
-        tpm = normalize_total(counts, target_sum=1e6)
-    mean, var = mean_var(tpm)
-    if hvg_idx is None:
-        hvg_stats, _ = fano_hvg_stats(mean, var, numgenes=num_highvar_genes)
-        hvg_idx = np.flatnonzero(hvg_stats["high_var"])
-        if tpm_cols is not None:
-            hvg_idx = np.asarray(tpm_cols)[hvg_idx]
-    hvg_idx = np.asarray(hvg_idx)
-    if (hvg_idx < 0).any():
-        raise KeyError(f"{int((hvg_idx < 0).sum())} HVGs are missing from "
-                       "the counts' genes")
-    norm = normalize_hvgs(counts, hvg_idx, zero_safe=sp.issparse(tpm))
-    check_zero_cells(norm, cell_names)
+        with stage_timer("prepare.tpm"):
+            tpm = normalize_total(counts, target_sum=1e6)
+    with stage_timer("prepare.tpm_stats"):
+        mean, var = mean_var(tpm) if tpm_moments is None else tpm_moments
+    with stage_timer("prepare.norm_counts"):
+        if hvg_idx is None:
+            hvg_stats, _ = fano_hvg_stats(mean, var,
+                                          numgenes=num_highvar_genes)
+            hvg_idx = np.flatnonzero(hvg_stats["high_var"])
+            if tpm_cols is not None:
+                hvg_idx = np.asarray(tpm_cols)[hvg_idx]
+        hvg_idx = np.asarray(hvg_idx)
+        if (hvg_idx < 0).any():
+            raise KeyError(f"{int((hvg_idx < 0).sum())} HVGs are missing "
+                           "from the counts' genes")
+        norm = normalize_hvgs(counts, hvg_idx, zero_safe=sp.issparse(tpm))
+        check_zero_cells(norm, cell_names)
     return Prepared(tpm, mean, var ** 0.5, hvg_idx, norm)
 
 
@@ -163,19 +177,21 @@ def nmf_run_params(beta_loss="frobenius", alpha_usage=0.0, alpha_spectra=0.0,
 # factorize and combine
 # ----------------------------------------------------------------------
 
-def restart_inits(X_host: np.ndarray, k: int, seeds, init: str):
-    """Per-restart initial factors W0 (B, N, k), Ht0 (B, G, k) on the host,
-    at X_host's dtype: one sklearn init per replicate seed
-    (cnmf_tpu/pipeline/cnmf.py:2034-2062)."""
+def restart_inits(X_host, k: int, seeds, init: str, dtype=None):
+    """Per-restart initial factors W0 (B, N, k), Ht0 (B, G, k) on the host:
+    one sklearn init per replicate seed (cnmf_tpu/pipeline/cnmf.py:2034-2062).
+    X_host: (cells × HVGs) dense array or CSR matrix (the random init needs
+    only its mean, nndsvd takes either), so a sparse input is never made
+    dense on the host; ``dtype``: of the factors (default X_host's)."""
+    dtype = X_host.dtype if dtype is None else dtype
     if init == "random":
-        return random_init_batch(X_host, k, seeds, dtype=X_host.dtype)
+        return random_init_batch(X_host, k, seeds, dtype=dtype)
     if init in ("nndsvd", "nndsvda", "nndsvdar"):
-        return nndsvd_init_batch(X_host, k, seeds, variant=init,
-                                 dtype=X_host.dtype)
+        return nndsvd_init_batch(X_host, k, seeds, variant=init, dtype=dtype)
     raise ValueError(f"unsupported init: {init}")
 
 
-def factorize_k(X_host: np.ndarray, Xd: torch.Tensor, k: int, seeds,
+def factorize_k(X_host, Xd: torch.Tensor, k: int, seeds,
                 nmf_kwargs: dict, restart_chunk: Optional[int] = None,
                 ladder: Optional[bool] = None,
                 timings: Optional[dict] = None):
@@ -184,21 +200,23 @@ def factorize_k(X_host: np.ndarray, Xd: torch.Tensor, k: int, seeds,
     device, K zero-padded to its bucket of 8 (the padded columns start at
     zero and stay there).
 
-    X_host: (cells × HVGs) array at the compute dtype (the inits are made
-    from it); Xd: the same values as a tensor. ``ladder``: solve on the
-    device ladder (None: ``solvers.device_ladder_enabled``, on for CUDA
-    tensors). ``timings``: a dict whose "init" entry gains the host seconds
-    the inits took. Returns (spectra (B, k, G), n_iter (B,)) as host arrays
-    and the restart-sweeps the device executed: the ladder's Σ rung · sweeps
-    at it, the plain solver's B · min(max_iter, its sweep blocks)."""
+    X_host: (cells × HVGs) dense array or CSR matrix (the inits are made
+    from it, at Xd's dtype); Xd: the same values as a dense tensor. ``ladder``:
+    solve on the device ladder (None: ``solvers.device_ladder_enabled``, on
+    for CUDA tensors). ``timings``: a dict whose "init" entry gains the host
+    seconds the inits took. Returns (spectra (B, k, G), n_iter (B,)) as host
+    arrays and the restart-sweeps the device executed: the ladder's
+    Σ rung · sweeps at it, the plain solver's B · min(max_iter, its sweep
+    blocks)."""
     init = nmf_kwargs.get("init", "random")
     seeds = np.asarray(seeds)
     B = len(seeds)
     pad_k = pad_bucket(k)
+    dtype = numpy_dtype(Xd.dtype)
     if restart_chunk is None:
         # keep the restart batch's solver working set (W, XHt, grads ≈
         # 4 × B×N×K buffers) within ~4 GB of device memory
-        per_restart = X_host.shape[0] * pad_k * X_host.dtype.itemsize * 4
+        per_restart = Xd.shape[0] * pad_k * Xd.element_size() * 4
         restart_chunk = max(1, int(4e9 / max(per_restart, 1)))
     use_ladder = device_ladder_enabled(Xd, ladder)
     max_iter = int(nmf_kwargs.get("max_iter", 200))
@@ -206,7 +224,7 @@ def factorize_k(X_host: np.ndarray, Xd: torch.Tensor, k: int, seeds,
     for start in range(0, B, restart_chunk):
         t0 = time.perf_counter()
         W0, Ht0 = restart_inits(X_host, k, seeds[start:start + restart_chunk],
-                                init)
+                                init, dtype)
         if timings is not None:
             timings["init"] = timings.get("init", 0.0) + time.perf_counter() - t0
         pad = ((0, 0), (0, 0), (0, pad_k - k))
@@ -265,11 +283,31 @@ def spectra_local_density(merged: np.ndarray, k: int, device, dtype,
     return local_density_from_spectra(l2, n_neighbors).astype(np.float64)
 
 
+def tpm_device_limit(device, override=None) -> float:
+    """Bytes (of the float32 cells × genes TPM) under which consensus keeps
+    the full-gene TPM on ``device``: 0.25 of a CUDA card's memory (the
+    resident TPM shares the card with the normalized counts, the densify
+    temporaries and the refits' work), 4e9 elsewhere, as the JAX package
+    off a TPU (cnmf_tpu/pipeline/cnmf.py:558-585). ``override``: the limit
+    to use instead (``cNMF.tpm_device_bytes_limit``)."""
+    if override is not None:
+        return override
+    device = torch.device(device)
+    if device.type == "cuda":
+        return 0.25 * torch.cuda.get_device_properties(device).total_memory
+    return 4e9
+
+
+def tpm_fits_device(shape, device, override=None) -> bool:
+    """Whether a TPM of ``shape`` stays on the device for consensus."""
+    return shape[0] * shape[1] * 4 < tpm_device_limit(device, override)
+
+
 def consensus_arrays(
     merged: np.ndarray,
     k: int,
     norm_counts: torch.Tensor,
-    tpm: torch.Tensor,
+    tpm,
     tpm_std: np.ndarray,
     hvg_idx: np.ndarray,
     nmf_kwargs: dict,
@@ -279,16 +317,36 @@ def consensus_arrays(
     refit_usage: bool = True,
     normalize_tpm_spectra: bool = False,
     zero_safe: bool = False,
+    timings: Optional[dict] = None,
 ) -> Consensus:
     """Consensus spectra and usages for one K (reference cnmf.py:823-975).
 
     merged: (n_iter·k × HVGs) merged spectra; norm_counts: (cells × HVGs)
-    tensor; tpm: (cells × all genes) tensor at the same dtype and device;
-    tpm_std: per-gene TPM std; hvg_idx: HVG columns of the TPM.
-    ``local_density``: a cached ``spectra_local_density`` vector, used
-    instead of computing it.
-    ``zero_safe``: guard zero-std HVGs in the final refit (sparse inputs)."""
+    tensor; tpm: the (cells × all genes) TPM, either a tensor at the same
+    dtype and device (resident: the spectra refit, the OLS and the final
+    refit read it on the device) or a host matrix, CSR or dense (over the
+    device limit, ``tpm_fits_device``: the JAX package's atlas branches,
+    cnmf_tpu/pipeline/cnmf.py:3288-3569). A host CSR TPM never goes dense:
+    with the CD solver the spectra refit and the final usage refit take
+    host-SpMM products and the products-given kernel, and the OLS a host
+    SpMM; the MU spectra refit, or any refit of a dense host TPM, goes in
+    gene chunks of 2e9 / (cells · 4) genes. tpm_std: per-gene TPM std;
+    hvg_idx: HVG columns of the TPM. ``local_density``: a cached
+    ``spectra_local_density`` vector, used instead of computing it.
+    ``zero_safe``: guard zero-std HVGs in the final refit (sparse inputs).
+    ``timings``: a dict that gains the seconds of each sub-stage (density,
+    kmeans, refit_usages, refit_spectra_tpm, ols, final_refit), each ending
+    in host values."""
     dev, dtype = norm_counts.device, norm_counts.dtype
+    np_dtype = numpy_dtype(dtype)
+    resident = isinstance(tpm, torch.Tensor)
+    last = [time.perf_counter()]
+
+    def mark(label):
+        now = time.perf_counter()
+        if timings is not None:
+            timings[label] = now - last[0]
+        last[0] = now
 
     def to_dev(a):
         return torch.as_tensor(np.ascontiguousarray(a), device=dev).to(dtype)
@@ -304,6 +362,7 @@ def consensus_arrays(
             "Zero components remain after density filtering. "
             "Consider increasing density threshold"
         )
+    mark("density")
 
     labels, _, _ = kmeans_fit(to_dev(l2_kept), n_clusters=k, n_init=10,
                               random_state=1)
@@ -312,30 +371,68 @@ def consensus_arrays(
     median = np.stack([np.median(l2_kept[labels == c], axis=0)
                        for c in np.unique(labels)])
     median = median / median.sum(axis=1, keepdims=True)
+    mark("kmeans")
 
     usages = refit_usages(norm_counts, median, nmf_kwargs)
     # re-order programs by total contribution (reference cnmf.py:938-946)
     norm_usages = usages / usages.sum(axis=1, keepdims=True)
     order = np.argsort(-norm_usages.sum(axis=0), kind="stable")
     usages, norm_usages, median = usages[:, order], norm_usages[:, order], median[order]
+    mark("refit_usages")
 
-    spectra_tpm = refit_spectra_transposed(tpm, norm_usages, nmf_kwargs).T
+    on = dict(device=dev, dtype=dtype)
+    if resident or (sp.issparse(tpm) and nmf_kwargs.get("solver", "cd") == "cd"):
+        # the usage gram and one XᵀU product (device matmul or host SpMM)
+        spectra_tpm = refit_spectra_transposed(tpm, norm_usages, nmf_kwargs,
+                                               **on).T
+    else:
+        # the fixed-usage NNLS decomposes per gene: solve in gene chunks,
+        # only a chunk × cells tile dense at a time. The relative stopping
+        # tolerance applies per chunk, not to the joint solve; each chunk
+        # converges to the same NNLS optimum
+        usage_t = np.ascontiguousarray(norm_usages.T, dtype=np_dtype)
+        gene_chunk = max(1, int(2e9 / max(tpm.shape[0] * 4, 1)))
+        cols = tpm.tocsc() if sp.issparse(tpm) else np.asarray(tpm)
+        parts = []
+        for g0 in range(0, tpm.shape[1], gene_chunk):
+            block_t = cols[:, g0:g0 + gene_chunk].T   # (genes × cells)
+            parts.append(refit_usages(
+                np.ascontiguousarray(densify_csr(block_t, out_dtype=np_dtype)),
+                usage_t, nmf_kwargs, **on))
+        spectra_tpm = np.concatenate(parts, axis=0).T
     if normalize_tpm_spectra:
         spectra_tpm = spectra_tpm / spectra_tpm.sum(axis=1, keepdims=True) * 1e6
+    mark("refit_spectra_tpm")
     # z-score spectra: OLS of the z-scored TPM on the usages (cnmf.py:957-959)
-    spectra_score = efficient_ols_all_cols(usages, tpm, normalize_y=True)
+    spectra_score = efficient_ols_all_cols(usages, tpm, normalize_y=True,
+                                           **on)
+    mark("ols")
 
     if refit_usage:
         # final usage refit on the std-scaled HVG TPM (reference cnmf.py:961-975)
-        tpm_hvg = tpm[:, torch.as_tensor(hvg_idx, device=dev)]
-        n = tpm_hvg.shape[0]
-        mean = torch.sum(tpm_hvg, dim=0) / n
-        sq = torch.sum(tpm_hvg * tpm_hvg, dim=0) / n
-        std = torch.sqrt(((sq - mean * mean) * n / (n - 1)).clamp(min=0.0))
-        if zero_safe:
-            std = torch.where(std == 0, 1.0, std)
         spectra_tpm_rf = spectra_tpm[:, hvg_idx] / tpm_std[hvg_idx][None, :]
-        usages = refit_usages(tpm_hvg / std, spectra_tpm_rf, nmf_kwargs)
+        if resident:
+            tpm_hvg = tpm[:, torch.as_tensor(hvg_idx, device=dev)]
+            n = tpm_hvg.shape[0]
+            mean = torch.sum(tpm_hvg, dim=0) / n
+            sq = torch.sum(tpm_hvg * tpm_hvg, dim=0) / n
+            std = torch.sqrt(((sq - mean * mean) * n / (n - 1)).clamp(min=0.0))
+            if zero_safe:
+                std = torch.where(std == 0, 1.0, std)
+            usages = refit_usages(tpm_hvg / std, spectra_tpm_rf, nmf_kwargs)
+        else:
+            tpm_hvg = (csr_column_subset(tpm.tocsr(), np.asarray(hvg_idx))
+                       if sp.issparse(tpm) else np.asarray(tpm)[:, hvg_idx])
+            if zero_safe:
+                norm_tpm = scale_unit_variance(tpm_hvg, ddof=1, zero_safe=True)
+            else:
+                norm_tpm = scale_unit_variance(
+                    densify_csr(tpm_hvg, out_dtype=np.float64), ddof=1,
+                    zero_safe=False)
+            # a sparse HVG TPM takes the products route (CD) or a native
+            # densify (MU) inside the refit
+            usages = refit_usages(norm_tpm, spectra_tpm_rf, nmf_kwargs, **on)
+    mark("final_refit")
 
     return Consensus(local_density, density_filter, l2_kept, labels, median,
                      usages, spectra_tpm, spectra_score)
@@ -356,7 +453,7 @@ def k_stats_arrays(merged_by_k: dict, norm_counts: torch.Tensor,
     device."""
     l1_reg_W, _, l2_reg_W, _ = _regularization(nmf_kwargs,
                                                tuple(norm_counts.shape))
-    dtype = torch.empty(0, dtype=norm_counts.dtype).numpy().dtype
+    dtype = numpy_dtype(norm_counts.dtype)
     rows = []
     for k in sorted(merged_by_k):
         l2 = np.ascontiguousarray(l2_normalize(np.asarray(merged_by_k[k])),
