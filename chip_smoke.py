@@ -43,7 +43,23 @@ Phases, each printing its own line(s):
    kernels' launch counts, each of which must be > 0;
 5. k-selection over that run's merged spectra of K=5..13: silhouette,
    prediction error and wall of each K, and the products kernel's launches;
-6. the CD factorize of every K again with the plain solver and on the
+6. the mesh (``[mesh]``): the sharded paths as two shards on the card, a
+   mesh of the same card twice (no multi-card speed): (a) the restart
+   axis, the CD factorize at every K of the main path (the main run's
+   spectra bit for bit and its sweeps) and the KL factorize (the same
+   sweeps, consensus within MESH_SSE of the single device's); (b) the cell
+   axis at K=10, CD, KL and Itakura-Saito (consensus within MESH_SSE), with
+   cd_sweep_from_products held against plain at the cell axis' H half
+   (B=100, M=2000, K=16) and the time of the shards' partial products and
+   of their sum; (c) consensus on cell-sharded normalized counts and TPM
+   (within MESH_SSE); (d), run in the atlas phase, the forced atlas
+   consensus with its products-given solves row-sharded over the two
+   shards (within MESH_ATLAS_SSE of the unsharded forced run, with more
+   products launches than it). The mesh kernels' launches are counted over
+   the mesh runs of (a)-(c) alone, each must be > 0; then every kernel
+   they launch is held against plain at a shard's shapes (the cell axis'
+   1,350 rows, a restart group's first ladder rung);
+7. the CD factorize of every K again with the plain solver and on the
    device ladder, in paired turns: per K its wall, sweeps, executed
    restart-sweeps and idle share (torch.profiler); the ladder must give the
    plain solver's n_iter and, as the CUDA default, its bits; then the
@@ -52,21 +68,21 @@ Phases, each printing its own line(s):
    launch of a step gives a restart the same bits on 100 of 104 restarts in
    place and on 56, 32 or 16 of them shuffled as inside the 104, at every
    bucket 8..64;
-7. the KL path at bench.py's KL configuration — the same counts, K=10 × 100
+8. the KL path at bench.py's KL configuration — the same counts, K=10 × 100
    restarts with beta_loss="kullback-leibler" and at most 200 iterations,
    combine, consensus at K=10 — through pipeline/stages.py: stage walls,
    iterations and the KL kernels' launch counts, each of which must be > 0,
    and of those the launches with one restart (the B=1 refits); then its
    factorize plain and on the ladder, and its consensus (the stage of the
    B=1 refits) under torch.profiler;
-8. the Itakura-Saito path, the same configuration with
+9. the Itakura-Saito path, the same configuration with
    beta_loss="itakura-saito", k-stats at K=10 as well, and consensus at
    density threshold IS_DENSITY_THRESHOLD: stage walls, iterations, the
    local densities and the general-beta kernels' launches (> 0), those of
    the B=1 refits apart; then its factorize plain and on the ladder, and
    its k-stats and consensus (the stages of the B=1 refits) under
    torch.profiler;
-9. Preprocess with Harmony at a 4-sample study's size (4 batches of 5,000
+10. Preprocess with Harmony at a 4-sample study's size (4 batches of 5,000
    cells × 10,000 genes, tests/test_preprocess.py's recipe; 2,000 seurat_v3
    HVGs, PCA 50, Harmony's 100 clusters) through
    Preprocess(device="cuda").preprocess_for_cnmf, and again on the CPU:
@@ -84,7 +100,7 @@ Phases, each printing its own line(s):
    kernels' launches must be > 0), consensus at density threshold 0.5, and
    cNMF.refit_usage / refit_spectra against the solver calls they wrap
    (within PP_REFIT_REL; the products-given sweep must launch);
-10. the atlas path (``[atlas]``): extras/atlas_validate.synthesize's
+11. the atlas path (``[atlas]``): extras/atlas_validate.synthesize's
    recipe at its defaults, 100,000 cells × 20,000 genes at about 12 % fill,
    drawn on the card and kept as CSR on the host; prepare (2,000 HVGs, the
    TPM sparse on the host), K=12 × 30 restarts from the CSR, combine, and
@@ -96,7 +112,7 @@ Phases, each printing its own line(s):
    within ATLAS_FORCED_SSE of the resident ones, the device densify
    bit-equal to the native host densify, the native library loaded, and the
    products-given kernel within its bound of plain at M=100,000 and 20,000;
-11. a JSON line of the kernels (times, the bound of the work at the main
+12. a JSON line of the kernels (times, the bound of the work at the main
    shape, launches on the main path, the MU kernels' B=1 launches and the
    CD kernels' atlas-path launches apart, the refits' times, bounds and
    splits, the products-given kernel's atlas times), the card line, and the
@@ -382,7 +398,7 @@ def phase_kernels(dev):
         Ht[:, :, K - pad:] = 0.0
         return [torch.as_tensor(a, device=dev) for a in (X, W, Ht)]
 
-    records = {}
+    records, folded = {}, []
     cases = [(m, "main", {}, pad) for m, pad in MAIN] + [
         (r, "ragged", g, PAD_COLS) for r, g in RAGGED]
     for shape, tag, regs, pad in cases:
@@ -409,17 +425,27 @@ def phase_kernels(dev):
             transposed = name == "cd_h_half_sweep"
             grid = grid_text(ck.fused_tiling(shape["K"], transposed),
                              shape["B"], shape["G" if transposed else "N"])
-            print(f"[kernel] {name} main {shape_text(shape)} K0={pad}: "
-                  f"rel={rel_err:.3e} abs={abs_err:.3e} kernel_ms={ms:.4f} "
-                  f"plain_ms={plain_ms:.4f} product_ms={product_ms:.4f} "
-                  f"bound_ms={bound_ms:.4f} of_bound={bound_ms / ms:.1%}; "
-                  f"{grid}", flush=True)
+            if shape["K"] != 16:
+                # the other main bucket: one folded line below
+                folded.append(f"{name} rel={rel_err:.1e} {ms:.4f}/"
+                              f"{plain_ms:.4f}/{product_ms:.4f}/"
+                              f"{bound_ms:.4f}")
+            else:
+                print(f"[kernel] {name} main {shape_text(shape)} K0={pad}: "
+                      f"rel={rel_err:.3e} abs={abs_err:.3e} kernel_ms={ms:.4f} "
+                      f"plain_ms={plain_ms:.4f} product_ms={product_ms:.4f} "
+                      f"bound_ms={bound_ms:.4f} of_bound={bound_ms / ms:.1%}; "
+                      f"{grid}", flush=True)
             main_record(records, name, shape["K"], abs_err, ms=ms,
                         plain_ms=plain_ms, product_ms=product_ms,
                         share_of_bound=bound_ms / ms)
             if shape["K"] == 16:
                 records[name]["bound_ms"], records[name]["bound_by"] = \
                     bound_ms, by
+
+    (k8, pad8), = [(m, pad) for m, pad in MAIN if m["K"] != 16]
+    print(f"[kernel] CD main {shape_text(k8)} K0={pad8} (kernel/plain/"
+          "product/bound ms): " + "; ".join(folded), flush=True)
 
     name = "cd_sweep_from_products"
     cases = [(REFIT, "main", {})] + [
@@ -524,7 +550,7 @@ def phase_mu_kernels(dev):
             else:
                 yield name, None, ""
 
-    records = {}
+    records, folded = {}, []
     every = KL_KERNELS + BETA_KERNELS
     cases = ([(m, "main", pad, False, every, BETAS) for m, pad in MU_MAIN]
              + [(m, tag, 0, tr, MU_REFIT_KERNELS, (0.0,))
@@ -564,13 +590,18 @@ def phase_mu_kernels(dev):
             plain_ms = timed_ms(lambda: plain(*args))
             beta_txt = "" if beta is None else f" beta={beta:g}"
             bound_ms, by = bound(*kernel_work(name, X_host, **shape))
-            print(f"[kernel] {name}{beta_txt} {tag} {shape_text(shape)} "
-                  f"K0={pad}: rel={rel_err:.3e} abs={abs_err:.3e} "
-                  f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-                  f"bound_ms={bound_ms:.4f} "
-                  f"of_bound={bound_ms / ms:.1%}; " + grid_text(
-                      tiling, shape["B"], shape["G" if h_side else "N"]),
-                  flush=True)
+            if tag == "main" and shape["K"] != 16:
+                # the other main bucket: one folded line below
+                folded.append(f"{name}{beta_txt} rel={rel_err:.1e} "
+                              f"{ms:.4f}/{plain_ms:.4f}/{bound_ms:.4f}")
+            else:
+                print(f"[kernel] {name}{beta_txt} {tag} {shape_text(shape)} "
+                      f"K0={pad}: rel={rel_err:.3e} abs={abs_err:.3e} "
+                      f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+                      f"bound_ms={bound_ms:.4f} "
+                      f"of_bound={bound_ms / ms:.1%}; " + grid_text(
+                          tiling, shape["B"], shape["G" if h_side else "N"]),
+                      flush=True)
             if tag == "main":
                 main_record(records, name, shape["K"], abs_err, suffix,
                             ms=ms, plain_ms=plain_ms,
@@ -584,6 +615,9 @@ def phase_mu_kernels(dev):
                                       f"{refit}_refit_bound_ms": bound_ms})
                 if name in SPLIT_KERNELS:
                     records[name][f"{refit}_refit_splits"] = tiling[4]
+    (k8, pad8), = [(m, pad) for m, pad in MU_MAIN if m["K"] != 16]
+    print(f"[kernel] MU main {shape_text(k8)} K0={pad8} (kernel/plain/bound "
+          "ms): " + "; ".join(folded), flush=True)
     ragged_lines.print()
     for label, kinds in covered.items():
         assert MU_COVER <= kinds, (label, sorted(MU_COVER - kinds))
@@ -1477,6 +1511,46 @@ def phase_atlas_stop_rule(X_host, Xd, seeds, kwargs, path_n_iter):
     return {k: [int(n) for n in v] for k, v in sweeps.items()}
 
 
+def phase_mesh_atlas(dev, merged, Xd, prep, kwargs, forced, forced_s,
+                     forced_launches):
+    """(d) of the [mesh] phase: the forced (over-limit) atlas consensus
+    again, on the same data, with its products-given solves row-sharded
+    over MESH_SHARDS shards of the card (solvers.shard_products_rows, the
+    local devices set to the card MESH_SHARDS times): within MESH_ATLAS_SSE
+    of the unsharded forced run. The products kernel's launches are counted
+    over this run alone: the row-sharded solves launch once a shard, so
+    there must be more than the unsharded run's ``forced_launches``."""
+    import torch
+
+    from cnmf_tpu_torch.ops import cd_kernels as ck
+    from cnmf_tpu_torch.parallel import mesh as pm
+    from cnmf_tpu_torch.pipeline import stages
+
+    local = pm.local_devices
+    pm.local_devices = lambda: [torch.device(dev)] * MESH_SHARDS
+    launches0 = ck.cd_sweep_from_products.launches
+    try:
+        t0 = time.perf_counter()
+        sharded = stages.consensus_arrays(
+            merged, ATLAS_K, Xd, prep.tpm, prep.tpm_std, prep.hvg_idx, kwargs,
+            density_threshold=0.5, zero_safe=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        pm.local_devices = local
+    launches = ck.cd_sweep_from_products.launches - launches0
+    sse = {name: rel_sse(getattr(sharded, name), getattr(forced, name))
+           for name in ("spectra_tpm", "spectra_score", "usages")}
+    print(f"[mesh] (d) atlas forced consensus, products rows over "
+          f"{MESH_SHARDS} shards: {wall:.3f} s (unsharded {forced_s:.3f}), "
+          "rel SSE " + json.dumps({k: float(f"{v:.1e}") for k, v in sse.items()})
+          + f" (bound {MESH_ATLAS_SSE:g}), products launches {launches} "
+          f"(unsharded {forced_launches})", flush=True)
+    assert max(sse.values()) <= MESH_ATLAS_SSE, sse
+    assert launches > forced_launches, (launches, forced_launches)
+    return dict(wall=wall, sse=sse, launches=launches)
+
+
 def phase_atlas(dev, card):
     """The atlas path through pipeline/stages.py: the recipe's CSR counts,
     prepare with the TPM kept sparse on the host, factorize from the CSR
@@ -1583,6 +1657,9 @@ def phase_atlas(dev, card):
         assert np.isfinite(getattr(forced, name)).all(), name
     assert forced.spectra_tpm.shape == (ATLAS_K, ATLAS_GENES)
     assert forced.usages.shape == (ATLAS_CELLS, ATLAS_K)
+    phase_mesh_atlas(dev, merged, Xd, prep, kwargs, forced,
+                     walls["consensus_forced"],
+                     subs["forced"]["products_launches"])
     kernel = phase_atlas_products_kernel(dev, (ATLAS_CELLS, ATLAS_GENES))
     fused = phase_atlas_fused_kernels(Xd, -(-ATLAS_RESTARTS // 8) * 8,
                                       16 - ATLAS_K)
@@ -1634,6 +1711,284 @@ def phase_atlas(dev, card):
     assert max(sse.values()) <= ATLAS_FORCED_SSE, sse
     assert all(n > 0 for n in launches.values()), launches
     assert subs["forced"]["products_launches"] > 0, subs
+    return kernel, launches
+
+
+# the [mesh] phase: the sharded code paths as two shards on one card (a
+# mesh of ["cuda", "cuda"]: the same card twice, as the JAX tests' virtual
+# devices on one CPU). Two shards on one card measure no multi-card speed.
+MESH_SHARDS = 2
+MESH_SSE = 1e-4          # sharded against single-device consensus, rel SSE
+MESH_ATLAS_SSE = 1e-8    # row-sharded forced atlas against unsharded, rel SSE
+MESH_KERNELS = ("cd_w_half_sweep", "cd_h_half_sweep", "cd_sweep_from_products",
+                "kl_mu_w_numerator", "kl_mu_h_numerator", "kl_x_log_wh",
+                "beta_mu_w_terms", "beta_mu_h_terms")
+
+
+def mesh_wrappers():
+    from cnmf_tpu_torch.ops import cd_kernels as ck
+    from cnmf_tpu_torch.ops import mu_kernels as mk
+
+    return {name: getattr(ck if name.startswith("cd_") else mk, name)
+            for name in MESH_KERNELS}
+
+
+def consensus_gap(a, b):
+    """Largest relative SSE of the consensus spectra and usages of two runs
+    (b the reference)."""
+    return max(rel_sse(getattr(a, n), getattr(b, n))
+               for n in ("spectra", "usages"))
+
+
+def phase_mesh_products_kernel(Xd, mesh_devices, K=16, B=100):
+    """The cell axis' H half at the main path's shape: partial products
+    XᵀW and WᵀW on each shard (torch.matmul), summed, then
+    cd_sweep_from_products at (B, M=G, K) against its plain version. Returns
+    the kernel's values and the partial product's and the shard sum's ms."""
+    import torch
+
+    from cnmf_tpu_torch.ops import cd_kernels as ck
+    from cnmf_tpu_torch.ops.kernel_lib import kernel_function, raise_on
+    from cnmf_tpu_torch.parallel.collectives import sum_shards
+    from cnmf_tpu_torch.parallel.mesh import put_cells
+
+    N, G = Xd.shape
+    g = torch.Generator(device=Xd.device).manual_seed(9)
+    avg = float(torch.sqrt(Xd.mean() / K))
+    Xs = put_cells(Xd, mesh_devices)
+    Ws = [avg * torch.randn(B, x.shape[0], K, device=x.device,
+                            generator=g).abs() for x in Xs.parts]
+    Ht = avg * torch.randn(B, G, K, device=Xd.device, generator=g).abs()
+    partials = [ck._shared_xt_dot(x, w) for x, w in zip(Xs.parts, Ws)]
+    gram = sum_shards([ck._gram(w) for w in Ws])
+    P = sum_shards(partials)
+    kernel, plain = ck.cd_sweep_from_products, ck.cd_sweep_from_products_plain
+    abs_err, rel_err = compare(kernel(Ht, gram, P), plain(Ht, gram, P))
+    assert rel_err <= KERNEL_REL_BOUND, ("mesh products", rel_err)
+    res, part = torch.empty_like(Ht), torch.empty((G, B), device=Xd.device)
+    launch = kernel_function("cd_half_sweep_products", ck._PRODUCTS_ARGS)
+    ptrs = (P.data_ptr(), G, Ht.data_ptr(), gram.data_ptr(), 0.0, B, K,
+            res.data_ptr(), part.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    bound_ms, by = bound(2 * G * K * K * B, 4 * (3 * B * G * K + B * K * K))
+    return dict(rel=rel_err, abs=abs_err,
+                ms=timed_ms(lambda: kernel(Ht, gram, P)),
+                alone_ms=device_ms(lambda: raise_on("products", launch(*ptrs))),
+                plain_ms=timed_ms(lambda: plain(Ht, gram, P)),
+                bound_ms=bound_ms, by=by,
+                matmul_ms=timed_ms(lambda: ck._shared_xt_dot(Xs.parts[0],
+                                                             Ws[0])),
+                sum_ms=timed_ms(lambda: sum_shards(partials)),
+                sum_mb=sum(p.numel() * 4 for p in partials) / 1e6)
+
+
+def phase_mesh_shard_kernels(X_host, Xd, devices, k, seeds, cd):
+    """Every kernel the mesh paths launch, against its plain version at the
+    shapes a shard gives it, on the main path's X and the restarts' own
+    inits at K=k (the bucket of 16: zero columns past k): shard 0's rows of
+    the cell axis (B=100, N=2700/2) for the W half, the KL numerators and
+    divergence and the Itakura-Saito terms; a restart group's first ladder
+    rung (50 restarts a group: B=the rung, all N) for the CD halves and the
+    KL kernels. Returns {case: rel}, each within KERNEL_REL_BOUND."""
+    import torch
+
+    from cnmf_tpu_torch.ops import cd_kernels as ck
+    from cnmf_tpu_torch.ops import mu_kernels as mk
+    from cnmf_tpu_torch.parallel.mesh import put_cells
+    from cnmf_tpu_torch.pipeline import solvers, stages
+
+    pad = ((0, 0), (0, 0), (0, 16 - k))
+    W0, Ht0 = (torch.as_tensor(np.pad(f, pad), device=Xd.device)
+               for f in stages.restart_inits(X_host, k, seeds, "random",
+                                             np.float32))
+    x = put_cells(X_host, devices).parts[0]
+    w = W0[:, :x.shape[0]].contiguous()
+    rung = solvers.ladder_rungs(Xd, len(seeds) // MESH_SHARDS, 16, cd)[0]
+    Wr, Htr = W0[:rung].contiguous(), Ht0[:rung].contiguous()
+    regs = dict(l1_reg=0.0, l2_reg=0.0)
+    cases = {
+        "cd_w cell": (ck.cd_w_half_sweep, ck.cd_w_half_sweep_plain,
+                      (x, w, Ht0), regs),
+        "kl_w cell": (mk.kl_mu_w_numerator, mk.kl_mu_w_numerator_plain,
+                      (x, w, Ht0), {}),
+        "kl_h cell": (mk.kl_mu_h_numerator, mk.kl_mu_h_numerator_plain,
+                      (x, w, Ht0), {}),
+        "xlogwh cell": (mk.kl_x_log_wh, mk.kl_x_log_wh_plain, (x, w, Ht0),
+                        {}),
+        "is_w cell": (mk.beta_mu_w_terms, mk.beta_mu_w_terms_plain,
+                      (x, w, Ht0, 0.0), {}),
+        "is_h cell": (mk.beta_mu_h_terms, mk.beta_mu_h_terms_plain,
+                      (x, w, Ht0, 0.0), {}),
+        "cd_w rung": (ck.cd_w_half_sweep, ck.cd_w_half_sweep_plain,
+                      (Xd, Wr, Htr), regs),
+        "cd_h rung": (ck.cd_h_half_sweep, ck.cd_h_half_sweep_plain,
+                      (Xd, Wr, Htr), regs),
+        "kl_w rung": (mk.kl_mu_w_numerator, mk.kl_mu_w_numerator_plain,
+                      (Xd, Wr, Htr), {}),
+        "kl_h rung": (mk.kl_mu_h_numerator, mk.kl_mu_h_numerator_plain,
+                      (Xd, Wr, Htr), {}),
+        "xlogwh rung": (mk.kl_x_log_wh, mk.kl_x_log_wh_plain, (Xd, Wr, Htr),
+                        {}),
+    }
+    rels = {}
+    for case, (kernel, plain, args, kw) in cases.items():
+        rels[case] = compare(kernel(*args, **kw), plain(*args, **kw))[1]
+    assert max(rels.values()) <= KERNEL_REL_BOUND, rels
+    return rels, x.shape[0], rung
+
+
+def phase_mesh(dev, card, counts, hvg, ks, n_iter, k_cons, main_merged,
+               main_n_iters, main_factorize_s):
+    """The mesh paths of pipeline/solvers.py and pipeline/stages.py on
+    MESH_SHARDS shards of one card, against the single-device path: (a) the
+    restart axis, CD at every K of the main path (the main run's spectra
+    bit for bit and its sweeps, not solved again; the last K profiled on
+    one device and on the mesh, wall and device idle share) and KL at
+    k_cons (the same sweeps, consensus within MESH_SSE); (b) the cell
+    axis at k_cons, CD, KL and Itakura-Saito (consensus within MESH_SSE),
+    and cd_sweep_from_products at the cell axis' H half (B=100, M=G, K=16)
+    against plain; (c) consensus on cell-sharded normalized counts and TPM
+    (within MESH_SSE). The single-device references run first; then the
+    kernels' launch counts are set to 0, the mesh runs (a)-(c) go, and the
+    counts are read just after them: each of MESH_KERNELS must launch
+    (printed in MESH_KERNELS' order). Then every kernel the mesh paths
+    launch is held against plain at a shard's shapes
+    (phase_mesh_shard_kernels). Returns the products kernel's values and
+    the launches."""
+    import torch
+
+    from cnmf_tpu_torch.parallel.mesh import build_mesh, put_cells
+    from cnmf_tpu_torch.pipeline import stages
+
+    def wall(t0):
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    prep = stages.prepare_arrays(counts, num_highvar_genes=hvg)
+    X_host = np.ascontiguousarray(prep.norm, dtype=np.float32)
+    Xd = torch.as_tensor(X_host, device=dev)
+    tpm_host = np.ascontiguousarray(prep.tpm, dtype=np.float32)
+    tpm = torch.as_tensor(tpm_host, device=dev)
+    cd, kl, is_ = (stages.nmf_run_params(),
+                   stages.nmf_run_params(beta_loss="kullback-leibler",
+                                         max_iter=200),
+                   stages.nmf_run_params(beta_loss="itakura-saito",
+                                         max_iter=200))
+    dts = {"cd": 0.5, "kl": 0.5, "is": IS_DENSITY_THRESHOLD}
+    grid, seeds = stages.replicate_seeds(ks, n_iter, 14)
+    seeds_k = {k: seeds[[i for i, (kk, _) in enumerate(grid) if kk == k]]
+               for k in ks}
+    mu_seeds = stages.replicate_seeds([k_cons], n_iter, 14)[1]
+    devices = [dev] * MESH_SHARDS
+    restart_mesh = build_mesh(devices, cell_axis=1)
+    cell_mesh = build_mesh(devices, cell_axis=MESH_SHARDS)
+
+    def consensus(spec, loss, kwargs, norm=Xd, tpm_src=tpm):
+        merged = spec if spec.ndim == 2 else stages.combine_arrays(list(spec))
+        return stages.consensus_arrays(merged, k_cons, norm, tpm_src,
+                                       prep.tpm_std, prep.hvg_idx, kwargs,
+                                       density_threshold=dts[loss])
+
+    # the single-device references this phase needs besides the main run's
+    kl_spec, kl_n, _ = stages.factorize_k(X_host, Xd, k_cons, mu_seeds, kl)
+    is_spec = stages.factorize_k(X_host, Xd, k_cons, mu_seeds, is_)[0]
+    ref = {"cd": consensus(main_merged[k_cons], "cd", cd),
+           "kl": consensus(kl_spec, "kl", kl),
+           "is": consensus(is_spec, "is", is_)}
+    idle = {}
+    _, w, busy, _ = profiled(lambda: stages.factorize_k(
+        X_host, Xd, ks[-1], seeds_k[ks[-1]], cd))
+    idle["single"] = (w, 1 - busy / w)
+
+    # the mesh runs, their launches counted
+    wrappers = mesh_wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    same_bits, same_sweeps = True, True
+    for k in ks:
+        spec, n_it, _ = stages.factorize_k(X_host, Xd, k, seeds_k[k], cd,
+                                           mesh=restart_mesh)
+        same_bits &= np.array_equal(stages.combine_arrays(list(spec)),
+                                    main_merged[k])
+        if main_n_iters is not None:
+            same_sweeps &= np.array_equal(n_it, main_n_iters[k])
+    restart_cd_s = wall(t0)
+    _, w, busy, _ = profiled(lambda: stages.factorize_k(
+        X_host, Xd, ks[-1], seeds_k[ks[-1]], cd, mesh=restart_mesh))
+    idle["restart"] = (w, 1 - busy / w)
+    t0 = time.perf_counter()
+    kl_spec_r, kl_n_r, _ = stages.factorize_k(X_host, Xd, k_cons, mu_seeds,
+                                              kl, mesh=restart_mesh)
+    restart_kl_s = wall(t0)
+    cell = {}
+    for loss, kwargs, run_seeds in (("cd", cd, seeds_k[k_cons]),
+                                    ("kl", kl, mu_seeds),
+                                    ("is", is_, mu_seeds)):
+        t0 = time.perf_counter()
+        spec, n_it, _ = stages.factorize_k(X_host, Xd, k_cons, run_seeds,
+                                           kwargs, mesh=cell_mesh)
+        cell[loss] = (spec, n_it, wall(t0))
+    t0 = time.perf_counter()
+    sharded = consensus(main_merged[k_cons], "cd", cd,
+                        put_cells(X_host, devices),
+                        put_cells(tpm_host, devices))
+    sharded_s = wall(t0)
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+
+    # the checks, on one device
+    gaps = {"restart_kl": consensus_gap(consensus(kl_spec_r, "kl", kl),
+                                        ref["kl"])}
+    for loss, kwargs in (("cd", cd), ("kl", kl), ("is", is_)):
+        gaps["cell_" + loss] = consensus_gap(
+            consensus(cell[loss][0], loss, kwargs), ref[loss])
+    gaps["shard_cells"] = max(
+        consensus_gap(sharded, ref["cd"]),
+        *(rel_sse(getattr(sharded, n), getattr(ref["cd"], n))
+          for n in ("spectra_tpm", "spectra_score")))
+    kl_gap = float(np.max(np.abs(kl_spec_r - kl_spec))
+                   / np.max(np.abs(kl_spec)))
+    shard_rels, shard_n, rung = phase_mesh_shard_kernels(
+        X_host, Xd, devices, k_cons, mu_seeds, cd)
+    kernel = phase_mesh_products_kernel(Xd, devices)
+    main_cd = main_n_iters[k_cons] if main_n_iters is not None else None
+    cell_text = "; ".join(
+        f"{loss.upper()} {c[2]:.3f} s, sweeps {c[1].max()}/{c[1].mean():.1f}"
+        for loss, c in cell.items())
+    print(f"[mesh] {MESH_SHARDS} shards on the card. (a) restart: CD K="
+          f"{ks[0]}..{ks[-1]} x {n_iter} {restart_cd_s:.3f} s (single "
+          f"{main_factorize_s:.3f}), bits equal {same_bits}, sweeps equal "
+          f"{same_sweeps if main_n_iters is not None else 'not compared'}"
+          f"; profiled K={ks[-1]} wall/idle single {idle['single'][0]:.3f} s/"
+          f"{idle['single'][1]:.1%}, restart {idle['restart'][0]:.3f} s/"
+          f"{idle['restart'][1]:.1%}; KL K={k_cons} {restart_kl_s:.3f} s, "
+          f"sweeps equal "
+          f"{np.array_equal(kl_n_r, kl_n)}, max rel gap {kl_gap:.1e}. (b) "
+          f"cell K={k_cons}: {cell_text} (single CD "
+          + (f"{main_cd.max()}/{main_cd.mean():.1f}, "
+             if main_cd is not None else "not compared, ")
+          + f"KL {kl_n.max()}/{kl_n.mean():.1f}). (c) shard_cells "
+          f"consensus {sharded_s:.3f} s. rel SSE "
+          + json.dumps({k: float(f"{v:.1e}") for k, v in gaps.items()})
+          + f" (bound {MESH_SSE:g}); launches "
+          + json.dumps(list(launches.values()), separators=(",", ":")),
+          flush=True)
+    print(f"[mesh] kernels vs plain at shard shapes (cell N={shard_n} B={n_iter},"
+          f" rung B={rung} N={Xd.shape[0]}), max rel "
+          f"{max(shard_rels.values()):.1e}: "
+          + json.dumps({k: float(f"{v:.1e}") for k, v in shard_rels.items()},
+                       separators=(",", ":")), flush=True)
+    print(f"[mesh] cell H half B=100 M={Xd.shape[1]} K=16: products "
+          f"rel={kernel['rel']:.2e} kernel/alone/plain/bound ms "
+          f"{kernel['ms']:.4f}/{kernel['alone_ms']:.4f}/"
+          f"{kernel['plain_ms']:.4f}/{kernel['bound_ms']:.4f} "
+          f"({kernel['by']}); XtW a shard {kernel['matmul_ms']:.4f} ms, shard "
+          f"sum {kernel['sum_ms']:.4f} ms for {kernel['sum_mb']:.1f} MB",
+          flush=True)
+    assert same_bits and same_sweeps, "restart axis left the single device"
+    assert np.array_equal(kl_n_r, kl_n), "KL restart axis sweeps"
+    assert max(gaps.values()) <= MESH_SSE, gaps
+    assert all(n > 0 for n in launches.values()), launches
     return kernel, launches
 
 
@@ -1756,10 +2111,11 @@ def main():
         with tempfile.TemporaryDirectory(dir=os.getcwd()) as workdir:
             walls, usage, merged, Xd = run_cnmf(counts, ks, n_iter, hvg,
                                                 k_cons, workdir)
+        n_iters = None   # cNMF writes the spectra, not the sweeps
     else:
         route = (f"pipeline/stages.py on arrays ({', '.join(missing)} missing, "
                  "which cNMF's run directory needs)")
-        walls, merged, result, _, Xd, _ = run_stages(
+        walls, merged, result, n_iters, Xd, _ = run_stages(
             counts, ks, n_iter, hvg, k_cons, dev, verbose=True)
         usage = check_result(result, k_cons, hvg)
     launches = {name: fn.launches for name, fn in wrappers.items()}
@@ -1772,9 +2128,15 @@ def main():
 
     # 5. k-selection over the CD slice's merged spectra
     phase_k_selection(merged, Xd, card)
-    del merged, Xd
+    del Xd
 
-    # 6. the CD factorize on each schedule, the MU ladder's rungs and the
+    # 6. the mesh paths on two shards of the card, against the main run
+    mesh_kernel, mesh_launches = phase_mesh(
+        dev, card, counts, hvg, ks, n_iter, k_cons, merged, n_iters,
+        walls["factorize"])
+    del merged
+
+    # 7. the CD factorize on each schedule, the MU ladder's rungs and the
     # batch check
     X_host, Xd = path_input(counts, hvg, dev)
     phase_schedules(X_host, Xd, card, ks, n_iter, stages.nmf_run_params(),
@@ -1782,7 +2144,7 @@ def main():
     phase_ladder_tilings(Xd, k_cons, card)
     phase_batch(dev, card)
 
-    # 7. the KL path and 8. the Itakura-Saito path at bench.py's KL
+    # 8. the KL path and 9. the Itakura-Saito path at bench.py's KL
     # configuration, each factorize again plain and on the ladder
     part, launches_b1, kl_spectra = mu_slice("kl", counts, k_cons, n_iter,
                                              hvg, dev, kl_kwargs, KL_KERNELS,
@@ -1802,18 +2164,21 @@ def main():
                          is_kwargs, IS_DENSITY_THRESHOLD, "IS",
                          "beta_mu_w_terms")
 
-    # 9. Preprocess with Harmony, and cNMF on its output
+    # 10. Preprocess with Harmony, and cNMF on its output
     phase_preprocess(dev)
 
-    # 10. the atlas path: sparse counts at 100,000 x 20,000, the TPM on the
+    # 11. the atlas path: sparse counts at 100,000 x 20,000, the TPM on the
     # card and over the device limit
     atlas_kernel, atlas_launches = phase_atlas(dev, card)
     for M, v in atlas_kernel.items():
         records["cd_sweep_from_products"].update({
             f"{key}_atlas_m{M}": float(f"{v[key]:.5g}")
             for key in ("ms", "alone_ms", "plain_ms", "bound_ms")})
+    records["cd_sweep_from_products"].update({
+        f"{key}_cells": float(f"{mesh_kernel[key]:.5g}")
+        for key in ("ms", "alone_ms", "plain_ms", "bound_ms")})
 
-    # 11. results
+    # 12. results
     replaces = {"cd_w_half_sweep": "cnmf_tpu/ops/pallas_cd.py:118",
                 "cd_h_half_sweep": "cnmf_tpu/ops/pallas_cd.py:162",
                 "cd_sweep_from_products": "cnmf_tpu/ops/pallas_cd.py:58",
@@ -1835,6 +2200,8 @@ def main():
                 else {}),
              **({"launches_atlas": atlas_launches[name]}
                 if name in atlas_launches else {}),
+             **({"launches_mesh": mesh_launches[name]}
+                if name in mesh_launches else {}),
              library_ms=None,
              **{key: float(f"{v:.5g}") if isinstance(v, float) else v
                 for key, v in records[name].items()})

@@ -39,9 +39,8 @@ from cnmf_tpu_torch.ops.kernel_lib import (
     check_k,
     device_kind,
     kernel_function,
+    launch,
     library_constant,
-    raise_on,
-    stream_of,
 )
 
 
@@ -201,11 +200,10 @@ def _launch_fused(name, X, F, F_other, gram, l1_reg, transposed):
     part = torch.empty((tiles, B), dtype=torch.float32, device=F.device)
     # a K above the register buckets accumulates X·F_other in device memory
     scratch = torch.empty_like(F) if K > REGISTER_MAX_K else None
-    raise_on(name, kernel_function("cd_half_sweep_fused", _FUSED_ARGS)(
-        X.data_ptr(), M, C, sxm, sxc, F_other.data_ptr(), F.data_ptr(),
-        gram.data_ptr(), float(l1_reg), B, K, out.data_ptr(), part.data_ptr(),
-        None if scratch is None else scratch.data_ptr(), stream_of(F),
-    ))
+    launch(name, kernel_function("cd_half_sweep_fused", _FUSED_ARGS), F,
+           X.data_ptr(), M, C, sxm, sxc, F_other.data_ptr(), F.data_ptr(),
+           gram.data_ptr(), float(l1_reg), B, K, out.data_ptr(),
+           part.data_ptr(), None if scratch is None else scratch.data_ptr())
     return out, part.sum(dim=0)
 
 
@@ -254,10 +252,9 @@ def cd_sweep_from_products(F, gram, P, *, l1_reg=0.0, l2_reg=0.0):
     tiles = -(-M // _tile_rows(name, K))
     out = torch.empty_like(F)
     part = torch.empty((tiles, B), dtype=torch.float32, device=F.device)
-    raise_on(name, kernel_function("cd_half_sweep_products", _PRODUCTS_ARGS)(
-        P.data_ptr(), M, F.data_ptr(), gram.data_ptr(), float(l1_reg), B, K,
-        out.data_ptr(), part.data_ptr(), stream_of(F),
-    ))
+    launch(name, kernel_function("cd_half_sweep_products", _PRODUCTS_ARGS), F,
+           P.data_ptr(), M, F.data_ptr(), gram.data_ptr(), float(l1_reg), B,
+           K, out.data_ptr(), part.data_ptr())
     cd_sweep_from_products.launches += 1
     return out, part.sum(dim=0)
 

@@ -24,6 +24,8 @@ import scipy.sparse as sp
 import torch
 
 from cnmf_tpu_torch.ops.cd_kernels import torch_dtype
+from cnmf_tpu_torch.parallel.collectives import sum_shards
+from cnmf_tpu_torch.parallel.mesh import Shards
 
 
 def _x_mean(X) -> float:
@@ -196,8 +198,15 @@ def nnls_w_init(X, n_components: int, solver: str, dtype=None,
     X: a tensor (the init takes its device, and its dtype unless ``dtype``
     is given) or a host array or sparse matrix (a CPU tensor at ``dtype``,
     float32 by default, as the JAX package's ``nnls_w_init``, which returns
-    the (N, K) host array this tensor holds in its first restart)."""
+    the (N, K) host array this tensor holds in its first restart).
+
+    For X's rows in ``Shards`` the init is (1, rows, pad_k) ``Shards`` of
+    the same layout, padded rows 0, and the MU mean runs over the real
+    elements; for X's columns in ``Shards`` it is one tensor on the first
+    shard's device (cnmf_tpu/pipeline/solvers.py:1008-1023 on a mesh)."""
     shape = (1, X.shape[0], n_components if pad_k is None else pad_k)
+    if isinstance(X, Shards):
+        return _sharded_w_init(X, n_components, solver, dtype, shape)
     if not isinstance(X, torch.Tensor):
         tdtype = torch_dtype(np.float32 if dtype is None else dtype)
         if solver == "mu":
@@ -209,3 +218,22 @@ def nnls_w_init(X, n_components: int, solver: str, dtype=None,
         avg = torch.sqrt(X.sum() / X.numel() / n_components)
         return avg.to(tdtype).expand(shape).contiguous()
     return torch.zeros(shape, dtype=tdtype, device=X.device)
+
+
+def _sharded_w_init(X, n_components, solver, dtype, shape):
+    """``nnls_w_init`` of a ``Shards`` X (see there)."""
+    tdtype = X.dtype if dtype is None else torch_dtype(dtype)
+    W = torch.zeros(shape, dtype=tdtype, device=X.device)
+    if solver == "mu":
+        total = sum_shards([x.sum() for x in X.parts])
+        avg = torch.sqrt(total / (X.shape[0] * X.shape[1]) / n_components)
+        W = W + avg.to(tdtype)
+    if X.axis == 1:
+        return W
+    parts = []
+    for i, x in enumerate(X.parts):
+        part = torch.zeros((1, x.shape[0], shape[2]), dtype=tdtype,
+                           device=x.device)
+        part[:, :X.real_rows(i)] = W[:, :1].to(x.device)
+        parts.append(part)
+    return Shards(parts, X.n_rows, axis=1)

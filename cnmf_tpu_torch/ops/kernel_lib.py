@@ -17,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import os
+import threading
 
 import torch
 
@@ -121,13 +122,19 @@ def library_path() -> str:
                         f"libcnmf_kernels_{digest.hexdigest()[:16]}.so")
 
 
+# a mesh's restart groups may reach their first launch at once, each on its
+# own host thread: one of them builds
+_LOAD_LOCK = threading.Lock()
+
+
 @functools.lru_cache(maxsize=None)
 def load_library():
     """Build (once per source hash) and load the kernels of ``csrc/``.
     Never runs while a module is imported."""
     so_path = library_path()
-    if not os.path.exists(so_path):
-        _build(_sources(), so_path)
+    with _LOAD_LOCK:
+        if not os.path.exists(so_path):
+            _build(_sources(), so_path)
     lib = ctypes.CDLL(so_path)
     lib.so_path = so_path
     return lib
@@ -200,5 +207,15 @@ def raise_on(name, rc):
         raise RuntimeError(f"{name}: kernel launch failed, CUDA error {rc}")
 
 
-def stream_of(t) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+def launch(name, fn, t, *args):
+    """``fn(*args, stream)`` into the current stream of ``t``'s device, with
+    that device current (a kernel launches only into a stream of the
+    current device, and a mesh's thread holds tensors of several cards);
+    raises on a launch error."""
+    stream = torch.cuda.current_stream(t.device).cuda_stream
+    if t.device.index == torch.cuda.current_device():
+        rc = fn(*args, stream)
+    else:
+        with torch.cuda.device(t.device):
+            rc = fn(*args, stream)
+    raise_on(name, rc)

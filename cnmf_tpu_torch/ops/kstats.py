@@ -61,7 +61,9 @@ def consensus_k_stats(
 ) -> Tuple[float, float]:
     """(silhouette, prediction_error) of one K.
 
-    Xnc: (cells × HVGs) normalized counts on the solve's device; l2_spectra:
+    Xnc: (cells × HVGs) normalized counts on the solve's device, or row
+    ``parallel.mesh.Shards`` (the refit's W rows follow them, padded rows
+    stay 0, and the error sums over shards); l2_spectra:
     (R × HVGs) L2-normalized merged spectra at Xnc's dtype. The refit's
     spectra are zero-padded to the K the kernels take (an exact no-op: their
     usage columns stay 0), started at zeros for CD and at sqrt(mean(X) / k)

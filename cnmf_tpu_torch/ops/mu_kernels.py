@@ -47,8 +47,7 @@ from cnmf_tpu_torch.ops.kernel_lib import (
     check_k,
     device_kind,
     kernel_function,
-    raise_on,
-    stream_of,
+    launch,
 )
 
 EPSILON = float(np.finfo(np.float32).eps)
@@ -342,9 +341,9 @@ def _launch(name, symbol, X, F, F_other, outs, transposed, *extra):
     check_k(name, K)
     ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a
             for a in (*extra, *outs)]
-    raise_on(name, kernel_function(symbol, _ARGTYPES[symbol])(
-        X.data_ptr(), M, C, sxm, sxc, F_other.data_ptr(), F.data_ptr(), B, K,
-        *ptrs, stream_of(F)))
+    launch(name, kernel_function(symbol, _ARGTYPES[symbol]), F,
+           X.data_ptr(), M, C, sxm, sxc, F_other.data_ptr(), F.data_ptr(), B,
+           K, *ptrs)
     return outs
 
 

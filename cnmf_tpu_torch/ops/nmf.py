@@ -30,6 +30,17 @@ graph was measured on an H100 and did not pay: PERF.md.)
 
 The device ladders (``nmf_cd_device_ladder``, ``nmf_mu_device_ladder``) run
 the same blocks on a batch that shrinks as restarts finish.
+
+Cell-sharded solves (the JAX package's GSPMD solves on a ``cell`` mesh axis):
+an X given as ``parallel.mesh.Shards`` of its rows, with W's rows following
+X's shards and Ht replicated, runs the same blocks with the H-side products
+and the stop rule's sums taken over shards (``parallel.collectives``). CD:
+the W half is ``cd_w_half_sweep`` on each shard's rows; the H half sums the
+shards' XᵀW and WᵀW (plain matmuls, as the JAX package takes them outside
+any Pallas kernel on a mesh) and sweeps Ht with ``cd_sweep_from_products``.
+MU: the W update runs per shard, the H update's terms and the divergence
+are summed. The products-given refit takes P and W as row shards against a
+replicated gram.
 """
 
 from __future__ import annotations
@@ -62,6 +73,8 @@ from cnmf_tpu_torch.ops.mu_kernels import (
     restart_sums,
     wh_chunks,
 )
+from cnmf_tpu_torch.parallel.collectives import broadcast, sum_shards
+from cnmf_tpu_torch.parallel.mesh import Shards
 
 EPSILON = float(np.finfo(np.float32).eps)
 # steps a block: the stop rules' check cadence (sklearn's MU checks every 10
@@ -90,14 +103,26 @@ def _cd_block(sweep, state, tol: float, limit: int):
         violation = violation.to(vi.dtype)
         vi = torch.where(git == 0, violation, vi)
         keep = ~done & (git < limit)
-        factors = [torch.where(keep[:, None, None], f_new, f)
-                   for f_new, f in zip(new, factors)]
+        factors = [_keep(keep, f_new, f) for f_new, f in zip(new, factors)]
         n_iter = torch.where(keep, git + 1, n_iter)
         newly_done = torch.where(
             vi == 0, True, violation / vi.clamp(min=EPSILON) <= tol)
         done = done | (keep & newly_done)
         git = git + 1
     state[:] = (*factors, vi, n_iter, done, git)
+
+
+def _keep(keep, new, old):
+    """``new`` where ``keep`` (B,) holds, else ``old``: (B, M, K) tensors or
+    lists of them (shards; ``keep`` is copied to each shard's device)."""
+    if isinstance(new, (list, tuple)):
+        return [_keep(keep, n, o) for n, o in zip(new, old)]
+    return torch.where(keep.to(new.device)[:, None, None], new, old)
+
+
+def _each(fn, F):
+    """``fn`` of a tensor, or of each shard of a list."""
+    return [fn(f) for f in F] if isinstance(F, (list, tuple)) else fn(F)
 
 
 def _cd_state(factors, violation_init, n_iter, done, it0: int):
@@ -158,7 +183,14 @@ def nmf_coordinate_descent(
     X (N, G) shared data; W0 (B, N, K) and Ht0 (B, G, K) initial factors per
     restart. Returns W (B, N, K), Ht (B, G, K) and n_iter (B,) int32 sweeps
     executed. On CUDA the tensors must be float32 (the kernels' type);
-    float64 runs on the CPU."""
+    float64 runs on the CPU. X may be ``Shards`` of its rows, with W0 the
+    matching (B, rows, K) ``Shards`` and Ht0 on the first shard's device
+    (``_cd_cells``); W then comes back as ``Shards``."""
+    regs = dict(l1_reg_W=l1_reg_W, l1_reg_H=l1_reg_H, l2_reg_W=l2_reg_W,
+                l2_reg_H=l2_reg_H)
+    if isinstance(X, Shards):
+        return _cd_cells(X, W0, Ht0, tol=tol, max_iter=max_iter,
+                         update_H=update_H, **regs)
     B = W0.shape[0]
     dev = W0.device
     W, Ht, _, n_iter, _ = nmf_cd_segment(
@@ -166,9 +198,7 @@ def nmf_coordinate_descent(
         torch.zeros(B, dtype=W0.dtype, device=dev),
         torch.zeros(B, dtype=torch.int32, device=dev),
         torch.zeros(B, dtype=torch.bool, device=dev),
-        0, seg_len=max_iter, tol=tol, update_H=update_H,
-        l1_reg_W=l1_reg_W, l1_reg_H=l1_reg_H,
-        l2_reg_W=l2_reg_W, l2_reg_H=l2_reg_H,
+        0, seg_len=max_iter, tol=tol, update_H=update_H, **regs,
     )
     return W, Ht, n_iter
 
@@ -188,19 +218,30 @@ def nnls_cd_from_products(
     Solves ``min_{W>=0} ||X - W·Hfix||`` given only ``gram = Hfix·Hfixᵀ``
     (B,K,K) and ``P = X·Hfixᵀ`` (B,M,K): the ``update_H=False`` loop of the
     full solver with its invariants computed once, same sweeps and stopping.
-    Returns (W, n_iter)."""
-    B = W0.shape[0]
-    dev = W0.device
-    state = _cd_state((W0,), torch.zeros(B, dtype=W0.dtype, device=dev),
+    P and W0 may be row ``Shards`` (axis 1) with gram on the first shard's
+    device: each shard sweeps its rows against the gram, and the summed
+    violation stops every shard at the same sweep. Returns (W, n_iter), W
+    laid out as W0."""
+    sharded = isinstance(P, Shards)
+    Ws = W0.parts if sharded else [W0]
+    Ps = P.parts if sharded else [P]
+    grams = broadcast(gram, [p.device for p in Ps])
+    B = Ws[0].shape[0]
+    dev = Ws[0].device
+    state = _cd_state(Ws, torch.zeros(B, dtype=Ws[0].dtype, device=dev),
                       torch.zeros(B, dtype=torch.int32, device=dev),
                       torch.zeros(B, dtype=torch.bool, device=dev), 0)
 
-    def sweep(W):
-        return cd_sweep_from_products(W, gram, P, l1_reg=l1_reg, l2_reg=l2_reg)
+    def sweep(*Ws):
+        halves = [cd_sweep_from_products(W, g, p, l1_reg=l1_reg, l2_reg=l2_reg)
+                  for W, g, p in zip(Ws, grams, Ps)]
+        return (*[h[0] for h in halves], sum_shards([h[1] for h in halves]))
 
     _run_solve(lambda: _cd_block(sweep, state, tol, max_iter), state,
                max_iter)
-    return state[0], state[2]
+    n = len(Ws)
+    W = Shards(state[:n], W0.n_rows, axis=1) if sharded else state[0]
+    return W, state[n + 1]
 
 
 def fixed_factor_gram(F):
@@ -220,18 +261,40 @@ def nnls_cd_fixed_spectra(
 ):
     """Fixed-spectra CD NNLS: the loop-invariant products (``gram =
     HfixᵀHfix``, ``P = X·Hfix``) once, then nnls_cd_from_products.
-    Returns (W (B,M,K), n_iter (B,))."""
+    Returns (W (B,M,K), n_iter (B,)). X may be ``Shards``: of its rows, W0
+    the matching row ``Shards``; or of its columns, Ht0 the matching
+    ``Shards`` (``_fixed_products``)."""
+    gram, P = _fixed_products(X, Ht0)
     return nnls_cd_from_products(
-        fixed_factor_gram(Ht0), _shared_x_dot(X, Ht0), W0, tol=tol,
-        max_iter=max_iter, l1_reg=l1_reg, l2_reg=l2_reg,
+        gram, P, W0, tol=tol, max_iter=max_iter, l1_reg=l1_reg, l2_reg=l2_reg,
     )
+
+
+def _fixed_products(X, Ht):
+    """(gram, P) of a fixed Ht against X: on one device HtᵀHt and X·Ht; for
+    X's rows in shards (Ht replicated) the gram and P's row shards; for X's
+    columns in shards (Ht's rows following them) both summed over shards."""
+    if not isinstance(X, Shards):
+        return fixed_factor_gram(Ht), _shared_x_dot(X, Ht)
+    if X.axis == 0:
+        Hts = broadcast(Ht, X.devices)
+        return fixed_factor_gram(Ht), Shards(
+            [_shared_x_dot(x, h) for x, h in zip(X.parts, Hts)], X.n_rows, 1)
+    return (sum_shards([_gram(h) for h in Ht.parts]),
+            sum_shards([_shared_x_dot(x, h) for x, h in zip(X.parts, Ht.parts)]))
 
 
 def reconstruction_sse(X, W, H, row_chunk: int = 4096):
     """sum((X − W·H)²), computed directly on row chunks of X: X (N, G),
     W (N, K), H (K, G). The K-selection prediction error (reference
     cnmf.py:925-930); the gram-trick form would cancel in float32. Only a
-    (row_chunk × G) reconstruction is live at a time."""
+    (row_chunk × G) reconstruction is live at a time. X and W may be row
+    ``Shards`` (zero padding adds nothing); the shards' sums are added in
+    order."""
+    if isinstance(X, Shards):
+        Hs = broadcast(H, X.devices)
+        return sum_shards([reconstruction_sse(x, w, h, row_chunk)
+                           for x, w, h in zip(X.parts, W.parts, Hs)])
     sse = torch.zeros((), dtype=X.dtype, device=X.device)
     for s in range(0, X.shape[0], row_chunk):
         diff = X[s:s + row_chunk] - W[s:s + row_chunk] @ H
@@ -350,18 +413,36 @@ def _mu_update_h(X, W, Ht, beta, gamma, l1_reg, l2_reg):
 
 def _mu_state(W0, Ht0, error_init, done):
     """A MU solve's state list: [W, Ht, prev_error, error_init, n_iter,
-    done, git]."""
-    dev = W0.device
+    done, git], the counters on the done flags' device."""
+    dev = done.device
     return [W0, Ht0, error_init, error_init,
-            torch.zeros(W0.shape[0], dtype=torch.int32, device=dev),
+            torch.zeros(done.shape[0], dtype=torch.int32, device=dev),
             done, torch.zeros((), dtype=torch.int32, device=dev)]
 
 
-def _mu_block(X, state, beta, tol, limit, update_H, x_terms,
+class _MuTerms:
+    """The MU updates and the divergence of one X on one device."""
+
+    def __init__(self, X, beta):
+        self.X, self.beta = X, beta
+        self.x_terms = _kl_x_terms(X) if beta == 1 else None
+
+    def update_w(self, W, Ht, gamma, l1_reg, l2_reg):
+        return _mu_update_w(self.X, W, Ht, self.beta, gamma, l1_reg, l2_reg)
+
+    def update_h(self, W, Ht, gamma, l1_reg, l2_reg):
+        return _mu_update_h(self.X, W, Ht, self.beta, gamma, l1_reg, l2_reg)
+
+    def error(self, W, Ht):
+        return beta_divergence_error(self.X, W, Ht, self.beta, self.x_terms)
+
+
+def _mu_block(terms, state, beta, tol, limit, update_H,
               l1_reg_W, l1_reg_H, l2_reg_W, l2_reg_H):
     """A function running ``BLOCK`` MU iterations (the JAX body,
     cnmf_tpu/ops/nmf.py:1277-1308) of ``state`` (``_mu_state``), replaced
-    in the list.
+    in the list; ``terms`` computes the updates and the divergence
+    (``_MuTerms``, or a sharded twin whose factors may be lists of shards).
     Blocks start at multiples of ``BLOCK`` of the global counter ``git``, so
     sklearn's every-10 check falls on each block's last iteration; no
     iteration at ``limit`` or past it, and no check past it, changes
@@ -376,21 +457,21 @@ def _mu_block(X, state, beta, tol, limit, update_H, x_terms,
     def block():
         W, Ht, prev_error, error_init, n_iter, done, git = state
         for _ in range(BLOCK):
-            W_new = _mu_update_w(X, W, Ht, beta, gamma, l1_reg_W, l2_reg_W)
+            W_new = terms.update_w(W, Ht, gamma, l1_reg_W, l2_reg_W)
             if beta < 1:
-                W_new = torch.where(W_new < _EPS64, 0.0, W_new)
+                W_new = _each(lambda f: torch.where(f < _EPS64, 0.0, f), W_new)
             keep = ~done & (git < limit)
             if update_H:
-                Ht_new = _mu_update_h(X, W_new, Ht, beta, gamma, l1_reg_H,
-                                      l2_reg_H)
+                Ht_new = terms.update_h(W_new, Ht, gamma, l1_reg_H, l2_reg_H)
                 if beta <= 1:
-                    Ht_new = torch.where(Ht_new < _EPS64, 0.0, Ht_new)
-                Ht = torch.where(keep[:, None, None], Ht_new, Ht)
-            W = torch.where(keep[:, None, None], W_new, W)
+                    Ht_new = _each(lambda f: torch.where(f < _EPS64, 0.0, f),
+                                   Ht_new)
+                Ht = _keep(keep, Ht_new, Ht)
+            W = _keep(keep, W_new, W)
             n_iter = torch.where(keep, git + 1, n_iter)
             git = git + 1
         if tol > 0:
-            error = beta_divergence_error(X, W, Ht, beta, x_terms).to(W.dtype)
+            error = terms.error(W, Ht).to(error_init.dtype)
             check = git <= limit
             done = done | (check & ((prev_error - error)
                                     / error_init.clamp(min=EPSILON) < tol))
@@ -433,21 +514,37 @@ def nmf_multiplicative_update(
     ``error_init0`` / ``prev_error0``: (B,) starting values of the stopping
     rule's denominator and previous error (default: the divergence at W0,
     Ht0); ``done0``: (B,) bool, restarts that start stopped
-    (cnmf_tpu/ops/nmf.py:1246-1253)."""
-    B = W0.shape[0]
-    dev = W0.device
-    x_terms = _kl_x_terms(X) if beta == 1 else None
+    (cnmf_tpu/ops/nmf.py:1246-1253).
+
+    X may be ``Shards``: of its rows, with W0 the matching (B, rows, K)
+    ``Shards`` and Ht0 on the first shard's device; or of its columns (the
+    transpose of a row-sharded matrix: the spectra refit), with Ht0 the
+    matching ``Shards``, W0 on the first shard's device and update_H False.
+    The sharded factor comes back as ``Shards``."""
+    if isinstance(X, Shards):
+        terms = (_RowShardTerms if X.axis == 0 else _ColShardTerms)(X, beta)
+        if X.axis == 1 and update_H:
+            raise ValueError("a column-sharded X solves with H fixed only")
+        W0s, Ht0s = (f.parts if isinstance(f, Shards) else f
+                     for f in (W0, Ht0))
+    else:
+        terms, W0s, Ht0s = _MuTerms(X, beta), W0, Ht0
+    dtype = Ht0s.dtype if isinstance(W0s, list) else W0s.dtype
+    B = Ht0s[0].shape[0] if isinstance(Ht0s, list) else Ht0s.shape[0]
     error_init = (error_init0 if error_init0 is not None else
-                  beta_divergence_error(X, W0, Ht0, beta, x_terms)).to(W0.dtype)
-    state = _mu_state(W0, Ht0, error_init,
+                  terms.error(W0s, Ht0s)).to(dtype)
+    dev = error_init.device
+    state = _mu_state(W0s, Ht0s, error_init,
                       torch.zeros(B, dtype=torch.bool, device=dev)
                       if done0 is None else done0.to(torch.bool))
     if prev_error0 is not None:
-        state[2] = prev_error0.to(W0.dtype)
-    block = _mu_block(X, state, beta, tol, max_iter, update_H, x_terms,
+        state[2] = prev_error0.to(dtype)
+    block = _mu_block(terms, state, beta, tol, max_iter, update_H,
                       l1_reg_W, l1_reg_H, l2_reg_W, l2_reg_H)
     _run_solve(block, state, max_iter)
-    return state[0], state[1], state[4]
+    W, Ht = (Shards(f, f0.n_rows, axis=1) if isinstance(f0, Shards) else f
+             for f, f0 in ((state[0], W0), (state[1], Ht0)))
+    return W, Ht, state[4]
 
 
 def _data_and_fixed(X, H, device):
@@ -612,13 +709,144 @@ def nmf_mu_device_ladder(
     ladder = _check_ladder(ladder, B0)
     Bp = ladder[0]
     W, Ht = _padded(W0, Bp), _padded(Ht0, Bp)
-    x_terms = _kl_x_terms(X) if beta == 1 else None
-    error_init = beta_divergence_error(X, W, Ht, beta, x_terms).to(W0.dtype)
+    terms = _MuTerms(X, beta)
+    error_init = terms.error(W, Ht).to(W0.dtype)
     state = _mu_state(W, Ht, error_init,
                       torch.arange(Bp, device=W0.device) >= B0)
 
     def make_block(st):
-        return _mu_block(X, st, beta, tol, max_iter, True, x_terms,
+        return _mu_block(terms, st, beta, tol, max_iter, True,
                          l1_reg_W, l1_reg_H, l2_reg_W, l2_reg_H)
 
     return _run_ladder(state, make_block, ladder, B0, max_iter)
+
+
+# ----------------------------------------------------------------------
+# cell-sharded solves: X's rows (and W's) over a list of devices
+# ----------------------------------------------------------------------
+
+def _cd_cells(X, W0, Ht0, *, tol, max_iter, update_H, l1_reg_W, l1_reg_H,
+              l2_reg_W, l2_reg_H):
+    """``nmf_coordinate_descent`` on row shards (the JAX package's GSPMD
+    solve on a ``cell`` axis, cnmf_tpu/pipeline/solvers.py:782-786): the W
+    half is ``cd_w_half_sweep`` on each shard's rows against the replicated
+    Ht; the H half sums the shards' WᵀW and XᵀW (plain matmuls) and sweeps
+    Ht on the first shard's device with ``cd_sweep_from_products``; the
+    violation is summed over shards. Padded rows are zero in X and W and
+    stay zero (their gradient is 0)."""
+    B = Ht0.shape[0]
+    n = len(X.parts)
+    dev = Ht0.device
+    state = _cd_state((*W0.parts, Ht0),
+                      torch.zeros(B, dtype=Ht0.dtype, device=dev),
+                      torch.zeros(B, dtype=torch.int32, device=dev),
+                      torch.zeros(B, dtype=torch.bool, device=dev), 0)
+
+    def sweep(*factors):
+        Ws, Ht = factors[:n], factors[n]
+        halves = [cd_w_half_sweep(x, w, h, l1_reg=l1_reg_W, l2_reg=l2_reg_W)
+                  for x, w, h in zip(X.parts, Ws, broadcast(Ht, X.devices))]
+        Ws = [h[0] for h in halves]
+        violation = sum_shards([h[1] for h in halves])
+        if not update_H:
+            return (*Ws, Ht, violation)
+        gram = sum_shards([_gram(w) for w in Ws])
+        P = sum_shards([_shared_xt_dot(x, w) for x, w in zip(X.parts, Ws)])
+        Ht, viol_h = cd_sweep_from_products(Ht, gram, P, l1_reg=l1_reg_H,
+                                            l2_reg=l2_reg_H)
+        return (*Ws, Ht, violation + viol_h)
+
+    _run_solve(lambda: _cd_block(sweep, state, tol, max_iter), state,
+               max_iter)
+    return Shards(state[:n], W0.n_rows, axis=1), state[n], state[n + 2]
+
+
+def _sum_x_terms(parts):
+    """``_kl_x_terms`` of a matrix in parts, summed over them."""
+    terms = [_kl_x_terms(x) for x in parts]
+    return tuple(sum_shards([t[i] for t in terms]) for i in range(2))
+
+
+def _beta_div_from(divs, beta, pad_elems):
+    """``_beta_divergence_chunked`` summed over shards, less what each
+    shard's padding added: at beta 0 every shard subtracts its full element
+    count, and the padded elements are no elements of X."""
+    return divs + pad_elems if beta == 0 else divs
+
+
+class _RowShardTerms:
+    """The MU terms of X's row shards, W's rows following them (a list of
+    (B, rows, K) parts) and Ht replicated on the first shard's device: the W
+    update runs on each shard; the H update's numerator and denominator and
+    the divergence's terms are summed over shards."""
+
+    def __init__(self, X, beta):
+        self.Xs, self.devices, self.beta = X.parts, X.devices, beta
+        self.pad_elems = (X.padded_rows - X.n_rows) * X.shape[1]
+        self.x_terms = _sum_x_terms(self.Xs) if beta == 1 else None
+        self.x_sq = (sum_shards([torch.sum(x * x) for x in self.Xs])
+                     if beta == 2 else None)
+
+    def update_w(self, Ws, Ht, gamma, l1_reg, l2_reg):
+        return [_mu_update_w(x, w, h, self.beta, gamma, l1_reg, l2_reg)
+                for x, w, h in zip(self.Xs, Ws, broadcast(Ht, self.devices))]
+
+    def update_h(self, Ws, Ht, gamma, l1_reg, l2_reg):
+        beta = self.beta
+        if beta == 2:
+            numerator = sum_shards([_shared_xt_dot(x, w)
+                                    for x, w in zip(self.Xs, Ws)])
+            denominator = torch.bmm(Ht, sum_shards([_gram(w) for w in Ws]))
+        elif beta == 1:
+            Hts = broadcast(Ht, self.devices)
+            numerator = sum_shards([kl_mu_h_numerator(x, w, h)
+                                    for x, w, h in zip(self.Xs, Ws, Hts)])
+            w_sum = sum_shards([restart_sums(w) for w in Ws])
+            denominator = torch.where(w_sum == 0, 1.0, w_sum)[:, None, :]
+        else:
+            Hts = broadcast(Ht, self.devices)
+            terms = [beta_mu_h_terms(x, w, h, beta)
+                     for x, w, h in zip(self.Xs, Ws, Hts)]
+            numerator = sum_shards([t[0] for t in terms])
+            denominator = sum_shards([t[1] for t in terms])
+        return _mu_step(Ht, numerator, denominator, gamma, l1_reg, l2_reg)
+
+    def error(self, Ws, Ht):
+        beta = self.beta
+        if beta == 2:
+            Hts = broadcast(Ht, self.devices)
+            cross = sum_shards([torch.einsum("bnk,bnk->b", w, _shared_x_dot(x, h))
+                                for x, w, h in zip(self.Xs, Ws, Hts)])
+            wh_norm = torch.einsum("bkl,bkl->b",
+                                   sum_shards([_gram(w) for w in Ws]), _gram(Ht))
+            return torch.sqrt((self.x_sq + wh_norm - 2.0 * cross).clamp(min=0.0))
+        Hts = broadcast(Ht, self.devices)
+        if beta == 1:
+            X_log_X, sum_X = self.x_terms
+            w_sum = sum_shards([restart_sums(w) for w in Ws])
+            sum_WH = restart_sums((w_sum * restart_sums(Ht))[:, :, None])[:, 0]
+            divs = (-sum_shards([kl_x_log_wh(x, w, h)
+                                 for x, w, h in zip(self.Xs, Ws, Hts)])
+                    + X_log_X - sum_X + sum_WH)
+        else:
+            divs = _beta_div_from(sum_shards([
+                _beta_divergence_chunked(x, w, h, beta)
+                for x, w, h in zip(self.Xs, Ws, Hts)]), beta, self.pad_elems)
+        return torch.sqrt((2.0 * divs).clamp(min=0.0))
+
+
+class _ColShardTerms:
+    """The MU terms of X's column shards (the transpose of a row-sharded
+    matrix), Ht's rows following them and W replicated on the first shard's
+    device, with H fixed: the fixed-usage spectra refit of a row-sharded
+    TPM. They are ``_RowShardTerms`` of Xᵀ's row shards with the factors'
+    roles swapped: W's update is their H update."""
+
+    def __init__(self, X, beta):
+        self.rows = _RowShardTerms(X.T, beta)
+
+    def update_w(self, W, Hts, gamma, l1_reg, l2_reg):
+        return self.rows.update_h(Hts, W, gamma, l1_reg, l2_reg)
+
+    def error(self, W, Hts):
+        return self.rows.error(Hts, W)

@@ -17,7 +17,9 @@ import scipy.sparse as sp
 import torch
 
 from cnmf_tpu_torch.ops.cd_kernels import numpy_dtype, torch_dtype
-from cnmf_tpu_torch.ops.stats import mean_var
+from cnmf_tpu_torch.ops.stats import column_moments, mean_var
+from cnmf_tpu_torch.parallel.collectives import sum_shards
+from cnmf_tpu_torch.parallel.mesh import Shards, shard_like
 
 # nonzeros per accumulation block of the sparse host UᵀY product: bounds the
 # block's float64 cast of the data at ~200 MB (tests shrink it to force
@@ -28,27 +30,15 @@ SPMM_BLOCK_NNZ = 25_000_000
 def _xty_zscored(U: torch.Tensor, Y: torch.Tensor, mean: torch.Tensor,
                  inv_std: torch.Tensor) -> torch.Tensor:
     """Uᵀ · ((Y - mean)·inv_std) without materializing the normalized Y:
-    UᵀY·inv_std − (Uᵀ1)·(mean·inv_std)."""
-    uty = U.T @ Y
-    u_sum = torch.sum(U, dim=0)
+    UᵀY·inv_std − (Uᵀ1)·(mean·inv_std). U and Y may be row ``Shards`` of
+    one layout: UᵀY and Uᵀ1 are then summed over shards."""
+    if isinstance(Y, Shards):
+        uty = sum_shards([u.T @ y for u, y in zip(U.parts, Y.parts)])
+        u_sum = sum_shards([torch.sum(u, dim=0) for u in U.parts])
+    else:
+        uty = U.T @ Y
+        u_sum = torch.sum(U, dim=0)
     return (uty - u_sum[:, None] * mean[None, :]) * inv_std[None, :]
-
-
-def _column_moments(Y: torch.Tensor):
-    """Per-column mean and variance (ddof 0) as host float64 arrays, by the
-    two-pass form E[(Y-mean)²]: the one-pass E[Y²]-mean² cancels badly in
-    f32 for high-mean, low-variance columns. Column chunks bound the centered
-    temporary at ~800 MB."""
-    n = Y.shape[0]
-    gchunk = max(1, int(8e8 // max(n * Y.element_size(), 1)))
-    means, variances = [], []
-    for s in range(0, Y.shape[1], gchunk):
-        Ys = Y[:, s:s + gchunk]
-        m = torch.sum(Ys, dim=0) / n
-        means.append(m)
-        variances.append(torch.sum((Ys - m[None, :]) ** 2, dim=0) / n)
-    return (torch.cat(means).cpu().numpy().astype(np.float64),
-            torch.cat(variances).cpu().numpy().astype(np.float64))
 
 
 def _sparse_xty(U64: np.ndarray, Y) -> np.ndarray:
@@ -86,9 +76,11 @@ def efficient_ols_all_cols(
 ) -> np.ndarray:
     """OLS coefficients (n_predictors × n_targets) of Y's columns on U.
 
-    U: (N, K) host usages. Y: (N, G) targets: a tensor, whose device and
-    dtype the products run in, or a host matrix, with ``device`` and
-    ``dtype`` (numpy or torch) given. A sparse host Y takes a float64 host
+    U: (N, K) host usages. Y: (N, G) targets: a tensor or row ``Shards``
+    (U is split to match, padded rows zero; the sums run over shards, the
+    moments divide by the real row count), whose device and dtype the
+    products run in, or a host matrix, with ``device`` and ``dtype`` (numpy
+    or torch) given. A sparse host Y takes a float64 host
     SpMM (``SPMM_BLOCK_NNZ`` nonzeros a block) and a dense one a row-batched
     accumulation on ``device`` (``batch_size`` rows a batch), so that only a
     (batch × G) tile is on the card at a time. With ``normalize_y``, Y's
@@ -98,7 +90,8 @@ def efficient_ols_all_cols(
     n = U.shape[0]
     if Y.shape[0] != n:
         raise ValueError("U and Y must have the same number of rows.")
-    if isinstance(Y, torch.Tensor):
+    on_device = isinstance(Y, (torch.Tensor, Shards))
+    if on_device:
         device, tdtype = Y.device, Y.dtype
     else:
         if device is None or dtype is None:
@@ -109,8 +102,8 @@ def efficient_ols_all_cols(
     XtX = (U.T @ U).astype(np.float64)
 
     if normalize_y:
-        if isinstance(Y, torch.Tensor):
-            mean_y, var_y = _column_moments(Y)
+        if on_device:
+            mean_y, var_y = column_moments(Y)
         else:
             mean_y, var_y = mean_var(Y)
         var_y = np.maximum(var_y, 1e-12)
@@ -124,17 +117,21 @@ def efficient_ols_all_cols(
             XtY = ((XtY - U64.sum(axis=0)[:, None] * mean_y[None, :])
                    * (1.0 / np.sqrt(var_y))[None, :])
     else:
-        Ud = torch.as_tensor(U, device=device)
+        Ud = (shard_like(U, Y) if isinstance(Y, Shards)
+              else torch.as_tensor(U, device=device))
         if normalize_y:
             mean_d = torch.as_tensor(mean_y, device=device).to(tdtype)
             inv_d = torch.as_tensor(1.0 / np.sqrt(var_y),
                                     device=device).to(tdtype)
 
         def product(Ub, Yb):
-            return (_xty_zscored(Ub, Yb, mean_d, inv_d) if normalize_y
-                    else Ub.T @ Yb)
+            if normalize_y:
+                return _xty_zscored(Ub, Yb, mean_d, inv_d)
+            if isinstance(Yb, Shards):
+                return sum_shards([u.T @ y for u, y in zip(Ub.parts, Yb.parts)])
+            return Ub.T @ Yb
 
-        if isinstance(Y, torch.Tensor):
+        if on_device:
             XtY = product(Ud, Y)
         else:
             XtY = torch.zeros((U.shape[1], Y.shape[1]), dtype=tdtype,

@@ -15,8 +15,11 @@ from typing import Optional, Tuple
 
 import numpy as np
 import scipy.sparse as sp
+import torch
 
 from cnmf_tpu_torch.native import csr_col_moments
+from cnmf_tpu_torch.parallel.collectives import sum_shards
+from cnmf_tpu_torch.parallel.mesh import Shards
 
 
 def mean_var(X, ddof: int = 0) -> Tuple[np.ndarray, np.ndarray]:
@@ -56,6 +59,30 @@ def mean_var(X, ddof: int = 0) -> Tuple[np.ndarray, np.ndarray]:
     if ddof:
         var = var * n / (n - ddof)
     return mean.astype(np.float64), var.astype(np.float64)
+
+
+def column_moments(Y) -> Tuple[np.ndarray, np.ndarray]:
+    """Per-column mean and variance (ddof 0) of a tensor on its device, as
+    host float64 arrays, by the two-pass form E[(Y-mean)²]: the one-pass
+    E[Y²]-mean² cancels badly in f32 for high-mean, low-variance columns.
+    Column chunks bound the centered temporary at ~800 MB. Y may be row
+    ``Shards``: each pass sums the shards' real rows in shard order and
+    divides by the real row count."""
+    parts = Y.parts if isinstance(Y, Shards) else [Y]
+    reals = ([Y.real_rows(i) for i in range(len(parts))]
+             if isinstance(Y, Shards) else [Y.shape[0]])
+    n = Y.shape[0]
+    gchunk = max(1, int(8e8 // max(parts[0].shape[0] * Y.element_size(), 1)))
+    means, variances = [], []
+    for s in range(0, Y.shape[1], gchunk):
+        blocks = [p[:r, s:s + gchunk] for p, r in zip(parts, reals)]
+        m = sum_shards([torch.sum(b, dim=0) for b in blocks]) / n
+        means.append(m)
+        variances.append(sum_shards([
+            torch.sum((b - m.to(b.device)[None, :]) ** 2, dim=0)
+            for b in blocks]) / n)
+    return (torch.cat(means).cpu().numpy().astype(np.float64),
+            torch.cat(variances).cpu().numpy().astype(np.float64))
 
 
 # Overdispersion baseline model (selection contract set by reference

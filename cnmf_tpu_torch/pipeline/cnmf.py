@@ -25,6 +25,13 @@ products (``stages.consensus_arrays``). The stages record their walls
 (``utils.timing``: ``timings()``, ``CNMF_TPU_TIMINGS=1``,
 ``CNMF_TPU_PROFILE_DIR``).
 Artifacts are written synchronously, so ``flush_writes`` has nothing to do.
+
+With more than one local device of the object's type (``parallel.mesh.
+local_devices``), factorize lays its cells (under ``CNMF_TPU_CELL_AXIS``)
+over a mesh of them, or its restarts where that is faster than one device
+(``solvers.restart_axis_pays``), and consensus and k-selection upload the
+cell axis split over every device (``shard_cells``), as the JAX package
+does over ``jax.devices()``.
 """
 
 from __future__ import annotations
@@ -65,6 +72,7 @@ from cnmf_tpu_torch.ops.cd_kernels import (
 )
 from cnmf_tpu_torch.ops.device_densify import to_device_dense
 from cnmf_tpu_torch.ops.distance import pairwise_euclidean
+from cnmf_tpu_torch.parallel import mesh as parallel_mesh
 from cnmf_tpu_torch.pipeline import solvers, stages
 from cnmf_tpu_torch.pipeline.paths import build_paths
 from cnmf_tpu_torch.utils.timing import stage_timer, timed, timings_verbose
@@ -100,9 +108,14 @@ class cNMF:
     ``tpm_device_bytes_limit``: set on the object to override
     ``stages.tpm_device_limit`` (bytes of the float32 TPM kept on the
     device in consensus; 1 forces the host-TPM branch).
+    ``shard_cells``: with several local devices, consensus and k-selection
+    upload the normalized counts and the TPM with the cell axis split over
+    all of them (``_put_cells``); set it False on the object for one
+    device's uploads.
     """
 
     tpm_device_bytes_limit = None
+    shard_cells = True
 
     def __init__(self, output_dir=".", name=None, compute_dtype=np.float32,
                  *, device="cuda"):
@@ -123,19 +136,52 @@ class cNMF:
             check_dir_exists(os.path.join(self.output_dir, self.name, "cnmf_tmp"))
             self.paths = build_paths(self.output_dir, self.name)
 
-    def _to_device_dense(self, X) -> torch.Tensor:
-        """A (cells × features) host matrix as a dense tensor on the device
-        at the compute dtype: a CSR input's components expanded on the card
-        where ``device_densify_eligible``, else the native host densify and
-        one upload (ops/device_densify.py)."""
-        return to_device_dense(X, self.compute_dtype, self.device)
+    def _mesh_devices(self):
+        """The local devices (``parallel.mesh.local_devices``) when there
+        are several and they are of the object's device type, else None:
+        one device means no mesh, as in the JAX package."""
+        devices = parallel_mesh.local_devices()
+        if len(devices) > 1 and all(torch.device(d).type == self.device.type
+                                    for d in devices):
+            return devices
+        return None
+
+    def _cell_devices(self):
+        """The devices consensus splits the cell axis over, or None."""
+        return self._mesh_devices() if self.shard_cells else None
+
+    def _put_cells(self, X):
+        """A (cells × features) host matrix, dense or CSR, as a dense tensor
+        at the compute dtype, its cell axis split over every local device
+        (``_cell_devices``; zero-padded to even shards, the layout of
+        ``parallel.mesh.put_cells``, as ``parallel.mesh.Shards``): each
+        shard's rows reach their own device by ``to_device_dense`` (a CSR
+        input's components expanded on the card where
+        ``device_densify_eligible``, else the native host densify and one
+        upload, ops/device_densify.py). The consensus refits, the z-score OLS
+        and the k-stats then sum their cell reductions over shards. With
+        one device, or ``self.shard_cells = False``, one upload to
+        ``device``."""
+        devices = self._cell_devices()
+        if devices is None:
+            return to_device_dense(X, self.compute_dtype, self.device)
+        n = X.shape[0]
+        parts = []
+        for (start, stop, rows), dev in zip(
+                parallel_mesh.shard_bounds(n, len(devices)), devices):
+            part = to_device_dense(X[start:stop], self.compute_dtype, dev)
+            if stop - start < rows:
+                part = torch.cat([part, part.new_zeros(
+                    (rows - (stop - start), part.shape[1]))])
+            parts.append(part)
+        return parallel_mesh.Shards(parts, n)
 
     def _solve_inputs(self, X):
         """(the inits' host source, the dense device tensor) of a (cells ×
         features) matrix: a CSR input stays CSR on the host (the inits take
         either), a dense one is cast to the compute dtype once for both."""
         if sp.issparse(X):
-            return X, self._to_device_dense(X)
+            return X, to_device_dense(X, self.compute_dtype, self.device)
         X_host = np.ascontiguousarray(X, dtype=self.compute_dtype)
         return X_host, torch.as_tensor(X_host, device=self.device)
 
@@ -370,14 +416,18 @@ class cNMF:
 
     @timed("factorize")
     def factorize(self, worker_i=0, total_workers=1, skip_completed_runs=False,
-                  restart_chunk=None, use_mesh=None, verbose=True):
+                  restart_chunk=None, use_mesh=True, verbose=True):
         """Run this worker's share of the replicate grid (round-robin, as the
         reference's workers split it, cnmf.py:692-745): all restarts of one K
         as one batched solve, K zero-padded to a bucket of 8. Spectra land in
         the per-(K, iter) npz files. Sparse normalized counts reach the
-        device through ``_to_device_dense`` and the inits read the CSR.
-        ``use_mesh``: accepted for the JAX package's API; the port solves on
-        its one device."""
+        device through ``to_device_dense`` and the inits read the CSR.
+        ``use_mesh``: with several local devices of the object's type, lay
+        the restarts over ``parallel.mesh.build_mesh()``: the cell axis
+        under ``CNMF_TPU_CELL_AXIS``, else the restart axis for each K where
+        ``solvers.restart_axis_pays`` (the restart groups' loops are
+        device-bound there; smaller K solves run faster on ``device``
+        alone); with one device, or False, solve on ``device`` alone."""
         run_params = load_df_from_npz(self.paths["nmf_replicate_parameters"])
         norm_counts = read_h5ad(self.paths["normalized_counts"])
         nmf_kwargs = self._load_run_params()
@@ -388,23 +438,28 @@ class cNMF:
         jobs = list(worker_filter(rows, worker_i, total_workers))
         if not jobs:
             return
+        devices = self._mesh_devices() if use_mesh else None
+        mesh = None if devices is None else parallel_mesh.build_mesh(devices)
         X_host, Xd = self._solve_inputs(norm_counts.X)
         gene_index = norm_counts.var.index
         for k, group in run_params.iloc[jobs].groupby("n_components", sort=True):
             k = int(k)
             seeds = group["nmf_seed"].values
+            mesh_k = (mesh if mesh is not None and solvers.restart_axis_pays(
+                mesh, Xd.shape, len(seeds), k) else None)
             t0, timings = time.perf_counter(), {}
             spectra, n_iter, executed = stages.factorize_k(
                 X_host, Xd, k, seeds, nmf_kwargs, restart_chunk=restart_chunk,
-                timings=timings,
+                timings=timings, mesh=mesh_k,
             )
             if verbose:
                 print("[Worker %d] k=%d: %d restarts in %.3f s (host inits "
-                      "%.3f s), sweeps max %d mean %.1f, executed "
+                      "%.3f s) on %s, sweeps max %d mean %.1f, executed "
                       "restart-sweeps %d"
                       % (worker_i, k, len(seeds), time.perf_counter() - t0,
-                         timings["init"], n_iter.max(), n_iter.mean(),
-                         executed))
+                         timings["init"], "one device" if mesh_k is None
+                         else "a mesh %s" % (mesh_k.shape,),
+                         n_iter.max(), n_iter.mean(), executed))
             for i, it in enumerate(group["iter"].values):
                 save_df_to_npz(
                     pd.DataFrame(spectra[i], index=np.arange(1, k + 1),
@@ -584,7 +639,7 @@ class cNMF:
         merged = load_df_from_npz(self.paths["merged_spectra"] % k)
         if norm_counts is None:
             norm_counts = read_h5ad(self.paths["normalized_counts"])
-        norm_counts_dev = self._to_device_dense(norm_counts.X)
+        norm_counts_dev = self._put_cells(norm_counts.X)
         nmf_kwargs = self._load_run_params()
         if skip_density_and_return_after_stats:
             ((_, _, silhouette, error),) = stages.k_stats_arrays(
@@ -619,7 +674,7 @@ class cNMF:
 
         if stages.tpm_fits_device(tpm.X.shape, self.device,
                                   self.tpm_device_bytes_limit):
-            tpm_src = self._to_device_dense(tpm.X)
+            tpm_src = self._put_cells(tpm.X)
         else:
             tpm_src = tpm.X
         sub_stages = {} if timings_verbose() else None
@@ -695,7 +750,7 @@ class cNMF:
             for k in sorted(set(run_params.n_components))
         }
         rows = stages.k_stats_arrays(
-            merged, self._to_device_dense(norm_counts.X),
+            merged, self._put_cells(norm_counts.X),
             self._load_run_params(),
         )
         stats = pd.DataFrame(np.asarray(rows, dtype=np.float64),

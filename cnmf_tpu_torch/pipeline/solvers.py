@@ -14,11 +14,20 @@ Itakura-Saito) the general-beta kernels.
 On the card a factorize solve takes the device ladder
 (``solve_nmf_batch_ladder``) unless ``CNMF_TPU_DEVICE_LADDER=0``
 (``device_ladder_enabled``).
+
+On a mesh (``parallel.mesh``): ``solve_nmf_batch_sharded`` splits the
+restarts over the restart axis (each restart group on its own host thread,
+on a replica of X) and X's rows over the cell axis (the cell-sharded loops
+of ``ops.nmf``); ``solve_nmf_ladder_sharded`` is its restart-axis twin on
+the device ladder. The refits take a row-sharded X or TPM
+(``parallel.mesh.Shards``), and ``shard_products_rows`` row-shards the
+products-given solve of the over-limit atlas consensus.
 """
 
 from __future__ import annotations
 
 import os
+from concurrent.futures import ThreadPoolExecutor
 from typing import Optional, Tuple
 
 import numpy as np
@@ -39,6 +48,16 @@ from cnmf_tpu_torch.ops.nmf import (
     nmf_multiplicative_update,
     nnls_cd_fixed_spectra,
     nnls_cd_from_products,
+)
+from cnmf_tpu_torch.parallel.collectives import gather_shards, sum_shards
+from cnmf_tpu_torch.parallel import mesh as parallel_mesh
+from cnmf_tpu_torch.parallel.mesh import (
+    Shards,
+    build_mesh,
+    pad_to_multiple,
+    shard_factorize_inputs,
+    shard_like,
+    split_rows,
 )
 
 BETA_LOSS = {"frobenius": 2.0, "kullback-leibler": 1.0, "itakura-saito": 0.0}
@@ -184,10 +203,162 @@ def solve_nmf_batch_ladder(X, W0, Ht0, nmf_kwargs: dict, min_bucket: int = 16):
     return spec, n_iter, (ladder, sweeps)
 
 
+# ----------------------------------------------------------------------
+# the mesh
+# ----------------------------------------------------------------------
+
+def _on_device(dev, fn, *args):
+    """fn(*args) with ``dev`` as the thread's current CUDA device."""
+    if torch.device(dev).type == "cuda":
+        with torch.cuda.device(dev):
+            return fn(*args)
+    return fn(*args)
+
+
+def _per_group(mesh, fn, groups):
+    """fn(*group) for each restart group, each on its own host thread with
+    its first device current (one group: this thread), in group order. A
+    group's failure raises here."""
+    if len(groups) == 1:
+        return [_on_device(mesh.devices[0][0], fn, *groups[0])]
+    with ThreadPoolExecutor(max_workers=len(groups)) as pool:
+        futures = [pool.submit(_on_device, row[0], fn, *group)
+                   for row, group in zip(mesh.devices, groups)]
+        return [f.result() for f in futures]
+
+
+def _restart_padded(mesh, W0, Ht0):
+    """W0, Ht0 as host arrays with the restarts padded to the restart axis'
+    multiple (copies of restart 0), and the true restart count."""
+    as_host = (lambda a: a.cpu().numpy() if isinstance(a, torch.Tensor)
+               else np.asarray(a))
+    W0p, true_b = pad_to_multiple(as_host(W0), mesh.shape["restart"])
+    Ht0p, _ = pad_to_multiple(as_host(Ht0), mesh.shape["restart"])
+    return W0p, Ht0p, true_b
+
+
+def solve_nmf_batch_sharded(mesh, X, W0, Ht0, nmf_kwargs: dict,
+                            update_H: bool = True, mu_chunk: int = 8,
+                            force_shard_map: bool = False):
+    """Batched solve over a (restart, cell) mesh (cnmf_tpu/pipeline/
+    solvers.py:694-786); returns (W, Ht, n_iter) sliced back to the true
+    restart count, gathered in restart order on the mesh's first device.
+
+    The restart batch pads to the restart-shard multiple (repeating restart
+    0; padded results are discarded). Each restart group solves its share on
+    its own host thread, so one group's block sync never holds another: on a
+    replica of X (``cell`` 1; the solver is restart-separable, so each
+    restart's factors are those of a solve alone), or with X's rows and W's
+    split over the group's devices (the cell-sharded loops of ``ops.nmf``:
+    W's padded rows are zero and stay zero). The regularization scales with
+    X's real row count. X: a host array or a tensor (placed once per X,
+    ``Mesh.place_data``). ``mu_chunk`` and ``force_shard_map`` are accepted
+    for the JAX package's API: every MU solve here runs the port's kernels
+    per shard."""
+    W0p, Ht0p, true_b = _restart_padded(mesh, W0, Ht0)
+    Xs, W0s, Ht0s = shard_factorize_inputs(mesh, X, W0p, Ht0p)
+    out = _per_group(mesh, lambda x, w, h: solve_nmf_batch(
+        x, w, h, nmf_kwargs, update_H=update_H), list(zip(Xs, W0s, Ht0s)))
+    dev = mesh.devices[0][0]
+    W = torch.cat([(gather_shards(w) if isinstance(w, Shards) else w).to(dev)
+                   for w, _, _ in out])
+    Ht = torch.cat([h.to(dev) for _, h, _ in out])
+    n_iter = torch.cat([n.to(dev) for _, _, n in out])
+    return W[:true_b], Ht[:true_b], n_iter[:true_b]
+
+
+def solve_nmf_ladder_sharded(mesh, X, W0, Ht0, nmf_kwargs: dict,
+                             min_bucket: int = 16):
+    """The restart-axis factorize on the device ladder, each restart group
+    on its own host thread with a replica of X: the role of the JAX
+    package's ``solve_nmf_sharded_device`` (cnmf_tpu/pipeline/solvers.py:
+    309-403), with the port's host inits instead of device-drawn ones.
+    Returns (spectra (B, K, G), n_iter (B,), (ladder sizes, sweeps at each
+    rung summed over groups)) on the mesh's first device, like
+    ``solve_nmf_batch_ladder``. Restart-axis meshes only."""
+    if mesh.shape["cell"] != 1:
+        raise ValueError("solve_nmf_ladder_sharded is restart-axis only")
+    W0p, Ht0p, true_b = _restart_padded(mesh, W0, Ht0)
+    Xs, W0s, Ht0s = shard_factorize_inputs(mesh, X, W0p, Ht0p)
+    out = _per_group(mesh, lambda x, w, h: solve_nmf_batch_ladder(
+        x, w, h, nmf_kwargs, min_bucket), list(zip(Xs, W0s, Ht0s)))
+    dev = mesh.devices[0][0]
+    spec = torch.cat([s.to(dev) for s, _, _ in out])
+    n_iter = torch.cat([n.to(dev) for _, n, _ in out])
+    ladder = out[0][2][0]
+    sweeps = [sum(o[2][1][i] for o in out) for i in range(len(ladder))]
+    return spec[:true_b], n_iter[:true_b], (ladder, sweeps)
+
+
+# The restart axis pays where each restart group's loop is device-bound.
+# Every group's host thread launches every kernel of its own loop, under
+# one interpreter lock, so n groups cost about n times one device's host
+# time a sweep (1.1-1.7 ms for each group), while each card's device work
+# a sweep falls to 1/n: about 1.5e-13 s per multiply-add of B·N·G·K. The
+# restart axis is faster where B·N·G·K ≥ n · RESTART_AXIS_WORK. Measured
+# with the CD factorize on four H100 80GB HBM3 at 700 W
+# (chip_mesh_cards.py): at 2,700 × 2,000, K ≤ 16, 100 restarts (8.6e9) one
+# card took 4.8-7.3 s and the restart axis 9.6-9.8 s on 2 cards, 31-32 s on
+# 4; at 100,000 × 2,000, K=12 (bucket 16), 30 restarts (9.6e10) one card
+# took 15.2 s, 2 cards 10.6 s, 4 cards 9.2 s.
+RESTART_AXIS_WORK = 1e10
+
+
+def restart_axis_pays(mesh, shape, n_restarts: int, k: int) -> bool:
+    """Whether ``cNMF.factorize`` lays ``n_restarts`` restarts of rank k on
+    X of ``shape`` (cells, genes) over ``mesh``: a mesh with a cell axis
+    always (it shards X, which may not fit one device); a restart-only mesh
+    where B·N·G·K (K its bucket of 8) reaches RESTART_AXIS_WORK for each
+    restart group, else one device is faster."""
+    if mesh.shape["cell"] > 1:
+        return True
+    n, g = shape
+    work = float(n_restarts) * n * g * pad_bucket(k)
+    return work >= mesh.shape["restart"] * RESTART_AXIS_WORK
+
+
+def _match_factor_shardings(X, W0, Ht0):
+    """W0 / Ht0 laid out on X's shards (cnmf_tpu/pipeline/solvers.py:
+    788-803): W's rows follow X's rows and Ht's rows X's columns, each
+    factor replicated (on X's first device) where its axis is not sharded.
+    Unchanged when X is one tensor."""
+    if not isinstance(X, Shards):
+        return W0, Ht0
+    if X.axis == 0:
+        if not isinstance(W0, Shards):
+            W0 = shard_like(W0, X, axis=1)
+        return W0, Ht0.to(X.device)
+    if not isinstance(Ht0, Shards):
+        Ht0 = shard_like(Ht0, X, axis=1)
+    return W0.to(X.device), Ht0
+
+
+def shard_products_rows(gram, P, W0):
+    """Row-shard the products-given refit (the over-limit atlas consensus,
+    cnmf_tpu/pipeline/solvers.py:881-926): P and W0 (B, M, K) split along M
+    over every local device (zero rows appended: a zero P row keeps its zero
+    W row at 0 and adds nothing to the violation), the (B, K, K) gram kept
+    on the first device and replicated by the solve. The products-given CD
+    is row-parallel, coupled only through the stop rule's summed violation.
+
+    Returns (gram, P, W0, M), P and W0 as ``Shards``. A no-op (the inputs
+    as given) with fewer than two local devices, local devices of another
+    type than P's, or ``CNMF_TPU_MESH_PRODUCTS=0``."""
+    n_rows = P.shape[1]
+    devices = parallel_mesh.local_devices()
+    if (len(devices) < 2
+            or os.environ.get("CNMF_TPU_MESH_PRODUCTS", "1") == "0"
+            or any(torch.device(d).type != P.device.type for d in devices)):
+        return gram, P, W0, n_rows
+    devices = build_mesh(devices).flat_devices()
+    return (gram, split_rows(P, devices, axis=1),
+            split_rows(W0, devices, axis=1), n_rows)
+
+
 def _placement(X, device, dtype):
     """(device, numpy dtype) of a refit: a tensor X's own, or ``device`` and
     ``dtype`` (numpy or torch) for a host X."""
-    if isinstance(X, torch.Tensor):
+    if isinstance(X, (torch.Tensor, Shards)):
         device, dtype = X.device, X.dtype
     elif device is None or dtype is None:
         raise ValueError("a host X needs device= and dtype=")
@@ -195,17 +366,21 @@ def _placement(X, device, dtype):
 
 
 def _dense_on(X, device, np_dtype) -> torch.Tensor:
-    """A tensor X as it is; a host X densified (natively, when sparse) at
-    ``np_dtype`` and put on ``device``."""
-    if isinstance(X, torch.Tensor):
+    """A tensor (or ``Shards``) X as it is; a host X densified (natively,
+    when sparse) at ``np_dtype`` and put on ``device``."""
+    if isinstance(X, (torch.Tensor, Shards)):
         return X
     return torch.as_tensor(
         np.ascontiguousarray(densify_csr(X, out_dtype=np_dtype)), device=device)
 
 
-def _cd_from_products(gram, P, nmf_kwargs, l1_reg, l2_reg):
-    """The products-given CD NNLS from zeros (sklearn's CD refit init)."""
+def _cd_from_products(gram, P, nmf_kwargs, l1_reg, l2_reg,
+                      shard_rows: bool = False):
+    """The products-given CD NNLS from zeros (sklearn's CD refit init);
+    ``shard_rows``: through ``shard_products_rows``."""
     W0 = torch.zeros_like(P)
+    if shard_rows:
+        gram, P, W0, _ = shard_products_rows(gram, P, W0)
     W, _ = nnls_cd_from_products(
         gram, P, W0, tol=float(nmf_kwargs.get("tol", 1e-4)),
         max_iter=int(nmf_kwargs.get("max_iter", 200)),
@@ -221,12 +396,14 @@ def refit_spectra_transposed(X, usages: np.ndarray, nmf_kwargs: dict, *,
     only the usage gram and Xᵀ·U; the MU refit is the usage refit of Xᵀ, a
     transposed view that the kernels read through its strides.
 
-    X: (cells × genes) tensor, or a host matrix with ``device`` and
-    ``dtype`` given. A sparse host X (the atlas consensus) is the usage
-    refit of its transpose, whose CD path takes Xᵀ·U by host SpMM, so it
-    never goes dense anywhere; it is CD-only, as in the JAX package
-    (cnmf_tpu/pipeline/solvers.py:806-879). usages: (cells × k). Returns
-    spectra in X's units, transposed: (genes × k), as a host array."""
+    X: (cells × genes) tensor, row ``Shards`` (Xᵀ·U and the usage gram
+    summed over shards; the MU refit on Xᵀ's column shards), or a host
+    matrix with ``device`` and ``dtype`` given. A sparse host X (the atlas
+    consensus) is the usage refit of its transpose, whose CD path takes Xᵀ·U
+    by host SpMM, so it never goes dense anywhere; it is CD-only, as in the
+    JAX package (cnmf_tpu/pipeline/solvers.py:806-879). usages: (cells ×
+    k). Returns spectra in X's units, transposed: (genes × k), as a host
+    array. The regularization scales with the real cell count."""
     dev, np_dtype = _placement(X, device, dtype)
     if sp.issparse(X):
         if _is_mu(nmf_kwargs):
@@ -243,15 +420,21 @@ def refit_spectra_transposed(X, usages: np.ndarray, nmf_kwargs: dict, *,
     pad_k = pad_bucket(k)
     U = np.pad(np.ascontiguousarray(usages, dtype=np_dtype),
                ((0, 0), (0, pad_k - k)))
-    Ud = torch.as_tensor(U, device=dev)
     # the materialized-transpose solve's X is (genes × cells): n_features is
     # the cell count
     l1_reg_W, _, l2_reg_W, _ = _regularization(
         nmf_kwargs, (X.shape[1], X.shape[0])
     )
-    P = fixed_factor_product_transposed(Ud, _dense_on(X, dev, np_dtype))
-    W = _cd_from_products(fixed_factor_gram(Ud[None]), P, nmf_kwargs,
-                          l1_reg_W, l2_reg_W)
+    if isinstance(X, Shards):
+        Us = shard_like(U, X)
+        gram = sum_shards([fixed_factor_gram(u[None]) for u in Us.parts])
+        P = sum_shards([fixed_factor_product_transposed(u, x)
+                        for u, x in zip(Us.parts, X.parts)])
+    else:
+        Ud = torch.as_tensor(U, device=dev)
+        gram = fixed_factor_gram(Ud[None])
+        P = fixed_factor_product_transposed(Ud, _dense_on(X, dev, np_dtype))
+    W = _cd_from_products(gram, P, nmf_kwargs, l1_reg_W, l2_reg_W)
     return W[0, :, :k].cpu().numpy()
 
 
@@ -260,14 +443,17 @@ def refit_usages(X, spectra: np.ndarray, nmf_kwargs: dict, *, device=None,
     """Fixed-spectra NNLS usage refit (sklearn update_H=False semantics;
     reference cnmf.py:776-802), W started by ``nnls_w_init``.
 
-    X: (cells × genes) tensor, or a host matrix with ``device`` and
-    ``dtype`` given. A sparse host X never goes dense on the CD path: the
-    refit takes the spectra gram and P = X·Hᵀ by one host SpMM at the
-    compute dtype, and the device runs the (cells × k) products-given loop
-    from zeros (cnmf_tpu/pipeline/solvers.py:963-996). MU needs the
-    reconstruction against X itself, so a sparse X is densified on the host
-    (natively) and uploaded. spectra: (k × genes). Returns usages (cells ×
-    k) as a host array."""
+    X: (cells × genes) tensor, ``Shards`` (of its rows: W's rows follow
+    them, padded rows stay 0; or of its columns: the spectra refit of a
+    row-sharded TPM, the fixed factor's rows following them), or a host
+    matrix with ``device`` and ``dtype`` given. A sparse host X never goes
+    dense on the CD path: the refit takes the spectra gram and P = X·Hᵀ by
+    one host SpMM at the compute dtype, and the device runs the (cells × k)
+    products-given loop from zeros (cnmf_tpu/pipeline/solvers.py:963-996),
+    row-sharded over the local devices where there are several
+    (``shard_products_rows``). MU needs the reconstruction against X
+    itself, so a sparse X is densified on the host (natively) and uploaded.
+    spectra: (k × genes). Returns usages (cells × k) as a host array."""
     dev, np_dtype = _placement(X, device, dtype)
     k = spectra.shape[0]
     pad_k = pad_bucket(k)
@@ -279,9 +465,18 @@ def refit_usages(X, spectra: np.ndarray, nmf_kwargs: dict, *, device=None,
         P = torch.as_tensor(np.ascontiguousarray(X @ Ht, dtype=np_dtype),
                             device=dev)[None]
         W = _cd_from_products(fixed_factor_gram(Ht0), P, nmf_kwargs,
-                              l1_reg_W, l2_reg_W)
-        return W[0, :, :k].cpu().numpy()
+                              l1_reg_W, l2_reg_W, shard_rows=True)
+        return _host_usages(W, k)
     Xd = _dense_on(X, dev, np_dtype)
     W0 = nnls_w_init(Xd, k, "mu" if _is_mu(nmf_kwargs) else "cd", pad_k=pad_k)
+    W0, Ht0 = _match_factor_shardings(Xd, W0, Ht0)
     W, _, _ = solve_nmf_batch(Xd, W0, Ht0, nmf_kwargs, update_H=False)
+    return _host_usages(W, k)
+
+
+def _host_usages(W, k: int) -> np.ndarray:
+    """Restart 0's first k columns of a refit's W (a tensor, or row
+    ``Shards`` whose real rows are gathered) as a host array."""
+    if isinstance(W, Shards):
+        W = gather_shards(W)
     return W[0, :, :k].cpu().numpy()

@@ -22,6 +22,7 @@ start from bit-identical inputs.
 
 from __future__ import annotations
 
+import functools
 import time
 from dataclasses import dataclass
 from typing import Optional, Sequence
@@ -48,6 +49,8 @@ from cnmf_tpu_torch.ops.normalize import (
 )
 from cnmf_tpu_torch.ops.ols import efficient_ols_all_cols
 from cnmf_tpu_torch.ops.stats import fano_hvg_stats, mean_var
+from cnmf_tpu_torch.parallel.collectives import broadcast, sum_shards
+from cnmf_tpu_torch.parallel.mesh import Shards, pad_to_multiple
 from cnmf_tpu_torch.pipeline.solvers import (
     _regularization,
     beta_loss_to_float,
@@ -56,6 +59,8 @@ from cnmf_tpu_torch.pipeline.solvers import (
     refit_usages,
     solve_nmf_batch,
     solve_nmf_batch_ladder,
+    solve_nmf_batch_sharded,
+    solve_nmf_ladder_sharded,
 )
 from cnmf_tpu_torch.utils.timing import stage_timer
 
@@ -194,7 +199,7 @@ def restart_inits(X_host, k: int, seeds, init: str, dtype=None):
 def factorize_k(X_host, Xd: torch.Tensor, k: int, seeds,
                 nmf_kwargs: dict, restart_chunk: Optional[int] = None,
                 ladder: Optional[bool] = None,
-                timings: Optional[dict] = None):
+                timings: Optional[dict] = None, mesh=None):
     """All restarts of one K: sklearn-RNG inits on the host (``init`` of the
     kwargs: random or nndsvd*), one batched solve per restart chunk on Xd's
     device, K zero-padded to its bucket of 8 (the padded columns start at
@@ -204,10 +209,14 @@ def factorize_k(X_host, Xd: torch.Tensor, k: int, seeds,
     from it, at Xd's dtype); Xd: the same values as a dense tensor. ``ladder``:
     solve on the device ladder (None: ``solvers.device_ladder_enabled``, on
     for CUDA tensors). ``timings``: a dict whose "init" entry gains the host
-    seconds the inits took. Returns (spectra (B, k, G), n_iter (B,)) as host
-    arrays and the restart-sweeps the device executed: the ladder's
-    Σ rung · sweeps at it, the plain solver's B · min(max_iter, its sweep
-    blocks)."""
+    seconds the inits took. ``mesh``: a ``parallel.mesh.Mesh`` of more than
+    one device: each chunk's inits, drawn once, are split over its restart
+    groups (``solvers.solve_nmf_ladder_sharded`` on a restart axis with the
+    ladder, else ``solvers.solve_nmf_batch_sharded``). Returns (spectra
+    (B, k, G), n_iter (B,)) as host arrays and the restart-sweeps the device
+    executed: the ladder's Σ rung · sweeps at it, the plain solver's
+    B · min(max_iter, its sweep blocks) for each batch that ran (a restart
+    group's own on a mesh, padding restarts included)."""
     init = nmf_kwargs.get("init", "random")
     seeds = np.asarray(seeds)
     B = len(seeds)
@@ -219,6 +228,8 @@ def factorize_k(X_host, Xd: torch.Tensor, k: int, seeds,
         per_restart = Xd.shape[0] * pad_k * Xd.element_size() * 4
         restart_chunk = max(1, int(4e9 / max(per_restart, 1)))
     use_ladder = device_ladder_enabled(Xd, ladder)
+    if mesh is not None and mesh.size == 1:
+        mesh = None   # one device means no mesh
     max_iter = int(nmf_kwargs.get("max_iter", 200))
     spectra, n_iters, executed = [], [], 0
     for start in range(0, B, restart_chunk):
@@ -228,21 +239,41 @@ def factorize_k(X_host, Xd: torch.Tensor, k: int, seeds,
         if timings is not None:
             timings["init"] = timings.get("init", 0.0) + time.perf_counter() - t0
         pad = ((0, 0), (0, 0), (0, pad_k - k))
-        W0, Ht0 = factors_from_numpy(np.pad(W0, pad), np.pad(Ht0, pad),
-                                     device=Xd.device, dtype=Xd.dtype)
-        if use_ladder:
-            spec, n_iter, (rungs, sweeps) = solve_nmf_batch_ladder(
-                Xd, W0, Ht0, nmf_kwargs)
+        W0, Ht0 = np.pad(W0, pad), np.pad(Ht0, pad)
+        if mesh is None:
+            W0, Ht0 = factors_from_numpy(W0, Ht0, device=Xd.device,
+                                         dtype=Xd.dtype)
+        if use_ladder and (mesh is None or mesh.shape["cell"] == 1):
+            solve = (solve_nmf_batch_ladder if mesh is None else
+                     functools.partial(solve_nmf_ladder_sharded, mesh))
+            spec, n_iter, (rungs, sweeps) = solve(Xd, W0, Ht0, nmf_kwargs)
             spec = spec[:, :k]
             executed += sum(r * s for r, s in zip(rungs, sweeps))
         else:
-            _, Ht, n_iter = solve_nmf_batch(Xd, W0, Ht0, nmf_kwargs)
+            if mesh is None:
+                _, Ht, n_iter = solve_nmf_batch(Xd, W0, Ht0, nmf_kwargs)
+            else:
+                _, Ht, n_iter = solve_nmf_batch_sharded(mesh, Xd, W0, Ht0,
+                                                        nmf_kwargs)
             spec = Ht[:, :, :k].transpose(1, 2)
-            blocks = -(-int(n_iter.max()) // BLOCK) if len(n_iter) else 0
-            executed += len(n_iter) * min(max_iter, BLOCK * blocks)
+            groups = 1 if mesh is None else mesh.shape["restart"]
+            executed += _plain_executed(n_iter.cpu().numpy(), groups,
+                                        max_iter)
         spectra.append(spec.cpu().numpy())
         n_iters.append(n_iter.cpu().numpy())
     return np.concatenate(spectra), np.concatenate(n_iters), executed
+
+
+def _plain_executed(n_iter: np.ndarray, groups: int, max_iter: int) -> int:
+    """Restart-sweeps the plain solver ran on ``n_iter``'s restarts split
+    over ``groups`` batches (padded with copies of restart 0, as
+    ``pad_to_multiple`` pads them): each batch runs whole blocks until its
+    slowest restart stops."""
+    if not len(n_iter):
+        return 0
+    per = pad_to_multiple(n_iter, groups)[0].reshape(groups, -1)
+    blocks = -(-per.max(axis=1) // BLOCK)
+    return int((per.shape[1] * np.minimum(max_iter, BLOCK * blocks)).sum())
 
 
 def combine_arrays(spectra: Sequence[np.ndarray]) -> np.ndarray:
@@ -322,9 +353,12 @@ def consensus_arrays(
     """Consensus spectra and usages for one K (reference cnmf.py:823-975).
 
     merged: (n_iter·k × HVGs) merged spectra; norm_counts: (cells × HVGs)
-    tensor; tpm: the (cells × all genes) TPM, either a tensor at the same
-    dtype and device (resident: the spectra refit, the OLS and the final
-    refit read it on the device) or a host matrix, CSR or dense (over the
+    tensor, or row ``Shards`` over a mesh's devices (``parallel.mesh.
+    put_cells``: the refits, the OLS and the final refit's moments then sum
+    over shards, padded rows neutral); tpm: the (cells × all genes) TPM,
+    either a tensor (or ``Shards`` of the same layout) at the same dtype and
+    device (resident: the spectra refit, the OLS and the final refit read
+    it on the device) or a host matrix, CSR or dense (over the
     device limit, ``tpm_fits_device``: the JAX package's atlas branches,
     cnmf_tpu/pipeline/cnmf.py:3288-3569). A host CSR TPM never goes dense:
     with the CD solver the spectra refit and the final usage refit take
@@ -339,7 +373,7 @@ def consensus_arrays(
     in host values."""
     dev, dtype = norm_counts.device, norm_counts.dtype
     np_dtype = numpy_dtype(dtype)
-    resident = isinstance(tpm, torch.Tensor)
+    resident = isinstance(tpm, (torch.Tensor, Shards))
     last = [time.perf_counter()]
 
     def mark(label):
@@ -412,14 +446,8 @@ def consensus_arrays(
         # final usage refit on the std-scaled HVG TPM (reference cnmf.py:961-975)
         spectra_tpm_rf = spectra_tpm[:, hvg_idx] / tpm_std[hvg_idx][None, :]
         if resident:
-            tpm_hvg = tpm[:, torch.as_tensor(hvg_idx, device=dev)]
-            n = tpm_hvg.shape[0]
-            mean = torch.sum(tpm_hvg, dim=0) / n
-            sq = torch.sum(tpm_hvg * tpm_hvg, dim=0) / n
-            std = torch.sqrt(((sq - mean * mean) * n / (n - 1)).clamp(min=0.0))
-            if zero_safe:
-                std = torch.where(std == 0, 1.0, std)
-            usages = refit_usages(tpm_hvg / std, spectra_tpm_rf, nmf_kwargs)
+            usages = refit_usages(_scaled_hvg_tpm(tpm, hvg_idx, zero_safe),
+                                  spectra_tpm_rf, nmf_kwargs)
         else:
             tpm_hvg = (csr_column_subset(tpm.tocsr(), np.asarray(hvg_idx))
                        if sp.issparse(tpm) else np.asarray(tpm)[:, hvg_idx])
@@ -438,6 +466,24 @@ def consensus_arrays(
                      usages, spectra_tpm, spectra_score)
 
 
+def _scaled_hvg_tpm(tpm, hvg_idx, zero_safe: bool):
+    """The HVG columns of a device TPM (a tensor or row ``Shards``) scaled
+    to unit variance (ddof 1) without centering, the final refit's X
+    (reference cnmf.py:961-975); the moments run over the real rows, the
+    shards' sums in shard order."""
+    parts = tpm.parts if isinstance(tpm, Shards) else [tpm]
+    subs = [p[:, torch.as_tensor(hvg_idx, device=p.device)] for p in parts]
+    n = tpm.shape[0]
+    mean = sum_shards([torch.sum(t, dim=0) for t in subs]) / n
+    sq = sum_shards([torch.sum(t * t, dim=0) for t in subs]) / n
+    std = torch.sqrt(((sq - mean * mean) * n / (n - 1)).clamp(min=0.0))
+    if zero_safe:
+        std = torch.where(std == 0, 1.0, std)
+    scaled = [t / s for t, s in zip(subs, broadcast(std, [t.device
+                                                          for t in subs]))]
+    return Shards(scaled, tpm.n_rows) if isinstance(tpm, Shards) else scaled[0]
+
+
 # ----------------------------------------------------------------------
 # K selection
 # ----------------------------------------------------------------------
@@ -450,7 +496,7 @@ def k_stats_arrays(merged_by_k: dict, norm_counts: torch.Tensor,
     error) of ``ops.kstats.consensus_k_stats`` on the L2-normalized spectra,
     with the run's solver, beta, tolerance, iteration limit and W
     regularization. norm_counts: (cells × HVGs) tensor on the solve's
-    device."""
+    device, or row ``Shards`` (the refit and the error sum over shards)."""
     l1_reg_W, _, l2_reg_W, _ = _regularization(nmf_kwargs,
                                                tuple(norm_counts.shape))
     dtype = numpy_dtype(norm_counts.dtype)

@@ -70,6 +70,37 @@ def test_ops_namespace_matches_jax():
     assert not {k: v for k, v in gaps.items() if v}, gaps
 
 
+def test_mesh_surface_matches_jax():
+    """``cnmf_tpu_torch.parallel.mesh`` has the JAX module's public
+    functions, parameter by parameter and with their defaults; the package
+    exports what ``cnmf_tpu.parallel`` does; ``cNMF.factorize`` shards by
+    default (``use_mesh=True``, as the JAX package), and consensus splits
+    the cells over the devices unless ``shard_cells`` is False."""
+    import cnmf_tpu.parallel as jax_parallel
+    import cnmf_tpu_torch.parallel as pt_parallel
+    from cnmf_tpu.parallel import mesh as jax_mesh
+    from cnmf_tpu_torch.parallel import mesh as pt_mesh
+
+    names = {n for n, v in vars(jax_mesh).items() if not n.startswith("_")
+             and inspect.isfunction(v) and v.__module__ == jax_mesh.__name__}
+    assert names == {"build_mesh", "cell_sharding", "put_cells",
+                     "pad_to_multiple", "shard_factorize_inputs"}
+    gaps = {n: signature_gaps(getattr(jax_mesh, n), getattr(pt_mesh, n))
+            for n in names}
+    assert not {k: v for k, v in gaps.items() if v}, gaps
+    for n in names:
+        ours = inspect.signature(getattr(pt_mesh, n)).parameters
+        for name, p in inspect.signature(getattr(jax_mesh, n)).parameters.items():
+            assert ours[name].default == p.default, (n, name)
+    public = {n for n in vars(jax_parallel) if not n.startswith("_")
+              and callable(getattr(jax_parallel, n))}
+    assert public <= set(vars(pt_parallel)), public
+    for cls in (JaxCNMF, cNMF):
+        assert inspect.signature(cls.factorize).parameters[
+            "use_mesh"].default is True
+    assert cNMF.shard_cells is True
+
+
 def _problem(seed=0, n=60, g=40, k=4):
     rng = np.random.RandomState(seed)
     H = rng.gamma(1.0, 1.0, (k, g))

@@ -422,6 +422,8 @@ def test_port_imports_without_jax():
         "import cnmf_tpu_torch.preprocess, cnmf_tpu_torch.harmony\n"
         "import cnmf_tpu_torch.cli, cnmf_tpu_torch.simulate\n"
         "import cnmf_tpu_torch.ops.pca, cnmf_tpu_torch.ops.hvg_seurat\n"
+        "import cnmf_tpu_torch.parallel.mesh\n"
+        "import cnmf_tpu_torch.parallel.collectives\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'cnmf_tpu' or m.startswith('cnmf_tpu.')]\n"
         "assert not bad, bad\n"
