@@ -31,22 +31,35 @@ Phases, each printing its own line(s):
    them must have run
    (MU_COVER): whole and split at every bucket, restart-tiled with a
    partial restart group, wide); then the slice at the verify recipe's size
-   on the card against the same code on the CPU, with the frobenius (CD),
+   on the card against the same code on the CPU (both drawing their inits
+   and kmeans++ seeds on the host), with the frobenius (CD),
    the kullback-leibler and the itakura-saito (MU) loss, the K-selection
    stats of K=5 and 6 included;
 4. the main path end to end at PBMC-3k scale — bench.py's make_counts(2700,
    10000), 2000 HVGs, K=5..13 × 100 restarts, consensus at K=10 (density
    threshold 0.5) — through cNMF(device="cuda") when pandas, h5py and yaml
    import, else through the same stages in pipeline/stages.py, on the
-   default schedule (factorize runs the device ladder): one line of each
+   default schedule (factorize draws the random inits on the card and runs
+   the device ladder; consensus seeds its KMeans on the card): one line of
+   each
    K's wall, sweeps and executed restart-sweeps, stage walls and the CD
    kernels' launch counts, each of which must be > 0;
 5. k-selection over that run's merged spectra of K=5..13: silhouette,
    prediction error and wall of each K, and the products kernel's launches;
-6. the mesh (``[mesh]``): the sharded paths as two shards on the card, a
-   mesh of the same card twice (no multi-card speed): (a) the restart
-   axis, the CD factorize at every K of the main path (the main run's
-   spectra bit for bit and its sweeps) and the KL factorize (the same
+6. the threefry-seeded paths (``[seeded]``, phase_seeded): the card's
+   draw against the CPU's (bits and uniforms equal, the normals' largest
+   gap in ulps), the CD factorize of every K with the inits drawn on the
+   card and with the host's, in paired turns (wall, seconds until the
+   inits lie on the card, sweeps; the host's seconds at K=13 taken apart),
+   the seeded restart axis on two shards of the card bit-equal to one
+   device, the seeded cell axis (consensus within MESH_SSE), and consensus
+   with kmeans++ on the card against the host's (relative SSE); then the
+   mesh (``[mesh]``) from the host's inits and kmeans++ seeding
+   (HOST_DRAWS): the sharded paths as two shards on the card, a mesh of
+   the same card twice (no multi-card speed): (a) the restart axis, the CD
+   factorize at every K of the main path (the host-drawn single-device
+   spectra of ``[seeded]`` bit for bit and their sweeps) and the KL
+   factorize (the same
    sweeps, consensus within MESH_SSE of the single device's); (b) the cell
    axis at K=10, CD, KL and Itakura-Saito (consensus within MESH_SSE), with
    cd_sweep_from_products held against plain at the cell axis' H half
@@ -125,6 +138,7 @@ Nothing is caught: any failure exits non-zero before the result line. With
 no CUDA device the script exits 2 and prints no result.
 """
 
+import contextlib
 import importlib.util
 import json
 import os
@@ -829,7 +843,8 @@ def phase_schedules(X_host, Xd, card, ks, n_iter, kwargs, label):
     if len(ks) == 1:
         lines = [head + " " + " | ".join(lines)]
     else:
-        lines = [f"{head} {line}" for line in lines]
+        lines = [f"{head} {lines[0]}"] + [f"[schedule] {label} {line}"
+                                          for line in lines[1:]]
     plain, lad = runs["plain"], runs["ladder"]
     same_n = all(np.array_equal(lad[k]["n"], plain[k]["n"]) for k in ks)
     diff = max(float(np.abs(lad[k]["spec"] - plain[k]["spec"]).max())
@@ -843,6 +858,180 @@ def phase_schedules(X_host, Xd, card, ks, n_iter, kwargs, label):
     assert not default or (same_n and diff == 0.0), (label, same_n, diff)
     return {name: {k: r["spec"] for k, r in rows.items()}
             for name, rows in runs.items()}
+
+
+def ulps(a, b):
+    """Largest |a - b| in ulps of b (numpy arrays of one float dtype)."""
+    return float(np.max(np.abs(a - b) / np.spacing(np.abs(b).astype(b.dtype))))
+
+
+def phase_seeded(dev, card, counts, hvg, ks, n_iter, k_cons):
+    """The threefry-seeded paths (``[seeded]``): (a) the card's draw of the
+    main path's restarts (their keys, bits and f32 uniforms, and the
+    normals of their W and Ht at K=16) against the CPU's: bits and
+    uniforms equal, the normals' largest gap in ulps; (b) the main path's
+    CD factorize (K=5..13 × 100 restarts) on the ladder with the inits
+    drawn on the card (the CUDA default) and with sklearn's host draw, in
+    paired turns (seeded, host, host, seeded): per arm the wall, the
+    seconds until the inits lay on the card (host draw, padding and upload;
+    or the card's draw), sweeps and executed restart-sweeps, each arm's two
+    turns bit-equal, and the CD kernels' launches over one seeded turn
+    (each > 0); the host arm's seconds at K=13 taken apart (draw, pad,
+    upload) beside the card's draw; (c) the seeded restart axis on
+    MESH_SHARDS shards of the card at every K, bit-equal to the seeded
+    single device with its sweeps, and the seeded cell axis at k_cons,
+    its consensus within MESH_SSE of the single device's; (d) consensus
+    at k_cons with the kmeans++ seeding on the card against the host's:
+    the relative SSE of each artifact (printed; the CPU tests hold the
+    device seeding to the JAX package's). Returns the host arm (spectra and
+    sweeps by K, walls), phase_mesh's single-device reference."""
+    import torch
+
+    from cnmf_tpu_torch.ops import cd_kernels as ck
+    from cnmf_tpu_torch.ops import prng
+    from cnmf_tpu_torch.parallel.mesh import build_mesh
+    from cnmf_tpu_torch.pipeline import stages
+
+    def wall(t0):
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    prep = stages.prepare_arrays(counts, num_highvar_genes=hvg)
+    X_host = np.ascontiguousarray(prep.norm, dtype=np.float32)
+    Xd = torch.as_tensor(X_host, device=dev)
+    tpm = torch.as_tensor(np.ascontiguousarray(prep.tpm, dtype=np.float32),
+                          device=dev)
+    cd = stages.nmf_run_params()
+    grid, seeds = stages.replicate_seeds(ks, n_iter, 14)
+    seeds_k = {k: seeds[[i for i, (kk, _) in enumerate(grid) if kk == k]]
+               for k in ks}
+
+    # (a) the card's draw against the CPU's
+    N, G = X_host.shape
+    keys = prng.split(prng.prng_key(seeds_k[k_cons].astype(np.uint32)))
+    draws = {}
+    for where in ("cpu", dev):
+        kk = keys.to(where)
+        draws[str(where)] = dict(
+            keys=kk.cpu(), bits=prng.random_bits(kk[:, 0], (G, 16)).cpu(),
+            uniform=prng.uniform(kk[:, 1], (N, 16)).cpu(),
+            Ht=prng.normal(kk[:, 0], (G, 16)).cpu().numpy(),
+            W=prng.normal(kk[:, 1], (N, 16)).cpu().numpy())
+    cpu, card_draw = draws["cpu"], draws[str(dev)]
+    same = {name: bool(torch.equal(cpu[name], card_draw[name]))
+            for name in ("keys", "bits", "uniform")}
+    gap = {name: ulps(card_draw[name], cpu[name]) for name in ("W", "Ht")}
+    unequal = float(np.mean(np.concatenate([
+        (card_draw[n] != cpu[n]).ravel() for n in ("W", "Ht")])))
+    draw_text = (f"draw of {len(keys)} restarts (W {N}x16, Ht {G}x16, f32) "
+                 f"card vs CPU: equal {same}; normals max gap ulps "
+                 + json.dumps(gap) + f", unequal {unequal:.2e}")
+    assert all(same.values()), same
+
+    # (b) the main path's factorize, seeded against host-drawn, in turns
+    wrappers = {"cd_w_half_sweep": ck.cd_w_half_sweep,
+                "cd_h_half_sweep": ck.cd_h_half_sweep}
+    arms = {}
+    for arm in ("seeded", "host", "host", "seeded"):
+        if arm == "seeded" and arm not in arms:
+            for fn in wrappers.values():
+                fn.launches = 0
+        timings, spectra, sweeps, executed = {}, {}, {}, 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for k in ks:
+            spectra[k], sweeps[k], ex = stages.factorize_k(
+                X_host, Xd, k, seeds_k[k], cd, timings=timings,
+                device_init=arm == "seeded")
+            executed += ex
+        w = wall(t0)
+        if arm in arms:
+            assert all(np.array_equal(spectra[k], arms[arm]["spectra"][k])
+                       for k in ks), arm
+            arms[arm]["walls"].append(w)
+            arms[arm]["init"].append(timings["init"])
+            continue
+        if arm == "seeded":
+            launches = {n: fn.launches for n, fn in wrappers.items()}
+        every = np.concatenate(list(sweeps.values()))
+        arms[arm] = dict(spectra=spectra, sweeps=sweeps, walls=[w],
+                         init=[timings["init"]],
+                         text=f"{every.max()}/{every.mean():.1f} {executed}")
+    assert all(n > 0 for n in launches.values()), launches
+    # bottleneck 1 taken apart at K=13: host draw, pad, upload; card draw
+    k, parts = ks[-1], {}
+    t0 = time.perf_counter()
+    W0, Ht0 = stages.restart_inits(X_host, k, seeds_k[k], "random",
+                                   np.float32)
+    parts["host_draw"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pad = ((0, 0), (0, 0), (0, ck.pad_bucket(k) - k))
+    W0, Ht0 = np.pad(W0, pad), np.pad(Ht0, pad)
+    parts["pad"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ck.factors_from_numpy(W0, Ht0, device=dev, dtype=np.float32)
+    parts["upload"] = wall(t0)
+    t0 = time.perf_counter()
+    stages.restart_factors(X_host, Xd, k, seeds_k[k], "random", 16,
+                           {"init": 0.0}, True,
+                           stages.x_mean_for_init(X_host, np.float32))
+    parts["card_draw"] = wall(t0)
+    print(f"[seeded] {draw_text}. CD K={ks[0]}..{ks[-1]} x {n_iter}, turns "
+          "seeded/host/host/seeded (wall s, init s, sweeps max/mean, "
+          "restart-sweeps) " + "; ".join(
+              f"{arm}: {'+'.join(f'{v:.3f}' for v in r['walls'])}, "
+              f"{'+'.join(f'{v:.3f}' for v in r['init'])}, {r['text']}"
+              for arm, r in arms.items())
+          + f"; K={k} init s " + json.dumps(
+              {n: float(f"{v:.4g}") for n, v in parts.items()})
+          + f"; seeded launches W/H {launches['cd_w_half_sweep']}/"
+          f"{launches['cd_h_half_sweep']}", flush=True)
+
+    # (c) the seeded restart axis and cell axis on two shards of the card
+    devices = [dev] * MESH_SHARDS
+    restart_mesh = build_mesh(devices, cell_axis=1)
+    t0 = time.perf_counter()
+    same_bits = True
+    for k in ks:
+        spec, n_it, _ = stages.factorize_k(X_host, Xd, k, seeds_k[k], cd,
+                                           mesh=restart_mesh,
+                                           device_init=True)
+        same_bits &= bool(np.array_equal(spec, arms["seeded"]["spectra"][k])
+                          and np.array_equal(n_it, arms["seeded"]["sweeps"][k]))
+    restart_s = wall(t0)
+    t0 = time.perf_counter()
+    cell_spec, _, _ = stages.factorize_k(
+        X_host, Xd, k_cons, seeds_k[k_cons], cd,
+        mesh=build_mesh(devices, cell_axis=MESH_SHARDS), device_init=True)
+    cell_s = wall(t0)
+
+    def consensus(spec, **kw):
+        return stages.consensus_arrays(
+            stages.combine_arrays(list(spec)), k_cons, Xd, tpm,
+            prep.tpm_std, prep.hvg_idx, cd, density_threshold=0.5, **kw)
+
+    one = consensus(arms["seeded"]["spectra"][k_cons])
+    cell_gap = consensus_gap(consensus(cell_spec), one)
+    assert same_bits and cell_gap <= MESH_SSE, (same_bits, cell_gap)
+
+    # (d) consensus with the kmeans++ seeding on the card against the host's
+    runs = {}
+    for seeding in (True, False):
+        t0 = time.perf_counter()
+        runs[seeding] = (consensus(arms["seeded"]["spectra"][k_cons],
+                                   device_kmeanspp=seeding), wall(t0))
+    names = ("spectra", "usages", "spectra_tpm", "spectra_score")
+    sse = {n: rel_sse(getattr(runs[True][0], n), getattr(runs[False][0], n))
+           for n in names}
+    assert all(np.isfinite(getattr(runs[True][0], n)).all() for n in names)
+    print(f"[seeded] restart axis on {MESH_SHARDS} shards, K={ks[0]}.."
+          f"{ks[-1]}: {restart_s:.3f} s, one device's bits and sweeps: "
+          f"{same_bits}; cell axis K={k_cons}: {cell_s:.3f} s, consensus rel "
+          f"SSE {cell_gap:.2e} (bound {MESH_SSE:g}). Consensus K={k_cons}, "
+          f"kmeans++ on the card / host {runs[True][1]:.3f} / "
+          f"{runs[False][1]:.3f} s, rel SSE " + json.dumps(
+              {n: float(f"{v:.2e}") for n, v in sse.items()}), flush=True)
+    return arms["host"]
 
 
 def phase_ladder_tilings(Xd, k, card):
@@ -990,16 +1179,19 @@ def phase_profile_refits(counts, hvg, dev, card, spectra, k, kwargs,
 def phase_small_agreement(dev, nmf_kwargs=None, label="frobenius"):
     """The slice at the verify recipe's size (300×400 counts, K=5,6 × 5
     restarts, 200 HVGs, consensus K=6, the K-selection stats of K=5 and 6),
-    f32 on the card and on the CPU: the consensus artifacts must agree
-    within the repo's SSE contract. Also prints whether each restart took as
+    f32 on the card and on the CPU, both with the host's inits and kmeans++
+    seeding (HOST_DRAWS on the card, the CPU's default): the consensus
+    artifacts must agree within the repo's SSE contract. Also prints whether each restart took as
     many sweeps on both, and how far the K-selection stats differ."""
     rng = np.random.RandomState(42)
     W = rng.gamma(0.7, 1.0, size=(300, 6))
     H = rng.gamma(0.5, 1.0, size=(6, 400)) * (rng.rand(6, 400) < 0.3)
     X = rng.poisson(W @ H * 2.0).astype(float)
     X[X.sum(1) == 0, 0] = 1
-    _, merged_gpu, gpu, it_gpu, _, ks_gpu = run_stages(
-        X, [5, 6], 5, 200, 6, dev, nmf_kwargs=nmf_kwargs, k_stats=(5, 6))
+    # the CPU draws its inits and seeds on the host: so does the card here
+    with host_draws():
+        _, merged_gpu, gpu, it_gpu, _, ks_gpu = run_stages(
+            X, [5, 6], 5, 200, 6, dev, nmf_kwargs=nmf_kwargs, k_stats=(5, 6))
     _, merged_cpu, cpu, it_cpu, _, ks_cpu = run_stages(
         X, [5, 6], 5, 200, 6, "cpu", nmf_kwargs=nmf_kwargs, k_stats=(5, 6))
     merged_diff = max(float(np.abs(merged_gpu[k] - merged_cpu[k]).max()
@@ -1010,18 +1202,38 @@ def phase_small_agreement(dev, nmf_kwargs=None, label="frobenius"):
     sweeps = {k: (it_gpu[k].tolist(), it_cpu[k].tolist()) for k in it_gpu}
     same = all(a == b for a, b in sweeps.values())
     stats = "; ".join(
-        f"K={g[0]}: silhouette {g[2]:.6g} (CPU {c[2]:.6g}), prediction error "
-        f"{g[3]:.6g} (CPU {c[3]:.6g})" for g, c in zip(ks_gpu, ks_cpu))
-    print(f"[small] {label}, card vs CPU at 300x400, K=6: merged spectra max "
-          f"rel diff {merged_diff:.3e}; consensus relative SSE "
+        f"K={g[0]} {g[2]:.6g}/{c[2]:.6g} {g[3]:.6g}/{c[3]:.6g}"
+        for g, c in zip(ks_gpu, ks_cpu))
+    print(f"[small] {label}, card vs CPU at 300x400, K=6: merged max rel "
+          f"diff {merged_diff:.3e}; consensus rel SSE "
           + json.dumps({k: float(f"{v:.3e}") for k, v in sse.items()})
-          + f" (bound {SMALL_SSE_BOUND:g}); same sweeps per restart: {same}"
-          + ("" if same else f" {sweeps}") + f"; k-stats {stats}", flush=True)
+          + f" (bound {SMALL_SSE_BOUND:g}); same sweeps: {same}"
+          + ("" if same else f" {sweeps}") + "; k-stats (silhouette, "
+          f"prediction error: card/CPU) {stats}", flush=True)
     assert max(sse.values()) < SMALL_SSE_BOUND, sse
     assert [r[0] for r in ks_gpu] == [r[0] for r in ks_cpu] == [5, 6]
     for g, c in zip(ks_gpu, ks_cpu):
         assert abs(g[2] - c[2]) <= K_STATS_SIL_ABS, (label, g, c)
         assert abs(g[3] - c[3]) <= K_STATS_ERR_REL * abs(c[3]), (label, g, c)
+
+
+HOST_DRAWS = {"CNMF_TPU_DEVICE_INIT": "0", "CNMF_TPU_DEVICE_KMEANSPP": "0"}
+
+
+@contextlib.contextmanager
+def host_draws():
+    """HOST_DRAWS set for the block: the host's inits and kmeans++ seeding
+    on the card, the knobs restored after."""
+    saved = {knob: os.environ.get(knob) for knob in HOST_DRAWS}
+    os.environ.update(HOST_DRAWS)
+    try:
+        yield
+    finally:
+        for knob, value in saved.items():
+            if value is None:
+                os.environ.pop(knob)
+            else:
+                os.environ[knob] = value
 
 
 def phase_k_selection(merged, Xd, card):
@@ -1039,11 +1251,11 @@ def phase_k_selection(merged, Xd, card):
         t0 = time.perf_counter()
         (row,) = stages.k_stats_arrays({k: merged[k]}, Xd, kwargs)
         torch.cuda.synchronize()
-        parts.append(f"K={k} silhouette {row[2]:.4f} error {row[3]:.6g} "
-                     f"{time.perf_counter() - t0:.3f} s")
+        parts.append(f"{k}: {row[2]:.4f} {row[3]:.6g} "
+                     f"{time.perf_counter() - t0:.3f}s")
         assert np.isfinite(row[2:]).all(), row
     launches = ck.cd_sweep_from_products.launches
-    print(f"[k-selection] CD slice, K={min(merged)}..{max(merged)}: "
+    print(f"[k-selection] CD slice (K: silhouette, error, wall) "
           + "; ".join(parts) + f"; total {time.perf_counter() - t_all:.3f} s; "
           f"cd_sweep_from_products launches {launches}; card: {card}",
           flush=True)
@@ -1481,20 +1693,20 @@ def phase_atlas_fused_kernels(Xd, restarts, pad):
 
 
 def phase_atlas_stop_rule(X_host, Xd, seeds, kwargs, path_n_iter):
-    """The path's first two restarts solved again on the card without the
-    ladder: by the kernels, and by their plain versions in float32 and in
-    float64. Returns {route: sweeps of each restart}, the path's first."""
-    import torch
-
+    """The path's first two restarts solved again on the card from the
+    path's inits without the ladder: by the kernels, and by their plain
+    versions in float32 and in float64. Returns {route: sweeps of each
+    restart}, the path's first."""
     from cnmf_tpu_torch.ops import cd_kernels as ck
     from cnmf_tpu_torch.ops import nmf
     from cnmf_tpu_torch.pipeline import stages
+    from cnmf_tpu_torch.pipeline.solvers import device_init_enabled
 
-    W0, Ht0 = stages.restart_inits(X_host, ATLAS_K, seeds[:2], "random",
-                                   np.float32)
-    pad = ((0, 0), (0, 0), (0, 16 - ATLAS_K))
-    W0, Ht0 = (torch.as_tensor(np.pad(a, pad), device=Xd.device)
-               for a in (W0, Ht0))
+    # the path's own inits: drawn on the card by default
+    W0, Ht0 = stages.restart_factors(
+        X_host, Xd, ATLAS_K, seeds[:2], "random", 16, {"init": 0.0},
+        device_init_enabled(Xd.device),
+        stages.x_mean_for_init(X_host, np.float32))
     solve = dict(tol=float(kwargs["tol"]), max_iter=int(kwargs["max_iter"]))
     sweeps = {"path": [int(n) for n in path_n_iter[:2]]}
     sweeps["kernels"] = nmf.nmf_coordinate_descent(Xd, W0, Ht0, **solve)[2]
@@ -1837,12 +2049,13 @@ def phase_mesh_shard_kernels(X_host, Xd, devices, k, seeds, cd):
     return rels, x.shape[0], rung
 
 
-def phase_mesh(dev, card, counts, hvg, ks, n_iter, k_cons, main_merged,
-               main_n_iters, main_factorize_s):
+def phase_mesh(dev, card, counts, hvg, ks, n_iter, k_cons, host):
     """The mesh paths of pipeline/solvers.py and pipeline/stages.py on
-    MESH_SHARDS shards of one card, against the single-device path: (a) the
-    restart axis, CD at every K of the main path (the main run's spectra
-    bit for bit and its sweeps, not solved again; the last K profiled on
+    MESH_SHARDS shards of one card from the host's inits (the caller sets
+    HOST_DRAWS: the seeded mesh paths are phase_seeded's), against the
+    single-device path: (a) the restart axis, CD at every K of the main
+    path (``host``: phase_seeded's host-drawn single-device factorize, its
+    spectra bit for bit and its sweeps, not solved again; the last K profiled on
     one device and on the mesh, wall and device idle share) and KL at
     k_cons (the same sweeps, consensus within MESH_SSE); (b) the cell
     axis at k_cons, CD, KL and Itakura-Saito (consensus within MESH_SSE),
@@ -1889,10 +2102,10 @@ def phase_mesh(dev, card, counts, hvg, ks, n_iter, k_cons, main_merged,
                                        prep.tpm_std, prep.hvg_idx, kwargs,
                                        density_threshold=dts[loss])
 
-    # the single-device references this phase needs besides the main run's
+    # the single-device references this phase needs besides [seeded]'s
     kl_spec, kl_n, _ = stages.factorize_k(X_host, Xd, k_cons, mu_seeds, kl)
     is_spec = stages.factorize_k(X_host, Xd, k_cons, mu_seeds, is_)[0]
-    ref = {"cd": consensus(main_merged[k_cons], "cd", cd),
+    ref = {"cd": consensus(host["spectra"][k_cons], "cd", cd),
            "kl": consensus(kl_spec, "kl", kl),
            "is": consensus(is_spec, "is", is_)}
     idle = {}
@@ -1909,10 +2122,8 @@ def phase_mesh(dev, card, counts, hvg, ks, n_iter, k_cons, main_merged,
     for k in ks:
         spec, n_it, _ = stages.factorize_k(X_host, Xd, k, seeds_k[k], cd,
                                            mesh=restart_mesh)
-        same_bits &= np.array_equal(stages.combine_arrays(list(spec)),
-                                    main_merged[k])
-        if main_n_iters is not None:
-            same_sweeps &= np.array_equal(n_it, main_n_iters[k])
+        same_bits &= np.array_equal(spec, host["spectra"][k])
+        same_sweeps &= np.array_equal(n_it, host["sweeps"][k])
     restart_cd_s = wall(t0)
     _, w, busy, _ = profiled(lambda: stages.factorize_k(
         X_host, Xd, ks[-1], seeds_k[ks[-1]], cd, mesh=restart_mesh))
@@ -1930,7 +2141,7 @@ def phase_mesh(dev, card, counts, hvg, ks, n_iter, k_cons, main_merged,
                                            kwargs, mesh=cell_mesh)
         cell[loss] = (spec, n_it, wall(t0))
     t0 = time.perf_counter()
-    sharded = consensus(main_merged[k_cons], "cd", cd,
+    sharded = consensus(host["spectra"][k_cons], "cd", cd,
                         put_cells(X_host, devices),
                         put_cells(tpm_host, devices))
     sharded_s = wall(t0)
@@ -1951,23 +2162,22 @@ def phase_mesh(dev, card, counts, hvg, ks, n_iter, k_cons, main_merged,
     shard_rels, shard_n, rung = phase_mesh_shard_kernels(
         X_host, Xd, devices, k_cons, mu_seeds, cd)
     kernel = phase_mesh_products_kernel(Xd, devices)
-    main_cd = main_n_iters[k_cons] if main_n_iters is not None else None
+    main_cd = host["sweeps"][k_cons]
     cell_text = "; ".join(
         f"{loss.upper()} {c[2]:.3f} s, sweeps {c[1].max()}/{c[1].mean():.1f}"
         for loss, c in cell.items())
     print(f"[mesh] {MESH_SHARDS} shards on the card. (a) restart: CD K="
           f"{ks[0]}..{ks[-1]} x {n_iter} {restart_cd_s:.3f} s (single "
-          f"{main_factorize_s:.3f}), bits equal {same_bits}, sweeps equal "
-          f"{same_sweeps if main_n_iters is not None else 'not compared'}"
+          f"{host['walls'][0]:.3f}), bits equal {same_bits}, sweeps equal "
+          f"{same_sweeps}"
           f"; profiled K={ks[-1]} wall/idle single {idle['single'][0]:.3f} s/"
           f"{idle['single'][1]:.1%}, restart {idle['restart'][0]:.3f} s/"
           f"{idle['restart'][1]:.1%}; KL K={k_cons} {restart_kl_s:.3f} s, "
           f"sweeps equal "
           f"{np.array_equal(kl_n_r, kl_n)}, max rel gap {kl_gap:.1e}. (b) "
           f"cell K={k_cons}: {cell_text} (single CD "
-          + (f"{main_cd.max()}/{main_cd.mean():.1f}, "
-             if main_cd is not None else "not compared, ")
-          + f"KL {kl_n.max()}/{kl_n.mean():.1f}). (c) shard_cells "
+          + f"{main_cd.max()}/{main_cd.mean():.1f}, KL {kl_n.max()}/"
+          f"{kl_n.mean():.1f}). (c) shard_cells "
           f"consensus {sharded_s:.3f} s. rel SSE "
           + json.dumps({k: float(f"{v:.1e}") for k, v in gaps.items()})
           + f" (bound {MESH_SSE:g}); launches "
@@ -2111,11 +2321,10 @@ def main():
         with tempfile.TemporaryDirectory(dir=os.getcwd()) as workdir:
             walls, usage, merged, Xd = run_cnmf(counts, ks, n_iter, hvg,
                                                 k_cons, workdir)
-        n_iters = None   # cNMF writes the spectra, not the sweeps
     else:
         route = (f"pipeline/stages.py on arrays ({', '.join(missing)} missing, "
                  "which cNMF's run directory needs)")
-        walls, merged, result, n_iters, Xd, _ = run_stages(
+        walls, merged, result, _, Xd, _ = run_stages(
             counts, ks, n_iter, hvg, k_cons, dev, verbose=True)
         usage = check_result(result, k_cons, hvg)
     launches = {name: fn.launches for name, fn in wrappers.items()}
@@ -2128,13 +2337,15 @@ def main():
 
     # 5. k-selection over the CD slice's merged spectra
     phase_k_selection(merged, Xd, card)
-    del Xd
+    del Xd, merged
 
-    # 6. the mesh paths on two shards of the card, against the main run
-    mesh_kernel, mesh_launches = phase_mesh(
-        dev, card, counts, hvg, ks, n_iter, k_cons, merged, n_iters,
-        walls["factorize"])
-    del merged
+    # 6. the threefry-seeded paths against the host's draws, then the mesh
+    # paths from the host's draws on two shards of the card
+    host = phase_seeded(dev, card, counts, hvg, ks, n_iter, k_cons)
+    with host_draws():
+        mesh_kernel, mesh_launches = phase_mesh(
+            dev, card, counts, hvg, ks, n_iter, k_cons, host)
+    del host
 
     # 7. the CD factorize on each schedule, the MU ladder's rungs and the
     # batch check
@@ -2172,10 +2383,10 @@ def main():
     atlas_kernel, atlas_launches = phase_atlas(dev, card)
     for M, v in atlas_kernel.items():
         records["cd_sweep_from_products"].update({
-            f"{key}_atlas_m{M}": float(f"{v[key]:.5g}")
+            f"{key}_atlas_m{M}": float(f"{v[key]:.4g}")
             for key in ("ms", "alone_ms", "plain_ms", "bound_ms")})
     records["cd_sweep_from_products"].update({
-        f"{key}_cells": float(f"{mesh_kernel[key]:.5g}")
+        f"{key}_cells": float(f"{mesh_kernel[key]:.4g}")
         for key in ("ms", "alone_ms", "plain_ms", "bound_ms")})
 
     # 12. results
@@ -2192,7 +2403,7 @@ def main():
         "mu_beta.cu" if name in BETA_KERNELS else "cd_half_sweep.cu")
         for name in replaces}
     # no single PyTorch call computes any of these functions; measured
-    # values to 5 significant digits, well inside their run-to-run spread
+    # values to 4 significant digits, well inside their run-to-run spread
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=sources[name],
              replaces=replaces[name], launches=launches[name],
@@ -2203,7 +2414,7 @@ def main():
              **({"launches_mesh": mesh_launches[name]}
                 if name in mesh_launches else {}),
              library_ms=None,
-             **{key: float(f"{v:.5g}") if isinstance(v, float) else v
+             **{key: float(f"{v:.4g}") if isinstance(v, float) else v
                 for key, v in records[name].items()})
         for name in replaces
     ]}, separators=(",", ":")))

@@ -10,8 +10,11 @@ restart, W (B, N, K), Ht (B, G, K) — and dispatches on where its tensors lie:
   variant above). Anything else on CUDA raises; there is no fallback to the
   plain version.
 * CPU tensors run the plain PyTorch version below: the same column-cyclic
-  update as ``cnmf_tpu.ops.nmf._cd_half_sweep``, at the tensors' dtype. This
-  is where ``compute_dtype=float64`` runs; the kernels are f32 only.
+  update as ``cnmf_tpu.ops.nmf._cd_half_sweep``, at the tensors' dtype, its
+  product and gram summed in float64 for f32 tensors and each restart's
+  product computed alone (its bits do not follow the batch); on a card the
+  same function at f32 with one flat product is the kernels' yardstick.
+  This is where ``compute_dtype=float64`` runs; the kernels are f32 only.
 
 The kernel computes the data product (X·Ht for W, Xᵀ·W for Ht) inside its
 own body, as the Pallas kernels did (pallas_cd.py:86, :100); the (K, K) grams
@@ -80,23 +83,49 @@ def factors_from_numpy(W0, Ht0, *, device, dtype):
 # held against on the card)
 # ----------------------------------------------------------------------
 
-def _shared_x_dot(X, F):
-    """X (N,G) · F (B,G,K) → (B,N,K) via one flat (N,G)@(G,B·K) matmul."""
-    B, G, K = F.shape
-    flat = F.permute(1, 0, 2).reshape(G, B * K)
-    return (X @ flat).reshape(X.shape[0], B, K).permute(1, 0, 2).contiguous()
+def accumulation_dtype(t: torch.Tensor) -> torch.dtype:
+    """The dtype the plain half-sweeps sum their products and grams in: on
+    the CPU float64 for narrower floats (rounded once to the factor's
+    dtype, so the plain version stays at least as close to the exact sweep
+    as the JAX package's f32 references), else ``t``'s dtype (on a card the
+    plain version is the f32 yardstick the kernels are held against)."""
+    if t.device.type == "cpu" and t.dtype in (torch.float32, torch.float16,
+                                               torch.bfloat16):
+        return torch.float64
+    return t.dtype
 
 
-def _shared_xt_dot(X, F):
-    """Xᵀ (G,N) · F (B,N,K) → (B,G,K) via one flat matmul."""
-    B, N, K = F.shape
-    flat = F.permute(1, 0, 2).reshape(N, B * K)
-    return (X.T @ flat).reshape(X.shape[1], B, K).permute(1, 0, 2).contiguous()
+def _per_restart(A, F, acc=None):
+    """A (M, C) shared by every restart · F (B, C, K) → (B, M, K). On the
+    CPU each restart is its own (M, C)·(C, K) product of one batched call
+    over a stride-0 A, so a restart's bits do not depend on the restarts
+    beside it; on a card one flat (M, C)·(C, B·K) matmul (which may round
+    a column by its place in the batch). ``acc``: the dtype to sum in,
+    rounded to F's dtype at the end."""
+    acc = acc or F.dtype
+    B, C, K = F.shape
+    if A.device.type == "cpu":
+        out = torch.bmm(A.to(acc).expand(B, *A.shape), F.to(acc))
+    else:
+        flat = F.to(acc).permute(1, 0, 2).reshape(C, B * K)
+        out = (A.to(acc) @ flat).reshape(A.shape[0], B, K).permute(1, 0, 2)
+    return out.to(F.dtype).contiguous()
 
 
-def _gram(F):
-    """(B, M, K) → (B, K, K) = FᵀF per restart."""
-    return torch.bmm(F.transpose(1, 2), F)
+def _shared_x_dot(X, F, acc=None):
+    """X (N,G) · F (B,G,K) → (B,N,K)."""
+    return _per_restart(X, F, acc)
+
+
+def _shared_xt_dot(X, F, acc=None):
+    """Xᵀ (G,N) · F (B,N,K) → (B,G,K), reading X through its strides."""
+    return _per_restart(X.T, F, acc)
+
+
+def _gram(F, acc=None):
+    """(B, M, K) → (B, K, K) = FᵀF per restart, summed in ``acc``."""
+    Fa = F.to(acc or F.dtype)
+    return torch.bmm(Fa.transpose(1, 2), Fa).to(F.dtype)
 
 
 def _cd_half_sweep(F, G, P, l1_reg: float, l2_reg: float):
@@ -130,12 +159,16 @@ def _cd_half_sweep(F, G, P, l1_reg: float, l2_reg: float):
 
 def cd_w_half_sweep_plain(X, W, Ht, *, l1_reg=0.0, l2_reg=0.0):
     """Plain version of ``cd_w_half_sweep``."""
-    return _cd_half_sweep(W, _gram(Ht), _shared_x_dot(X, Ht), l1_reg, l2_reg)
+    acc = accumulation_dtype(W)
+    return _cd_half_sweep(W, _gram(Ht, acc), _shared_x_dot(X, Ht, acc),
+                          l1_reg, l2_reg)
 
 
 def cd_h_half_sweep_plain(X, W, Ht, *, l1_reg=0.0, l2_reg=0.0):
     """Plain version of ``cd_h_half_sweep``."""
-    return _cd_half_sweep(Ht, _gram(W), _shared_xt_dot(X, W), l1_reg, l2_reg)
+    acc = accumulation_dtype(Ht)
+    return _cd_half_sweep(Ht, _gram(W, acc), _shared_xt_dot(X, W, acc),
+                          l1_reg, l2_reg)
 
 
 def cd_sweep_from_products_plain(F, gram, P, *, l1_reg=0.0, l2_reg=0.0):

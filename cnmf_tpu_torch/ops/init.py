@@ -9,7 +9,10 @@ through to sklearn, reference cnmf.py:627,1252), on the host:
   Gallopoulos 2008) over a seeded randomized top-K SVD.
 
 Both are the same numpy code as ``cnmf_tpu.ops.init``'s host path, so both
-packages start every restart from bit-identical factors. The batched
+packages start every restart from bit-identical factors. The device draw
+(``random_init_batch_device``, threefry-keyed per restart through
+``ops.prng``) is the JAX package's accelerator default and the port's on a
+CUDA card (``pipeline.solvers.device_init_enabled``). The batched
 variants stack per-seed factors along a leading restart axis in the solvers'
 (B, N, K) / (B, G, K) layout. The fixed-H refits' W init is made on X's
 device.
@@ -23,6 +26,7 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
+from cnmf_tpu_torch.ops import prng
 from cnmf_tpu_torch.ops.cd_kernels import torch_dtype
 from cnmf_tpu_torch.parallel.collectives import sum_shards
 from cnmf_tpu_torch.parallel.mesh import Shards
@@ -69,6 +73,47 @@ def random_init_batch(
         Ws.append(W)
         Hts.append(np.ascontiguousarray(H.T))
     return np.stack(Ws), np.stack(Hts)
+
+
+def random_init_batch_device(
+    x_mean: float, n_samples: int, n_features: int, n_components: int,
+    seeds, pad_k: int = None, dtype=np.float32, device=None,
+):
+    """The batched random init drawn on ``device`` from a threefry key per
+    restart (cnmf_tpu/ops/init.py ``random_init_batch_device``): only the
+    seed vector is uploaded, and the noise is made where the solve runs.
+    The draw is ``jax.random``'s (``ops.prng``), so both packages start a
+    restart from the same factors to within the normals' few ulps; it is not
+    the sklearn ``RandomState`` stream of ``random_init_batch``
+    (``CNMF_TPU_DEVICE_INIT=0`` keeps that one).
+
+    Returns W0 (B, N, pad_k), Ht0 (B, G, pad_k) tensors at ``dtype``, the
+    components past ``n_components`` zero."""
+    pad_k = pad_k or n_components
+    dt = torch_dtype(dtype)
+    avg = np.dtype(dtype).type(np.sqrt(x_mean / n_components))
+    kmask = torch.as_tensor((np.arange(pad_k) < n_components).astype(dtype),
+                            device=device)
+    return draw_init_batch(seeds, torch.as_tensor(avg, device=device), kmask,
+                           n=n_samples, g=n_features, pad_k=pad_k, dt=dt)
+
+
+def draw_init_batch(seeds, avg, kmask, *, n: int, g: int, pad_k: int, dt):
+    """Each restart's factors from its own seed (cnmf_tpu/ops/init.py
+    ``draw_init_batch``): key = PRNGKey(seed), Ht = |avg·normal(k_h, (g,
+    pad_k))| and W = |avg·normal(k_w, (n, pad_k))| from the two halves of
+    its split, the pad columns zeroed by ``kmask``. A restart's draw is keyed
+    by its seed alone, so any partition of the batch (chunks, restart
+    groups, ladder rungs) reproduces the same factors. ``seeds``: ints or a
+    tensor on the drawing device (``kmask``'s)."""
+    if isinstance(seeds, torch.Tensor):
+        seeds = seeds.cpu().numpy()
+    keys = prng.split(prng.prng_key(np.asarray(seeds, dtype=np.uint32),
+                                    device=kmask.device))
+    avg = avg.to(dt)
+    Ht = torch.abs(avg * prng.normal(keys[:, 0], (g, pad_k), dt))
+    W = torch.abs(avg * prng.normal(keys[:, 1], (n, pad_k), dt))
+    return W * kmask, Ht * kmask
 
 
 def _randomized_topk_svd(X, k: int, seed):

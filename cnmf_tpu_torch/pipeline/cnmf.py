@@ -422,6 +422,9 @@ class cNMF:
         as one batched solve, K zero-padded to a bucket of 8. Spectra land in
         the per-(K, iter) npz files. Sparse normalized counts reach the
         device through ``to_device_dense`` and the inits read the CSR.
+        Random inits are drawn on a CUDA device from the seeds
+        (``solvers.device_init_enabled``; ``CNMF_TPU_DEVICE_INIT=0`` keeps
+        sklearn's host draw there), on the host elsewhere.
         ``use_mesh``: with several local devices of the object's type, lay
         the restarts over ``parallel.mesh.build_mesh()``: the cell axis
         under ``CNMF_TPU_CELL_AXIS``, else the restart axis for each K where
@@ -442,6 +445,12 @@ class cNMF:
         mesh = None if devices is None else parallel_mesh.build_mesh(devices)
         X_host, Xd = self._solve_inputs(norm_counts.X)
         gene_index = norm_counts.var.index
+        # random inits drawn on the card from the seeds (threefry keys, the
+        # JAX package's accelerator default), else sklearn's host draw
+        device_init = (nmf_kwargs.get("init", "random") == "random"
+                       and solvers.device_init_enabled(self.device))
+        x_mean = (stages.x_mean_for_init(X_host, X_host.dtype)
+                  if device_init else None)
         for k, group in run_params.iloc[jobs].groupby("n_components", sort=True):
             k = int(k)
             seeds = group["nmf_seed"].values
@@ -450,14 +459,16 @@ class cNMF:
             t0, timings = time.perf_counter(), {}
             spectra, n_iter, executed = stages.factorize_k(
                 X_host, Xd, k, seeds, nmf_kwargs, restart_chunk=restart_chunk,
-                timings=timings, mesh=mesh_k,
+                timings=timings, mesh=mesh_k, device_init=device_init,
+                x_mean=x_mean,
             )
             if verbose:
-                print("[Worker %d] k=%d: %d restarts in %.3f s (host inits "
-                      "%.3f s) on %s, sweeps max %d mean %.1f, executed "
+                print("[Worker %d] k=%d: %d restarts in %.3f s (inits %.3f s "
+                      "on the %s) on %s, sweeps max %d mean %.1f, executed "
                       "restart-sweeps %d"
                       % (worker_i, k, len(seeds), time.perf_counter() - t0,
-                         timings["init"], "one device" if mesh_k is None
+                         timings["init"], timings["init_on"],
+                         "one device" if mesh_k is None
                          else "a mesh %s" % (mesh_k.shape,),
                          n_iter.max(), n_iter.mean(), executed))
             for i, it in enumerate(group["iter"].values):

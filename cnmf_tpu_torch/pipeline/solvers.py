@@ -13,7 +13,12 @@ Itakura-Saito) the general-beta kernels.
 
 On the card a factorize solve takes the device ladder
 (``solve_nmf_batch_ladder``) unless ``CNMF_TPU_DEVICE_LADDER=0``
-(``device_ladder_enabled``).
+(``device_ladder_enabled``), from random inits drawn there from each
+restart's threefry key unless ``CNMF_TPU_DEVICE_INIT=0``
+(``device_init_enabled``, ``draw_restart_factors``; the JAX package's
+names ``solve_nmf_batch_ladder_seeded`` and the mesh twins
+``solve_nmf_sharded_device`` / ``solve_nmf_batch_sharded_seeded`` draw,
+then call the solver the inits are given to).
 
 On a mesh (``parallel.mesh``): ``solve_nmf_batch_sharded`` splits the
 restarts over the restart axis (each restart group on its own host thread,
@@ -27,6 +32,7 @@ products-given solve of the over-limit atlas consensus.
 from __future__ import annotations
 
 import os
+import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Optional, Tuple
 
@@ -37,7 +43,7 @@ import torch
 from cnmf_tpu_torch.native import densify_csr
 from cnmf_tpu_torch.ops import mu_kernels
 from cnmf_tpu_torch.ops.cd_kernels import numpy_dtype, pad_bucket, torch_dtype
-from cnmf_tpu_torch.ops.init import nnls_w_init
+from cnmf_tpu_torch.ops.init import nnls_w_init, random_init_batch_device
 from cnmf_tpu_torch.ops.nmf import (
     _ladder,
     fixed_factor_gram,
@@ -150,6 +156,40 @@ def device_ladder_enabled(X: torch.Tensor, ladder: Optional[bool] = None) -> boo
     return env == "1" or (env != "0" and X.device.type == "cuda")
 
 
+def _accelerator_knob(name: str, device) -> bool:
+    """A knob of the JAX package's accelerator defaults: '0' off, 'force'
+    on for any device, '1' (the default) on where ``device`` is a CUDA card
+    (the JAX package: the TPU backend). ``device`` None: the port's default
+    device, the card where one is visible."""
+    env = os.environ.get(name, "1")
+    if env == "0":
+        return False
+    if env == "force":
+        return True
+    if device is None:
+        return env == "1" and torch.cuda.is_available()
+    return env == "1" and torch.device(device).type == "cuda"
+
+
+def device_init_enabled(device=None) -> bool:
+    """The CNMF_TPU_DEVICE_INIT knob (cnmf_tpu/pipeline/solvers.py:256):
+    whether factorize draws the random restart inits on ``device`` from
+    threefry keys (``ops.init.random_init_batch_device``). '0' keeps the
+    sklearn-exact host ``RandomState`` draw, 'force' draws on any device
+    (the CPU tests), '1' (default) draws on a CUDA card only: the CPU keeps
+    the host draw, as the JAX package does off its TPU."""
+    return _accelerator_knob("CNMF_TPU_DEVICE_INIT", device)
+
+
+def device_kmeanspp_enabled(device=None) -> bool:
+    """The CNMF_TPU_DEVICE_KMEANSPP knob (cnmf_tpu/pipeline/solvers.py:270):
+    whether consensus seeds its KMeans with the threefry-keyed kmeans++ on
+    ``device`` (``ops.kmeans.seed_kmeanspp_batch``) instead of the host's
+    numpy stream. '0' off, 'force' on for any device, '1' (default) on a
+    CUDA card only."""
+    return _accelerator_knob("CNMF_TPU_DEVICE_KMEANSPP", device)
+
+
 def ladder_rungs(X: torch.Tensor, B: int, K: int, nmf_kwargs: dict,
                  min_bucket: int = 16) -> tuple:
     """The batch sizes a factorize solve of B restarts at bucket K shrinks
@@ -203,6 +243,38 @@ def solve_nmf_batch_ladder(X, W0, Ht0, nmf_kwargs: dict, min_bucket: int = 16):
     return spec, n_iter, (ladder, sweeps)
 
 
+def draw_restart_factors(seeds, x_mean: float, k: int, pad_k: int, n: int,
+                         g: int, device, dtype,
+                         timings: Optional[dict] = None):
+    """``ops.init.random_init_batch_device`` on ``device`` at ``dtype``,
+    timed: ``timings["init"]`` gains the draw's seconds (synchronized on a
+    card)."""
+    t0 = time.perf_counter()
+    W0, Ht0 = random_init_batch_device(x_mean, n, g, k, seeds, pad_k=pad_k,
+                                       dtype=numpy_dtype(dtype),
+                                       device=device)
+    if timings is not None:
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize(device)
+        timings["init"] = timings.get("init", 0.0) + time.perf_counter() - t0
+    return W0, Ht0
+
+
+def solve_nmf_batch_ladder_seeded(X, seeds, x_mean: float, k: int,
+                                  pad_k: int, nmf_kwargs: dict,
+                                  min_bucket: int = 16,
+                                  timings: Optional[dict] = None):
+    """The single-device factorize with its inits drawn on X's device
+    (cnmf_tpu/pipeline/solvers.py:591-663): only the seeds leave the host;
+    each restart's factors come from its own threefry key, then
+    ``solve_nmf_batch_ladder`` runs them. The same return as that function.
+    ``timings["init"]`` gains the draw's seconds."""
+    n, g = X.shape
+    W0, Ht0 = draw_restart_factors(seeds, x_mean, k, pad_k, n, g, X.device,
+                                   X.dtype, timings)
+    return solve_nmf_batch_ladder(X, W0, Ht0, nmf_kwargs, min_bucket)
+
+
 # ----------------------------------------------------------------------
 # the mesh
 # ----------------------------------------------------------------------
@@ -228,12 +300,15 @@ def _per_group(mesh, fn, groups):
 
 
 def _restart_padded(mesh, W0, Ht0):
-    """W0, Ht0 as host arrays with the restarts padded to the restart axis'
-    multiple (copies of restart 0), and the true restart count."""
-    as_host = (lambda a: a.cpu().numpy() if isinstance(a, torch.Tensor)
-               else np.asarray(a))
-    W0p, true_b = pad_to_multiple(as_host(W0), mesh.shape["restart"])
-    Ht0p, _ = pad_to_multiple(as_host(Ht0), mesh.shape["restart"])
+    """W0, Ht0 with the restarts padded to the restart axis' multiple
+    (copies of restart 0), where they lie (host arrays, or tensors left on
+    their device), and the true restart count."""
+    if isinstance(W0, torch.Tensor):
+        first = [0] * ((-W0.shape[0]) % mesh.shape["restart"])
+        return (torch.cat([W0, W0[first]]), torch.cat([Ht0, Ht0[first]]),
+                W0.shape[0])
+    W0p, true_b = pad_to_multiple(np.asarray(W0), mesh.shape["restart"])
+    Ht0p, _ = pad_to_multiple(np.asarray(Ht0), mesh.shape["restart"])
     return W0p, Ht0p, true_b
 
 
@@ -267,12 +342,46 @@ def solve_nmf_batch_sharded(mesh, X, W0, Ht0, nmf_kwargs: dict,
     return W[:true_b], Ht[:true_b], n_iter[:true_b]
 
 
+def solve_nmf_batch_sharded_seeded(mesh, X, seeds, x_mean: float, k: int,
+                                   pad_k: int, nmf_kwargs: dict,
+                                   mu_chunk: int = 8,
+                                   n_cells: Optional[int] = None,
+                                   timings: Optional[dict] = None):
+    """``solve_nmf_batch_sharded`` from inits drawn on the mesh's first
+    device (cnmf_tpu/pipeline/solvers.py:405-530): W at the real cell
+    count, its padded cells' rows zero as the JAX package's row mask makes
+    them (a draw's real rows do not depend on the row count it is drawn
+    at). The regularization scales with the real ``n_cells`` (default X's
+    rows; a pre-padded X is cut to it). ``timings["init"]`` gains the
+    draw's seconds. ``mu_chunk`` is accepted for the JAX package's API."""
+    if n_cells is not None and n_cells < X.shape[0]:
+        X = X[:n_cells]
+    W0, Ht0 = draw_restart_factors(seeds, x_mean, k, pad_k, *X.shape,
+                                   mesh.devices[0][0], X.dtype, timings)
+    return solve_nmf_batch_sharded(mesh, X, W0, Ht0, nmf_kwargs)
+
+
+def solve_nmf_sharded_device(mesh, X, seeds, x_mean: float, k: int,
+                             pad_k: int, nmf_kwargs: dict,
+                             min_bucket: int = 16, mu_chunk: int = 8,
+                             timings: Optional[dict] = None):
+    """``solve_nmf_ladder_sharded`` from inits drawn on the mesh's first
+    device (cnmf_tpu/pipeline/solvers.py:309-403). A restart's draw is
+    keyed by its own seed, so the result has one device's bits.
+    ``timings["init"]`` gains the draw's seconds. ``mu_chunk`` is accepted
+    for the JAX package's API."""
+    W0, Ht0 = draw_restart_factors(seeds, x_mean, k, pad_k, *X.shape,
+                                   mesh.devices[0][0], X.dtype, timings)
+    return solve_nmf_ladder_sharded(mesh, X, W0, Ht0, nmf_kwargs, min_bucket)
+
+
 def solve_nmf_ladder_sharded(mesh, X, W0, Ht0, nmf_kwargs: dict,
                              min_bucket: int = 16):
     """The restart-axis factorize on the device ladder, each restart group
     on its own host thread with a replica of X: the role of the JAX
     package's ``solve_nmf_sharded_device`` (cnmf_tpu/pipeline/solvers.py:
-    309-403), with the port's host inits instead of device-drawn ones.
+    309-403), with the inits given (``solve_nmf_sharded_device`` draws them
+    on the device).
     Returns (spectra (B, K, G), n_iter (B,), (ladder sizes, sweeps at each
     rung summed over groups)) on the mesh's first device, like
     ``solve_nmf_batch_ladder``. Restart-axis meshes only."""

@@ -15,9 +15,12 @@ files; they can also be driven directly on in-memory data:
 * ``k_stats_arrays``: the K-selection table (silhouette and prediction error
   of every K, ``cnmf_tpu.pipeline.cnmf.k_selection_plot``).
 
-Numerics follow the JAX package's CPU path: restart inits and the kmeans++
-seeding come from host ``np.random.RandomState`` draws, so both packages
-start from bit-identical inputs.
+Numerics follow the JAX package's: on the CPU the restart inits and the
+kmeans++ seeding come from host ``np.random.RandomState`` draws, so both
+packages start from bit-identical inputs; on a CUDA card (as on the JAX
+package's TPU) the random inits are drawn on the device from threefry keys
+(``solvers.device_init_enabled``) and consensus seeds its KMeans there
+(``solvers.device_kmeanspp_enabled``), the draws ``jax.random`` makes.
 """
 
 from __future__ import annotations
@@ -54,7 +57,10 @@ from cnmf_tpu_torch.parallel.mesh import Shards, pad_to_multiple
 from cnmf_tpu_torch.pipeline.solvers import (
     _regularization,
     beta_loss_to_float,
+    device_init_enabled,
+    device_kmeanspp_enabled,
     device_ladder_enabled,
+    draw_restart_factors,
     refit_spectra_transposed,
     refit_usages,
     solve_nmf_batch,
@@ -196,22 +202,51 @@ def restart_inits(X_host, k: int, seeds, init: str, dtype=None):
     raise ValueError(f"unsupported init: {init}")
 
 
+def x_mean_for_init(X_host, dtype) -> float:
+    """X's mean, the scalar the device-drawn random init scales by
+    (cnmf_tpu/pipeline/cnmf.py:2023-2032): a CSR's stored values cast to
+    ``dtype`` and summed in float64 (the cast-then-accumulate order of the
+    dense branch, whose X is already at ``dtype``), a dense X's float64
+    mean."""
+    if sp.issparse(X_host):
+        return float(np.sum(X_host.data.astype(dtype), dtype=np.float64)) / (
+            X_host.shape[0] * X_host.shape[1])
+    return float(np.mean(X_host, dtype=np.float64))
+
+
 def factorize_k(X_host, Xd: torch.Tensor, k: int, seeds,
                 nmf_kwargs: dict, restart_chunk: Optional[int] = None,
                 ladder: Optional[bool] = None,
-                timings: Optional[dict] = None, mesh=None):
-    """All restarts of one K: sklearn-RNG inits on the host (``init`` of the
-    kwargs: random or nndsvd*), one batched solve per restart chunk on Xd's
+                timings: Optional[dict] = None, mesh=None,
+                device_init: Optional[bool] = None,
+                x_mean: Optional[float] = None):
+    """All restarts of one K, one batched solve per restart chunk on Xd's
     device, K zero-padded to its bucket of 8 (the padded columns start at
-    zero and stay there).
+    zero and stay there), dispatched as cnmf_tpu/pipeline/cnmf.py:2095-2170.
+    Each chunk's inits come from ``restart_factors``:
 
-    X_host: (cells × HVGs) dense array or CSR matrix (the inits are made
-    from it, at Xd's dtype); Xd: the same values as a dense tensor. ``ladder``:
-    solve on the device ladder (None: ``solvers.device_ladder_enabled``, on
-    for CUDA tensors). ``timings``: a dict whose "init" entry gains the host
-    seconds the inits took. ``mesh``: a ``parallel.mesh.Mesh`` of more than
-    one device: each chunk's inits, drawn once, are split over its restart
-    groups (``solvers.solve_nmf_ladder_sharded`` on a restart axis with the
+    * ``device_init`` (None: ``solvers.device_init_enabled`` for Xd's
+      device, on a card; random init only): the seeds go to the device and
+      each restart's factors are drawn there from its own threefry key —
+      no host draw, no padding or upload of the noise. A draw is keyed by
+      its restart's seed alone, so any solver below (and any split of the
+      restarts over a mesh) starts a restart from the same factors. A
+      restart-axis mesh without the ladder keeps the host draw, as the JAX
+      package does. ``x_mean``: X's mean for the draw's scale (default
+      ``x_mean_for_init(X_host)``).
+    * otherwise sklearn-RNG inits on the host (``init`` of the kwargs:
+      random or nndsvd*), padded and uploaded.
+
+    X_host: (cells × HVGs) dense array or CSR matrix (the host inits are
+    made from it, at Xd's dtype); Xd: the same values as a dense tensor.
+    ``ladder``: solve on the device ladder (None:
+    ``solvers.device_ladder_enabled``, on for CUDA tensors). ``timings``: a
+    dict whose "init" entry gains the seconds the inits took until they lay
+    on the device (host draw, padding and upload; or the device draw,
+    synchronized) and whose "init_on" entry says where they were drawn
+    ("device" or "host"). ``mesh``: a ``parallel.mesh.Mesh`` of more than
+    one device: each chunk's restarts are split over its restart groups
+    (``solvers.solve_nmf_ladder_sharded`` on a restart axis with the
     ladder, else ``solvers.solve_nmf_batch_sharded``). Returns (spectra
     (B, k, G), n_iter (B,)) as host arrays and the restart-sweeps the device
     executed: the ladder's Σ rung · sweeps at it, the plain solver's
@@ -222,6 +257,8 @@ def factorize_k(X_host, Xd: torch.Tensor, k: int, seeds,
     B = len(seeds)
     pad_k = pad_bucket(k)
     dtype = numpy_dtype(Xd.dtype)
+    timings = {} if timings is None else timings
+    timings.setdefault("init", 0.0)
     if restart_chunk is None:
         # keep the restart batch's solver working set (W, XHt, grads ≈
         # 4 × B×N×K buffers) within ~4 GB of device memory
@@ -230,20 +267,23 @@ def factorize_k(X_host, Xd: torch.Tensor, k: int, seeds,
     use_ladder = device_ladder_enabled(Xd, ladder)
     if mesh is not None and mesh.size == 1:
         mesh = None   # one device means no mesh
+    restart_axis = mesh is not None and mesh.shape["cell"] == 1
+    if device_init is None:
+        device_init = device_init_enabled(Xd.device)
+    device_init = (device_init and init == "random"
+                   and not (restart_axis and not use_ladder))
+    if device_init and x_mean is None:
+        x_mean = x_mean_for_init(X_host, dtype)
+    timings["init_on"] = "device" if device_init else "host"
     max_iter = int(nmf_kwargs.get("max_iter", 200))
+    laddered = use_ladder and (mesh is None or restart_axis)
     spectra, n_iters, executed = [], [], 0
     for start in range(0, B, restart_chunk):
-        t0 = time.perf_counter()
-        W0, Ht0 = restart_inits(X_host, k, seeds[start:start + restart_chunk],
-                                init, dtype)
-        if timings is not None:
-            timings["init"] = timings.get("init", 0.0) + time.perf_counter() - t0
-        pad = ((0, 0), (0, 0), (0, pad_k - k))
-        W0, Ht0 = np.pad(W0, pad), np.pad(Ht0, pad)
-        if mesh is None:
-            W0, Ht0 = factors_from_numpy(W0, Ht0, device=Xd.device,
-                                         dtype=Xd.dtype)
-        if use_ladder and (mesh is None or mesh.shape["cell"] == 1):
+        W0, Ht0 = restart_factors(X_host, Xd, k,
+                                  seeds[start:start + restart_chunk], init,
+                                  pad_k, timings, device_init, x_mean,
+                                  mesh is None)
+        if laddered:
             solve = (solve_nmf_batch_ladder if mesh is None else
                      functools.partial(solve_nmf_ladder_sharded, mesh))
             spec, n_iter, (rungs, sweeps) = solve(Xd, W0, Ht0, nmf_kwargs)
@@ -262,6 +302,31 @@ def factorize_k(X_host, Xd: torch.Tensor, k: int, seeds,
         spectra.append(spec.cpu().numpy())
         n_iters.append(n_iter.cpu().numpy())
     return np.concatenate(spectra), np.concatenate(n_iters), executed
+
+
+def restart_factors(X_host, Xd, k: int, seeds, init: str, pad_k: int,
+                    timings: dict, device_init: bool = False,
+                    x_mean: Optional[float] = None, upload: bool = True):
+    """One chunk's initial factors W0 (B, N, pad_k), Ht0 (B, G, pad_k),
+    columns past k zero: drawn on Xd's device (``device_init``, from
+    ``x_mean``), or made on the host by ``restart_inits``, padded and, with
+    ``upload``, put on Xd's device (else left on the host for a mesh to
+    place). ``timings["init"]`` gains the seconds until they lie there."""
+    if device_init:
+        return draw_restart_factors(seeds, x_mean, k, pad_k, Xd.shape[0],
+                                    Xd.shape[1], Xd.device, Xd.dtype,
+                                    timings)
+    t0 = time.perf_counter()
+    W0, Ht0 = restart_inits(X_host, k, seeds, init, numpy_dtype(Xd.dtype))
+    pad = ((0, 0), (0, 0), (0, pad_k - k))
+    W0, Ht0 = np.pad(W0, pad), np.pad(Ht0, pad)
+    if upload:
+        W0, Ht0 = factors_from_numpy(W0, Ht0, device=Xd.device,
+                                     dtype=Xd.dtype)
+        if Xd.device.type == "cuda":
+            torch.cuda.synchronize(Xd.device)
+    timings["init"] += time.perf_counter() - t0
+    return W0, Ht0
 
 
 def _plain_executed(n_iter: np.ndarray, groups: int, max_iter: int) -> int:
@@ -349,6 +414,7 @@ def consensus_arrays(
     normalize_tpm_spectra: bool = False,
     zero_safe: bool = False,
     timings: Optional[dict] = None,
+    device_kmeanspp: Optional[bool] = None,
 ) -> Consensus:
     """Consensus spectra and usages for one K (reference cnmf.py:823-975).
 
@@ -370,7 +436,11 @@ def consensus_arrays(
     ``zero_safe``: guard zero-std HVGs in the final refit (sparse inputs).
     ``timings``: a dict that gains the seconds of each sub-stage (density,
     kmeans, refit_usages, refit_spectra_tpm, ols, final_refit), each ending
-    in host values."""
+    in host values. ``device_kmeanspp``: seed the KMeans on the device from
+    the threefry key of random_state 1 (``ops.kmeans.seed_kmeanspp_batch``);
+    None: where the JAX package's one-program consensus would
+    (cnmf_tpu/pipeline/cnmf.py:3245-3316), ``solvers.device_kmeanspp_enabled``
+    for the device with the TPM resident."""
     dev, dtype = norm_counts.device, norm_counts.dtype
     np_dtype = numpy_dtype(dtype)
     resident = isinstance(tpm, (torch.Tensor, Shards))
@@ -398,8 +468,10 @@ def consensus_arrays(
         )
     mark("density")
 
+    if device_kmeanspp is None:
+        device_kmeanspp = device_kmeanspp_enabled(dev) and resident
     labels, _, _ = kmeans_fit(to_dev(l2_kept), n_clusters=k, n_init=10,
-                              random_state=1)
+                              random_state=1, device_seeding=device_kmeanspp)
     labels = labels + 1
     # per-cluster median spectra, renormalized to row-sum 1
     median = np.stack([np.median(l2_kept[labels == c], axis=0)

@@ -114,6 +114,52 @@ def test_half_sweep_f64_matches_xla(half, l1, l2):
     _check_f64(half, l1, l2)
 
 
+# the f32 plain sweep's largest error against the exact (f64) sweep may be at
+# most this multiple of the JAX package's f32 XLA sweep's
+ACCURACY_FACTOR = 1.5
+
+
+@pytest.mark.parametrize("l1,l2", REGS)
+@pytest.mark.parametrize("half", ["w", "h"])
+def test_half_sweep_f32_as_accurate_as_xla(half, l1, l2):
+    """Held to the f64 sweep on the same (f32) inputs, the port's f32 plain
+    sweep errs at most ACCURACY_FACTOR times as much as JAX's f32 XLA
+    sweep: its product and gram are summed in f64 and rounded once."""
+    X, W, Ht = make_problem(np.float32)
+    exact, _ = _jax_xla(*(a.astype(np.float64) for a in (X, W, Ht)), half,
+                        l1, l2)
+    xla, _ = _jax_xla(X, W, Ht, half, l1, l2)
+    ours, _ = _port(X, W, Ht, half, l1, l2)
+    err = np.abs(ours - np.asarray(exact)).max()
+    err_xla = np.abs(np.asarray(xla) - np.asarray(exact)).max()
+    assert err <= ACCURACY_FACTOR * err_xla, (err, err_xla)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("batch", [3, 13, 17])
+def test_restart_bits_do_not_follow_the_batch(batch, dtype):
+    """A restart's CD solve on the CPU has the same bits alone and inside a
+    batch of 3, 13 or 17 restarts, at its first, middle and last place: the
+    restart axis of a mesh splits a batch into groups and must keep one
+    device's bits."""
+    from cnmf_tpu.ops.init import random_init_batch
+    from cnmf_tpu_torch.ops.nmf import nmf_coordinate_descent
+
+    rng = np.random.RandomState(0)
+    X = (rng.gamma(1.0, 1.0, (40, 32)) * (rng.rand(40, 32) < 0.5)) + 0.06
+    W0, Ht0 = random_init_batch(X, 4, np.arange(batch) + 1, dtype=dtype)
+    W0, Ht0 = (np.pad(a, ((0, 0), (0, 0), (0, 4))) for a in (W0, Ht0))
+    Xt = torch.as_tensor(X.astype(dtype))
+    # one block of sweeps: a batch-dependent rounding shows at the first
+    solve = dict(tol=1e-4, max_iter=10)
+    W, Ht, n_iter = nmf_coordinate_descent(Xt, _t(W0), _t(Ht0), **solve)
+    for b in sorted({0, batch // 2, batch - 1}):
+        W1, Ht1, n1 = nmf_coordinate_descent(Xt, _t(W0[b:b + 1]),
+                                             _t(Ht0[b:b + 1]), **solve)
+        assert torch.equal(n1[0], n_iter[b])
+        assert torch.equal(W1[0], W[b]) and torch.equal(Ht1[0], Ht[b]), b
+
+
 def _shape_id(shape):
     return "B{}xN{}xG{}xK{}".format(*shape)
 

@@ -19,6 +19,7 @@ import pytest
 from cnmf_tpu import cli as jax_cli
 from cnmf_tpu.io.dataframe import load_df_from_npz
 from cnmf_tpu_torch import cli as torch_cli
+from torch_knobs import host_draws_by_default  # noqa: F401 (autouse)
 
 SSE_TOL = 1e-4
 SIL_ABS = 1e-4

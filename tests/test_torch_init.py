@@ -20,6 +20,7 @@ from cnmf_tpu.io.dataframe import load_df_from_npz
 from cnmf_tpu.ops import init as jinit
 from cnmf_tpu_torch import cNMF as TorchCNMF
 from cnmf_tpu_torch.ops import init as tinit
+from torch_knobs import host_draws_by_default  # noqa: F401 (autouse)
 
 VARIANTS = ["nndsvd", "nndsvda", "nndsvdar"]
 FACTORIZE_REL = 1e-6

@@ -31,6 +31,7 @@ from cnmf_tpu_torch.ops.cd_kernels import factors_from_numpy
 from cnmf_tpu_torch.parallel import collectives
 from cnmf_tpu_torch.parallel import mesh as pm
 from cnmf_tpu_torch.pipeline import solvers
+from torch_knobs import host_draws_by_default  # noqa: F401 (autouse)
 
 TOL = dict(rtol=1e-9, atol=1e-12)
 CPU8 = ["cpu"] * 8

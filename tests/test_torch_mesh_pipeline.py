@@ -22,6 +22,7 @@ from cnmf_tpu.io.dataframe import load_df_from_npz
 from cnmf_tpu_torch import cNMF
 from cnmf_tpu_torch.parallel import mesh as pm
 from cnmf_tpu_torch.pipeline import solvers
+from torch_knobs import host_draws_by_default  # noqa: F401 (autouse)
 
 TOL = dict(rtol=1e-9, atol=1e-12)
 ARTIFACTS = ["consensus_spectra", "consensus_usages", "gene_spectra_tpm",

@@ -26,6 +26,7 @@ from test_torch_mesh_pipeline import (
     planted_counts,
     write_counts,
 )
+from torch_knobs import host_draws_by_default  # noqa: F401 (autouse)
 
 
 def rel_sse(a, b):

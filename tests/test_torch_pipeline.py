@@ -26,6 +26,7 @@ from cnmf_tpu.simulate import simulate_counts
 from cnmf_tpu_torch import cNMF as TorchCNMF
 from cnmf_tpu_torch.io.h5ad import read_h5ad, write_h5ad
 from cnmf_tpu_torch.pipeline import stages
+from torch_knobs import host_draws_by_default  # noqa: F401 (autouse)
 
 NAME = "v"
 K = 6

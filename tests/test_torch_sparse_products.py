@@ -28,6 +28,7 @@ from cnmf_tpu_torch import cNMF
 from cnmf_tpu_torch.io.dataframe import load_df_from_npz
 from cnmf_tpu_torch.ops import ols as pt_ols
 from cnmf_tpu_torch.pipeline import solvers, stages
+from torch_knobs import host_draws_by_default  # noqa: F401 (autouse)
 
 KW = {"solver": "cd", "beta_loss": "frobenius", "tol": 1e-4, "max_iter": 300,
       "alpha_W": 0.0, "l1_ratio": 0.0}
