@@ -46,6 +46,17 @@ Phases, each printing its own line(s):
    kernels' launch counts, each of which must be > 0;
 5. k-selection over that run's merged spectra of K=5..13: silhouette,
    prediction error and wall of each K, and the products kernel's launches;
+   then ``[fused]``: consensus at K=10 on the same merged spectra as one
+   program on the card (the default, ops/consensus_fused.py) and step by
+   step (CNMF_TPU_FUSED_CONSENSUS=0's path) in paired turns: equal labels,
+   every artifact within FUSED_SSE, the walls, and the synchronizing calls
+   of each (torch.cuda.set_sync_debug_mode): the one program's must be the
+   Lloyd and refit loops' block checks and one drain; and ``[device-tpm]``:
+   the compact integer TPM (ops/device_tpm.py) on the slice's counts —
+   the bytes of each upload, the device TPM against the host's (≤ 3e-7
+   relative), the CSR image and the one-pass derive bit-equal, and the CD
+   factorize of every K with and without the TPM prefetch beside it, in
+   paired turns;
 6. the threefry-seeded paths (``[seeded]``, phase_seeded): the card's
    draw against the CPU's (bits and uniforms equal, the normals' largest
    gap in ulps), the CD factorize of every K with the inits drawn on the
@@ -86,13 +97,14 @@ Phases, each printing its own line(s):
    combine, consensus at K=10 — through pipeline/stages.py: stage walls,
    iterations and the KL kernels' launch counts, each of which must be > 0,
    and of those the launches with one restart (the B=1 refits); then its
-   factorize plain and on the ladder, and its consensus (the stage of the
-   B=1 refits) under torch.profiler;
+   ``[fused]`` at K=10 as in 5.; its factorize plain and on the ladder, and
+   its consensus (the stage of the B=1 refits) under torch.profiler;
 9. the Itakura-Saito path, the same configuration with
    beta_loss="itakura-saito", k-stats at K=10 as well, and consensus at
    density threshold IS_DENSITY_THRESHOLD: stage walls, iterations, the
    local densities and the general-beta kernels' launches (> 0), those of
-   the B=1 refits apart; then its factorize plain and on the ladder, and
+   the B=1 refits apart; ``[fused]``; its factorize plain and on the
+   ladder, and
    its k-stats and consensus (the stages of the B=1 refits) under
    torch.profiler;
 10. Preprocess with Harmony at a 4-sample study's size (4 batches of 5,000
@@ -119,7 +131,8 @@ Phases, each printing its own line(s):
    TPM sparse on the host), K=12 × 30 restarts from the CSR, combine, and
    consensus at K=12 twice: with the TPM device-densified on the card, and
    forced over the device limit onto the host-SpMM products and the
-   products-given kernel. Stage walls, the forced consensus's sub-stages,
+   products-given kernel (the resident one as one program on the card,
+   its peak device memory apart). Stage walls, the consensus sub-stages,
    device against host densify and upload of the TPM, peak device memory
    and the CD kernels' launches over the path; the forced artifacts must be
    within ATLAS_FORCED_SSE of the resident ones, the device densify
@@ -127,7 +140,8 @@ Phases, each printing its own line(s):
    products-given kernel within its bound of plain at M=100,000 and 20,000;
 12. a JSON line of the kernels (times, the bound of the work at the main
    shape, launches on the main path, the MU kernels' B=1 launches and the
-   CD kernels' atlas-path launches apart, the refits' times, bounds and
+   CD kernels' atlas-path launches and those of one one-program consensus
+   of each slice apart, the refits' times, bounds and
    splits, the products-given kernel's atlas times), the card line, and the
    result line {"ok": true, "device": {...}}.
 
@@ -787,7 +801,7 @@ def path_input(counts, hvg, dev):
     return X_host, torch.as_tensor(X_host, device=dev)
 
 
-def phase_schedules(X_host, Xd, card, ks, n_iter, kwargs, label):
+def phase_schedules(X_host, Xd, ks, n_iter, kwargs, label):
     """Every K of ``ks`` (n_iter restarts each) factorized with the plain
     batched solver and on the device ladder, in paired turns (plain, ladder,
     ladder, plain): per K the mean wall of the two turns (synchronized),
@@ -852,7 +866,7 @@ def phase_schedules(X_host, Xd, card, ks, n_iter, kwargs, label):
     default = device_ladder_enabled(Xd)
     lines[-1] += (f"; ladder vs plain: same n_iter at every restart: "
                   f"{same_n}, spectra max |diff| {diff:.3e}; ladder the CUDA "
-                  f"default: {default}; card: {card}")
+                  f"default: {default}")
     for line in lines:
         print(line, flush=True)
     assert not default or (same_n and diff == 0.0), (label, same_n, diff)
@@ -865,7 +879,7 @@ def ulps(a, b):
     return float(np.max(np.abs(a - b) / np.spacing(np.abs(b).astype(b.dtype))))
 
 
-def phase_seeded(dev, card, counts, hvg, ks, n_iter, k_cons):
+def phase_seeded(dev, counts, hvg, ks, n_iter, k_cons):
     """The threefry-seeded paths (``[seeded]``): (a) the card's draw of the
     main path's restarts (their keys, bits and f32 uniforms, and the
     normals of their W and Ht at K=16) against the CPU's: bits and
@@ -1034,7 +1048,7 @@ def phase_seeded(dev, card, counts, hvg, ks, n_iter, k_cons):
     return arms["host"]
 
 
-def phase_ladder_tilings(Xd, k, card):
+def phase_ladder_tilings(Xd, k):
     """The kernel each MU launch takes at each ladder rung at the KL and IS
     slices' bucket, and the rungs ``solvers.ladder_rungs`` keeps."""
     import torch
@@ -1070,11 +1084,11 @@ def phase_ladder_tilings(Xd, k, card):
                                      for kind, Bs in by.items())
             for launch, by in kinds.items())
             + f" (rungs kept {'/'.join(map(str, kept))})")
-    print("[ladder-tilings] " + " | ".join(parts) + f"; card: {card}",
+    print("[ladder-tilings] " + " | ".join(parts),
           flush=True)
 
 
-def phase_batch(dev, card):
+def phase_batch(dev):
     """Whether a restart's bits depend on the batch it shares, at every
     launch of a solver step on the device ladder: each wrapper,
     ``cd_kernels._gram``, the KL denominators and the KL and IS divergences
@@ -1139,12 +1153,12 @@ def phase_batch(dev, card):
           f"{'/'.join(map(str, rungs))} shuffled, X 2700x2000 30% zeros, "
           f"K=8..64, {', '.join(launches)}: {same} same bits; differ where "
           f"the split differs (rung dropped): {', '.join(split) or 'none'}; "
-          f"any other: {', '.join(other) or 'none'}; card: {card}",
+          f"any other: {', '.join(other) or 'none'}",
           flush=True)
     assert not other, other
 
 
-def phase_profile_refits(counts, hvg, dev, card, spectra, k, kwargs,
+def phase_profile_refits(counts, hvg, dev, spectra, k, kwargs,
                          density_threshold, label, wrapper, k_stats=True):
     """A MU slice's k-stats (``k_stats``) and consensus at K=k on its merged
     spectra, again under torch.profiler (their MU work is the B=1 refits):
@@ -1167,13 +1181,12 @@ def phase_profile_refits(counts, hvg, dev, card, spectra, k, kwargs,
     fn_b1, parts = getattr(mk, wrapper), []
     for stage, fn in stage_fns:
         fn_b1.launches_b1 = 0
-        _, wall, busy, top = profiled(fn, n_top=2)
+        _, wall, busy, top = profiled(fn, n_top=1)
         parts.append(f"{stage} wall {wall:.3f} s, device busy {busy:.3f} s, "
                      f"idle share {1 - busy / wall:.2%}, "
                      f"{fn_b1.launches_b1} B=1 {wrapper} launches; "
-                     f"top device ops: {top}")
-    print(f"[profile] {label} (profiled) " + " | ".join(parts)
-          + f"; card: {card}", flush=True)
+                     f"top device op: {top}")
+    print(f"[profile] {label} (profiled) " + " | ".join(parts), flush=True)
 
 
 def phase_small_agreement(dev, nmf_kwargs=None, label="frobenius"):
@@ -1236,7 +1249,7 @@ def host_draws():
                 os.environ[knob] = value
 
 
-def phase_k_selection(merged, Xd, card):
+def phase_k_selection(merged, Xd):
     """The K-selection stats of every K of the CD slice's merged spectra, K
     by K; the products kernel's launches over the sweep."""
     import torch
@@ -1257,9 +1270,228 @@ def phase_k_selection(merged, Xd, card):
     launches = ck.cd_sweep_from_products.launches
     print(f"[k-selection] CD slice (K: silhouette, error, wall) "
           + "; ".join(parts) + f"; total {time.perf_counter() - t_all:.3f} s; "
-          f"cd_sweep_from_products launches {launches}; card: {card}",
+          f"cd_sweep_from_products launches {launches}",
           flush=True)
     assert launches > 0
+
+
+FUSED_SSE = 1e-4          # one-program against step-by-step consensus
+
+
+def source_site(module, text):
+    """"file:line" of the first line of ``module`` holding ``text``."""
+    import inspect
+
+    lines, _ = inspect.getsourcelines(module)
+    line = next(i for i, s in enumerate(lines, 1) if text in s)
+    return f"{os.path.basename(module.__file__)}:{line}"
+
+
+def sync_sites(fn):
+    """fn() under torch.cuda.set_sync_debug_mode("warn"): (its result,
+    {"file:line": count} of the synchronizing calls made while it ran, each
+    by the innermost line of the package's code on the stack, or as
+    "outside <file:line>" when no package code was on it: a call of the
+    harness around fn, not of the path)."""
+    import collections
+    import traceback
+    import warnings
+
+    import torch
+
+    package = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "cnmf_tpu_torch")
+    sites = collections.Counter()
+
+    def hook(message, category, filename, lineno, *args, **kwargs):
+        if "called a synchronizing CUDA operation" not in str(message):
+            return
+        stack = traceback.extract_stack()[:-1]
+        ours = [f for f in stack
+                if os.path.abspath(f.filename).startswith(package)]
+        if ours:
+            sites[f"{os.path.basename(ours[-1].filename)}:"
+                  f"{ours[-1].lineno}"] += 1
+            return
+        caller = [f for f in stack if "torch" not in f.filename
+                  and not f.filename.endswith("warnings.py")][-1]
+        sites[f"outside {os.path.basename(filename)}:{lineno} from "
+              f"{os.path.basename(caller.filename)}:{caller.lineno}"] += 1
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = hook
+            out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return out, dict(sites)
+
+
+def phase_fused(label, merged, counts, hvg, k, dev, kwargs, wrappers,
+                density_threshold=0.5):
+    """Consensus at K=k on a slice's merged spectra through the one-program
+    path (the CUDA default: ops/consensus_fused.fused_consensus_full) and
+    step by step (CNMF_TPU_FUSED_CONSENSUS=0's path), in paired turns: the
+    labels must be equal, every artifact within FUSED_SSE, and the one
+    program's synchronizing calls (sync_sites) only the Lloyd and refit
+    loops' block checks and one drain. Prints the walls, the calls of
+    each and the launches of ``wrappers`` in one one-program run."""
+    import torch
+
+    from cnmf_tpu_torch.ops import consensus_fused, kmeans, nmf
+    from cnmf_tpu_torch.pipeline import stages
+
+    prep = stages.prepare_arrays(counts, num_highvar_genes=hvg)
+    Xd, tpm = (torch.as_tensor(np.ascontiguousarray(a, dtype=np.float32),
+                               device=dev) for a in (prep.norm, prep.tpm))
+
+    def run(fused):
+        return stages.consensus_arrays(
+            merged, k, Xd, tpm, prep.tpm_std, prep.hvg_idx, kwargs,
+            density_threshold=density_threshold, fused=fused)
+
+    res, walls = {}, {True: [], False: []}
+    for fused in (True, False, False, True):
+        for fn in wrappers.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res[fused] = run(fused)
+        torch.cuda.synchronize()
+        walls[fused].append(time.perf_counter() - t0)
+        if fused:
+            launches = {name: fn.launches for name, fn in wrappers.items()
+                        if fn.launches}
+    syncs = {fused: sync_sites(lambda: run(fused))[1]
+             for fused in (True, False)}
+    kinds = {source_site(kmeans, "torch.stack([new_done.all(), emptied])"):
+             "lloyd",
+             source_site(kmeans, "all_done = bool(new_done.all())"): "lloyd",
+             source_site(nmf, "if n and bool(state[-2].all())"): "refits",
+             source_site(consensus_fused, "for t in ts]).cpu()"): "drain"}
+    by_kind = {}
+    for site, n in syncs[True].items():
+        kind = "outside" if site.startswith("outside") else kinds.get(site,
+                                                                      site)
+        by_kind[kind] = by_kind.get(kind, 0) + n
+    outside = [site for site in syncs[True] if site.startswith("outside")]
+    a, b = res[True], res[False]
+    same = bool(np.array_equal(a.labels, b.labels)
+                and np.array_equal(a.density_filter, b.density_filter))
+    sse = {n: rel_sse(getattr(a, n), getattr(b, n))
+           for n in ("spectra", "usages", "spectra_tpm", "spectra_score")}
+    print(f"[fused] {label} K={k}: labels equal {same}; rel SSE spectra/"
+          "usages/tpm/score " + "/".join(f"{v:.1e}" for v in sse.values())
+          + f"; wall s fused {'+'.join(f'{w:.3f}' for w in walls[True])}, "
+          f"steps {'+'.join(f'{w:.3f}' for w in walls[False])}; syncs fused "
+          f"{sum(syncs[True].values())} {json.dumps(by_kind)}"
+          + (f" ({', '.join(outside)})" if outside else "")
+          + f" / steps {sum(syncs[False].values())}; launches {launches}",
+          flush=True)
+    assert same and max(sse.values()) <= FUSED_SSE, (same, sse)
+    assert set(by_kind) <= {"lloyd", "refits", "drain", "outside"}, by_kind
+    assert by_kind.get("drain") == 1, by_kind
+    return launches
+
+
+def phase_device_tpm(dev, counts, hvg, ks, n_iter):
+    """The compact integer TPM (ops/device_tpm.py) on the slice's counts:
+    the bytes each upload moves (the integer image dense and as CSR, the
+    float TPM), the device TPM against the host's (largest relative
+    error), the CSR image bit-equal to the dense, the one-pass derive of the
+    factorize input and the TPM (seconds; its TPM bit-equal to the
+    expansion alone), the prefetch alone, and the CD factorize of every K
+    with and without the prefetch running beside it, in paired turns."""
+    import torch
+
+    from cnmf_tpu_torch.ops import device_tpm
+    from cnmf_tpu_torch.pipeline import stages
+
+    def sync_wall(t0):
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    prep = stages.prepare_arrays(counts, num_highvar_genes=hvg)
+    ints = device_tpm.compact_integer_counts(counts)
+    assert ints is not None, "the slice's counts have no compact image"
+    scale = device_tpm.tpm_row_scale(counts).astype(np.float32)
+    csr = device_tpm.int_image_csr(ints)
+    # the CSR route on the card, taken here whatever its byte gate says
+    components = csr or device_tpm.csr_components(ints)
+    secs, nbytes = {}, {}
+    t0 = time.perf_counter()
+    image, nbytes["int"] = device_tpm.upload_int_image(ints, None, dev)
+    secs["int"] = sync_wall(t0)
+    t0 = time.perf_counter()
+    from_csr, nbytes["csr"] = device_tpm.upload_int_image(ints, components,
+                                                          dev)
+    secs["csr"] = sync_wall(t0)
+    same_csr = bool(torch.equal(from_csr, image))
+    del from_csr
+    t0 = time.perf_counter()
+    tpm_float = torch.as_tensor(np.ascontiguousarray(prep.tpm,
+                                                     dtype=np.float32),
+                                device=dev)
+    secs["float"] = sync_wall(t0)
+    nbytes["float"] = tpm_float.numel() * 4
+    scale_d = torch.as_tensor(scale, device=dev)
+    tpm_dev = device_tpm.tpm_from_counts(image, scale_d)
+    nz = tpm_float != 0
+    rel = float(((tpm_dev - tpm_float).abs() / tpm_float.abs().clamp(
+        min=1e-30))[nz].max())
+    assert bool((tpm_dev[~nz] == 0).all())
+    cols = np.asarray(prep.hvg_idx, dtype=np.int64)
+    std = np.asarray(counts)[:, cols].astype(np.float64).std(axis=0, ddof=1)
+    cols_d = torch.as_tensor(cols, device=dev)
+    std_d = torch.as_tensor(std.astype(np.float32), device=dev)
+    t0 = time.perf_counter()
+    norm_d, tpm_d = device_tpm.derive_norm_and_tpm(image, cols_d, std_d,
+                                                   scale_d)
+    derive_s = sync_wall(t0)
+    same_derive = bool(torch.equal(tpm_d, tpm_dev))
+    X_host = np.ascontiguousarray(prep.norm, dtype=np.float32)
+    norm_rel = float((norm_d.cpu() - torch.from_numpy(X_host)).abs().max()
+                     / np.abs(X_host).max())
+    del image, tpm_float, tpm_dev, norm_d, tpm_d
+    t0 = time.perf_counter()
+    task = device_tpm.prefetch(ints, scale, dev, csr=csr)
+    tpm_p, prefetch_bytes = task.join()
+    prefetch_s = sync_wall(t0)
+    del tpm_p
+
+    Xd = torch.as_tensor(X_host, device=dev)
+    kwargs = stages.nmf_run_params()
+    grid, seeds = stages.replicate_seeds(ks, n_iter, 14)
+    walls, ahead = {True: [], False: []}, []
+    for prefetch in (True, False, False, True, True, False):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        task = (device_tpm.prefetch(ints, scale, dev, csr=csr) if prefetch
+                else None)
+        for k in ks:
+            rows = [i for i, (kk, _) in enumerate(grid) if kk == k]
+            stages.factorize_k(X_host, Xd, k, seeds[rows], kwargs)
+        walls[prefetch].append(sync_wall(t0))
+        if task is not None:
+            ahead.append(task.done())
+            task.join()
+    moved = ", ".join(f"{key} {nbytes[key] / 1e6:.1f} MB {secs[key]:.4f} s"
+                      for key in ("int", "csr", "float"))
+    print(f"[device-tpm] {counts.shape[0]}x{counts.shape[1]} counts as "
+          f"{ints.dtype}: {moved} (CSR gate: {csr is not None}), CSR "
+          f"bit-equal {same_csr}; TPM vs host max rel {rel:.2e}; derive "
+          f"{derive_s:.4f} s (TPM bit-equal {same_derive}, norm max rel "
+          f"{norm_rel:.1e}); prefetch {prefetch_s:.3f} s, "
+          f"{prefetch_bytes / 1e6:.1f} MB; CD K={ks[0]}..{ks[-1]} with / "
+          f"without it {'+'.join(f'{w:.3f}' for w in walls[True])} / "
+          f"{'+'.join(f'{w:.3f}' for w in walls[False])} s (done before: "
+          f"{ahead})", flush=True)
+    assert rel <= 3e-7 and same_derive and same_csr, (rel, same_derive,
+                                                      same_csr)
+    assert norm_rel <= 1e-6, norm_rel
 
 
 def check_result(result, k, hvg):
@@ -1273,7 +1505,7 @@ def check_result(result, k, hvg):
     return result.usages / result.usages.sum(axis=1, keepdims=True)
 
 
-def mu_slice(label, counts, k_cons, n_iter, hvg, dev, kwargs, names, card,
+def mu_slice(label, counts, k_cons, n_iter, hvg, dev, kwargs, names,
              k_stats=(), density_threshold=0.5):
     """One MU path at bench.py's KL configuration through pipeline/stages.py;
     returns the launches of ``names``' wrappers, each of which must be > 0,
@@ -1299,12 +1531,12 @@ def mu_slice(label, counts, k_cons, n_iter, hvg, dev, kwargs, names, card,
     print(f"[{label}-slice] 2700x10000 counts, {hvg} HVGs, K={k_cons} x "
           f"{n_iter} restarts, beta_loss={kwargs['beta_loss']}, max_iter "
           f"{kwargs['max_iter']}, consensus K={k_cons} dt {density_threshold:g} "
-          f"(local density min/median/max {density[0]:.4f}/{density[1]:.4f}/"
+          f"(density min/median/max {density[0]:.4f}/{density[1]:.4f}/"
           f"{density[2]:.4f}, {int(result.density_filter.sum())} of "
-          f"{len(result.density_filter)} kept), via pipeline/stages.py: walls_s "
+          f"{len(result.density_filter)} kept): walls_s "
           + json.dumps({k: round(v, 3) for k, v in walls.items()})
           + f"; iterations max {its.max()} mean {its.mean():.1f}{stats}; "
-          f"launches {launches}, of which B=1 {launches_b1}; card: {card}",
+          f"launches {launches}, of which B=1 {launches_b1}",
           flush=True)
     assert all(n > 0 for n in launches.values()), launches
     return launches, launches_b1, merged[k_cons]
@@ -1763,7 +1995,7 @@ def phase_mesh_atlas(dev, merged, Xd, prep, kwargs, forced, forced_s,
     return dict(wall=wall, sse=sse, launches=launches)
 
 
-def phase_atlas(dev, card):
+def phase_atlas(dev):
     """The atlas path through pipeline/stages.py: the recipe's CSR counts,
     prepare with the TPM kept sparse on the host, factorize from the CSR
     (the normalized counts reach the card through
@@ -1846,20 +2078,26 @@ def phase_atlas(dev, card):
     assert stages.tpm_fits_device(tpm.shape, dev), (tpm.shape, limit)
     assert not stages.tpm_fits_device(tpm.shape, dev, override=1)
 
+    # the resident consensus runs as one program (the CUDA default); its
+    # own peak device memory apart from the path's
     results, subs = {}, {}
+    path_peak = torch.cuda.max_memory_allocated()
     for branch, tpm_src in (("resident", tpm_dev), ("forced", tpm)):
         subs[branch] = {}
         launches0 = ck.cd_sweep_from_products.launches
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         results[branch] = stages.consensus_arrays(
             merged, ATLAS_K, Xd, tpm_src, prep.tpm_std, prep.hvg_idx, kwargs,
             density_threshold=0.5, zero_safe=True, timings=subs[branch])
         walls["consensus_" + branch] = sync_wall(t0)
-        subs[branch]["products_launches"] = (ck.cd_sweep_from_products.launches
+        subs[branch]["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        path_peak = max(path_peak, torch.cuda.max_memory_allocated())
+        subs[branch]["products"] = (ck.cd_sweep_from_products.launches
                                              - launches0)
         del tpm_src
     del tpm_dev
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    peak_gb = path_peak / 1e9
     launches = {k: fn.launches for k, fn in wrappers.items()}
     sse = {name: rel_sse(getattr(results["forced"], name),
                          getattr(results["resident"], name))
@@ -1871,7 +2109,7 @@ def phase_atlas(dev, card):
     assert forced.usages.shape == (ATLAS_CELLS, ATLAS_K)
     phase_mesh_atlas(dev, merged, Xd, prep, kwargs, forced,
                      walls["consensus_forced"],
-                     subs["forced"]["products_launches"])
+                     subs["forced"]["products"])
     kernel = phase_atlas_products_kernel(dev, (ATLAS_CELLS, ATLAS_GENES))
     fused = phase_atlas_fused_kernels(Xd, -(-ATLAS_RESTARTS // 8) * 8,
                                       16 - ATLAS_K)
@@ -1891,12 +2129,12 @@ def phase_atlas(dev, card):
           f"{walls['prepare']:.3f} ({secs(prep_parts)}), factorize "
           f"{walls['factorize']:.3f}, combine {walls['combine']:.3f}; sweeps "
           f"max {n_iter.max()} mean {n_iter.mean():.1f}, executed "
-          f"restart-sweeps {executed}; factorize launches {fact_launches}; "
-          f"card: {card}", flush=True)
+          f"restart-sweeps {executed}; factorize launches {fact_launches}",
+          flush=True)
     print(f"[atlas] consensus K={ATLAS_K} dt 0.5 "
           f"({int(forced.density_filter.sum())} of {len(merged)} kept): "
           f"resident {walls['consensus_resident']:.3f} s ({secs(subs['resident'])}) "
-          f"| forced over the limit {walls['consensus_forced']:.3f} s "
+          f"| forced {walls['consensus_forced']:.3f} s "
           f"({secs(subs['forced'])}); forced vs resident relative SSE "
           + json.dumps({k: float(f"{v:.3e}") for k, v in sse.items()})
           + f" (bound {ATLAS_FORCED_SSE:g}); path launches {launches}",
@@ -1922,7 +2160,7 @@ def phase_atlas(dev, card):
     assert same_bits, "device densify differs from the host densify"
     assert max(sse.values()) <= ATLAS_FORCED_SSE, sse
     assert all(n > 0 for n in launches.values()), launches
-    assert subs["forced"]["products_launches"] > 0, subs
+    assert subs["forced"]["products"] > 0, subs
     return kernel, launches
 
 
@@ -2049,7 +2287,7 @@ def phase_mesh_shard_kernels(X_host, Xd, devices, k, seeds, cd):
     return rels, x.shape[0], rung
 
 
-def phase_mesh(dev, card, counts, hvg, ks, n_iter, k_cons, host):
+def phase_mesh(dev, counts, hvg, ks, n_iter, k_cons, host):
     """The mesh paths of pipeline/solvers.py and pipeline/stages.py on
     MESH_SHARDS shards of one card from the host's inits (the caller sets
     HOST_DRAWS: the seeded mesh paths are phase_seeded's), against the
@@ -2183,11 +2421,10 @@ def phase_mesh(dev, card, counts, hvg, ks, n_iter, k_cons, host):
           + f" (bound {MESH_SSE:g}); launches "
           + json.dumps(list(launches.values()), separators=(",", ":")),
           flush=True)
+    worst = max(shard_rels, key=shard_rels.get)
     print(f"[mesh] kernels vs plain at shard shapes (cell N={shard_n} B={n_iter},"
-          f" rung B={rung} N={Xd.shape[0]}), max rel "
-          f"{max(shard_rels.values()):.1e}: "
-          + json.dumps({k: float(f"{v:.1e}") for k, v in shard_rels.items()},
-                       separators=(",", ":")), flush=True)
+          f" rung B={rung} N={Xd.shape[0]}), {len(shard_rels)} cases, max rel "
+          f"{shard_rels[worst]:.1e} ({worst})", flush=True)
     print(f"[mesh] cell H half B=100 M={Xd.shape[1]} K=16: products "
           f"rel={kernel['rel']:.2e} kernel/alone/plain/bound ms "
           f"{kernel['ms']:.4f}/{kernel['alone_ms']:.4f}/"
@@ -2283,6 +2520,7 @@ def main():
 
     # 2. build
     from cnmf_tpu_torch.ops import cd_kernels as ck
+    from cnmf_tpu_torch.ops import mu_kernels as mk
     from cnmf_tpu_torch.ops.kernel_lib import load_library
     from cnmf_tpu_torch.pipeline import stages
 
@@ -2294,10 +2532,9 @@ def main():
         print(line, flush=True)
 
     # 3. kernels against plain, then the small slices against the CPU
-    print(f"[kernel] every case below: rel <= {KERNEL_REL_BOUND:g}: rel = "
-          "max |kernel - plain| / max |plain|, abs = max |kernel - plain| "
-          "(f32); K0: zero K columns; of_bound: bound_ms / kernel_ms",
-          flush=True)
+    print(f"[kernel] rel = max|kernel-plain|/max|plain| <= "
+          f"{KERNEL_REL_BOUND:g}, abs = max|kernel-plain| (f32); K0: zero K "
+          "columns; of_bound = bound/kernel ms", flush=True)
     records = phase_kernels(dev)
     records.update(phase_mu_kernels(dev))
     kl_kwargs = stages.nmf_run_params(beta_loss="kullback-leibler",
@@ -2322,8 +2559,7 @@ def main():
             walls, usage, merged, Xd = run_cnmf(counts, ks, n_iter, hvg,
                                                 k_cons, workdir)
     else:
-        route = (f"pipeline/stages.py on arrays ({', '.join(missing)} missing, "
-                 "which cNMF's run directory needs)")
+        route = f"stages.py ({', '.join(missing)} missing)"
         walls, merged, result, _, Xd, _ = run_stages(
             counts, ks, n_iter, hvg, k_cons, dev, verbose=True)
         usage = check_result(result, k_cons, hvg)
@@ -2332,46 +2568,57 @@ def main():
     print(f"[slice] 2700x10000 counts, {hvg} HVGs, K={ks[0]}..{ks[-1]} x "
           f"{n_iter} restarts, consensus K={k_cons} dt 0.5, via {route}: "
           "walls_s " + json.dumps({k: round(v, 3) for k, v in walls.items()})
-          + f"; launches {launches}; card: {card}", flush=True)
+          + f"; launches {launches}", flush=True)
     assert all(n > 0 for n in launches.values()), launches
 
-    # 5. k-selection over the CD slice's merged spectra
-    phase_k_selection(merged, Xd, card)
+    # 5. k-selection over the CD slice's merged spectra, the one-program
+    # consensus against the step-by-step one, the compact integer TPM
+    phase_k_selection(merged, Xd)
+    fused_launches = {"cd": phase_fused(
+        "CD", merged[k_cons], counts, hvg, k_cons, dev,
+        stages.nmf_run_params(), {"cd_sweep_from_products":
+                                  ck.cd_sweep_from_products})}
     del Xd, merged
+    phase_device_tpm(dev, counts, hvg, ks, n_iter)
 
     # 6. the threefry-seeded paths against the host's draws, then the mesh
     # paths from the host's draws on two shards of the card
-    host = phase_seeded(dev, card, counts, hvg, ks, n_iter, k_cons)
+    host = phase_seeded(dev, counts, hvg, ks, n_iter, k_cons)
     with host_draws():
         mesh_kernel, mesh_launches = phase_mesh(
-            dev, card, counts, hvg, ks, n_iter, k_cons, host)
+            dev, counts, hvg, ks, n_iter, k_cons, host)
     del host
 
     # 7. the CD factorize on each schedule, the MU ladder's rungs and the
     # batch check
     X_host, Xd = path_input(counts, hvg, dev)
-    phase_schedules(X_host, Xd, card, ks, n_iter, stages.nmf_run_params(),
-                    "CD")
-    phase_ladder_tilings(Xd, k_cons, card)
-    phase_batch(dev, card)
+    phase_schedules(X_host, Xd, ks, n_iter, stages.nmf_run_params(), "CD")
+    phase_ladder_tilings(Xd, k_cons)
+    phase_batch(dev)
 
     # 8. the KL path and 9. the Itakura-Saito path at bench.py's KL
     # configuration, each factorize again plain and on the ladder
     part, launches_b1, kl_spectra = mu_slice("kl", counts, k_cons, n_iter,
-                                             hvg, dev, kl_kwargs, KL_KERNELS,
-                                             card)
+                                             hvg, dev, kl_kwargs, KL_KERNELS)
     launches.update(part)
-    phase_schedules(X_host, Xd, card, [k_cons], n_iter, kl_kwargs, "KL")
-    phase_profile_refits(counts, hvg, dev, card, kl_spectra, k_cons,
+    fused_launches["kl"] = phase_fused(
+        "KL", kl_spectra, counts, hvg, k_cons, dev, kl_kwargs,
+        {name: getattr(mk, name) for name in KL_KERNELS})
+    phase_schedules(X_host, Xd, [k_cons], n_iter, kl_kwargs, "KL")
+    phase_profile_refits(counts, hvg, dev, kl_spectra, k_cons,
                          kl_kwargs, 0.5, "KL", "kl_x_log_wh", k_stats=False)
     part, b1, is_spectra = mu_slice("is", counts, k_cons, n_iter, hvg, dev,
-                                    is_kwargs, BETA_KERNELS, card,
+                                    is_kwargs, BETA_KERNELS,
                                     k_stats=[k_cons],
                                     density_threshold=IS_DENSITY_THRESHOLD)
     launches.update(part)
     launches_b1.update(b1)
-    phase_schedules(X_host, Xd, card, [k_cons], n_iter, is_kwargs, "IS")
-    phase_profile_refits(counts, hvg, dev, card, is_spectra, k_cons,
+    fused_launches["is"] = phase_fused(
+        "IS", is_spectra, counts, hvg, k_cons, dev, is_kwargs,
+        {name: getattr(mk, name) for name in BETA_KERNELS},
+        density_threshold=IS_DENSITY_THRESHOLD)
+    phase_schedules(X_host, Xd, [k_cons], n_iter, is_kwargs, "IS")
+    phase_profile_refits(counts, hvg, dev, is_spectra, k_cons,
                          is_kwargs, IS_DENSITY_THRESHOLD, "IS",
                          "beta_mu_w_terms")
 
@@ -2380,7 +2627,7 @@ def main():
 
     # 11. the atlas path: sparse counts at 100,000 x 20,000, the TPM on the
     # card and over the device limit
-    atlas_kernel, atlas_launches = phase_atlas(dev, card)
+    atlas_kernel, atlas_launches = phase_atlas(dev)
     for M, v in atlas_kernel.items():
         records["cd_sweep_from_products"].update({
             f"{key}_atlas_m{M}": float(f"{v[key]:.4g}")
@@ -2402,6 +2649,11 @@ def main():
         "mu_kl.cu" if name in KL_KERNELS else
         "mu_beta.cu" if name in BETA_KERNELS else "cd_half_sweep.cu")
         for name in replaces}
+    # launches in one one-program consensus of each slice, by kernel
+    fused = {}
+    for part in fused_launches.values():
+        for name, n in part.items():
+            fused[name] = fused.get(name, 0) + n
     # no single PyTorch call computes any of these functions; measured
     # values to 4 significant digits, well inside their run-to-run spread
     print(json.dumps({"kernels": [
@@ -2413,6 +2665,7 @@ def main():
                 if name in atlas_launches else {}),
              **({"launches_mesh": mesh_launches[name]}
                 if name in mesh_launches else {}),
+             **({"launches_fused": fused[name]} if name in fused else {}),
              library_ms=None,
              **{key: float(f"{v:.4g}") if isinstance(v, float) else v
                 for key, v in records[name].items()})

@@ -4,11 +4,14 @@ Replaces sklearn's ``KMeans(k, n_init=10, random_state=1)`` (reference
 cnmf.py:908-910), as ``cnmf_tpu.ops.kmeans`` does: the kmeans++ seeding is
 the same numpy code (sklearn's greedy ``n_local_trials`` scheme on the
 ``RandomState(random_state)`` stream, so both packages draw the same
-centres), and the ``n_init`` Lloyd runs are one batched computation. Each run
-stops on its own once its centre shift is within sklearn's variance-scaled
-tolerance; a stopped run stays frozen while the others continue, which gives
-the results of running each alone. Empty clusters are relocated to the
-points farthest from their centres (sklearn ``_relocate_empty_clusters``).
+centres), and the ``n_init`` Lloyd runs are one batched computation on
+padded points and clusters (``_lloyd_batched``, the JAX package's
+signature). Each run stops on its own once its centre shift is within
+sklearn's variance-scaled tolerance; a stopped run stays frozen while the
+others continue, which gives the results of running each alone. Empty
+clusters are relocated on the device to the points farthest from their
+centres (sklearn ``_relocate_empty_clusters``). The loop reads the host
+once per block of ``ops.nmf.BLOCK`` iterations.
 
 ``seed_kmeanspp_batch`` is the same greedy scheme on the device, keyed by
 threefry (``ops.prng``) as the JAX package's fused consensus seeds it
@@ -25,6 +28,7 @@ import numpy as np
 import torch
 
 from cnmf_tpu_torch.ops import prng
+from cnmf_tpu_torch.ops.nmf import BLOCK
 
 # the padded-cluster sentinel of the JAX package's kmeans (far from any
 # L2-normalized point, finite when squared in float32)
@@ -67,7 +71,22 @@ def _kmeans_plusplus(X: np.ndarray, n_clusters: int, rng: np.random.RandomState)
     return centers
 
 
-def seed_kmeanspp_batch(Xp, w, n_points: int, n_clusters: int, key, *,
+def _last_row(n_points):
+    """max(n_points - 1, 0): an int, or a 0-d tensor for a count on the
+    device (read nowhere on the host)."""
+    if isinstance(n_points, torch.Tensor):
+        return (n_points - 1).clamp(min=0)
+    return max(int(n_points) - 1, 0)
+
+
+def _clip(ids, last):
+    """``ids`` clipped to [0, last] (``last`` an int or a 0-d tensor)."""
+    if isinstance(last, torch.Tensor):
+        return torch.minimum(ids.clamp(min=0), last)
+    return ids.clamp(0, last)
+
+
+def seed_kmeanspp_batch(Xp, w, n_points, n_clusters: int, key, *,
                         n_init: int, n_cluster_pad: int,
                         n_local_trials: int) -> torch.Tensor:
     """``n_init`` greedy kmeans++ seedings on Xp's device
@@ -79,8 +98,9 @@ def seed_kmeanspp_batch(Xp, w, n_points: int, n_clusters: int, key, *,
     current potential, searches them on the cumulative potential of the
     valid rows, and keeps the trial that lowers the potential most.
 
-    Xp (R, G): the points, the ``n_points`` valid rows first; w (R,): 1 for
-    those, 0 after (zero potential mass); key: a threefry key (2,). Returns
+    Xp (R, G): the points, the ``n_points`` valid rows first (an int, or a
+    0-d tensor on Xp's device: nothing is read back); w (R,): 1 for those,
+    0 after (zero potential mass); key: a threefry key (2,). Returns
     (n_init, n_cluster_pad, G) centres, PAD_SENTINEL rows past
     ``n_clusters``. The runs go as one batch."""
     R, G = Xp.shape
@@ -89,7 +109,7 @@ def seed_kmeanspp_batch(Xp, w, n_points: int, n_clusters: int, key, *,
     keys = prng.split(torch.as_tensor(key, device=dev), n_init)
     k_first, k_loop = prng.split(keys).unbind(dim=1)
     runs = torch.arange(n_init, device=dev)
-    last = max(int(n_points) - 1, 0)
+    last = _last_row(n_points)
 
     def sq_dist(points):
         # (I, T, G) → (I, T, R): ||x - p||² by the gram trick, clipped at 0,
@@ -99,7 +119,9 @@ def seed_kmeanspp_batch(Xp, w, n_points: int, n_clusters: int, key, *,
         return d2.clamp(min=0.0) * w
 
     u0 = prng.uniform(k_first, (), torch.float32)
-    first = torch.clamp((u0 * float(n_points)).to(torch.int64), max=last)
+    n_f32 = (n_points.to(torch.float32) if isinstance(n_points, torch.Tensor)
+             else float(n_points))
+    first = _clip((u0 * n_f32).to(torch.int64), last)
     centers = torch.full((n_init, n_cluster_pad, G), PAD_SENTINEL,
                          dtype=dtype, device=dev)
     centers[:, 0] = Xp[first]
@@ -109,7 +131,7 @@ def seed_kmeanspp_batch(Xp, w, n_points: int, n_clusters: int, key, *,
         trials = prng.uniform(prng.fold_in(k_loop, c), (n_local_trials,),
                               torch.float32).to(dtype) * pot[:, None]
         ids = torch.searchsorted(torch.cumsum(closest, dim=1), trials)
-        cand = Xp[ids.clamp(0, last)]                       # (I, T, G)
+        cand = Xp[_clip(ids, last)]                         # (I, T, G)
         d2c = torch.minimum(closest[:, None], sq_dist(cand))
         pots = d2c.sum(dim=2)
         best = torch.argmin(pots, dim=1)
@@ -130,61 +152,106 @@ def _per_row_product(A, B):
     return out.reshape(I, k, B.shape[1])
 
 
-def _assign(X, x_sq, centers):
-    """labels (I, R) and squared distances to them, for centres (I, k, D)."""
+def _assign(X, x_sq, centers, col_real, w):
+    """labels (I, R) and the weighted squared distances to them, for
+    centres (I, Kp, D): clusters past the real ones at +inf distance."""
     c_sq = torch.sum(centers * centers, dim=2)
     dots = _per_row_product(centers, X.T).transpose(1, 2)
-    d2 = x_sq[None, :, None] + c_sq[:, None, :] - 2.0 * dots
-    d2 = d2.clamp(min=0.0)
+    d2 = (x_sq[None, :, None] + c_sq[:, None, :] - 2.0 * dots).clamp(min=0.0)
+    d2 = torch.where(col_real, d2, torch.inf)
     min_d2, labels = torch.min(d2, dim=2)
-    return labels, min_d2
+    return labels, min_d2 * w
 
 
-def _relocate_empty(X, labels, min_d2, sums, counts):
-    """Move the farthest points into the empty clusters of one run, in
-    cluster order, updating ``sums``/``counts`` in place: the point's weight
-    moves, it is taken off its source cluster (a source emptied this way is
-    refilled when the loop reaches it, as in the JAX package)."""
-    order = torch.argsort(-min_d2, stable=True).tolist()
-    n = counts.tolist()
-    n_used = 0
-    for i in range(len(n)):
-        if n[i] != 0:
-            continue
-        far = order[n_used]
-        src = int(labels[far])
-        sums[src] -= X[far]
-        sums[i] = X[far]
-        n[src] -= 1.0
-        n[i] = 1.0
-        n_used += 1
-    counts.copy_(torch.as_tensor(n, dtype=counts.dtype))
+def _update(X, labels, min_d2, centers, w, col_real, n_clusters: int,
+            relocate: bool):
+    """The new centres of every run (cnmf_tpu/ops/kmeans.py:89-121): the
+    weighted means of their points; with ``relocate``, each empty real
+    cluster, in cluster order, is given the farthest point not yet moved
+    (sklearn ``_relocate_empty_clusters``: the point's weight moves, it is
+    taken off its source cluster, and a source emptied this way is refilled
+    when the loop reaches it). Padded points sort last and are never moved;
+    padded clusters keep their sentinel. Returns (centres, (I,) bool: the
+    run has an empty real cluster, where relocating would act)."""
+    I, Kp, _ = centers.shape
+    dtype = X.dtype
+    onehot = torch.nn.functional.one_hot(labels, Kp).to(dtype) * w[:, None]
+    counts = onehot.sum(dim=1)                              # (I, Kp)
+    sums = _per_row_product(onehot.transpose(1, 2), X)      # (I, Kp, D)
+    has_empty = ((counts == 0) & col_real).any(dim=1)
+    if relocate:
+        order = torch.argsort(torch.where(w > 0, -min_d2, torch.inf), dim=1,
+                              stable=True)
+        runs = torch.arange(I, device=X.device)
+        n_used = torch.zeros((I, 1), dtype=torch.int64, device=X.device)
+        for i in range(min(int(n_clusters), Kp)):
+            far = order.gather(1, n_used)[:, 0]
+            empty = (counts[:, i] == 0) & (w[far] > 0)
+            src = labels.gather(1, far[:, None])[:, 0]      # never i
+            moved = X[far] * empty[:, None]
+            sums.index_put_((runs, src), -moved, accumulate=True)
+            sums[:, i] = torch.where(empty[:, None], X[far], sums[:, i])
+            counts.index_put_((runs, src), -empty.to(dtype), accumulate=True)
+            counts[:, i] = torch.where(empty, 1.0, counts[:, i])
+            n_used = n_used + empty[:, None]
+    new = sums / torch.where(counts == 0, 1.0, counts)[:, :, None]
+    return torch.where(col_real[None, :, None], new, centers), has_empty
 
 
-def _lloyd_batched(X: torch.Tensor, centers0: torch.Tensor, tol: float,
-                   max_iter: int):
-    """Lloyd iterations for a batch of inits. X (R, D); centers0 (I, k, D).
-    Returns (labels (I, R), inertia (I,), centers (I, k, D))."""
-    n_init, k, _ = centers0.shape
+def _lloyd_batched(X: torch.Tensor, centers0: torch.Tensor, tol, n_points,
+                   n_clusters: int, max_iter: int):
+    """Lloyd iterations for a batch of inits on padded inputs
+    (cnmf_tpu/ops/kmeans.py:59-148), on X's device.
+
+    X (Rp, D): zero rows past ``n_points`` (an int or a 0-d tensor), which
+    carry zero weight; centers0 (I, Kp, D): sentinel rows past
+    ``n_clusters``, masked to +inf distance; tol: the shift tolerance,
+    already scaled by the mean variance (a float or a 0-d tensor). A run
+    stops once its centre shift is within tol; a stopped run stays frozen
+    while the others go on, which gives each run's own result.
+
+    The iterations go in blocks of ``BLOCK``, each first without the
+    empty-cluster relocation (its launches grow with k); the host reads
+    once a block whether every run is done and whether a running run had an
+    empty real cluster, and only then runs the block again from its start
+    with the relocation. Either way the block gives what relocating every
+    iteration gives, as the JAX loop does. Returns (labels (I, Rp), inertia
+    (I,), centers (I, Kp, D)): the labels and inertia of a last assignment
+    against the final centres."""
+    Rp = X.shape[0]
+    n_init, Kp, _ = centers0.shape
+    dev = X.device
     x_sq = torch.sum(X * X, dim=1)
+    w = (torch.arange(Rp, device=dev) < n_points).to(X.dtype)
+    col_real = torch.arange(Kp, device=dev) < n_clusters
+
+    def block(centers, done, steps, relocate):
+        emptied = torch.zeros((), dtype=torch.bool, device=dev)
+        for _ in range(steps):
+            labels, min_d2 = _assign(X, x_sq, centers, col_real, w)
+            new, has_empty = _update(X, labels, min_d2, centers, w, col_real,
+                                     n_clusters, relocate)
+            emptied = emptied | (has_empty & ~done).any()
+            shift = torch.sum(torch.where(col_real[None, :, None],
+                                          (new - centers) ** 2, 0.0),
+                              dim=(1, 2))
+            centers = torch.where(done[:, None, None], centers, new)
+            done = done | (shift <= tol)
+        return centers, done, emptied
+
     centers = centers0
-    done = torch.zeros(n_init, dtype=torch.bool, device=X.device)
-    for _ in range(max_iter):
-        labels, min_d2 = _assign(X, x_sq, centers)
-        onehot = torch.nn.functional.one_hot(labels, k).to(X.dtype)  # (I, R, k)
-        counts = onehot.sum(dim=1)
-        sums = _per_row_product(onehot.transpose(1, 2), X)
-        empty_runs = torch.nonzero((counts == 0).any(dim=1)).flatten()
-        for i in empty_runs.tolist():
-            _relocate_empty(X, labels[i], min_d2[i], sums[i], counts[i])
-        new_centers = sums / torch.where(counts == 0, 1.0, counts)[:, :, None]
-        shift = torch.sum((new_centers - centers) ** 2, dim=(1, 2))
-        centers = torch.where(done[:, None, None], centers, new_centers)
-        done = done | (shift <= tol)
-        if bool(done.all()):
+    done = torch.zeros(n_init, dtype=torch.bool, device=dev)
+    for start in range(0, max_iter, BLOCK):
+        steps = min(BLOCK, max_iter - start)
+        new, new_done, emptied = block(centers, done, steps, False)
+        all_done, relocate = torch.stack([new_done.all(), emptied]).tolist()
+        if relocate:
+            new, new_done, _ = block(centers, done, steps, True)
+            all_done = bool(new_done.all())
+        centers, done = new, new_done
+        if all_done:
             break
-    # labels of the last full assignment against the final centres
-    labels, min_d2 = _assign(X, x_sq, centers)
+    labels, min_d2 = _assign(X, x_sq, centers, col_real, w)
     return labels, min_d2.sum(dim=1), centers
 
 
@@ -196,35 +263,44 @@ def kmeans_fit(
     max_iter: int = 300,
     tol: float = 1e-4,
     device_seeding: bool = False,
+    pad_points_to: int = 512,
+    pad_clusters_to: int = 8,
 ) -> Tuple[np.ndarray, np.ndarray, float]:
     """Full KMeans fit on the rows of X: returns (labels, centers, inertia)
-    of the best init, as host values. ``device_seeding``: seed on X's device
-    from the threefry key of ``random_state`` (``seed_kmeanspp_batch``)
-    instead of the host's numpy stream."""
+    of the best init, as host values. The rows are zero-padded to a multiple
+    of ``pad_points_to`` and the clusters to one of ``pad_clusters_to``, the
+    shapes of the JAX package's ``kmeans_fit`` and of the one-program
+    consensus. ``device_seeding``: seed on X's device from the threefry key
+    of ``random_state`` (``seed_kmeanspp_batch``) instead of the host's
+    numpy stream."""
     X_host = X.cpu().numpy()
-    R, _ = X_host.shape
+    R, D = X_host.shape
     if R < n_clusters:
         raise ValueError(
             f"n_samples={R} should be >= n_clusters={n_clusters}"
         )
+    Rp = -(-R // pad_points_to) * pad_points_to
+    Kp = -(-n_clusters // pad_clusters_to) * pad_clusters_to
+    Xp = torch.nn.functional.pad(X, (0, 0, 0, Rp - R))
     if device_seeding:
+        w = (torch.arange(Rp, device=X.device) < R).to(X.dtype)
         centers0 = seed_kmeanspp_batch(
-            X, torch.ones(R, dtype=X.dtype, device=X.device), R, n_clusters,
-            prng.prng_key(int(random_state)), n_init=n_init,
-            n_cluster_pad=n_clusters,
+            Xp, w, R, n_clusters, prng.prng_key(int(random_state)),
+            n_init=n_init, n_cluster_pad=Kp,
             n_local_trials=2 + int(np.log(n_clusters)))
     else:
         rng = np.random.RandomState(random_state)
-        centers0 = torch.as_tensor(np.stack(
-            [_kmeans_plusplus(X_host, n_clusters, rng) for _ in range(n_init)]
-        ), device=X.device)
+        c0 = np.full((n_init, Kp, D), PAD_SENTINEL, dtype=X_host.dtype)
+        c0[:, :n_clusters] = np.stack(
+            [_kmeans_plusplus(X_host, n_clusters, rng) for _ in range(n_init)])
+        centers0 = torch.as_tensor(c0, device=X.device)
     # sklearn scales tol by the mean per-feature variance of X
     scaled_tol = tol * float(np.mean(np.var(X_host, axis=0)))
-    labels, inertia, centers = _lloyd_batched(X, centers0, scaled_tol,
-                                              max_iter)
+    labels, inertia, centers = _lloyd_batched(Xp, centers0, scaled_tol, R,
+                                              n_clusters, max_iter)
     best = int(torch.argmin(inertia))
     return (
-        labels[best].cpu().numpy(),
-        centers[best].cpu().numpy(),
+        labels[best, :R].cpu().numpy(),
+        centers[best, :n_clusters].cpu().numpy(),
         float(inertia[best]),
     )

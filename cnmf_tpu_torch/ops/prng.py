@@ -98,7 +98,11 @@ def fold_in(key, data) -> torch.Tensor:
     """``jax.random.fold_in(key, data)`` for a uint32 ``data`` (an int, or
     a tensor broadcast against the keys' leading axes): the hash of the
     counter words [0, data]."""
-    d = torch.as_tensor(data, dtype=torch.int64, device=key.device) & _MASK
+    if isinstance(data, int):
+        # a fill on the key's device, not a host-to-device copy
+        d = torch.full((), data & _MASK, dtype=torch.int64, device=key.device)
+    else:
+        d = torch.as_tensor(data, dtype=torch.int64, device=key.device) & _MASK
     b1, b2 = threefry2x32(key[..., 0], key[..., 1], torch.zeros_like(d), d)
     return torch.stack([b1, b2], dim=-1)
 
@@ -131,8 +135,8 @@ def _unit_floats(key, shape, dtype):
 def uniform(key, shape=(), dtype=torch.float32, minval=0.0, maxval=1.0):
     """``jax.random.uniform(key, shape, dtype, minval, maxval)`` per key:
     shape key.shape[:-1] + shape."""
-    lo = torch.tensor(minval, dtype=dtype, device=key.device)
-    hi = torch.tensor(maxval, dtype=dtype, device=key.device)
+    lo = torch.full((), minval, dtype=dtype, device=key.device)
+    hi = torch.full((), maxval, dtype=dtype, device=key.device)
     floats = _unit_floats(key, tuple(shape), dtype)
     return torch.maximum(lo, floats * (hi - lo) + lo)
 
@@ -182,7 +186,7 @@ _F64_GT16 = (
 
 
 def _const(value, like):
-    return torch.tensor(value, dtype=like.dtype, device=like.device)
+    return torch.full((), value, dtype=like.dtype, device=like.device)
 
 
 def erf_inv(x):

@@ -261,6 +261,25 @@ def put_cells(arr, devices: Optional[Sequence] = None):
     return split_rows(arr, mesh.flat_devices())
 
 
+def put_int_image_cells(ints: np.ndarray, scale: np.ndarray,
+                        devices: Sequence) -> Tuple[Shards, Shards]:
+    """The compact integer counts (cells × genes) and their per-cell TPM
+    scale laid out as ``put_cells`` lays the TPM over ``devices`` (the JAX
+    package's sharded prefetch, cnmf_tpu/pipeline/cnmf.py:749-775): zero
+    rows pad the image and ones the scale, so the padded rows expand to
+    zero TPM rows, which every consensus consumer treats as neutral.
+    Returns (image ``Shards``, scale ``Shards``)."""
+    n = ints.shape[0]
+    images, scales = [], []
+    for (start, stop, r), dev in zip(shard_bounds(n, len(devices)), devices):
+        pad = r - (stop - start)
+        images.append(_as_tensor(np.pad(ints[start:stop], ((0, pad), (0, 0))),
+                                 dev))
+        scales.append(_as_tensor(np.pad(scale[start:stop], (0, pad),
+                                        constant_values=1), dev))
+    return Shards(images, n), Shards(scales, n)
+
+
 def pad_to_multiple(arr: np.ndarray, multiple: int,
                     axis: int = 0) -> Tuple[np.ndarray, int]:
     """Pad along ``axis`` (repeating the first slice) to a multiple; returns

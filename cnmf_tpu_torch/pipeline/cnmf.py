@@ -41,9 +41,11 @@ import errno
 import os
 import shutil
 import sys
+import threading
 import time
 import uuid
 import warnings
+import weakref
 
 import numpy as np
 import pandas as pd
@@ -70,6 +72,7 @@ from cnmf_tpu_torch.ops.cd_kernels import (
     pad_bucket,
     torch_dtype,
 )
+from cnmf_tpu_torch.ops import device_tpm
 from cnmf_tpu_torch.ops.device_densify import to_device_dense
 from cnmf_tpu_torch.ops.distance import pairwise_euclidean
 from cnmf_tpu_torch.parallel import mesh as parallel_mesh
@@ -81,6 +84,9 @@ DEFAULT_DENSITY_THRESHOLD = stages.DEFAULT_DENSITY_THRESHOLD
 
 # row schema of the k_selection table (reference cnmf.py:932-934)
 K_STATS_FIELDS = ["k", "local_density_threshold", "silhouette", "prediction_error"]
+
+# the h5ad read cache is filled from the TPM prefetch thread too
+_H5AD_LOCK = threading.Lock()
 
 
 def worker_filter(iterable, worker_index, total_workers):
@@ -185,14 +191,196 @@ class cNMF:
         X_host = np.ascontiguousarray(X, dtype=self.compute_dtype)
         return X_host, torch.as_tensor(X_host, device=self.device)
 
+    def _device_cached(self, attr: str, key_obj, build):
+        """Single-entry device-buffer cache keyed by a weakref to the host
+        object it was built from (a weakref never aliases a recycled
+        ``id()``); ``clear_device_caches`` drops it."""
+        cached = getattr(self, attr, None)
+        if cached is not None and cached[0]() is key_obj:
+            return cached[1]
+        value = build()
+        setattr(self, attr, (weakref.ref(key_obj), value))
+        return value
+
+    def _read_h5ad_cached(self, path):
+        """``read_h5ad`` behind a cache of one object per path, valid while
+        the file's mtime is unchanged: prepare seeds it with the objects it
+        writes (``_seed_h5ad``), so a same-process factorize and consensus
+        read them back as those very objects, the keys of the compact-counts
+        stashes and the device caches. Safe from the prefetch thread."""
+        with _H5AD_LOCK:
+            cache = self.__dict__.setdefault("_h5ad_cache", {})
+            mtime = os.path.getmtime(path)
+            hit = cache.get(path)
+            if hit is not None and hit[0] == mtime:
+                return hit[1]
+        adata = read_h5ad(path)
+        with _H5AD_LOCK:
+            cache[path] = (mtime, adata)
+        return adata
+
+    def _seed_h5ad(self, path, adata):
+        """Put the object just written to ``path`` in the read cache, as a
+        read would return it (string indices), when its X is dense (a
+        sparse X is read back with other index arrays); returns the cached
+        object, or None."""
+        if sp.issparse(adata.X):
+            return None
+        obs, var = adata.obs.copy(), adata.var.copy()
+        obs.index, var.index = obs.index.astype(str), var.index.astype(str)
+        seeded = AnnData(adata.X, obs=obs, var=var)
+        with _H5AD_LOCK:
+            self.__dict__.setdefault("_h5ad_cache", {})[path] = (
+                os.path.getmtime(path), seeded)
+        return seeded
+
     def clear_device_caches(self, host_caches: bool = False):
-        """Free the device memory PyTorch's caching allocator holds
-        (``torch.cuda.empty_cache``): the port keeps no device tensors
-        between stages, so that is all there is to drop. ``host_caches``:
-        accepted for the JAX package's API; the port has no host read
-        cache."""
+        """Drop the cached device buffers (the normalized counts, the TPM and
+        the integer counts image) after joining a TPM prefetch in flight,
+        then empty PyTorch's caching allocator on CUDA. ``host_caches``:
+        drop the h5ad read cache too (kept by default: every hit is
+        mtime-checked, and dropping it breaks the compact-counts stashes'
+        object keys)."""
+        self._join_tpm_prefetch()
+        attrs = ["_norm_counts_dev_cache", "_tpm_dev_cache", "_ints_dev"]
+        if host_caches:
+            attrs.append("_h5ad_cache")
+        for attr in attrs:
+            self.__dict__.pop(attr, None)
         if self.device.type == "cuda":
             torch.cuda.empty_cache()
+
+    # ------------------------------------------------------------------
+    # the compact integer TPM (ops/device_tpm.py)
+    # ------------------------------------------------------------------
+
+    def _stash_tpm_compact(self, tpm_adata, counts_X):
+        """Keep a compact image of the TPM (the integer counts and the
+        per-cell scale, ``ops.device_tpm``) for a same-process factorize to
+        warm the consensus device TPM with a 2-4× smaller upload. Keyed by
+        a weakref to the object the TPM path's ``_read_h5ad_cached``
+        returns, so the device TPM is used only while nothing rewrote the
+        file (cnmf_tpu/pipeline/cnmf.py:606-634). ``CNMF_TPU_DEVICE_TPM=0``
+        disables it. The CSR components of the image are built here, off
+        factorize's path, where ``csr_upload_enabled``."""
+        if tpm_adata is None or not solvers.device_tpm_enabled():
+            return
+        ints = device_tpm.compact_integer_counts(counts_X)
+        if ints is None:
+            return
+        scale = device_tpm.tpm_row_scale(counts_X).astype(self.compute_dtype)
+        self._tpm_compact = (weakref.ref(tpm_adata), ints, scale)
+        self._ints_csr = ((ints, device_tpm.int_image_csr(ints))
+                          if device_tpm.csr_upload_enabled(self.device)
+                          else None)
+
+    def _stash_norm_compact(self, norm_adata, counts_var_index):
+        """Keep (cols, std) so that factorize derives its input on the
+        device from the integer counts of the TPM stash
+        (``ops.device_tpm.norm_from_counts``), keyed like it to the
+        normalized counts' read-back object (cnmf_tpu/pipeline/cnmf.py:
+        636-657); degenerate genes keep the float upload."""
+        tstash = getattr(self, "_tpm_compact", None)
+        if tstash is None or norm_adata is None:
+            return
+        spec = device_tpm.norm_column_spec(
+            counts_var_index, norm_adata.var.index, tstash[1],
+            self.compute_dtype)
+        if spec is not None:
+            self._norm_compact = (weakref.ref(norm_adata), tstash[1], *spec)
+
+    def _tpm_limit(self) -> float:
+        return stages.tpm_device_limit(self.device,
+                                       self.tpm_device_bytes_limit)
+
+    def _compact_tpm_target(self):
+        """(the TPM read-back object, integer image, scale) of a live TPM
+        stash at the compute dtype whose derived TPM fits half the device
+        limit (it lives beside factorize's working set), else None."""
+        stash = getattr(self, "_tpm_compact", None)
+        if stash is None:
+            return None
+        ref, ints, scale = stash
+        target = ref()
+        derived = ints.shape[0] * ints.shape[1] * self.compute_dtype.itemsize
+        if (target is None or scale.dtype != self.compute_dtype
+                or derived >= 0.5 * self._tpm_limit()):
+            return None
+        return target, ints, scale
+
+    def _fused_tpm_derive_target(self):
+        """(tpm read-back object, scale) when factorize should derive the
+        consensus device TPM beside its own input from the one integer
+        image (``device_tpm.derive_norm_and_tpm``), else (None, None):
+        the prefetch on, a live stash (``_compact_tpm_target``), and one
+        device (the cell-sharded layout takes the prefetch's sharded put)
+        (cnmf_tpu/pipeline/cnmf.py:659-684)."""
+        live = self._compact_tpm_target()
+        if (not solvers.prefetch_tpm_enabled() or live is None
+                or self._cell_devices() is not None):
+            return None, None
+        return live[0], live[2]
+
+    def _prefetch_tpm_async(self):
+        """Start the consensus TPM's upload while factorize runs
+        (cnmf_tpu/pipeline/cnmf.py:686-857): on a side CUDA stream from a
+        host thread (``device_tpm.SideStreamTask``), joined by consensus
+        (``_join_tpm_prefetch``), which then finds it in its device cache.
+        With prepare's compact stash, the integer image is uploaded (reusing
+        factorize's copy when it derived its input from it, or laid over the
+        cell devices) and expanded (``device_tpm.prefetch``); else the TPM
+        file is read on the thread and uploaded when it fits half the device
+        limit. ``CNMF_TPU_PREFETCH_TPM=0`` disables it."""
+        if not solvers.prefetch_tpm_enabled():
+            return
+        pending = getattr(self, "_tpm_prefetch", None)
+        if pending is not None and not pending[1].done():
+            return
+        live = self._compact_tpm_target()
+        if live is not None:
+            target, ints, scale = live
+            cached = getattr(self, "_tpm_dev_cache", None)
+            if cached is not None and cached[0]() is target:
+                return     # factorize derived it already
+            devices = self._cell_devices()
+            held = getattr(self, "_ints_dev", None)
+            stashed_csr = getattr(self, "_ints_csr", None)
+            task = device_tpm.prefetch(
+                ints, scale, self.device,
+                csr=(stashed_csr[1] if stashed_csr is not None
+                     and stashed_csr[0] is ints else device_tpm._COMPUTE_CSR),
+                devices=devices,
+                ints_dev=(held[1] if devices is None and held is not None
+                          and held[0] is ints else None))
+            self._tpm_prefetch = (weakref.ref(target), task)
+            return
+        tpm_path = self.paths["tpm"]
+        if not os.path.isfile(tpm_path):
+            return
+        n, g = read_h5ad_shape(tpm_path)
+        upload = n * g * self.compute_dtype.itemsize < 0.5 * self._tpm_limit()
+
+        def read_and_put():
+            tpm = self._read_h5ad_cached(tpm_path)
+            return tpm, (self._put_cells(tpm.X) if upload else None)
+
+        task = device_tpm.SideStreamTask(read_and_put, self.device)
+        self._tpm_prefetch = (None, task)
+
+    def _join_tpm_prefetch(self):
+        """Wait for a TPM prefetch in flight and seed the consensus device
+        TPM cache with its result; a failed prefetch raises here."""
+        pending = self.__dict__.pop("_tpm_prefetch", None)
+        if pending is None:
+            return
+        ref, task = pending
+        result = task.join()
+        if ref is None:
+            target, tpm_dev = result
+        else:
+            target, (tpm_dev, _) = ref(), result
+        if target is not None and tpm_dev is not None:
+            self._tpm_dev_cache = (weakref.ref(target), tpm_dev)
 
     def warmup(self, components=None, verbose=True, parallel=4):
         """Build what the port compiles before its first solve, and time it:
@@ -275,6 +463,8 @@ class cNMF:
         table and the YAML solver kwargs."""
         with stage_timer("prepare.load_counts"):
             input_counts = load_counts(counts_fn, densify=densify)
+        # a prior run's compact stashes must never leak into this one
+        self._tpm_compact = self._norm_compact = self._ints_csr = None
         tpm = None  # computed from the counts by stages.prepare_arrays
         if tpm_fn is not None and tpm_fn.endswith(".h5ad"):
             shutil.copy(tpm_fn, self.paths["tpm"])
@@ -297,6 +487,9 @@ class cNMF:
                           var=input_counts.var.copy())
             with stage_timer("prepare.write_tpm"):
                 write_h5ad(self.paths["tpm"], tpm)
+            with stage_timer("prepare.stash_tpm"):
+                self._stash_tpm_compact(self._seed_h5ad(self.paths["tpm"], tpm),
+                                        input_counts.X)
         input_tpm_stats = pd.DataFrame(
             [prep.tpm_mean, prep.tpm_std],
             index=["__mean", "__std"],
@@ -305,6 +498,10 @@ class cNMF:
         save_df_to_npz(input_tpm_stats, self.paths["tpm_stats"])
         with stage_timer("prepare.write_norm_counts"):
             self.save_norm_counts(norm_counts)
+        with stage_timer("prepare.stash_norm"):
+            self._stash_norm_compact(
+                self._seed_h5ad(self.paths["normalized_counts"], norm_counts),
+                input_counts.var.index)
         with stage_timer("prepare.iter_params"):
             replicate_params, run_params = self.get_nmf_iter_params(
                 ks=components, n_iter=n_iter, random_state_seed=seed,
@@ -432,7 +629,10 @@ class cNMF:
         device-bound there; smaller K solves run faster on ``device``
         alone); with one device, or False, solve on ``device`` alone."""
         run_params = load_df_from_npz(self.paths["nmf_replicate_parameters"])
-        norm_counts = read_h5ad(self.paths["normalized_counts"])
+        # consensus's device buffers of an earlier stage would compete with
+        # the solver for device memory
+        self.clear_device_caches()
+        norm_counts = self._read_h5ad_cached(self.paths["normalized_counts"])
         nmf_kwargs = self._load_run_params()
         if skip_completed_runs:
             rows = run_params.index[run_params["completed"] == False]  # noqa: E712
@@ -443,7 +643,9 @@ class cNMF:
             return
         devices = self._mesh_devices() if use_mesh else None
         mesh = None if devices is None else parallel_mesh.build_mesh(devices)
-        X_host, Xd = self._solve_inputs(norm_counts.X)
+        X_host, Xd = self._factorize_inputs(norm_counts)
+        # the consensus TPM's upload rides behind the solves
+        self._prefetch_tpm_async()
         gene_index = norm_counts.var.index
         # random inits drawn on the card from the seeds (threefry keys, the
         # JAX package's accelerator default), else sklearn's host draw
@@ -477,6 +679,50 @@ class cNMF:
                                  columns=gene_index),
                     self.paths["iter_spectra"] % (k, it),
                 )
+
+    def _factorize_inputs(self, norm_counts):
+        """(the inits' host source, the dense device tensor) of the
+        normalized counts (``_solve_inputs``). The device tensor is derived
+        on the device from the integer counts of prepare's stash
+        (``device_tpm.norm_from_counts``, ≤ 2 ulp from the float upload)
+        where ``solvers.device_norm_enabled`` and the stash is keyed to this
+        read-back (cnmf_tpu/pipeline/cnmf.py:1355-1410); the image stays on
+        the device for the TPM prefetch, and where that would expand it on
+        one device anyway, factorize derives both in one pass
+        (``derive_norm_and_tpm``) and seeds the consensus TPM cache. The
+        device tensor also seeds the consensus cache of the normalized
+        counts when it fits 2 GB and consensus keeps one device."""
+        X = norm_counts.X
+        X_host, Xd = None, None
+        nstash = getattr(self, "_norm_compact", None)
+        if (not sp.issparse(X) and nstash is not None
+                and nstash[0]() is norm_counts
+                and nstash[3].dtype == self.compute_dtype
+                and solvers.device_norm_enabled(self.device)):
+            _, ints, cols, std = nstash
+            stashed_csr = getattr(self, "_ints_csr", None)
+            ints_dev, _ = device_tpm.upload_int_image(
+                ints, stashed_csr[1] if stashed_csr is not None
+                and stashed_csr[0] is ints else device_tpm._COMPUTE_CSR,
+                self.device)
+            self._ints_dev = (ints, ints_dev)
+            cols_d = torch.as_tensor(cols, device=self.device)
+            std_d = torch.as_tensor(std, device=self.device)
+            tpm_target, tpm_scale = self._fused_tpm_derive_target()
+            if tpm_target is not None:
+                Xd, tpm_dev = device_tpm.derive_norm_and_tpm(
+                    ints_dev, cols_d, std_d,
+                    torch.as_tensor(tpm_scale, device=self.device))
+                self._tpm_dev_cache = (weakref.ref(tpm_target), tpm_dev)
+            else:
+                Xd = device_tpm.norm_from_counts(ints_dev, cols_d, std_d)
+            X_host = np.ascontiguousarray(X, dtype=self.compute_dtype)
+        else:
+            X_host, Xd = self._solve_inputs(X)
+        if (Xd.numel() * Xd.element_size() < 2e9
+                and self._cell_devices() is None):
+            self._norm_counts_dev_cache = (weakref.ref(norm_counts), Xd)
+        return X_host, Xd
 
     def factorize_multi_process(self, total_workers=None):
         """Compat shim: the batched solve replaces the reference's
@@ -630,47 +876,49 @@ class cNMF:
         norm_counts=None,
     ):
         """Consensus spectra/usages via density filtering + KMeans + medians
-        (reference cnmf.py:823-1082): the step-by-step consensus of
-        ``cnmf_tpu``, with the distance matrix, KNN density, KMeans, NNLS
-        refits and z-score OLS on the device.
+        (reference cnmf.py:823-1082), dispatched as ``cnmf_tpu`` dispatches
+        it (``stages.consensus_arrays``): with the TPM on the device, one
+        chain there with one drain (``ops.consensus_fused``; the density,
+        filter and threefry kmeans++ in it too where
+        ``solvers.device_kmeanspp_enabled``, the CUDA default);
+        ``CNMF_TPU_FUSED_CONSENSUS=0``, or the TPM over the device limit, the
+        step-by-step path.
 
         ``skip_density_and_return_after_stats``: skip the density filter and
         return this K's K-selection row ``[k, density_threshold, silhouette,
         prediction_error]`` (a one-column frame indexed by
         ``K_STATS_FIELDS``) without writing anything. ``norm_counts``: the
         normalized counts (AnnData), read from the run directory when None.
-        The local density is cached per K before the filter is applied, so a
-        threshold that keeps nothing still leaves the cache for a rerun.
+        The local density is cached per K; where the host filters, before the
+        filter applies, so a threshold that keeps nothing still leaves the
+        cache for a rerun (the whole chain on the device caches it after its
+        drain, as the JAX package does).
 
         The full-gene TPM goes to the device when its float32 bytes are under
-        ``stages.tpm_device_limit`` (``tpm_device_bytes_limit`` overrides);
-        above it consensus reads it on the host (``stages.consensus_arrays``'
-        atlas branches). ``CNMF_TPU_TIMINGS=1`` prints the sub-stages'
-        seconds."""
+        ``stages.tpm_device_limit`` (``tpm_device_bytes_limit`` overrides),
+        from factorize's prefetch when one ran; above it consensus reads it
+        on the host (``stages.consensus_arrays``' atlas branches). The
+        normalized counts and the TPM stay on the device until
+        ``clear_device_caches``. ``CNMF_TPU_TIMINGS=1`` prints the
+        sub-stages' seconds."""
         merged = load_df_from_npz(self.paths["merged_spectra"] % k)
         if norm_counts is None:
-            norm_counts = read_h5ad(self.paths["normalized_counts"])
-        norm_counts_dev = self._put_cells(norm_counts.X)
+            norm_counts = self._read_h5ad_cached(
+                self.paths["normalized_counts"])
         nmf_kwargs = self._load_run_params()
         if skip_density_and_return_after_stats:
-            ((_, _, silhouette, error),) = stages.k_stats_arrays(
-                {k: merged.values}, norm_counts_dev, nmf_kwargs)
-            return pd.DataFrame([k, density_threshold, silhouette, error],
-                                index=K_STATS_FIELDS, columns=["stats"])
+            silhouette, error = self._dispatch_k_stats(k, merged.values,
+                                                       nmf_kwargs, norm_counts)
+            return pd.DataFrame(
+                [k, density_threshold, float(silhouette), float(error)],
+                index=K_STATS_FIELDS, columns=["stats"])
 
         density_path = self.paths["local_density_cache"] % k
-        if os.path.isfile(density_path):
-            local_density = load_df_from_npz(density_path).values[:, 0]
-        else:
-            local_density = stages.spectra_local_density(
-                merged.values, k, norm_counts_dev.device, norm_counts_dev.dtype,
-                local_neighborhood_size)
-            save_df_to_npz(
-                pd.DataFrame(local_density, columns=["local_density"],
-                             index=merged.index),
-                density_path,
-            )
-        tpm = read_h5ad(self.paths["tpm"])
+        local_density = (load_df_from_npz(density_path).values[:, 0]
+                         if os.path.isfile(density_path) else None)
+        # a TPM prefetch started by factorize fills the device cache
+        self._join_tpm_prefetch()
+        tpm = self._read_h5ad_cached(self.paths["tpm"])
         tpm_stats = load_df_from_npz(self.paths["tpm_stats"])
         dt_tag = str(density_threshold).replace(".", "_")
         with open(self.paths["nmf_genes_list"]) as fh:
@@ -683,11 +931,24 @@ class cNMF:
                 f"TPM var index (stale gene list / re-prepared TPM?): {missing}"
             )
 
-        if stages.tpm_fits_device(tpm.X.shape, self.device,
-                                  self.tpm_device_bytes_limit):
-            tpm_src = self._put_cells(tpm.X)
-        else:
-            tpm_src = tpm.X
+        resident = stages.tpm_fits_device(tpm.X.shape, self.device,
+                                          self.tpm_device_bytes_limit)
+        # the whole consensus as one chain on the device computes the
+        # density itself; every other path filters on the host first, the
+        # density cached before the filter applies
+        whole_chain = (resident and solvers.fused_consensus_enabled()
+                       and solvers.device_kmeanspp_enabled(self.device))
+        if local_density is None and not whole_chain:
+            local_density = stages.spectra_local_density(
+                merged.values, k, self.device,
+                torch_dtype(self.compute_dtype), local_neighborhood_size)
+            self._save_local_density(local_density, merged.index, k)
+        norm_counts_dev = self._device_cached(
+            "_norm_counts_dev_cache", norm_counts,
+            lambda: self._put_cells(norm_counts.X))
+        tpm_src = (self._device_cached("_tpm_dev_cache", tpm,
+                                       lambda: self._put_cells(tpm.X))
+                   if resident else tpm.X)
         sub_stages = {} if timings_verbose() else None
         result = stages.consensus_arrays(
             merged.values, k, norm_counts_dev, tpm_src,
@@ -701,7 +962,8 @@ class cNMF:
             zero_safe=sp.issparse(tpm.X),
             timings=sub_stages,
         )
-        del tpm_src
+        if local_density is None:
+            self._save_local_density(result.local_density, merged.index, k)
         if sub_stages is not None:
             print(f"[cnmf-tpu timing] consensus k={k}: " + " ".join(
                 f"{label} {sec:.2f}s" for label, sec in sub_stages.items()),
@@ -742,9 +1004,26 @@ class cNMF:
         if build_ref:
             self.build_reference(k, density_threshold)
 
+    def _save_local_density(self, local_density, index, k):
+        save_df_to_npz(pd.DataFrame(local_density, columns=["local_density"],
+                                    index=index),
+                       self.paths["local_density_cache"] % k)
+
     # ==================================================================
     # K selection
     # ==================================================================
+
+    def _dispatch_k_stats(self, k, spectra, nmf_kwargs, norm_counts):
+        """Queue one K's k-stats chain on the normalized counts' cached
+        device copy (``stages.k_stats_dispatch``); returns the 0-d tensors
+        (silhouette, prediction error), not yet read, so a sweep queues
+        every K first (cnmf_tpu/pipeline/cnmf.py:3681-3730). spectra: the
+        merged spectra (host), or the raw spectra as a device tensor."""
+        norm_counts_dev = self._device_cached(
+            "_norm_counts_dev_cache", norm_counts,
+            lambda: self._put_cells(norm_counts.X))
+        return stages.k_stats_dispatch(k, spectra, norm_counts_dev,
+                                       nmf_kwargs)
 
     @timed("k_selection_plot")
     def k_selection_plot(self, close_fig=False):
@@ -755,17 +1034,18 @@ class cNMF:
         from cnmf_tpu_torch.pipeline.plots import k_selection_figure
 
         run_params = load_df_from_npz(self.paths["nmf_replicate_parameters"])
-        norm_counts = read_h5ad(self.paths["normalized_counts"])
-        merged = {
-            int(k): load_df_from_npz(self.paths["merged_spectra"] % k).values
+        norm_counts = self._read_h5ad_cached(self.paths["normalized_counts"])
+        nmf_kwargs = self._load_run_params()
+        pending = [
+            (int(k), *self._dispatch_k_stats(
+                k, load_df_from_npz(self.paths["merged_spectra"] % k).values,
+                nmf_kwargs, norm_counts))
             for k in sorted(set(run_params.n_components))
-        }
-        rows = stages.k_stats_arrays(
-            merged, self._put_cells(norm_counts.X),
-            self._load_run_params(),
-        )
-        stats = pd.DataFrame(np.asarray(rows, dtype=np.float64),
-                             columns=K_STATS_FIELDS)
+        ]
+        stats = pd.DataFrame(
+            [[k, DEFAULT_DENSITY_THRESHOLD, float(sil), float(sse)]
+             for k, sil, sse in pending],
+            columns=K_STATS_FIELDS, dtype=np.float64)
         save_df_to_npz(stats, self.paths["k_selection_stats"])
         k_selection_figure(stats, self.paths["k_selection_plot"],
                            close_fig=close_fig)

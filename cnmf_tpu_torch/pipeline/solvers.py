@@ -27,6 +27,11 @@ of ``ops.nmf``); ``solve_nmf_ladder_sharded`` is its restart-axis twin on
 the device ladder. The refits take a row-sharded X or TPM
 (``parallel.mesh.Shards``), and ``shard_products_rows`` row-shards the
 products-given solve of the over-limit atlas consensus.
+
+The knobs of the one-program consensus and the compact TPM resolve here
+too (``fused_consensus_enabled``, ``device_tpm_enabled``,
+``prefetch_tpm_enabled``, ``device_norm_enabled``; CNMF_TPU_CSR_UPLOAD's
+is ``ops.device_tpm.csr_upload_enabled``, where the JAX package has it).
 """
 
 from __future__ import annotations
@@ -188,6 +193,42 @@ def device_kmeanspp_enabled(device=None) -> bool:
     numpy stream. '0' off, 'force' on for any device, '1' (default) on a
     CUDA card only."""
     return _accelerator_knob("CNMF_TPU_DEVICE_KMEANSPP", device)
+
+
+def fused_consensus_enabled() -> bool:
+    """The CNMF_TPU_FUSED_CONSENSUS knob (cnmf_tpu/pipeline/cnmf.py:
+    3245-3316): '1' (the default, on every device) runs consensus with the
+    TPM resident as one chain on the device (``ops.consensus_fused``: the
+    whole of it where ``device_kmeanspp_enabled``, after a host kmeans++
+    seeding elsewhere); any other value keeps the step-by-step path."""
+    return os.environ.get("CNMF_TPU_FUSED_CONSENSUS", "1") == "1"
+
+
+def device_tpm_enabled() -> bool:
+    """The CNMF_TPU_DEVICE_TPM knob: '1' (default, every device) keeps
+    prepare's compact integer image of the counts (``ops.device_tpm``) for
+    the device TPM; '0' keeps the float upload of the TPM read back."""
+    return os.environ.get("CNMF_TPU_DEVICE_TPM", "1") == "1"
+
+
+def prefetch_tpm_enabled() -> bool:
+    """The CNMF_TPU_PREFETCH_TPM knob: '1' (default) starts the consensus
+    TPM's upload on a side stream when factorize starts; '0' leaves it to
+    consensus."""
+    return os.environ.get("CNMF_TPU_PREFETCH_TPM", "1") == "1"
+
+
+def device_norm_enabled(device=None) -> bool:
+    """The CNMF_TPU_DEVICE_NORM knob: whether factorize derives its input
+    on ``device`` from the compact integer counts (``ops.device_tpm.
+    norm_from_counts``) instead of uploading the float matrix: '1' on any
+    device, '0' off, unset on a CUDA card only (the JAX package: its TPU)."""
+    env = os.environ.get("CNMF_TPU_DEVICE_NORM", "")
+    if env in ("0", "1"):
+        return env == "1"
+    if device is None:
+        return torch.cuda.is_available()
+    return torch.device(device).type == "cuda"
 
 
 def ladder_rungs(X: torch.Tensor, B: int, K: int, nmf_kwargs: dict,

@@ -10,10 +10,13 @@ files; they can also be driven directly on in-memory data:
   the kwargs say), on the device ladder on CUDA;
 * ``combine_arrays``: the per-restart spectra stacked into the merged matrix;
 * ``consensus_arrays``: KNN density filter, KMeans, cluster medians, the
-  fixed-factor refits and the z-score OLS (the step-by-step consensus of
-  ``cnmf_tpu.pipeline.cnmf.consensus``);
-* ``k_stats_arrays``: the K-selection table (silhouette and prediction error
-  of every K, ``cnmf_tpu.pipeline.cnmf.k_selection_plot``).
+  fixed-factor refits and the z-score OLS, dispatched as
+  ``cnmf_tpu.pipeline.cnmf.consensus`` dispatches them: with the TPM on the
+  device, one chain there (``ops.consensus_fused``), else step by step;
+* ``k_stats_dispatch`` / ``k_stats_arrays``: one K's k-stats chain queued
+  on the device, and the K-selection table (silhouette and prediction error
+  of every K, ``cnmf_tpu.pipeline.cnmf.k_selection_plot``), every K queued
+  before any is read.
 
 Numerics follow the JAX package's: on the CPU the restart inits and the
 kmeans++ seeding come from host ``np.random.RandomState`` draws, so both
@@ -40,10 +43,18 @@ from cnmf_tpu_torch.ops.cd_kernels import (
     numpy_dtype,
     pad_bucket,
 )
+from cnmf_tpu_torch.ops.consensus_fused import (
+    fused_consensus,
+    fused_consensus_full,
+    scaled_hvg_tpm,
+)
 from cnmf_tpu_torch.ops.distance import local_density_from_spectra
 from cnmf_tpu_torch.ops.init import nndsvd_init_batch, random_init_batch
 from cnmf_tpu_torch.ops.kmeans import kmeans_fit
-from cnmf_tpu_torch.ops.kstats import consensus_k_stats
+from cnmf_tpu_torch.ops.kstats import (
+    consensus_k_stats,
+    consensus_k_stats_device,
+)
 from cnmf_tpu_torch.ops.nmf import BLOCK
 from cnmf_tpu_torch.ops.normalize import (
     csr_column_subset,
@@ -52,7 +63,6 @@ from cnmf_tpu_torch.ops.normalize import (
 )
 from cnmf_tpu_torch.ops.ols import efficient_ols_all_cols
 from cnmf_tpu_torch.ops.stats import fano_hvg_stats, mean_var
-from cnmf_tpu_torch.parallel.collectives import broadcast, sum_shards
 from cnmf_tpu_torch.parallel.mesh import Shards, pad_to_multiple
 from cnmf_tpu_torch.pipeline.solvers import (
     _regularization,
@@ -61,6 +71,7 @@ from cnmf_tpu_torch.pipeline.solvers import (
     device_kmeanspp_enabled,
     device_ladder_enabled,
     draw_restart_factors,
+    fused_consensus_enabled,
     refit_spectra_transposed,
     refit_usages,
     solve_nmf_batch,
@@ -68,7 +79,7 @@ from cnmf_tpu_torch.pipeline.solvers import (
     solve_nmf_batch_sharded,
     solve_nmf_ladder_sharded,
 )
-from cnmf_tpu_torch.utils.timing import stage_timer
+from cnmf_tpu_torch.utils.timing import stage_timer, sub_stage_marker
 
 # the consensus / K-selection default density threshold (reference
 # cnmf.py:823, 1127-1130)
@@ -400,7 +411,7 @@ def tpm_fits_device(shape, device, override=None) -> bool:
 
 
 def consensus_arrays(
-    merged: np.ndarray,
+    merged,
     k: int,
     norm_counts: torch.Tensor,
     tpm,
@@ -415,61 +426,145 @@ def consensus_arrays(
     zero_safe: bool = False,
     timings: Optional[dict] = None,
     device_kmeanspp: Optional[bool] = None,
+    fused: Optional[bool] = None,
 ) -> Consensus:
     """Consensus spectra and usages for one K (reference cnmf.py:823-975).
 
-    merged: (n_iter·k × HVGs) merged spectra; norm_counts: (cells × HVGs)
-    tensor, or row ``Shards`` over a mesh's devices (``parallel.mesh.
-    put_cells``: the refits, the OLS and the final refit's moments then sum
-    over shards, padded rows neutral); tpm: the (cells × all genes) TPM,
-    either a tensor (or ``Shards`` of the same layout) at the same dtype and
-    device (resident: the spectra refit, the OLS and the final refit read
-    it on the device) or a host matrix, CSR or dense (over the
-    device limit, ``tpm_fits_device``: the JAX package's atlas branches,
-    cnmf_tpu/pipeline/cnmf.py:3288-3569). A host CSR TPM never goes dense:
-    with the CD solver the spectra refit and the final usage refit take
-    host-SpMM products and the products-given kernel, and the OLS a host
-    SpMM; the MU spectra refit, or any refit of a dense host TPM, goes in
-    gene chunks of 2e9 / (cells · 4) genes. tpm_std: per-gene TPM std;
-    hvg_idx: HVG columns of the TPM. ``local_density``: a cached
-    ``spectra_local_density`` vector, used instead of computing it.
-    ``zero_safe``: guard zero-std HVGs in the final refit (sparse inputs).
-    ``timings``: a dict that gains the seconds of each sub-stage (density,
-    kmeans, refit_usages, refit_spectra_tpm, ols, final_refit), each ending
-    in host values. ``device_kmeanspp``: seed the KMeans on the device from
-    the threefry key of random_state 1 (``ops.kmeans.seed_kmeanspp_batch``);
-    None: where the JAX package's one-program consensus would
-    (cnmf_tpu/pipeline/cnmf.py:3245-3316), ``solvers.device_kmeanspp_enabled``
-    for the device with the TPM resident."""
-    dev, dtype = norm_counts.device, norm_counts.dtype
-    np_dtype = numpy_dtype(dtype)
+    merged: (n_iter·k × HVGs) merged spectra, a host array or a tensor (the
+    raw spectra on the device, which the one-program path normalizes
+    there); norm_counts: (cells × HVGs) tensor, or row ``Shards`` over a
+    mesh's devices (``parallel.mesh.put_cells``: the refits, the OLS and
+    the final refit's moments then sum over shards, padded rows neutral);
+    tpm: the (cells × all genes) TPM, either a tensor (or ``Shards`` of the
+    same layout) at the same dtype and device (resident) or a host matrix,
+    CSR or dense (over the device limit, ``tpm_fits_device``: the JAX
+    package's atlas branches, cnmf_tpu/pipeline/cnmf.py:3288-3569).
+    tpm_std: per-gene TPM std; hvg_idx: HVG columns of the TPM.
+    ``local_density``: a cached ``spectra_local_density`` vector, used
+    instead of computing it. ``zero_safe``: guard zero-std HVGs in the final
+    refit (sparse inputs). ``timings``: a dict that gains the seconds of
+    each sub-stage (``utils.timing.sub_stage_marker``), each ending in host
+    values.
+
+    The dispatch is the JAX package's (cnmf_tpu/pipeline/cnmf.py:
+    3245-3316). With the TPM resident and ``fused`` (None:
+    ``solvers.fused_consensus_enabled``), the chain runs on the device with
+    no host read but its loops' block checks and one drain
+    (``ops.consensus_fused``): ``fused_consensus_full`` (density, filter and
+    the threefry kmeans++ seeding there too) where ``device_kmeanspp`` (None:
+    ``solvers.device_kmeanspp_enabled`` for the device), else the host
+    density filter and ``fused_consensus`` (host kmeans++ seeding). On CUDA
+    its failure raises; nothing falls back. Otherwise the step-by-step path
+    (``_consensus_steps``)."""
+    dev = norm_counts.device
     resident = isinstance(tpm, (torch.Tensor, Shards))
-    last = [time.perf_counter()]
+    if device_kmeanspp is None:
+        device_kmeanspp = device_kmeanspp_enabled(dev) and resident
+    if fused is None:
+        fused = fused_consensus_enabled()
+    mark = sub_stage_marker(timings)
+    args = (k, norm_counts, tpm, tpm_std, hvg_idx, nmf_kwargs,
+            density_threshold, local_neighborhood_size, local_density,
+            refit_usage, normalize_tpm_spectra, zero_safe, device_kmeanspp,
+            mark)
+    if fused and resident:
+        return _consensus_fused(merged, *args)
+    if isinstance(merged, torch.Tensor):
+        merged = merged.cpu().numpy()
+    return _consensus_steps(merged, *args)
 
-    def mark(label):
-        now = time.perf_counter()
-        if timings is not None:
-            timings[label] = now - last[0]
-        last[0] = now
 
-    def to_dev(a):
-        return torch.as_tensor(np.ascontiguousarray(a), device=dev).to(dtype)
-
-    l2 = l2_normalize(merged)
+def _host_density_filter(merged, k, dev, dtype, local_neighborhood_size,
+                         local_density, density_threshold):
+    """(local density, filter mask, kept L2 spectra) on the host; raises
+    when no spectrum survives."""
     if local_density is None:
         local_density = spectra_local_density(merged, k, dev, dtype,
                                               local_neighborhood_size)
     density_filter = local_density < density_threshold
-    l2_kept = l2[density_filter]
+    l2_kept = l2_normalize(merged)[density_filter]
     if l2_kept.shape[0] == 0:
         raise RuntimeError(
             "Zero components remain after density filtering. "
             "Consider increasing density threshold"
         )
+    return local_density, density_filter, l2_kept
+
+
+def _consensus_fused(merged, k, norm_counts, tpm, tpm_std, hvg_idx,
+                     nmf_kwargs, density_threshold, local_neighborhood_size,
+                     local_density, refit_usage, normalize_tpm_spectra,
+                     zero_safe, full, mark) -> Consensus:
+    """The one-program consensus (``ops.consensus_fused``), its artifacts
+    as the step-by-step path returns them."""
+    dev, dtype = norm_counts.device, norm_counts.dtype
+    np_dtype = numpy_dtype(dtype)
+    host_merged = (merged.cpu().numpy() if isinstance(merged, torch.Tensor)
+                   else np.asarray(merged))
+    common = dict(
+        solver=nmf_kwargs.get("solver", "cd"),
+        beta=beta_loss_to_float(nmf_kwargs.get("beta_loss", "frobenius")),
+        tol=float(nmf_kwargs.get("tol", 1e-4)),
+        max_iter=int(nmf_kwargs.get("max_iter", 200)),
+        alpha_W=float(nmf_kwargs.get("alpha_W", 0.0)),
+        l1_ratio=float(nmf_kwargs.get("l1_ratio", 0.0)),
+        refit_usage=refit_usage, normalize_tpm=normalize_tpm_spectra,
+        zero_safe_std=zero_safe,
+    )
+    n_cells = norm_counts.shape[0]
+    if full:
+        spectra_in = (merged if isinstance(merged, torch.Tensor) else
+                      np.ascontiguousarray(l2_normalize(host_merged),
+                                           dtype=np_dtype))
+        (density, labels, median, rf_init, rf_final, spectra_tpm,
+         coef) = fused_consensus_full(
+            norm_counts, tpm, spectra_in, k, tpm_std, hvg_idx, n_cells,
+            density_threshold=density_threshold,
+            n_neighbors=int(local_neighborhood_size * host_merged.shape[0]
+                            / k),
+            cached_density=local_density, **common)
+        if local_density is None:
+            local_density = density
+        density_filter = local_density < density_threshold
+        l2_kept = l2_normalize(host_merged)[density_filter]
+    else:
+        local_density, density_filter, l2_kept = _host_density_filter(
+            host_merged, k, dev, dtype, local_neighborhood_size,
+            local_density, density_threshold)
+        mark("density")
+        labels, median, rf_init, rf_final, spectra_tpm, coef = \
+            fused_consensus(norm_counts, tpm,
+                            np.ascontiguousarray(l2_kept, dtype=np_dtype), k,
+                            tpm_std, hvg_idx, n_cells, **common)
+    mark("fused_consensus")
+    return Consensus(local_density, density_filter, l2_kept, labels + 1,
+                     median, rf_final if refit_usage else rf_init,
+                     spectra_tpm, coef)
+
+
+def _consensus_steps(merged, k, norm_counts, tpm, tpm_std, hvg_idx,
+                     nmf_kwargs, density_threshold, local_neighborhood_size,
+                     local_density, refit_usage, normalize_tpm_spectra,
+                     zero_safe, device_kmeanspp, mark) -> Consensus:
+    """The step-by-step consensus, each phase ending in host values. A host
+    CSR TPM never goes dense: with the CD solver the spectra refit and the
+    final usage refit take host-SpMM products and the products-given kernel,
+    and the OLS a host SpMM; the MU spectra refit, or any refit of a dense
+    host TPM, goes in gene chunks of 2e9 / (cells · 4) genes.
+    ``device_kmeanspp``: seed the KMeans on the device from the threefry
+    key of random_state 1 (``ops.kmeans.seed_kmeanspp_batch``)."""
+    dev, dtype = norm_counts.device, norm_counts.dtype
+    np_dtype = numpy_dtype(dtype)
+    resident = isinstance(tpm, (torch.Tensor, Shards))
+
+    def to_dev(a):
+        return torch.as_tensor(np.ascontiguousarray(a), device=dev).to(dtype)
+
+    local_density, density_filter, l2_kept = _host_density_filter(
+        merged, k, dev, dtype, local_neighborhood_size, local_density,
+        density_threshold)
     mark("density")
 
-    if device_kmeanspp is None:
-        device_kmeanspp = device_kmeanspp_enabled(dev) and resident
     labels, _, _ = kmeans_fit(to_dev(l2_kept), n_clusters=k, n_init=10,
                               random_state=1, device_seeding=device_kmeanspp)
     labels = labels + 1
@@ -518,7 +613,9 @@ def consensus_arrays(
         # final usage refit on the std-scaled HVG TPM (reference cnmf.py:961-975)
         spectra_tpm_rf = spectra_tpm[:, hvg_idx] / tpm_std[hvg_idx][None, :]
         if resident:
-            usages = refit_usages(_scaled_hvg_tpm(tpm, hvg_idx, zero_safe),
+            hvg = torch.as_tensor(np.asarray(hvg_idx, dtype=np.int64),
+                                  device=dev)
+            usages = refit_usages(scaled_hvg_tpm(tpm, hvg, zero_safe),
                                   spectra_tpm_rf, nmf_kwargs)
         else:
             tpm_hvg = (csr_column_subset(tpm.tocsr(), np.asarray(hvg_idx))
@@ -538,51 +635,46 @@ def consensus_arrays(
                      usages, spectra_tpm, spectra_score)
 
 
-def _scaled_hvg_tpm(tpm, hvg_idx, zero_safe: bool):
-    """The HVG columns of a device TPM (a tensor or row ``Shards``) scaled
-    to unit variance (ddof 1) without centering, the final refit's X
-    (reference cnmf.py:961-975); the moments run over the real rows, the
-    shards' sums in shard order."""
-    parts = tpm.parts if isinstance(tpm, Shards) else [tpm]
-    subs = [p[:, torch.as_tensor(hvg_idx, device=p.device)] for p in parts]
-    n = tpm.shape[0]
-    mean = sum_shards([torch.sum(t, dim=0) for t in subs]) / n
-    sq = sum_shards([torch.sum(t * t, dim=0) for t in subs]) / n
-    std = torch.sqrt(((sq - mean * mean) * n / (n - 1)).clamp(min=0.0))
-    if zero_safe:
-        std = torch.where(std == 0, 1.0, std)
-    scaled = [t / s for t, s in zip(subs, broadcast(std, [t.device
-                                                          for t in subs]))]
-    return Shards(scaled, tpm.n_rows) if isinstance(tpm, Shards) else scaled[0]
-
-
 # ----------------------------------------------------------------------
 # K selection
 # ----------------------------------------------------------------------
 
-def k_stats_arrays(merged_by_k: dict, norm_counts: torch.Tensor,
-                   nmf_kwargs: dict) -> list:
-    """The K-selection table (reference cnmf.py:1119-1135): for each K of
-    ``merged_by_k`` ({K: merged (n_iter·K × HVGs) spectra}), in increasing
-    order, the row (K, density threshold 0.5, silhouette, prediction
-    error) of ``ops.kstats.consensus_k_stats`` on the L2-normalized spectra,
-    with the run's solver, beta, tolerance, iteration limit and W
-    regularization. norm_counts: (cells × HVGs) tensor on the solve's
-    device, or row ``Shards`` (the refit and the error sum over shards)."""
+def k_stats_dispatch(k: int, spectra, norm_counts, nmf_kwargs: dict):
+    """Queue one K's k-stats chain (``ops.kstats``) with the run's solver,
+    beta, tolerance, iteration limit and W regularization; returns the 0-d
+    tensors (silhouette, prediction error), not yet read. spectra: the
+    merged (n_iter·K × HVGs) spectra, a host array (L2-normalized and seeded
+    on the host, ``consensus_k_stats``) or a tensor of the raw spectra
+    (normalized and seeded on the device, ``consensus_k_stats_device``).
+    norm_counts: (cells × HVGs) tensor on the solve's device, or row
+    ``Shards`` (the refit and the error sum over shards)."""
     l1_reg_W, _, l2_reg_W, _ = _regularization(nmf_kwargs,
                                                tuple(norm_counts.shape))
-    dtype = numpy_dtype(norm_counts.dtype)
-    rows = []
-    for k in sorted(merged_by_k):
-        l2 = np.ascontiguousarray(l2_normalize(np.asarray(merged_by_k[k])),
-                                  dtype=dtype)
-        sil, sse = consensus_k_stats(
-            norm_counts, l2, int(k),
-            solver=nmf_kwargs.get("solver", "cd"),
-            beta=beta_loss_to_float(nmf_kwargs.get("beta_loss", "frobenius")),
-            refit_tol=float(nmf_kwargs.get("tol", 1e-4)),
-            refit_max_iter=int(nmf_kwargs.get("max_iter", 200)),
-            l1_reg_W=l1_reg_W, l2_reg_W=l2_reg_W,
-        )
-        rows.append((int(k), DEFAULT_DENSITY_THRESHOLD, sil, sse))
-    return rows
+    kw = dict(
+        solver=nmf_kwargs.get("solver", "cd"),
+        beta=beta_loss_to_float(nmf_kwargs.get("beta_loss", "frobenius")),
+        refit_tol=float(nmf_kwargs.get("tol", 1e-4)),
+        refit_max_iter=int(nmf_kwargs.get("max_iter", 200)),
+        l1_reg_W=l1_reg_W, l2_reg_W=l2_reg_W,
+    )
+    if isinstance(spectra, torch.Tensor):
+        return consensus_k_stats_device(
+            norm_counts, spectra.to(norm_counts.device, norm_counts.dtype),
+            int(k), **kw)
+    l2 = np.ascontiguousarray(l2_normalize(np.asarray(spectra)),
+                              dtype=numpy_dtype(norm_counts.dtype))
+    return consensus_k_stats(norm_counts, l2, int(k), **kw)
+
+
+def k_stats_arrays(merged_by_k: dict, norm_counts, nmf_kwargs: dict) -> list:
+    """The K-selection table (reference cnmf.py:1119-1135): for each K of
+    ``merged_by_k`` ({K: merged (n_iter·K × HVGs) spectra, host arrays or
+    raw tensors}), in increasing order, the row (K, density threshold 0.5,
+    silhouette, prediction error) of ``k_stats_dispatch``. Every K is
+    queued before any result is read (cnmf_tpu/pipeline/cnmf.py:
+    3732-3778)."""
+    pending = [(int(k), *k_stats_dispatch(k, merged_by_k[k], norm_counts,
+                                          nmf_kwargs))
+               for k in sorted(merged_by_k)]
+    return [(k, DEFAULT_DENSITY_THRESHOLD, float(sil), float(sse))
+            for k, sil, sse in pending]

@@ -16,7 +16,7 @@ import os
 import sys
 import time
 from collections import defaultdict
-from typing import Dict, List
+from typing import Callable, Dict, List, Optional
 
 import torch
 
@@ -50,6 +50,26 @@ def stage_timer(name: str, device=None):
         if timings_verbose():
             print(f"[cnmf-tpu timing] {name}: {dt:.3f}s", file=sys.stderr,
                   flush=True)
+
+
+def sub_stage_marker(timings: Optional[dict]) -> Callable[[str], None]:
+    """A ``mark(label)`` that records in ``timings`` (a dict; None records
+    nothing) the seconds since the previous mark, or since the marker was
+    made, under ``label``: consensus's sub-stages (``stages.
+    consensus_arrays``). The step-by-step path marks density, kmeans,
+    refit_usages, refit_spectra_tpm, ols and final_refit; the one-program
+    path marks fused_consensus (after density, on the host, where its KMeans
+    is seeded on the host), as cnmf_tpu/pipeline/cnmf.py:3427 does. Each
+    mark follows host values, so no device work is left queued in it."""
+    last = [time.perf_counter()]
+
+    def mark(label: str) -> None:
+        now = time.perf_counter()
+        if timings is not None:
+            timings[label] = now - last[0]
+        last[0] = now
+
+    return mark
 
 
 def timings() -> Dict[str, List[float]]:

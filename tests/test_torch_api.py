@@ -196,15 +196,21 @@ def test_stage_timings_recorded(run):
 
 
 def test_consensus_prints_sub_stages(run, monkeypatch, capsys):
+    """The one-program path (the default) marks the host density and the
+    chain; the step-by-step path (CNMF_TPU_FUSED_CONSENSUS=0) each of its
+    phases."""
     monkeypatch.setenv("CNMF_TPU_TIMINGS", "1")
-    run.consensus(k=5, density_threshold=0.5, show_clustering=False)
-    err = capsys.readouterr().err
-    line = [ln for ln in err.splitlines() if "consensus k=5:" in ln]
-    assert len(line) == 1, err
-    for label in ("density", "kmeans", "refit_usages", "refit_spectra_tpm",
-                  "ols", "final_refit"):
-        assert f" {label} " in line[0], line
-    assert "[cnmf-tpu timing] consensus:" in err
+    for knob, labels in (("1", ("density", "fused_consensus")),
+                         ("0", ("density", "kmeans", "refit_usages",
+                                "refit_spectra_tpm", "ols", "final_refit"))):
+        monkeypatch.setenv("CNMF_TPU_FUSED_CONSENSUS", knob)
+        run.consensus(k=5, density_threshold=0.5, show_clustering=False)
+        err = capsys.readouterr().err
+        line = [ln for ln in err.splitlines() if "consensus k=5:" in ln]
+        assert len(line) == 1, err
+        for label in labels:
+            assert f" {label} " in line[0], line
+        assert "[cnmf-tpu timing] consensus:" in err
 
 
 def test_profiler_trace_written(run, monkeypatch, tmp_path):

@@ -66,7 +66,7 @@ def test_lloyd_relocates_empty_clusters_like_jax():
         jnp.asarray(X), jnp.asarray(centers0), jnp.asarray(tol),
         np.int32(len(X)), np.int32(5), 300)
     lab_p, in_p, cen_p = pt_kmeans._lloyd_batched(
-        torch.from_numpy(X), torch.from_numpy(centers0), tol, 300)
+        torch.from_numpy(X), torch.from_numpy(centers0), tol, len(X), 5, 300)
     np.testing.assert_array_equal(lab_p.numpy(), np.asarray(lab_j))
     np.testing.assert_allclose(cen_p.numpy(), np.asarray(cen_j), **TOL)
     np.testing.assert_allclose(in_p.numpy(), np.asarray(in_j), **TOL)

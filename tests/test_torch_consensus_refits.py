@@ -98,5 +98,6 @@ def test_kmeans_tied_runs_keep_the_jax_labels():
                          for _ in range(10)])
     tol = 1e-4 * float(np.mean(np.var(X, axis=0)))
     _, inertia, _ = kmeans._lloyd_batched(torch.as_tensor(X),
-                                          torch.as_tensor(centers0), tol, 300)
+                                          torch.as_tensor(centers0), tol,
+                                          len(X), K, 300)
     assert len(set(inertia.tolist())) == 1

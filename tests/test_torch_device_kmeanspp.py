@@ -6,9 +6,9 @@ K=6, 200 HVGs), on the CPU in float64.
 
 Given one key the centres are equal to JAX's within CENTER_TOL (they are
 rows of the points: the same draws pick the same rows). Consensus with
-CNMF_TPU_DEVICE_KMEANSPP=force — the JAX package's one-program consensus,
-the port's step-by-step one seeded on the device — within SSE 1e-4 for
-every artifact, as tests/test_torch_pipeline.py holds consensus."""
+CNMF_TPU_DEVICE_KMEANSPP=force — the one-program consensus of each
+package — within SSE 1e-4 for every artifact, as
+tests/test_torch_pipeline.py holds consensus."""
 
 import os
 
@@ -90,16 +90,29 @@ def runs(tmp_path_factory):
     return out
 
 
-@pytest.fixture(scope="module")
-def forced(runs):
-    """Consensus with the device seeding forced in both packages; the
-    port's kmeans_fit calls recorded."""
-    mp = pytest.MonkeyPatch()
-    mp.setenv("CNMF_TPU_DEVICE_KMEANSPP", "force")
-    seeding = []
+def record_seeding(mp, seeding):
+    """Record, for each consensus of the port, whether its KMeans was
+    seeded on the device: the one-program consensus seeds there in
+    ``fused_consensus_full`` and on the host in ``fused_consensus``; the
+    step-by-step path as ``kmeans_fit`` is told."""
+    for name, on_device in (("fused_consensus_full", True),
+                            ("fused_consensus", False)):
+        fn = getattr(stages, name)
+        mp.setattr(stages, name, lambda *a, _fn=fn, _dev=on_device, **kw:
+                   seeding.append(_dev) or _fn(*a, **kw))
     fit = stages.kmeans_fit
     mp.setattr(stages, "kmeans_fit", lambda *a, **kw: seeding.append(
         kw.get("device_seeding")) or fit(*a, **kw))
+
+
+@pytest.fixture(scope="module")
+def forced(runs):
+    """Consensus with the device seeding forced in both packages; the
+    port's seedings recorded."""
+    mp = pytest.MonkeyPatch()
+    mp.setenv("CNMF_TPU_DEVICE_KMEANSPP", "force")
+    seeding = []
+    record_seeding(mp, seeding)
     try:
         for obj in runs.values():
             obj.consensus(k=K, density_threshold=0.5, show_clustering=False)
@@ -134,8 +147,6 @@ def test_consensus_default_on_the_cpu_seeds_on_the_host(runs, monkeypatch):
     """Without the knob the CPU consensus keeps the host seeding."""
     monkeypatch.delenv("CNMF_TPU_DEVICE_KMEANSPP", raising=False)
     seeding = []
-    fit = stages.kmeans_fit
-    monkeypatch.setattr(stages, "kmeans_fit", lambda *a, **kw: seeding.append(
-        kw.get("device_seeding")) or fit(*a, **kw))
+    record_seeding(monkeypatch, seeding)
     runs["torch"].consensus(k=K, density_threshold=0.5, show_clustering=False)
     assert seeding == [False]

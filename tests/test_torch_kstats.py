@@ -92,7 +92,9 @@ def test_cluster_medians_match_jax():
     rng = np.random.RandomState(3)
     X = rng.rand(12, 5)
     labels = np.array([0, 0, 1, 1, 1, 0, 2, 0, 1, 2, 0, 1])
-    ours = pt_kstats._cluster_medians(X, labels, 4)
+    ours = pt_kstats._cluster_medians(
+        torch.from_numpy(X), torch.from_numpy(labels),
+        torch.ones(12, dtype=torch.bool), 4, 4).numpy()
     ref = np.asarray(jax_kstats._cluster_medians(
         jnp.asarray(X), jnp.asarray(labels), jnp.ones(12, bool), 4, 4))
     np.testing.assert_array_equal(ours, ref)
