@@ -6,7 +6,7 @@
 Phases, each printing its own line(s):
 
 1. environment: the card's name and power limit, torch/CUDA versions, and
-   which of pandas, h5py, yaml and matplotlib import;
+   which of pandas, h5py, yaml and matplotlib are missing;
 2. build: every kernel of csrc/ into one library (build seconds; ptxas
    lines of the kernel families' registers: one line for the families
    without a stack frame or spill, one for each other family with the
@@ -56,7 +56,15 @@ Phases, each printing its own line(s):
    the bytes of each upload, the device TPM against the host's (≤ 3e-7
    relative), the CSR image and the one-pass derive bit-equal, and the CD
    factorize of every K with and without the TPM prefetch beside it, in
-   paired turns;
+   paired turns; and ``[drain]`` (phase_drain): the grid again through
+   stages.factorize_grid, the grid cNMF.factorize runs (the spectra packed on
+   the card and fetched in one copy, npz files written from a pool), bit
+   for bit the per-K path's, its copies, bytes and phase split, and the
+   packed tensor's twin feeding consensus and the k-selection sweep
+   against the host spectra (both timed in paired turns, consensus beside
+   a busy writer and an idle one), then the grid with a cNMF's deferred
+   drain (the CLI's default on a card): consensus on the stack memo's
+   twin while the writer lands the copy, the landed bits after the flush;
 6. the threefry-seeded paths (``[seeded]``, phase_seeded): the card's
    draw against the CPU's (bits and uniforms equal, the normals' largest
    gap in ulps), the CD factorize of every K with the inits drawn on the
@@ -219,7 +227,7 @@ MU_MAIN = [(dict(B=100, N=2700, G=2000, K=16), 0),
            (dict(B=100, N=2700, G=2000, K=8), 3)]
 MU_REFIT = [(dict(B=1, N=2700, G=2000, K=16), "usage refit", False),
             (dict(B=1, N=10000, G=2700, K=16),
-             "spectra refit, X a transposed view", True)]
+             "spectra refit (X^T view)", True)]
 MU_RAGGED = [dict(B=3 + 2 * (i % 3), N=300 + 37 * i, G=150 + 29 * i, K=K)
              for i, K in enumerate(list(range(8, 65, 8)) + [72, 136])]
 # general-beta and divergence-term cases the contraction is not split at
@@ -459,14 +467,13 @@ def phase_kernels(dev):
                               f"{plain_ms:.4f}/{product_ms:.4f}/"
                               f"{bound_ms:.4f}")
             else:
-                print(f"[kernel] {name} main {shape_text(shape)} K0={pad}: "
+                print(f"[kernel] {name} main {shape_text(shape)}: "
                       f"rel={rel_err:.3e} abs={abs_err:.3e} kernel_ms={ms:.4f} "
                       f"plain_ms={plain_ms:.4f} product_ms={product_ms:.4f} "
                       f"bound_ms={bound_ms:.4f} of_bound={bound_ms / ms:.1%}; "
                       f"{grid}", flush=True)
             main_record(records, name, shape["K"], abs_err, ms=ms,
-                        plain_ms=plain_ms, product_ms=product_ms,
-                        share_of_bound=bound_ms / ms)
+                        plain_ms=plain_ms, product_ms=product_ms)
             if shape["K"] == 16:
                 records[name]["bound_ms"], records[name]["bound_by"] = \
                     bound_ms, by
@@ -623,8 +630,8 @@ def phase_mu_kernels(dev):
                 folded.append(f"{name}{beta_txt} rel={rel_err:.1e} "
                               f"{ms:.4f}/{plain_ms:.4f}/{bound_ms:.4f}")
             else:
-                print(f"[kernel] {name}{beta_txt} {tag} {shape_text(shape)} "
-                      f"K0={pad}: rel={rel_err:.3e} abs={abs_err:.3e} "
+                print(f"[kernel] {name}{beta_txt} {tag} {shape_text(shape)}"
+                      f": rel={rel_err:.3e} abs={abs_err:.3e} "
                       f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
                       f"bound_ms={bound_ms:.4f} "
                       f"of_bound={bound_ms / ms:.1%}; " + grid_text(
@@ -632,8 +639,7 @@ def phase_mu_kernels(dev):
                       flush=True)
             if tag == "main":
                 main_record(records, name, shape["K"], abs_err, suffix,
-                            ms=ms, plain_ms=plain_ms,
-                            share_of_bound=bound_ms / ms)
+                            ms=ms, plain_ms=plain_ms)
                 if shape["K"] == 16 and suffix == "":
                     records[name]["bound_ms"], records[name]["bound_by"] = \
                         bound_ms, by
@@ -938,8 +944,11 @@ def phase_seeded(dev, counts, hvg, ks, n_iter, k_cons):
     unequal = float(np.mean(np.concatenate([
         (card_draw[n] != cpu[n]).ravel() for n in ("W", "Ht")])))
     draw_text = (f"draw of {len(keys)} restarts (W {N}x16, Ht {G}x16, f32) "
-                 f"card vs CPU: equal {same}; normals max gap ulps "
-                 + json.dumps(gap) + f", unequal {unequal:.2e}")
+                 "card vs CPU: keys/bits/uniform equal "
+                 + "/".join(str(v) for v in same.values())
+                 + "; normals max gap ulps W/Ht "
+                 + "/".join(f"{v:g}" for v in gap.values())
+                 + f", unequal {unequal:.2e}")
     assert all(same.values()), same
 
     # (b) the main path's factorize, seeded against host-drawn, in turns
@@ -997,7 +1006,8 @@ def phase_seeded(dev, counts, hvg, ks, n_iter, k_cons):
               f"{'+'.join(f'{v:.3f}' for v in r['init'])}, {r['text']}"
               for arm, r in arms.items())
           + f"; K={k} init s " + json.dumps(
-              {n: float(f"{v:.4g}") for n, v in parts.items()})
+              {n: float(f"{v:.4g}") for n, v in parts.items()},
+              separators=(",", ":"))
           + f"; seeded launches W/H {launches['cd_w_half_sweep']}/"
           f"{launches['cd_h_half_sweep']}", flush=True)
 
@@ -1043,8 +1053,8 @@ def phase_seeded(dev, counts, hvg, ks, n_iter, k_cons):
           f"{same_bits}; cell axis K={k_cons}: {cell_s:.3f} s, consensus rel "
           f"SSE {cell_gap:.2e} (bound {MESH_SSE:g}). Consensus K={k_cons}, "
           f"kmeans++ on the card / host {runs[True][1]:.3f} / "
-          f"{runs[False][1]:.3f} s, rel SSE " + json.dumps(
-              {n: float(f"{v:.2e}") for n, v in sse.items()}), flush=True)
+          f"{runs[False][1]:.3f} s, rel SSE spectra/usages/tpm/score "
+          + "/".join(f"{v:.1e}" for v in sse.values()), flush=True)
     return arms["host"]
 
 
@@ -1151,7 +1161,8 @@ def phase_batch(dev):
     print(f"[batch] B of {full} restarts against their rows of the "
           f"{full}-restart call, B=100 in place and "
           f"{'/'.join(map(str, rungs))} shuffled, X 2700x2000 30% zeros, "
-          f"K=8..64, {', '.join(launches)}: {same} same bits; differ where "
+          f"K=8..64, {len(launches)} entry points: {same} same bits; "
+          "differ where "
           f"the split differs (rung dropped): {', '.join(split) or 'none'}; "
           f"any other: {', '.join(other) or 'none'}",
           flush=True)
@@ -1218,11 +1229,11 @@ def phase_small_agreement(dev, nmf_kwargs=None, label="frobenius"):
         f"K={g[0]} {g[2]:.6g}/{c[2]:.6g} {g[3]:.6g}/{c[3]:.6g}"
         for g, c in zip(ks_gpu, ks_cpu))
     print(f"[small] {label}, card vs CPU at 300x400, K=6: merged max rel "
-          f"diff {merged_diff:.3e}; consensus rel SSE "
-          + json.dumps({k: float(f"{v:.3e}") for k, v in sse.items()})
+          f"diff {merged_diff:.3e}; consensus rel SSE spectra/usages/tpm/"
+          "score " + "/".join(f"{v:.1e}" for v in sse.values())
           + f" (bound {SMALL_SSE_BOUND:g}); same sweeps: {same}"
-          + ("" if same else f" {sweeps}") + "; k-stats (silhouette, "
-          f"prediction error: card/CPU) {stats}", flush=True)
+          + ("" if same else f" {sweeps}") + "; k-stats sil/err card/CPU "
+          f"{stats}", flush=True)
     assert max(sse.values()) < SMALL_SSE_BOUND, sse
     assert [r[0] for r in ks_gpu] == [r[0] for r in ks_cpu] == [5, 6]
     for g, c in zip(ks_gpu, ks_cpu):
@@ -1394,6 +1405,194 @@ def phase_fused(label, merged, counts, hvg, k, dev, kwargs, wrappers,
     assert same and max(sse.values()) <= FUSED_SSE, (same, sse)
     assert set(by_kind) <= {"lloyd", "refits", "drain", "outside"}, by_kind
     assert by_kind.get("drain") == 1, by_kind
+    return launches
+
+
+DRAIN_SSE = 1e-6          # twin-fed against host-fed consensus, rel SSE
+
+
+def phase_drain(dev, counts, hvg, ks, n_iter, k_cons, merged, wrappers):
+    """``[drain]``: the CD grid again through stages.factorize_grid, as
+    cNMF.factorize runs it (every K's true-K spectra packed on the card,
+    one device-to-host copy into pinned memory on a side stream, split per
+    K), its write callback putting the per-iteration npz files on a pool of
+    8 threads; its spectra must be bit-equal to the per-K path's
+    (``merged``, stages.factorize_k per K). Prints the copies and bytes of
+    each path and the phase split (CNMF_TPU_PHASES' keys). Then the twin
+    (the K=10 rows of the packed tensor) feeds consensus and the
+    k-selection sweep in place of the host spectra: labels equal, every
+    artifact within DRAIN_SSE, the sweep's table against the host-fed one,
+    the two sweeps timed in paired turns; and consensus's walls with a
+    one-thread writer busy writing the 900 files again and idle, in paired
+    turns. Last, the grid once more with the deferred drain of a cNMF (its
+    ``_defer_packed``, the default under the CLI on a card): factorize
+    returns before the copy has landed, consensus runs from the stack
+    memo's twin while the writer waits for the copy and writes the files,
+    and after the flush the landed batches are bit-equal to ``merged``.
+    Returns the CD kernels' launches over the phase (> 0 each)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import pandas as pd
+    import torch
+
+    from cnmf_tpu_torch import cNMF
+    from cnmf_tpu_torch.io.dataframe import load_df_from_npz, save_df_to_npz
+    from cnmf_tpu_torch.pipeline import stages
+
+    prep = stages.prepare_arrays(counts, num_highvar_genes=hvg)
+    X_host = np.ascontiguousarray(prep.norm, dtype=np.float32)
+    tpm = torch.as_tensor(np.ascontiguousarray(prep.tpm, dtype=np.float32),
+                          device=dev)
+    kwargs = stages.nmf_run_params()
+    grid, seeds = stages.replicate_seeds(ks, n_iter, 14)
+    jobs = [(k, seeds[[i for i, (kk, _) in enumerate(grid) if kk == k]],
+             np.arange(n_iter)) for k in sorted(set(ks))]
+    phases = dict.fromkeys(("upload_s", "init_s", "dispatch_s",
+                            "solve_wait_s", "result_fetch_s", "write_s"),
+                           0.0)
+    phases.update(upload_bytes=X_host.nbytes, result_bytes=0)
+    copies = []
+    base = stages.HostFetch
+
+    class Counted(base):
+        def __init__(self, src):
+            copies.append(src.numel() * src.element_size())
+            super().__init__(src)
+
+    for fn in wrappers.values():
+        fn.launches = 0
+    got, twins, futs = {}, {}, []
+    with tempfile.TemporaryDirectory(dir=os.getcwd()) as workdir, \
+            ThreadPoolExecutor(max_workers=8) as pool:
+        path = os.path.join(workdir, "spectra.k_%d.iter_%d.df.npz")
+        frames = {}
+
+        def write(k, iters, batch, twin):
+            got[k], twins[k] = batch, twin
+            for i, it in enumerate(iters):
+                frames[k, it] = pd.DataFrame(batch[i])
+                futs.append(pool.submit(save_df_to_npz, frames[k, it],
+                                        path % (k, it)))
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        Xd = torch.as_tensor(X_host, device=dev)
+        stages.stream_barrier(Xd)
+        phases["upload_s"] = time.perf_counter() - t0
+        stages.HostFetch = Counted
+        try:
+            stages.factorize_grid(X_host, Xd, jobs, kwargs, write,
+                                  phases=phases, twin=True)
+        finally:
+            stages.HostFetch = base
+        t1 = time.perf_counter()
+        for f in futs:
+            f.result()
+        phases["write_s"] += time.perf_counter() - t1
+        wall = time.perf_counter() - t0
+        same = all(np.array_equal(got[k].reshape(merged[k].shape), merged[k])
+                   for k in merged)
+        packed, off, rows = twins[k_cons]
+        twin = packed[off:off + rows]
+
+        def consensus(spectra):
+            out = stages.consensus_arrays(spectra, k_cons, Xd, tpm,
+                                          prep.tpm_std, prep.hvg_idx, kwargs)
+            torch.cuda.synchronize()
+            return out
+
+        def agree(fed):
+            return (bool(np.array_equal(host.labels, fed.labels)),
+                    max(rel_sse(getattr(fed, n), getattr(host, n))
+                        for n in ("spectra", "usages", "spectra_tpm",
+                                  "spectra_score")))
+
+        host = consensus(merged[k_cons])
+        labels, sse = agree(consensus(twin))
+        walls, busy_through = {"idle": [], "busy": []}, True
+        with ThreadPoolExecutor(max_workers=1) as writer:
+            for turn in ("idle", "busy", "busy", "idle"):
+                queued = ([writer.submit(save_df_to_npz, frame, path % key)
+                           for key, frame in frames.items()]
+                          if turn == "busy" else [])
+                t2 = time.perf_counter()
+                consensus(twin)
+                walls[turn].append(time.perf_counter() - t2)
+                busy_through &= not any(f.done() for f in queued[-1:])
+                for f in queued:
+                    f.result()
+        fed_twins = {k: t[0][t[1]:t[1] + t[2]] for k, t in twins.items()}
+        sweeps = {"twins": [], "host": []}
+        for turn in ("twins", "host", "host", "twins"):
+            t3 = time.perf_counter()
+            rows_k = stages.k_stats_arrays(
+                fed_twins if turn == "twins" else merged, Xd, kwargs)
+            sweeps[turn].append(time.perf_counter() - t3)
+            if turn == "twins":
+                dev_rows = rows_k
+            else:
+                host_rows = rows_k
+
+        # the deferred drain of a cNMF, as its factorize runs it under
+        # CNMF_TPU_ASYNC_WRITES=1 on the card
+        obj = cNMF(output_dir=workdir, name="deferred", device=dev)
+        genes = pd.Index(["g%d" % j for j in range(X_host.shape[1])])
+        t4 = time.perf_counter()
+        stages.factorize_grid(
+            X_host, Xd, jobs, kwargs, write=None, twin=True,
+            defer=lambda entries, pk, fetch: obj._defer_packed(
+                entries, pk, fetch, genes, lambda key, value: None))
+        returned = time.perf_counter() - t4
+        files = [(int(it), obj.paths["iter_spectra"] % (k_cons, int(it)))
+                 for it in range(n_iter)]
+        _, _, (pk, off, rows) = obj._recall_spectra_stack(
+            k_cons, files, join=False)
+        d_labels, d_sse = agree(consensus(pk[off:off + rows]))
+        writing = obj._write_pending(
+            obj.paths["iter_spectra"] % (ks[-1], n_iter - 1))
+        obj.flush_writes()
+        flushed = time.perf_counter() - t4
+        landed = {k: obj._recall_spectra_stack(
+            k, [(it, obj.paths["iter_spectra"] % (k, it))
+                for it in range(n_iter)])[0] for k in merged}
+        d_same = all(np.array_equal(landed[k], merged[k]) for k in merged)
+        d_file = all(np.array_equal(load_df_from_npz(
+            obj.paths["iter_spectra"] % (k, n_iter - 1)).values,
+            merged[k][-k:]) for k in merged)
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    sil = max(abs(a[2] - b[2]) for a, b in zip(dev_rows, host_rows))
+    err = max(abs(a[3] - b[3]) / abs(b[3]) for a, b in zip(dev_rows,
+                                                           host_rows))
+    best = (max(dev_rows, key=lambda r: r[2])[0],
+            max(host_rows, key=lambda r: r[2])[0])
+    n_files = sum(len(j[2]) for j in jobs)
+    print(f"[drain] CD K={ks[0]}..{ks[-1]} x {n_iter} via factorize_grid "
+          f"{wall:.3f} s ({n_files} npz, 8 threads): bit-equal to per-K "
+          f"{same}; {len(copies)} copy {sum(copies) / 1e6:.1f} MB (per-K "
+          f"{len(merged)}); phases " + json.dumps(
+              {k: round(v, 4) if isinstance(v, float) else v
+               for k, v in phases.items()}, separators=(",", ":"))
+          + "; launches W/H/products " + "/".join(map(str, launches.values())),
+          flush=True)
+    print(f"[drain] twin-fed consensus K={k_cons} vs host: labels equal "
+          f"{labels}, rel SSE {sse:.1e}; k-selection s twins/host/host/twins "
+          f"{sweeps['twins'][0]:.3f}/{sweeps['host'][0]:.3f}/"
+          f"{sweeps['host'][1]:.3f}/{sweeps['twins'][1]:.3f}, |d sil| "
+          f"{sil:.1e}, rel d err {err:.1e}, best K {best[0]}/{best[1]}; "
+          "consensus s writer idle/busy/busy/idle "
+          f"{walls['idle'][0]:.3f}/{walls['busy'][0]:.3f}/"
+          f"{walls['busy'][1]:.3f}/{walls['idle'][1]:.3f} (busy throughout "
+          f"{busy_through}); deferred drain: grid returned {returned:.3f} s, "
+          f"flushed {flushed:.3f} s, memo-twin consensus labels "
+          f"equal {d_labels} rel SSE {d_sse:.1e} (writer busy after "
+          f"{writing}), landed bit-equal {d_same}, files {d_file}",
+          flush=True)
+    assert same and len(copies) == 1, (same, copies)
+    assert labels and sse <= DRAIN_SSE, (labels, sse)
+    assert d_labels and d_sse <= DRAIN_SSE, (d_labels, d_sse)
+    assert d_same and d_file, (d_same, d_file)
+    assert all(np.isfinite(r[2:]).all() for r in dev_rows), dev_rows
+    assert all(n > 0 for n in launches.values()), launches
     return launches
 
 
@@ -2516,7 +2715,8 @@ def main():
             for m in ("pandas", "h5py", "yaml", "matplotlib")}
     print(f"[env] card: {card}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}, python {sys.version.split()[0]}; "
-          f"packages: {have}", flush=True)
+          "missing: " + (", ".join(m for m, ok in have.items() if not ok)
+                         or "none"), flush=True)
 
     # 2. build
     from cnmf_tpu_torch.ops import cd_kernels as ck
@@ -2567,8 +2767,10 @@ def main():
     assert np.allclose(usage.sum(axis=1), 1.0), "usage rows must sum to 1"
     print(f"[slice] 2700x10000 counts, {hvg} HVGs, K={ks[0]}..{ks[-1]} x "
           f"{n_iter} restarts, consensus K={k_cons} dt 0.5, via {route}: "
-          "walls_s " + json.dumps({k: round(v, 3) for k, v in walls.items()})
-          + f"; launches {launches}", flush=True)
+          "walls_s " + json.dumps({k: round(v, 3) for k, v in walls.items()},
+                                  separators=(",", ":"))
+          + "; launches W/H/products " + "/".join(map(str, launches.values())),
+          flush=True)
     assert all(n > 0 for n in launches.values()), launches
 
     # 5. k-selection over the CD slice's merged spectra, the one-program
@@ -2578,7 +2780,9 @@ def main():
         "CD", merged[k_cons], counts, hvg, k_cons, dev,
         stages.nmf_run_params(), {"cd_sweep_from_products":
                                   ck.cd_sweep_from_products})}
-    del Xd, merged
+    del Xd
+    phase_drain(dev, counts, hvg, ks, n_iter, k_cons, merged, wrappers)
+    del merged
     phase_device_tpm(dev, counts, hvg, ks, n_iter)
 
     # 6. the threefry-seeded paths against the host's draws, then the mesh

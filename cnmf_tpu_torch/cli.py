@@ -4,7 +4,9 @@ itself compatible with reference cnmf.py:1213-1298): ``cnmf-tpu-torch
 flags and defaults, on the port's ``cNMF``.
 
 Every stage runs on the CUDA card; ``CNMF_TPU_PLATFORM=cpu`` (the JAX CLI's
-knob) runs it on the CPU instead. ``warmup`` (the JAX package's compile-cache
+knob) runs it on the CPU instead. The command writes its artifacts on the
+background writer (``CNMF_TPU_ASYNC_WRITES=1`` unless the environment sets
+it) and joins them, raising any failure, before it returns. ``warmup`` (the JAX package's compile-cache
 warm-up) is accepted so scripts written for that CLI still run, and does
 nothing: the port has no compiler cache to fill.
 
@@ -85,6 +87,21 @@ def main(argv=None):
         print("warmup: nothing to do — the PyTorch port builds its kernels "
               "on first use and has no compile cache to fill")
         return
+    # the stages' artifact writes ride the background writer: the
+    # flush_writes() below joins them, and raises any failure, before the
+    # command reports success (a library caller opts in itself); restored
+    # after, so that an in-process caller's environment is unchanged
+    async_before = os.environ.get("CNMF_TPU_ASYNC_WRITES")
+    if async_before is None:
+        os.environ["CNMF_TPU_ASYNC_WRITES"] = "1"
+    try:
+        _run(args)
+    finally:
+        if async_before is None:
+            os.environ.pop("CNMF_TPU_ASYNC_WRITES", None)
+
+
+def _run(args):
     cnmf_obj = cNMF(output_dir=args.output_dir, name=args.name,
                     device=cli_device())
 
@@ -119,6 +136,7 @@ def main(argv=None):
             )
     elif args.command == "k_selection_plot":
         cnmf_obj.k_selection_plot(close_fig=True)
+    cnmf_obj.flush_writes()
 
 
 if __name__ == "__main__":

@@ -21,12 +21,15 @@ def save_df_to_npz(obj: pd.DataFrame, filename: str):
     returned stat is guaranteed to describe THIS write even if another
     process rewrites the path immediately afterwards (rename preserves
     mtime/size) — the pipeline's artifact memo keys on it."""
+    # uncompressed unless CNMF_TPU_COMPRESS=1 (cnmf_tpu/io/dataframe.py:
+    # 14-18): zlib on hundreds of spectra files costs more wall than the
+    # disk it saves, and np.load reads either form
+    writer = (np.savez_compressed
+              if os.environ.get("CNMF_TPU_COMPRESS", "0") == "1" else np.savez)
     tmp = f"{filename}.{os.getpid()}.tmp"
     try:
         with open(tmp, "wb") as f:
-            # uncompressed: np.load reads compressed files from the JAX
-            # package's opt-in codec as well
-            np.savez(
+            writer(
                 f,
                 data=obj.values,
                 index=obj.index.values,

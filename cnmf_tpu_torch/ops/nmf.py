@@ -284,6 +284,19 @@ def _fixed_products(X, Ht):
             sum_shards([_shared_x_dot(x, h) for x, h in zip(X.parts, Ht.parts)]))
 
 
+def pack_spectra_true_k(handles, *, ks):
+    """The true-K rows of several spectra batches in one (Σ B·k, G) tensor
+    on their device (cnmf_tpu/ops/nmf.py:293-313), for one device-to-host
+    copy instead of one per K: the padded component rows are zeros the host
+    would slice off anyway. ``handles``: (B, pad_k, G) spectra, one per K;
+    ``ks``: their true component counts. One handle comes back as its
+    reshaped view (a copy where its rows are not contiguous); the host
+    splits the pack per K by reshapes."""
+    parts = [h[:, :k, :].reshape(h.shape[0] * k, h.shape[2])
+             for h, k in zip(handles, ks)]
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=0)
+
+
 def reconstruction_sse(X, W, H, row_chunk: int = 4096):
     """sum((X − W·H)²), computed directly on row chunks of X: X (N, G),
     W (N, K), H (K, G). The K-selection prediction error (reference

@@ -2,9 +2,11 @@
 
 TPM (per-cell library-size) normalization and unit-variance gene scaling,
 the same functions as ``cnmf_tpu.ops.normalize`` (which replace the
-reference's ``sc.pp.normalize_total`` and ``sc.pp.scale(zero_center=False)``)
-minus the JAX package's reusable host-buffer arena: a plain allocation gives
-the same values. ``csr_column_subset`` (the HVG column gather on sparse
+reference's ``sc.pp.normalize_total`` and ``sc.pp.scale(zero_center=False)``).
+Under ``CNMF_TPU_HOST_ARENA=1`` a dense TPM lands in a reused host buffer
+(``utils.arena``), so that a second prepare's large passes write warm
+pages; ``scale_unit_variance(inplace=True)`` divides into its input. The
+values are those of a fresh allocation. ``csr_column_subset`` (the HVG column gather on sparse
 counts) lives here rather than in ``io/anndata_lite.py`` so that the stages
 need no pandas.
 """
@@ -15,6 +17,7 @@ import numpy as np
 import scipy.sparse as sp
 
 from cnmf_tpu_torch import native
+from cnmf_tpu_torch.utils.arena import host_arena
 
 
 def normalize_total(X, target_sum: float = 1e6):
@@ -68,18 +71,22 @@ def normalize_total(X, target_sum: float = 1e6):
     totals = X.sum(axis=1, keepdims=True, dtype=np.float64)
     safe = np.where(totals == 0, 1.0, totals)
     # ONE fused cast+scale pass: the ufunc casts integer input blocks on
-    # the fly, so only the output is allocated. Values are bit-identical to
-    # cast-then-multiply.
+    # the fly, so only the output is allocated (an arena buffer).
+    # Values are bit-identical to cast-then-multiply.
+    out = host_arena.take(X.shape, out_dtype)
     return np.multiply(X, (target_sum / safe).astype(np.float64),
-                       dtype=out_dtype)
+                       dtype=out_dtype, out=out)
 
 
-def scale_unit_variance(X, ddof: int = 1, zero_safe: bool = True):
+def scale_unit_variance(X, ddof: int = 1, zero_safe: bool = True,
+                        inplace: bool = False):
     """Divide each column by its std (no centering).
 
     ``zero_safe`` maps std==0 → 1 (scanpy pp.scale semantics used on the
     reference's sparse path, cnmf.py:538); the dense reference path divides
     unguarded (cnmf.py:542) — pass zero_safe=False to reproduce it.
+    ``inplace`` (dense float input only): divide into X itself instead of a
+    new quotient (prepare hands it an arena buffer); the same bits.
     """
     if sp.issparse(X):
         n = X.shape[0]
@@ -109,6 +116,8 @@ def scale_unit_variance(X, ddof: int = 1, zero_safe: bool = True):
     std = X.std(axis=0, ddof=ddof)
     if zero_safe:
         std = np.where(std == 0, 1.0, std)
+    if inplace and X.dtype.kind == "f":
+        return np.divide(X, std, out=X)
     return X / std
 
 

@@ -24,7 +24,23 @@ full-gene TPM on the device only under ``stages.tpm_device_limit`` (or
 products (``stages.consensus_arrays``). The stages record their walls
 (``utils.timing``: ``timings()``, ``CNMF_TPU_TIMINGS=1``,
 ``CNMF_TPU_PROFILE_DIR``).
-Artifacts are written synchronously, so ``flush_writes`` has nothing to do.
+
+One process hands each stage's results to the next without reading back
+what it wrote (cnmf_tpu/pipeline/cnmf.py:266-556, 1094-1173): factorize
+packs every K's true-K spectra on the device and fetches them in one copy
+(``stages.factorize_grid``), writes the per-iteration files from a pool of
+threads and keeps each K's restart batch in a stack memo, so combine takes
+one reshape instead of reading the files; combine, consensus and prepare
+keep what they wrote in an artifact memo, checked against each file's
+(mtime, size). On CUDA (``CNMF_TPU_DEVICE_SPECTRA``) the packed tensor stays
+on the card as the twin that consensus and k-selection take instead of
+uploading the merged spectra again. ``CNMF_TPU_ASYNC_WRITES=1`` (the CLI
+sets it) moves the writes to one background writer thread, FIFO, and on
+CUDA defers factorize's drain itself to it (the copy starts at the pack;
+the writer waits for it and writes the files): a stage's return then no
+longer means its files are on disk,
+and ``flush_writes()`` joins every queued write and raises the first
+failure. A same-process read of a path joins its pending write first.
 
 With more than one local device of the object's type (``parallel.mesh.
 local_devices``), factorize lays its cells (under ``CNMF_TPU_CELL_AXIS``)
@@ -40,12 +56,12 @@ import datetime
 import errno
 import os
 import shutil
-import sys
 import threading
 import time
 import uuid
 import warnings
 import weakref
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import pandas as pd
@@ -73,11 +89,16 @@ from cnmf_tpu_torch.ops.cd_kernels import (
     torch_dtype,
 )
 from cnmf_tpu_torch.ops import device_tpm
-from cnmf_tpu_torch.ops.device_densify import to_device_dense
+from cnmf_tpu_torch.ops.device_densify import (
+    device_densify_eligible,
+    to_device_dense,
+)
 from cnmf_tpu_torch.ops.distance import pairwise_euclidean
 from cnmf_tpu_torch.parallel import mesh as parallel_mesh
 from cnmf_tpu_torch.pipeline import solvers, stages
 from cnmf_tpu_torch.pipeline.paths import build_paths
+from cnmf_tpu_torch.utils.arena import host_arena
+from cnmf_tpu_torch.utils.timing import note as timing_note
 from cnmf_tpu_torch.utils.timing import stage_timer, timed, timings_verbose
 
 DEFAULT_DENSITY_THRESHOLD = stages.DEFAULT_DENSITY_THRESHOLD
@@ -85,8 +106,37 @@ DEFAULT_DENSITY_THRESHOLD = stages.DEFAULT_DENSITY_THRESHOLD
 # row schema of the k_selection table (reference cnmf.py:932-934)
 K_STATS_FIELDS = ["k", "local_density_threshold", "silhouette", "prediction_error"]
 
-# the h5ad read cache is filled from the TPM prefetch thread too
+# the h5ad read cache is filled from the TPM prefetch thread too; this lock
+# also guards the pending writes and the deferred metas
 _H5AD_LOCK = threading.Lock()
+
+# guards every instance's artifact and spectra-stack memos and the twins
+_MEMO_LOCK = threading.Lock()
+
+# the background writer's thread name: a join from that thread itself would
+# wait on its own queue
+_WRITER = "cnmf-tpu-writer"
+
+
+class _PendingBatch:
+    """A K's (B, k, G) spectra whose device-to-host copy is still queued on
+    the background writer (the deferred packed drain, CNMF_TPU_ASYNC_WRITES
+    =1, cnmf_tpu/pipeline/cnmf.py:133-153): the writer sets ``value`` and
+    then ``event``. A failed drain leaves ``value`` None, and readers go to
+    the per-iteration files, whose reads join the writer's future and raise
+    its error."""
+
+    __slots__ = ("event", "value", "shape", "nbytes")
+
+    def __init__(self, shape, nbytes):
+        self.event = threading.Event()
+        self.value = None
+        self.shape = shape
+        self.nbytes = nbytes
+
+    def wait(self):
+        self.event.wait()
+        return self.value
 
 
 def worker_filter(iterable, worker_index, total_workers):
@@ -205,9 +255,11 @@ class cNMF:
     def _read_h5ad_cached(self, path):
         """``read_h5ad`` behind a cache of one object per path, valid while
         the file's mtime is unchanged: prepare seeds it with the objects it
-        writes (``_seed_h5ad``), so a same-process factorize and consensus
-        read them back as those very objects, the keys of the compact-counts
-        stashes and the device caches. Safe from the prefetch thread."""
+        writes (``_write_prepare_h5ad``), so a same-process factorize and
+        consensus read them back as those very objects, the keys of the
+        compact-counts stashes and the device caches. A pending write of
+        the path is joined first. Safe from the prefetch thread."""
+        self._flush_pending_write(path)
         with _H5AD_LOCK:
             cache = self.__dict__.setdefault("_h5ad_cache", {})
             mtime = os.path.getmtime(path)
@@ -219,36 +271,330 @@ class cNMF:
             cache[path] = (mtime, adata)
         return adata
 
-    def _seed_h5ad(self, path, adata):
-        """Put the object just written to ``path`` in the read cache, as a
-        read would return it (string indices), when its X is dense (a
-        sparse X is read back with other index arrays); returns the cached
-        object, or None."""
+    @staticmethod
+    def _seed_object(adata):
+        """The object a read of ``adata``'s file returns (string indices),
+        sharing its X, when X is dense (a sparse X is read back with other
+        index arrays); else None."""
         if sp.issparse(adata.X):
             return None
         obs, var = adata.obs.copy(), adata.var.copy()
         obs.index, var.index = obs.index.astype(str), var.index.astype(str)
-        seeded = AnnData(adata.X, obs=obs, var=var)
-        with _H5AD_LOCK:
-            self.__dict__.setdefault("_h5ad_cache", {})[path] = (
-                os.path.getmtime(path), seeded)
-        return seeded
+        return AnnData(adata.X, obs=obs, var=var)
 
     def clear_device_caches(self, host_caches: bool = False):
         """Drop the cached device buffers (the normalized counts, the TPM and
         the integer counts image) after joining a TPM prefetch in flight,
-        then empty PyTorch's caching allocator on CUDA. ``host_caches``:
-        drop the h5ad read cache too (kept by default: every hit is
-        mtime-checked, and dropping it breaks the compact-counts stashes'
-        object keys)."""
+        strip the spectra twins from the stack memo and the deferred merges
+        (their host batches stay a valid combine fast path), then empty
+        PyTorch's caching allocator on CUDA. ``host_caches``: drop the h5ad
+        read cache too (kept by default: every hit is mtime-checked, and
+        dropping it breaks the compact-counts stashes' object keys)."""
         self._join_tpm_prefetch()
-        attrs = ["_norm_counts_dev_cache", "_tpm_dev_cache", "_ints_dev"]
+        attrs = ["_norm_counts_dev_cache", "_tpm_dev_cache", "_ints_dev",
+                 "_merged_dev"]
         if host_caches:
             attrs.append("_h5ad_cache")
         for attr in attrs:
             self.__dict__.pop(attr, None)
+        with _MEMO_LOCK:
+            memo = getattr(self, "_stack_memo", None) or {}
+            for k_, entry in list(memo.items()):
+                if entry[3] is not None:
+                    memo[k_] = entry[:3] + (None,)
+        with _H5AD_LOCK:
+            metas = getattr(self, "_merged_meta", None) or {}
+            for path_, meta in list(metas.items()):
+                if meta[4] is not None:
+                    metas[path_] = meta[:4] + (None,)
         if self.device.type == "cuda":
             torch.cuda.empty_cache()
+
+    # ------------------------------------------------------------------
+    # the in-process memos (cnmf_tpu/pipeline/cnmf.py:266-556): the stages
+    # still write every file of the run directory, but a same-process
+    # stage downstream takes what this object wrote from memory. An entry
+    # is valid while its file keeps the (mtime_ns, size) of that write, so
+    # a rewrite by another process wins; _PENDING_STAT marks a write still
+    # queued on the background writer, whose object is the file to be
+    # ------------------------------------------------------------------
+
+    _ARTIFACT_MEMO_BYTES = int(5e8)
+    _STACK_MEMO_BYTES = int(5e8)
+    _PENDING_STAT = (-1, -1)
+
+    def _memo_artifact(self, path, obj, nbytes, stat=None):
+        """Keep ``obj``, just written to ``path``, for ``_recall_artifact``.
+        ``stat``: the (mtime_ns, size) that ``save_df_to_npz`` returned for
+        the write (so that another process's rewrite in between is never
+        paired with this object), else the file's now. Returns whether it
+        was stored (the byte cap may decline: an async caller must then
+        write before it returns)."""
+        if stat is None:
+            try:
+                st = os.stat(path)
+            except OSError:
+                return False
+            stat = (st.st_mtime_ns, st.st_size)
+        with _MEMO_LOCK:
+            memo = self.__dict__.setdefault("_artifact_memo", {})
+            prev = memo.get(path)
+            used = (getattr(self, "_artifact_memo_bytes", 0)
+                    - (prev[3] if prev else 0))
+            if used + nbytes > self._ARTIFACT_MEMO_BYTES:
+                return False
+            memo[path] = (stat[0], stat[1], obj, nbytes)
+            self._artifact_memo_bytes = used + nbytes
+            return True
+
+    def _settle_artifact_stat(self, path, obj, stat):
+        """Give a memo entry still marked pending the stat of its finished
+        write, if the entry still holds ``obj``."""
+        with _MEMO_LOCK:
+            memo = getattr(self, "_artifact_memo", None) or {}
+            entry = memo.get(path)
+            if entry is not None and entry[2] is obj:
+                memo[path] = (stat[0], stat[1], obj, entry[3])
+
+    def _recall_artifact(self, path, copy=True):
+        """The object this process last wrote to ``path`` while the file
+        still holds that write (or the write is pending), else None (a
+        stale entry is dropped). ``copy=False`` skips the defensive copy,
+        for callers that only read it."""
+        with _MEMO_LOCK:
+            memo = getattr(self, "_artifact_memo", None)
+            if not memo or path not in memo:
+                return None
+            mtime_ns, size, obj, nbytes = memo[path]
+            if (mtime_ns, size) != self._PENDING_STAT:
+                try:
+                    st = os.stat(path)
+                    stale = (st.st_mtime_ns, st.st_size) != (mtime_ns, size)
+                except OSError:
+                    stale = True
+                if stale:
+                    del memo[path]
+                    self._artifact_memo_bytes -= nbytes
+                    return None
+        return obj.copy() if copy else obj
+
+    def _memo_spectra_stack(self, k, file_stats, spectra_batch, gene_index,
+                            dev=None):
+        """Keep K's whole (B, k, G) restart batch (a host array or a
+        ``_PendingBatch``) so that combine rebuilds the merged frame with
+        one reshape. ``file_stats``: [(iter, path, stat)] in batch-row
+        order, each file's write stat (or ``_PENDING_STAT``). ``dev``: (the
+        packed device tensor, first row, rows) of this K's spectra, the
+        twin. Returns whether it was stored (the byte cap may decline)."""
+        nbytes = spectra_batch.nbytes
+        with _MEMO_LOCK:
+            memo = self.__dict__.setdefault("_stack_memo", {})
+            prev = memo.get(k)
+            used = (getattr(self, "_stack_memo_bytes", 0)
+                    - (prev[2].nbytes if prev else 0))
+            if used + nbytes > self._STACK_MEMO_BYTES:
+                return False
+            by_iter = {it: (path, stat, row)
+                       for row, (it, path, stat) in enumerate(file_stats)}
+            memo[k] = (by_iter, gene_index, spectra_batch, dev)
+            self._stack_memo_bytes = used + nbytes
+            return True
+
+    def _settle_stack_stat(self, k, it, path, stat):
+        """Give an (iter, path) of K's stack still marked pending the stat
+        of its finished write (on the writer thread; a later factorize may
+        have replaced the entry)."""
+        with _MEMO_LOCK:
+            entry = (getattr(self, "_stack_memo", None) or {}).get(k)
+            if entry is None:
+                return
+            hit = entry[0].get(it)
+            if (hit is not None and hit[0] == path
+                    and hit[1] == self._PENDING_STAT):
+                entry[0][it] = (path, stat, hit[2])
+
+    def _recall_spectra_stack(self, k, files, join=True):
+        """(values, columns, dev) of the merged stack at the batch's dtype
+        when the stack memo covers exactly ``files`` ([(iter, path)]) and
+        every file still has its write's stat (or is pending), else None.
+        ``dev``, the twin, only for the whole batch in order, where the
+        device rows are the merged rows. ``join=False``: a batch whose
+        drain is still queued comes back as its ``_PendingBatch``,
+        unjoined, for the whole batch in order; otherwise the drain is
+        released and joined (a failed one gives None: the files then)."""
+        with _MEMO_LOCK:
+            entry = (getattr(self, "_stack_memo", None) or {}).get(k)
+        if entry is None:
+            return None
+        by_iter, gene_index, batch, dev = entry
+        if len(files) != len(by_iter):
+            return None
+        rows = []
+        for it, path in files:
+            hit = by_iter.get(it)
+            if hit is None or hit[0] != path:
+                return None
+            if hit[1] != self._PENDING_STAT:
+                try:
+                    st = os.stat(path)
+                except OSError:
+                    return None
+                if (st.st_mtime_ns, st.st_size) != hit[1]:
+                    return None
+            rows.append(hit[2])
+        if isinstance(batch, _PendingBatch):
+            if not join and rows == list(range(batch.shape[0])):
+                return batch, gene_index, dev
+            batch = batch.wait()
+            if batch is None:
+                return None
+        if rows == list(range(batch.shape[0])):
+            # a read-only view of the batch: the frame escapes to the
+            # caller, who must not write through it into the memo
+            values = batch.reshape(-1, batch.shape[2])
+            values.flags.writeable = False
+        else:
+            values = batch[rows].reshape(-1, batch.shape[2])
+            dev = None
+        return values, gene_index, dev
+
+    def _register_twin(self, merged_path, frame, dev_twin):
+        """Tie the twin to the memoized merged frame (by weakref: it dies
+        with the memo entry it describes)."""
+        with _MEMO_LOCK:
+            self.__dict__.setdefault("_merged_dev", {})[merged_path] = (
+                weakref.ref(frame), dev_twin)
+
+    def _device_spectra_twin(self, k, merged_frame):
+        """The (R, G) raw merged spectra of ``k`` on the device, the rows of
+        the pack a same-process factorize left there, when
+        ``solvers.device_spectra_enabled`` and the registered twin describes
+        exactly ``merged_frame`` (cnmf_tpu/pipeline/cnmf.py:408-433); else
+        None (the host values then)."""
+        if (merged_frame is None
+                or not solvers.device_spectra_enabled(self.device)):
+            return None
+        with _MEMO_LOCK:
+            entry = (getattr(self, "_merged_dev", None) or {}).get(
+                self.paths["merged_spectra"] % k)
+        if entry is None or entry[0]() is not merged_frame:
+            return None
+        packed, off, rows = entry[1]
+        return packed[off:off + rows]
+
+    def _defer_merged_write(self, k, pb, columns, files, dev_twin):
+        """Queue K's merged build and write on the background writer behind
+        the deferred drain that fills ``pb`` (cnmf_tpu/pipeline/cnmf.py:
+        435-491), and register (index, columns, placeholder, twin) for a
+        same-process consensus to run from without the host values, tied
+        to the queued future. Returns None (combine's fan-out drops it)."""
+        merged_path = self.paths["merged_spectra"] % k
+        index = ["iter%d_topic%d" % (it, t + 1) for it, _ in files
+                 for t in range(k)]
+
+        def merge_and_write():
+            batch = pb.wait()
+            if batch is None:
+                raise RuntimeError("the deferred spectra drain failed: the "
+                                   "merged stack for k=%d was not built" % k)
+            values = batch.reshape(-1, batch.shape[2])
+            values.flags.writeable = False
+            frame = pd.DataFrame(values, index=index, columns=columns,
+                                 copy=False)
+            st = save_df_to_npz(frame, merged_path)
+            if (self._memo_artifact(merged_path, frame, values.nbytes,
+                                    stat=st) and dev_twin is not None):
+                self._register_twin(merged_path, frame, dev_twin)
+
+        with _H5AD_LOCK:
+            # a reader between here and the submit sees no meta rather than
+            # an earlier run's
+            (getattr(self, "_merged_meta", None) or {}).pop(merged_path,
+                                                             None)
+        fut = self._submit_pending_write(merged_path, merge_and_write)
+        with _H5AD_LOCK:
+            self.__dict__.setdefault("_merged_meta", {})[merged_path] = (
+                fut, pd.Index(index), columns, pb, dev_twin)
+        return None
+
+    def _deferred_merged_meta(self, merged_path):
+        """(index, columns, placeholder, twin) of a merged stack whose build
+        is still queued, while the registered future is the path's pending
+        write; else None (the memo or the file then)."""
+        with _H5AD_LOCK:
+            meta = (getattr(self, "_merged_meta", None) or {}).get(
+                merged_path)
+            if meta is None:
+                return None
+            current = (getattr(self, "_pending_writes", None) or {}).get(
+                merged_path)
+        fut, index, columns, pb, dev_twin = meta
+        if current is not fut:
+            return None
+        return index, columns, pb, dev_twin
+
+    # ------------------------------------------------------------------
+    # the background writer (cnmf_tpu/pipeline/cnmf.py:1094-1173)
+    # ------------------------------------------------------------------
+
+    def _submit_pending_write(self, path, fn, extra_paths=()):
+        """Queue ``fn`` on the object's one writer thread (FIFO) and register
+        its future under ``path`` and ``extra_paths``, the paths it writes,
+        for the readers' joins and ``flush_writes``. Returns the future."""
+        with _H5AD_LOCK:
+            pool = getattr(self, "_writer_pool", None)
+            if pool is None:
+                pool = self._writer_pool = ThreadPoolExecutor(
+                    max_workers=1, thread_name_prefix=_WRITER)
+            pending = self.__dict__.setdefault("_pending_writes", {})
+            fut = pool.submit(fn)
+            for p in (path, *extra_paths):
+                pending[p] = fut
+        return fut
+
+    def _write_pending(self, path):
+        """Whether a write of ``path`` is queued or running: where a file's
+        existence decides (combine's scan), a pending write counts."""
+        with _H5AD_LOCK:
+            return path in (getattr(self, "_pending_writes", None) or {})
+
+    def _flush_pending_write(self, path):
+        """Join the pending write of ``path``, if any, and raise its error
+        here. On the writer thread itself (FIFO) every earlier write is
+        done, and a later one must not be waited for there."""
+        if threading.current_thread().name.startswith(_WRITER):
+            return
+        with _H5AD_LOCK:
+            fut = (getattr(self, "_pending_writes", None) or {}).get(path)
+        if fut is None:
+            return
+        try:
+            fut.result()
+        finally:
+            with _H5AD_LOCK:
+                pending = self._pending_writes
+                if pending.get(path) is fut:
+                    del pending[path]
+
+    def flush_writes(self):
+        """Join every pending background write (CNMF_TPU_ASYNC_WRITES=1)
+        and raise the first failure; call it before another process reads
+        the run directory. Without the knob nothing is pending."""
+        with _H5AD_LOCK:
+            futs = list((getattr(self, "_pending_writes", None) or {}).items())
+        error = None
+        for _, fut in futs:
+            try:
+                fut.result()
+            except BaseException as exc:   # raised below, after every join
+                error = error or exc
+        with _H5AD_LOCK:
+            pending = getattr(self, "_pending_writes", None) or {}
+            for path, fut in futs:
+                if pending.get(path) is fut:
+                    del pending[path]
+        if error is not None:
+            raise error
 
     # ------------------------------------------------------------------
     # the compact integer TPM (ops/device_tpm.py)
@@ -355,14 +701,17 @@ class cNMF:
             self._tpm_prefetch = (weakref.ref(target), task)
             return
         tpm_path = self.paths["tpm"]
-        if not os.path.isfile(tpm_path):
+        # an async prepare's write of the TPM counts as the file: the
+        # thread joins it
+        if not (self._write_pending(tpm_path) or os.path.isfile(tpm_path)):
             return
-        n, g = read_h5ad_shape(tpm_path)
-        upload = n * g * self.compute_dtype.itemsize < 0.5 * self._tpm_limit()
 
         def read_and_put():
+            self._flush_pending_write(tpm_path)
+            n, g = read_h5ad_shape(tpm_path)
             tpm = self._read_h5ad_cached(tpm_path)
-            return tpm, (self._put_cells(tpm.X) if upload else None)
+            fits = n * g * self.compute_dtype.itemsize < 0.5 * self._tpm_limit()
+            return tpm, (self._put_cells(tpm.X) if fits else None)
 
         task = device_tpm.SideStreamTask(read_and_put, self.device)
         self._tpm_prefetch = (None, task)
@@ -431,10 +780,6 @@ class cNMF:
         with open(self.paths["nmf_run_parameters"]) as fh:
             return yaml.safe_load(fh)
 
-    def flush_writes(self):
-        """No-op: every artifact is written before its stage returns (kept
-        for API compatibility with ``cnmf_tpu``)."""
-
     # ==================================================================
     # prepare
     # ==================================================================
@@ -461,6 +806,9 @@ class cNMF:
         Produces the same six artifacts as the reference (cnmf.py:333-459):
         tpm + tpm_stats, norm_counts, the HVG list, the replicate-parameter
         table and the YAML solver kwargs."""
+        # an earlier prepare's pending writes land before this one's
+        # overwrite them (the copy below bypasses the writer)
+        self.flush_writes()
         with stage_timer("prepare.load_counts"):
             input_counts = load_counts(counts_fn, densify=densify)
         # a prior run's compact stashes must never leak into this one
@@ -472,7 +820,7 @@ class cNMF:
         elif tpm_fn is not None:
             tpm = load_counts(tpm_fn, densify=densify)
             with stage_timer("prepare.write_tpm"):
-                write_h5ad(self.paths["tpm"], tpm)
+                self._write_prepare_h5ad(self.paths["tpm"], tpm)
 
         if genes_file is not None:
             with open(genes_file) as fh:
@@ -486,10 +834,9 @@ class cNMF:
             tpm = AnnData(prep.tpm, obs=input_counts.obs.copy(),
                           var=input_counts.var.copy())
             with stage_timer("prepare.write_tpm"):
-                write_h5ad(self.paths["tpm"], tpm)
+                seeded = self._write_prepare_h5ad(self.paths["tpm"], tpm)
             with stage_timer("prepare.stash_tpm"):
-                self._stash_tpm_compact(self._seed_h5ad(self.paths["tpm"], tpm),
-                                        input_counts.X)
+                self._stash_tpm_compact(seeded, input_counts.X)
         input_tpm_stats = pd.DataFrame(
             [prep.tpm_mean, prep.tpm_std],
             index=["__mean", "__std"],
@@ -497,11 +844,9 @@ class cNMF:
         ).T
         save_df_to_npz(input_tpm_stats, self.paths["tpm_stats"])
         with stage_timer("prepare.write_norm_counts"):
-            self.save_norm_counts(norm_counts)
+            seeded_norm = self.save_norm_counts(norm_counts)
         with stage_timer("prepare.stash_norm"):
-            self._stash_norm_compact(
-                self._seed_h5ad(self.paths["normalized_counts"], norm_counts),
-                input_counts.var.index)
+            self._stash_norm_compact(seeded_norm, input_counts.var.index)
         with stage_timer("prepare.iter_params"):
             replicate_params, run_params = self.get_nmf_iter_params(
                 ks=components, n_iter=n_iter, random_state_seed=seed,
@@ -551,7 +896,42 @@ class cNMF:
 
     def save_norm_counts(self, norm_counts: AnnData):
         self._initialize_dirs()
-        write_h5ad(self.paths["normalized_counts"], norm_counts)
+        return self._write_prepare_h5ad(self.paths["normalized_counts"],
+                                        norm_counts)
+
+    def _write_prepare_h5ad(self, path, adata):
+        """Write a prepare h5ad (cnmf_tpu/pipeline/cnmf.py:1033-1092) and
+        seed the read cache with the object a read of it returns
+        (``_seed_object``), which comes back (None for a sparse X): the key
+        of the compact-counts stashes. ``CNMF_TPU_PREPARE_DTYPE`` (e.g.
+        float32) stores X at that dtype, through an arena buffer when dense;
+        the in-memory matrix keeps its own. ``CNMF_TPU_ASYNC_WRITES=1``
+        writes on the background writer; a same-process read joins it."""
+        dt = os.environ.get("CNMF_TPU_PREPARE_DTYPE", "")
+        X = adata.X
+        if dt and np.dtype(dt) != (X.data.dtype if sp.issparse(X)
+                                   else np.asarray(X).dtype):
+            if sp.issparse(X):
+                Xc = X.copy()
+                Xc.data = Xc.data.astype(np.dtype(dt))
+            else:
+                Xc = host_arena.take(np.shape(X), np.dtype(dt))
+                np.copyto(Xc, np.asarray(X))
+            adata = AnnData(Xc, obs=adata.obs, var=adata.var)
+        seeded = self._seed_object(adata)
+
+        def write_and_seed():
+            write_h5ad(path, adata)
+            if seeded is not None:
+                with _H5AD_LOCK:
+                    self.__dict__.setdefault("_h5ad_cache", {})[path] = (
+                        os.path.getmtime(path), seeded)
+
+        if solvers.async_writes_enabled():
+            self._submit_pending_write(path, write_and_seed)
+        else:
+            write_and_seed()
+        return seeded
 
     def get_nmf_iter_params(
         self, ks, n_iter=100, random_state_seed=None,
@@ -616,18 +996,29 @@ class cNMF:
                   restart_chunk=None, use_mesh=True, verbose=True):
         """Run this worker's share of the replicate grid (round-robin, as the
         reference's workers split it, cnmf.py:692-745): all restarts of one K
-        as one batched solve, K zero-padded to a bucket of 8. Spectra land in
-        the per-(K, iter) npz files. Sparse normalized counts reach the
-        device through ``to_device_dense`` and the inits read the CSR.
-        Random inits are drawn on a CUDA device from the seeds
-        (``solvers.device_init_enabled``; ``CNMF_TPU_DEVICE_INIT=0`` keeps
-        sklearn's host draw there), on the host elsewhere.
+        as one batched solve, K zero-padded to a bucket of 8, the grid
+        through ``stages.factorize_grid`` (every K's true-K spectra packed
+        on the device and fetched in one copy where they fit). Spectra land
+        in the per-(K, iter) npz files, written from a pool of threads, and
+        in the stack memo that a same-process combine reads. Sparse
+        normalized counts reach the device through ``to_device_dense`` and
+        the inits read the CSR. Random inits are drawn on a CUDA device from
+        the seeds (``solvers.device_init_enabled``; ``CNMF_TPU_DEVICE_INIT=
+        0`` keeps sklearn's host draw there), on the host elsewhere.
         ``use_mesh``: with several local devices of the object's type, lay
         the restarts over ``parallel.mesh.build_mesh()``: the cell axis
         under ``CNMF_TPU_CELL_AXIS``, else the restart axis for each K where
         ``solvers.restart_axis_pays`` (the restart groups' loops are
         device-bound there; smaller K solves run faster on ``device``
-        alone); with one device, or False, solve on ``device`` alone."""
+        alone); with one device, or False, solve on ``device`` alone.
+
+        ``CNMF_TPU_ASYNC_WRITES=1``: the files are written on the
+        background writer after factorize returns (``flush_writes``), and
+        on CUDA (``CNMF_TPU_DEVICE_SPECTRA``) factorize returns before the
+        packed copy has landed: the writer waits for it (the deferred
+        drain). ``CNMF_TPU_PHASES=1``: the wall's
+        split lands in ``self._factorize_phases`` (and, with ``verbose``, on
+        a ``[Worker]`` line)."""
         run_params = load_df_from_npz(self.paths["nmf_replicate_parameters"])
         # consensus's device buffers of an earlier stage would compete with
         # the solver for device memory
@@ -641,9 +1032,21 @@ class cNMF:
         jobs = list(worker_filter(rows, worker_i, total_workers))
         if not jobs:
             return
+        phases = ({"upload_s": 0.0, "init_s": 0.0, "dispatch_s": 0.0,
+                   "solve_wait_s": 0.0, "result_fetch_s": 0.0, "write_s": 0.0,
+                   "upload_bytes": 0, "result_bytes": 0}
+                  if solvers.phases_enabled() else None)
+        self._factorize_phases = phases
+        # the writer threads and the main thread add to phases
+        self._phases_lock = threading.Lock()
         devices = self._mesh_devices() if use_mesh else None
         mesh = None if devices is None else parallel_mesh.build_mesh(devices)
-        X_host, Xd = self._factorize_inputs(norm_counts)
+        t_up = time.perf_counter()
+        X_host, Xd, link_bytes = self._factorize_inputs(norm_counts)
+        if phases is not None:
+            stages.stream_barrier(Xd)
+            phases["upload_s"] = time.perf_counter() - t_up
+            phases["upload_bytes"] = int(link_bytes)
         # the consensus TPM's upload rides behind the solves
         self._prefetch_tpm_async()
         gene_index = norm_counts.var.index
@@ -653,32 +1056,166 @@ class cNMF:
                        and solvers.device_init_enabled(self.device))
         x_mean = (stages.x_mean_for_init(X_host, X_host.dtype)
                   if device_init else None)
-        for k, group in run_params.iloc[jobs].groupby("n_components", sort=True):
-            k = int(k)
-            seeds = group["nmf_seed"].values
-            mesh_k = (mesh if mesh is not None and solvers.restart_axis_pays(
-                mesh, Xd.shape, len(seeds), k) else None)
-            t0, timings = time.perf_counter(), {}
-            spectra, n_iter, executed = stages.factorize_k(
-                X_host, Xd, k, seeds, nmf_kwargs, restart_chunk=restart_chunk,
-                timings=timings, mesh=mesh_k, device_init=device_init,
-                x_mean=x_mean,
-            )
+        grid = [(int(k), group["nmf_seed"].values, group["iter"].values)
+                for k, group in run_params.iloc[jobs].groupby(
+                    "n_components", sort=True)]
+        pipeline_all = stages.pipeline_all_fits(grid, X_host.shape[0],
+                                                Xd.element_size())
+        async_writes = solvers.async_writes_enabled()
+        defer_ok = async_writes and solvers.device_spectra_enabled(self.device)
+
+        def add_phase(key, value):
+            if phases is not None:
+                with self._phases_lock:
+                    phases[key] += value
+
+        def report(k, B, seconds, timings, mesh_k, n_iter, executed):
             if verbose:
                 print("[Worker %d] k=%d: %d restarts in %.3f s (inits %.3f s "
                       "on the %s) on %s, sweeps max %d mean %.1f, executed "
                       "restart-sweeps %d"
-                      % (worker_i, k, len(seeds), time.perf_counter() - t0,
-                         timings["init"], timings["init_on"],
-                         "one device" if mesh_k is None
+                      % (worker_i, k, B, seconds, timings["init"],
+                         timings["init_on"], "one device" if mesh_k is None
                          else "a mesh %s" % (mesh_k.shape,),
                          n_iter.max(), n_iter.mean(), executed))
-            for i, it in enumerate(group["iter"].values):
-                save_df_to_npz(
-                    pd.DataFrame(spectra[i], index=np.arange(1, k + 1),
-                                 columns=gene_index),
-                    self.paths["iter_spectra"] % (k, it),
-                )
+
+        deferred_writes = []   # (k, write futures, batch, twin)
+        with ThreadPoolExecutor(max_workers=8) as pool:
+
+            def settle_writes():
+                # join the pool's writes and keep each K's stack with the
+                # stats of its writes; on every exit path
+                while deferred_writes:
+                    k, futs, batch, dev = deferred_writes.pop(0)
+                    t0 = time.perf_counter()
+                    stats = [f.result() for f in futs]
+                    self._memo_spectra_stack(k, stats, batch, gene_index,
+                                             dev=dev)
+                    add_phase("write_s", time.perf_counter() - t0)
+
+            def write(k, iters, batch, dev):
+                # cnmf_tpu/pipeline/cnmf.py:1542-1626. ``batch`` holds no
+                # padded rows: a view of the pack (all of which is some
+                # K's rows) or a K's own fetched array
+                paths = [self.paths["iter_spectra"] % (k, int(it))
+                         for it in iters]
+                if pipeline_all and async_writes:
+                    # the stack memo serves a same-process combine while the
+                    # files wait on the writer; where the memo declines,
+                    # combine reads the files, so they are written now
+                    pending = [(int(it), path, self._PENDING_STAT)
+                               for it, path in zip(iters, paths)]
+                    if self._memo_spectra_stack(k, pending, batch, gene_index,
+                                                dev=dev):
+                        for i, (it, path) in enumerate(zip(iters, paths)):
+                            def queued(i=i, it=int(it), path=path):
+                                st = self._write_iter_spectra(
+                                    k, it, batch[i], path, gene_index)[2]
+                                self._settle_stack_stat(k, it, path, st)
+                            self._submit_pending_write(path, queued)
+                        return
+                futs = [pool.submit(self._write_iter_spectra, k, it,
+                                    batch[i], path, gene_index)
+                        for i, (it, path) in enumerate(zip(iters, paths))]
+                if pipeline_all:
+                    # the writes ride the pool while the next K solves, and
+                    # are settled before factorize returns
+                    deferred_writes.append((k, futs, batch, dev))
+                else:
+                    self._memo_spectra_stack(k, [f.result() for f in futs],
+                                             batch, gene_index, dev=dev)
+
+            def defer(entries, packed, fetch):
+                self._defer_packed(entries, packed, fetch, gene_index,
+                                   add_phase)
+
+            try:
+                stages.factorize_grid(
+                    X_host, Xd, grid, nmf_kwargs, write,
+                    restart_chunk=restart_chunk, mesh=mesh,
+                    device_init=device_init, x_mean=x_mean, report=report,
+                    phases=phases, phases_lock=self._phases_lock,
+                    twin=solvers.device_spectra_enabled(self.device),
+                    defer=defer if defer_ok else None)
+            finally:
+                settle_writes()
+        if verbose and phases is not None:
+            print("[Worker %d] phases %s" % (worker_i, " ".join(
+                "%s %s" % (key, ("%.3f" % v) if isinstance(v, float) else v)
+                for key, v in phases.items())))
+
+    def _write_iter_spectra(self, k, it, rows, path, gene_index):
+        """One restart's (k × G) spectra to its per-iteration npz file, at
+        the solver's dtype, its frame memoized with the write's stat;
+        returns (iter, path, stat). The frame is made on the thread that
+        writes it."""
+        frame = pd.DataFrame(rows, index=np.arange(1, k + 1),
+                             columns=gene_index)
+        st = save_df_to_npz(frame, path)
+        self._memo_artifact(path, frame, frame.values.nbytes, stat=st)
+        return int(it), path, st
+
+    def _defer_packed(self, entries, packed, fetch, gene_index, add_phase):
+        """The deferred packed drain (cnmf_tpu/pipeline/cnmf.py:1671-1769):
+        register each K's stack memo as a ``_PendingBatch`` with pending
+        file stats and its twin in ``packed``, and queue one writer task for
+        every per-iteration path, so that factorize returns before the copy
+        (started at the pack) has landed. The task waits for the bytes
+        (``fetch``), fills every placeholder before any file write, then
+        writes the files and settles their stats. A failed
+        copy drops the placeholders' memo entries and raises in the task,
+        where readers of the files join it."""
+        G = int(packed.shape[1])
+        itemsize = packed.element_size()
+        registered, paths_all = [], []
+        for k, iters, off, B in entries:
+            pb = _PendingBatch((B, k, G), B * k * G * itemsize)
+            stats = [(int(it), self.paths["iter_spectra"] % (k, int(it)),
+                      self._PENDING_STAT) for it in iters]
+            ok = self._memo_spectra_stack(k, stats, pb, gene_index,
+                                          dev=(packed, off, B * k))
+            registered.append((k, [int(it) for it in iters], off, B,
+                               pb if ok else None))
+            paths_all.extend(path for _, path, _ in stats)
+        add_phase("result_bytes",
+                  sum(B * k for k, _, _, B in entries) * G * itemsize)
+        def drain_task():
+            try:
+                arr = fetch.wait()
+            except BaseException:
+                with _MEMO_LOCK:
+                    memo = getattr(self, "_stack_memo", None) or {}
+                    for k, _, _, _, pb in registered:
+                        if pb is not None and memo.get(k, (0, 0, None))[2] is pb:
+                            del memo[k]
+                            self._stack_memo_bytes -= pb.nbytes
+                for *_, pb in registered:
+                    if pb is not None:
+                        pb.event.set()
+                raise
+            batches = [arr[off:off + B * k].reshape(B, k, G)
+                       for k, _, off, B, _ in registered]
+            # every placeholder first: a blocked reader goes on as soon as
+            # the bytes are here
+            for (k, _, _, _, pb), batch in zip(registered, batches):
+                if pb is None:
+                    continue
+                pb.value = batch
+                with _MEMO_LOCK:
+                    memo = getattr(self, "_stack_memo", None) or {}
+                    entry = memo.get(k)
+                    if entry is not None and entry[2] is pb:
+                        memo[k] = (entry[0], entry[1], batch, entry[3])
+                pb.event.set()
+            for (k, iters, _, _, _), batch in zip(registered, batches):
+                for i, it in enumerate(iters):
+                    path = self.paths["iter_spectra"] % (k, it)
+                    st = self._write_iter_spectra(k, it, batch[i], path,
+                                                  gene_index)[2]
+                    self._settle_stack_stat(k, it, path, st)
+
+        self._submit_pending_write(paths_all[0], drain_task,
+                                   extra_paths=paths_all[1:])
 
     def _factorize_inputs(self, norm_counts):
         """(the inits' host source, the dense device tensor) of the
@@ -691,7 +1228,9 @@ class cNMF:
         one device anyway, factorize derives both in one pass
         (``derive_norm_and_tpm``) and seeds the consensus TPM cache. The
         device tensor also seeds the consensus cache of the normalized
-        counts when it fits 2 GB and consensus keeps one device."""
+        counts when it fits 2 GB and consensus keeps one device. Returns
+        (the host source, the device tensor, the bytes that crossed to the
+        device)."""
         X = norm_counts.X
         X_host, Xd = None, None
         nstash = getattr(self, "_norm_compact", None)
@@ -701,7 +1240,7 @@ class cNMF:
                 and solvers.device_norm_enabled(self.device)):
             _, ints, cols, std = nstash
             stashed_csr = getattr(self, "_ints_csr", None)
-            ints_dev, _ = device_tpm.upload_int_image(
+            ints_dev, link_bytes = device_tpm.upload_int_image(
                 ints, stashed_csr[1] if stashed_csr is not None
                 and stashed_csr[0] is ints else device_tpm._COMPUTE_CSR,
                 self.device)
@@ -717,12 +1256,17 @@ class cNMF:
             else:
                 Xd = device_tpm.norm_from_counts(ints_dev, cols_d, std_d)
             X_host = np.ascontiguousarray(X, dtype=self.compute_dtype)
+            link_bytes += cols.nbytes + std.nbytes
         else:
             X_host, Xd = self._solve_inputs(X)
+            link_bytes = (X.data.nbytes + X.indices.nbytes + X.indptr.nbytes
+                          if sp.issparse(X) and device_densify_eligible(
+                              X, self.compute_dtype, self.device)
+                          else Xd.numel() * Xd.element_size())
         if (Xd.numel() * Xd.element_size() < 2e9
                 and self._cell_devices() is None):
             self._norm_counts_dev_cache = (weakref.ref(norm_counts), Xd)
-        return X_host, Xd
+        return X_host, Xd, link_bytes
 
     def factorize_multi_process(self, total_workers=None):
         """Compat shim: the batched solve replaces the reference's
@@ -774,21 +1318,37 @@ class cNMF:
             ks = sorted(set(run_params.n_components))
         else:
             ks = components
-        for k in ks:
-            self.combine_nmf(k, skip_missing_files=skip_missing_files)
+        # the K are independent (disjoint files): memo recalls and npz IO,
+        # which threads overlap; the fan-out drops each K's frame, so a
+        # merge may wait on the writer behind a drain still queued
+        with ThreadPoolExecutor(max_workers=min(8, max(len(ks), 1))) as pool:
+            list(pool.map(lambda k: self.combine_nmf(
+                k, skip_missing_files=skip_missing_files,
+                _run_params=run_params, _defer=True), ks))
 
     def combine_nmf(self, k, skip_missing_files=False,
-                    remove_individual_iterations=False):
+                    remove_individual_iterations=False, _run_params=None,
+                    _defer=False):
         """Concatenate per-iteration spectra into the merged (n_iter·K × G)
-        stack with ``iter{r}_topic{t}`` row labels (reference cnmf.py:748-773).
-        ``remove_individual_iterations`` deletes the per-iteration files."""
-        run_params = load_df_from_npz(self.paths["nmf_replicate_parameters"])
+        stack with ``iter{r}_topic{t}`` row labels (reference cnmf.py:748-773),
+        from a same-process factorize's stack memo where it covers them (one
+        reshape, no file read), else from the files, recalled from the
+        artifact memo or read in a pool of threads. A pending write of this
+        object counts as an existing file. ``remove_individual_iterations``
+        deletes the per-iteration files (their pending writes joined first).
+        ``_run_params``: the replicate table, loaded once by ``combine``.
+        ``_defer`` (``combine``'s fan-out under CNMF_TPU_ASYNC_WRITES=1):
+        where factorize's drain is still queued, queue the merge behind it
+        on the writer and return None (cnmf_tpu/pipeline/cnmf.py:
+        2935-3089)."""
+        run_params = (_run_params if _run_params is not None else
+                      load_df_from_npz(self.paths["nmf_replicate_parameters"]))
         print("Combining factorizations for k=%d." % k)
         subset = run_params[run_params.n_components == k].sort_values("iter")
         files = []
         for _, p in subset.iterrows():
             path = self.paths["iter_spectra"] % (p["n_components"], p["iter"])
-            if os.path.exists(path):
+            if os.path.exists(path) or self._write_pending(path):
                 files.append((int(p["iter"]), path))
                 continue
             if not skip_missing_files:
@@ -800,16 +1360,62 @@ class cNMF:
         if not files:
             print("No spectra found for k=%d" % k)
             return []
-        frames = [load_df_from_npz(path) for _, path in files]
+        async_writes = solvers.async_writes_enabled()
+        defer = _defer and not remove_individual_iterations and async_writes
+        stack = self._recall_spectra_stack(k, files, join=not defer)
+        timing_note(f"combine k={k}: stack memo "
+                    f"{'hit' if stack is not None else 'MISS'}")
+        if stack is not None:
+            values, columns, dev_twin = stack
+            if isinstance(values, _PendingBatch):
+                return self._defer_merged_write(k, values, columns, files,
+                                                dev_twin)
+        else:
+            dev_twin = None
+
+            def read_one(f):
+                hit = self._recall_artifact(f[1], copy=False)
+                if hit is not None:
+                    return hit
+                self._flush_pending_write(f[1])
+                return load_df_from_npz(f[1])
+
+            with ThreadPoolExecutor(max_workers=8) as pool:
+                frames = list(pool.map(read_one, files))
+            values = stages.combine_arrays([f.values for f in frames])
+            columns = frames[0].columns
         combined = pd.DataFrame(
-            stages.combine_arrays([f.values for f in frames]),
-            index=["iter%d_topic%d" % (it, t + 1) for it, _ in files
-                   for t in range(k)],
-            columns=frames[0].columns,
-        )
-        save_df_to_npz(combined, self.paths["merged_spectra"] % k)
+            values, index=["iter%d_topic%d" % (it, t + 1) for it, _ in files
+                           for t in range(k)],
+            columns=columns, copy=False)
+        merged_path = self.paths["merged_spectra"] % k
+        # the memo keeps a copy-on-write slice: a caller that changes the
+        # returned frame does not change what consensus recalls
+        memo_frame = combined[:]
+        if async_writes:
+            stored = self._memo_artifact(merged_path, memo_frame,
+                                         values.nbytes, stat=self._PENDING_STAT)
+            if stored:
+                def write_merged():
+                    st = save_df_to_npz(combined, merged_path)
+                    self._settle_artifact_stat(merged_path, memo_frame, st)
+
+                self._submit_pending_write(merged_path, write_merged)
+            else:
+                # readers would go to the file: write it now
+                save_df_to_npz(combined, merged_path)
+        else:
+            stored = self._memo_artifact(merged_path, memo_frame,
+                                         values.nbytes,
+                                         stat=save_df_to_npz(combined,
+                                                             merged_path))
+        if dev_twin is not None and stored:
+            self._register_twin(merged_path, memo_frame, dev_twin)
         if remove_individual_iterations:
             for _, path in files:
+                # a queued write would create the file again after the
+                # delete
+                self._flush_pending_write(path)
                 os.remove(path)
         return combined
 
@@ -900,18 +1506,47 @@ class cNMF:
         on the host (``stages.consensus_arrays``' atlas branches). The
         normalized counts and the TPM stay on the device until
         ``clear_device_caches``. ``CNMF_TPU_TIMINGS=1`` prints the
-        sub-stages' seconds."""
-        merged = load_df_from_npz(self.paths["merged_spectra"] % k)
+        sub-stages' seconds.
+
+        The merged spectra come from the artifact memo of a same-process
+        combine, else from a deferred merge's registration (the drain still
+        queued: only its index, columns and twin), else from the file. The
+        whole chain on the device takes the twin where
+        ``solvers.device_spectra_enabled`` (cnmf_tpu/pipeline/cnmf.py:3373),
+        so the merged spectra are not uploaded again; other paths take the
+        host values, joining a queued merge. Under CNMF_TPU_ASYNC_WRITES=1
+        the ten result files and the starCAT reference are written on the
+        background writer. Consensus ends by releasing the held drains."""
+        merged_path = self.paths["merged_spectra"] % k
+        merged = self._recall_artifact(merged_path, copy=False)
+        meta = None if merged is not None else self._deferred_merged_meta(
+            merged_path)
+
+        def host_merged():
+            nonlocal merged
+            if merged is None:
+                self._flush_pending_write(merged_path)
+                merged = self._recall_artifact(merged_path, copy=False)
+                if merged is None:
+                    merged = load_df_from_npz(merged_path)
+            return merged
+
+        if meta is None:
+            host_merged()
+        spectra_index = merged.index if merged is not None else meta[0]
+        spectra_columns = merged.columns if merged is not None else meta[1]
         if norm_counts is None:
             norm_counts = self._read_h5ad_cached(
                 self.paths["normalized_counts"])
         nmf_kwargs = self._load_run_params()
         if skip_density_and_return_after_stats:
-            silhouette, error = self._dispatch_k_stats(k, merged.values,
+            spectra_in, _ = self._k_stats_spectra_input(k)
+            silhouette, error = self._dispatch_k_stats(k, spectra_in,
                                                        nmf_kwargs, norm_counts)
-            return pd.DataFrame(
+            row = pd.DataFrame(
                 [k, density_threshold, float(silhouette), float(error)],
                 index=K_STATS_FIELDS, columns=["stats"])
+            return row
 
         density_path = self.paths["local_density_cache"] % k
         local_density = (load_df_from_npz(density_path).values[:, 0]
@@ -938,11 +1573,20 @@ class cNMF:
         # density cached before the filter applies
         whole_chain = (resident and solvers.fused_consensus_enabled()
                        and solvers.device_kmeanspp_enabled(self.device))
+        spectra_in = None
+        if whole_chain and solvers.device_spectra_enabled(self.device):
+            if merged is None and meta[3] is not None:
+                packed, off, rows = meta[3]
+                spectra_in = packed[off:off + rows]
+            else:
+                spectra_in = self._device_spectra_twin(k, merged)
+        if spectra_in is None:
+            spectra_in = host_merged().values
         if local_density is None and not whole_chain:
             local_density = stages.spectra_local_density(
-                merged.values, k, self.device,
+                spectra_in, k, self.device,
                 torch_dtype(self.compute_dtype), local_neighborhood_size)
-            self._save_local_density(local_density, merged.index, k)
+            self._save_local_density(local_density, spectra_index, k)
         norm_counts_dev = self._device_cached(
             "_norm_counts_dev_cache", norm_counts,
             lambda: self._put_cells(norm_counts.X))
@@ -951,7 +1595,7 @@ class cNMF:
                    if resident else tpm.X)
         sub_stages = {} if timings_verbose() else None
         result = stages.consensus_arrays(
-            merged.values, k, norm_counts_dev, tpm_src,
+            spectra_in, k, norm_counts_dev, tpm_src,
             tpm_stats["__std"].values, hvg_idx, nmf_kwargs,
             density_threshold=density_threshold,
             local_neighborhood_size=local_neighborhood_size,
@@ -963,29 +1607,26 @@ class cNMF:
             timings=sub_stages,
         )
         if local_density is None:
-            self._save_local_density(result.local_density, merged.index, k)
+            self._save_local_density(result.local_density, spectra_index, k)
         if sub_stages is not None:
-            print(f"[cnmf-tpu timing] consensus k={k}: " + " ".join(
-                f"{label} {sec:.2f}s" for label, sec in sub_stages.items()),
-                file=sys.stderr, flush=True)
+            timing_note(f"consensus k={k}: " + " ".join(
+                f"{label} {sec:.2f}s" for label, sec in sub_stages.items()))
 
         gep_ids = np.arange(1, result.spectra.shape[0] + 1)
-        median_spectra = pd.DataFrame(result.spectra, index=gep_ids,
-                                      columns=merged.columns)
-        usages = pd.DataFrame(result.usages, index=norm_counts.obs.index,
-                              columns=gep_ids)
-        spectra_tpm = pd.DataFrame(result.spectra_tpm, index=gep_ids,
-                                   columns=tpm.var.index)
-        spectra_score = pd.DataFrame(result.spectra_score, index=gep_ids,
-                                     columns=tpm.var.index)
-        for frame, key in (
-            (median_spectra, "consensus_spectra"),
-            (usages, "consensus_usages"),
-            (spectra_tpm, "gene_spectra_tpm"),
-            (spectra_score, "gene_spectra_score"),
-        ):
-            save_df_to_npz(frame, self.paths[key] % (k, dt_tag))
-            save_df_to_text(frame, self.paths[key + "__txt"] % (k, dt_tag))
+        frames = {
+            "consensus_spectra": pd.DataFrame(result.spectra, index=gep_ids,
+                                              columns=spectra_columns),
+            "consensus_usages": pd.DataFrame(result.usages,
+                                             index=norm_counts.obs.index,
+                                             columns=gep_ids),
+            "gene_spectra_tpm": pd.DataFrame(result.spectra_tpm,
+                                             index=gep_ids,
+                                             columns=tpm.var.index),
+            "gene_spectra_score": pd.DataFrame(result.spectra_score,
+                                               index=gep_ids,
+                                               columns=tpm.var.index),
+        }
+        self._write_results(frames, (k, dt_tag))
 
         if show_clustering:
             from cnmf_tpu_torch.pipeline.plots import clustergram
@@ -1001,8 +1642,47 @@ class cNMF:
                 self.paths["clustering_plot"] % (k, dt_tag),
                 close_fig=close_clustergram_fig,
             )
-        if build_ref:
+        if build_ref and solvers.async_writes_enabled():
+            # queued behind the result files on the one FIFO writer, so the
+            # TPM spectra text it reads back is on disk when it runs
+            self._submit_pending_write(
+                self.paths["starcat_spectra"] % (k, dt_tag),
+                lambda: self.build_reference(k, density_threshold),
+                extra_paths=(self.paths["starcat_spectra__txt"]
+                             % (k, dt_tag),))
+        elif build_ref:
             self.build_reference(k, density_threshold)
+
+    def _write_results(self, frames, key_args):
+        """Each frame of ``frames`` ({path key: frame}) as npz and text
+        (cnmf_tpu/pipeline/cnmf.py:3571-3627): on the background writer
+        under CNMF_TPU_ASYNC_WRITES=1, each npz frame memoized as pending
+        (one the memo declines is written now: readers would go to the
+        file), else from a pool of threads before returning."""
+        writes = [(save, frame, self.paths[key + suffix] % key_args)
+                  for key, frame in frames.items()
+                  for save, suffix in ((save_df_to_npz, ""),
+                                       (save_df_to_text, "__txt"))]
+        if not solvers.async_writes_enabled():
+            with ThreadPoolExecutor(max_workers=8) as pool:
+                list(pool.map(lambda w: w[0](w[1], w[2]), writes))
+            return
+        for save, frame, path in writes:
+            if save is save_df_to_npz:
+                if not self._memo_artifact(path, frame, frame.values.nbytes,
+                                           stat=self._PENDING_STAT):
+                    save(frame, path)
+                    continue
+
+                def write_npz(frame=frame, path=path):
+                    self._settle_artifact_stat(
+                        path, frame, save_df_to_npz(frame, path))
+
+                self._submit_pending_write(path, write_npz)
+            else:
+                self._submit_pending_write(
+                    path, lambda save=save, frame=frame, path=path:
+                    save(frame, path))
 
     def _save_local_density(self, local_density, index, k):
         save_df_to_npz(pd.DataFrame(local_density, columns=["local_density"],
@@ -1025,12 +1705,41 @@ class cNMF:
         return stages.k_stats_dispatch(k, spectra, norm_counts_dev,
                                        nmf_kwargs)
 
+    def _k_stats_spectra_input(self, k):
+        """The spectra one K of the k-stats sweep takes, and the merged
+        frame or None (cnmf_tpu/pipeline/cnmf.py:3780-3813): the raw twin
+        on the device where a same-process factorize left one and both
+        ``device_spectra_enabled`` and ``device_kmeanspp_enabled`` apply
+        (the device chain seeds its KMeans there), from a deferred merge's
+        registration when the drain is still queued; else the merged
+        spectra's host values (joining a queued merge)."""
+        merged_path = self.paths["merged_spectra"] % k
+        merged = self._recall_artifact(merged_path, copy=False)
+        if (solvers.device_spectra_enabled(self.device)
+                and solvers.device_kmeanspp_enabled(self.device)):
+            if merged is None:
+                meta = self._deferred_merged_meta(merged_path)
+                if meta is not None and meta[3] is not None:
+                    packed, off, rows = meta[3]
+                    return packed[off:off + rows], None
+            else:
+                twin = self._device_spectra_twin(k, merged)
+                if twin is not None:
+                    return twin, merged
+        if merged is None:
+            self._flush_pending_write(merged_path)
+            merged = self._recall_artifact(merged_path, copy=False)
+            if merged is None:
+                merged = load_df_from_npz(merged_path)
+        return merged.values, merged
+
     @timed("k_selection_plot")
     def k_selection_plot(self, close_fig=False):
         """Stability (silhouette) vs reconstruction-error sweep over every K
         of the run (reference cnmf.py:1119-1158; Alexandrov et al. 2013):
         writes the ``k_selection_stats`` table and the ``k_selection_plot``
-        figure and returns the table."""
+        figure and returns the table. Every K is queued before any is read;
+        the held drains are released once all are read."""
         from cnmf_tpu_torch.pipeline.plots import k_selection_figure
 
         run_params = load_df_from_npz(self.paths["nmf_replicate_parameters"])
@@ -1038,8 +1747,8 @@ class cNMF:
         nmf_kwargs = self._load_run_params()
         pending = [
             (int(k), *self._dispatch_k_stats(
-                k, load_df_from_npz(self.paths["merged_spectra"] % k).values,
-                nmf_kwargs, norm_counts))
+                k, self._k_stats_spectra_input(k)[0], nmf_kwargs,
+                norm_counts))
             for k in sorted(set(run_params.n_components))
         ]
         stats = pd.DataFrame(
@@ -1063,8 +1772,11 @@ class cNMF:
 
         Contract quirk kept (reference cnmf.py:1085-1116): the TPM spectra
         reload from the TEXT file, not the npz, so the float round-trip
-        through the txt formatting is part of the output."""
+        through the txt formatting is part of the output. A pending write of
+        that text is joined first."""
         dt_tag = str(density_threshold).replace(".", "_")
+        self._flush_pending_write(
+            self.paths["gene_spectra_tpm__txt"] % (k, dt_tag))
         geps = pd.read_csv(
             self.paths["gene_spectra_tpm__txt"] % (k, dt_tag), index_col=0, sep="\t"
         )
@@ -1096,6 +1808,7 @@ class cNMF:
         dt_tag = str(density_threshold).replace(".", "_")
 
         def read_t(key):
+            self._flush_pending_write(self.paths[key] % (K, dt_tag))
             return pd.read_csv(self.paths[key] % (K, dt_tag), sep="\t",
                                index_col=0)
 

@@ -31,7 +31,9 @@ products-given solve of the over-limit atlas consensus.
 The knobs of the one-program consensus and the compact TPM resolve here
 too (``fused_consensus_enabled``, ``device_tpm_enabled``,
 ``prefetch_tpm_enabled``, ``device_norm_enabled``; CNMF_TPU_CSR_UPLOAD's
-is ``ops.device_tpm.csr_upload_enabled``, where the JAX package has it).
+is ``ops.device_tpm.csr_upload_enabled``, where the JAX package has it),
+and those of the stage hand-off (``device_spectra_enabled``,
+``async_writes_enabled``, ``phases_enabled``).
 """
 
 from __future__ import annotations
@@ -229,6 +231,34 @@ def device_norm_enabled(device=None) -> bool:
     if device is None:
         return torch.cuda.is_available()
     return torch.device(device).type == "cuda"
+
+
+def device_spectra_enabled(device=None) -> bool:
+    """The CNMF_TPU_DEVICE_SPECTRA knob (cnmf_tpu/pipeline/solvers.py:
+    288-307): whether factorize leaves its packed true-K spectra on
+    ``device`` as the twin that a same-process consensus and k-selection
+    take instead of uploading the merged spectra again (normalized there:
+    one reduction reordered, about 1e-7 relative in float32), and whether
+    ``CNMF_TPU_ASYNC_WRITES=1`` defers factorize's drain to the background
+    writer. '0' off, 'force' on for any device, '1' (default) on a CUDA
+    card only."""
+    return _accelerator_knob("CNMF_TPU_DEVICE_SPECTRA", device)
+
+
+def async_writes_enabled() -> bool:
+    """The CNMF_TPU_ASYNC_WRITES knob: '1' puts the stages' artifact writes
+    on one background writer thread (``cNMF.flush_writes`` joins them); any
+    other value, the library default '0', writes them before each stage
+    returns. The CLI sets it to '1' for its command."""
+    return os.environ.get("CNMF_TPU_ASYNC_WRITES", "0") == "1"
+
+
+def phases_enabled() -> bool:
+    """The CNMF_TPU_PHASES knob: '1' splits factorize's wall into upload,
+    init, dispatch, solve wait, result fetch and write
+    (``cNMF._factorize_phases``), at the cost of one stream barrier before
+    each timed fetch."""
+    return os.environ.get("CNMF_TPU_PHASES", "0") == "1"
 
 
 def ladder_rungs(X: torch.Tensor, B: int, K: int, nmf_kwargs: dict,

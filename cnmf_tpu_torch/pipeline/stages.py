@@ -7,7 +7,9 @@ files; they can also be driven directly on in-memory data:
   ``replicate_seeds`` and ``nmf_run_params``: the replicate grid and the
   solver kwargs;
 * ``factorize_k``: every restart of one K as one batched solve (CD or MU, as
-  the kwargs say), on the device ladder on CUDA;
+  the kwargs say), on the device ladder on CUDA; ``factorize_grid``: every
+  K of a run, their spectra packed on the device and fetched in one copy,
+  handed to a write callback per K;
 * ``combine_arrays``: the per-restart spectra stacked into the merged matrix;
 * ``consensus_arrays``: KNN density filter, KMeans, cluster medians, the
   fixed-factor refits and the z-score OLS, dispatched as
@@ -29,6 +31,7 @@ package's TPU) the random inits are drawn on the device from threefry keys
 from __future__ import annotations
 
 import functools
+import threading
 import time
 from dataclasses import dataclass
 from typing import Optional, Sequence
@@ -55,7 +58,7 @@ from cnmf_tpu_torch.ops.kstats import (
     consensus_k_stats,
     consensus_k_stats_device,
 )
-from cnmf_tpu_torch.ops.nmf import BLOCK
+from cnmf_tpu_torch.ops.nmf import BLOCK, pack_spectra_true_k
 from cnmf_tpu_torch.ops.normalize import (
     csr_column_subset,
     normalize_total,
@@ -74,11 +77,13 @@ from cnmf_tpu_torch.pipeline.solvers import (
     fused_consensus_enabled,
     refit_spectra_transposed,
     refit_usages,
+    restart_axis_pays,
     solve_nmf_batch,
     solve_nmf_batch_ladder,
     solve_nmf_batch_sharded,
     solve_nmf_ladder_sharded,
 )
+from cnmf_tpu_torch.utils.arena import host_arena
 from cnmf_tpu_torch.utils.timing import stage_timer, sub_stage_marker
 
 # the consensus / K-selection default density threshold (reference
@@ -106,10 +111,17 @@ def normalize_hvgs(counts, hvg_idx, zero_safe: bool):
     (reference cnmf.py:537-544): ``zero_safe`` follows the TPM's kind."""
     if sp.issparse(counts):
         sub = csr_column_subset(sp.csr_matrix(counts), np.asarray(hvg_idx))
+        norm = scale_unit_variance(sub.astype(np.float64), ddof=1,
+                                   zero_safe=zero_safe)
     else:
+        # the float64 cast lands in an arena buffer (reused under
+        # CNMF_TPU_HOST_ARENA=1) and the scale
+        # divides it in place (cnmf_tpu/pipeline/cnmf.py:1000-1011)
         sub = np.asarray(counts)[:, hvg_idx]
-    norm = scale_unit_variance(sub.astype(np.float64), ddof=1,
-                               zero_safe=zero_safe)
+        casted = host_arena.take(sub.shape, np.float64)
+        np.copyto(casted, sub)
+        norm = scale_unit_variance(casted, ddof=1, zero_safe=zero_safe,
+                                   inplace=True)
     values = norm.data if sp.issparse(norm) else norm
     if np.isnan(values).any():
         print("Warning NaNs in normalized counts matrix")
@@ -230,7 +242,7 @@ def factorize_k(X_host, Xd: torch.Tensor, k: int, seeds,
                 ladder: Optional[bool] = None,
                 timings: Optional[dict] = None, mesh=None,
                 device_init: Optional[bool] = None,
-                x_mean: Optional[float] = None):
+                x_mean: Optional[float] = None, fetch: bool = True):
     """All restarts of one K, one batched solve per restart chunk on Xd's
     device, K zero-padded to its bucket of 8 (the padded columns start at
     zero and stay there), dispatched as cnmf_tpu/pipeline/cnmf.py:2095-2170.
@@ -262,7 +274,10 @@ def factorize_k(X_host, Xd: torch.Tensor, k: int, seeds,
     (B, k, G), n_iter (B,)) as host arrays and the restart-sweeps the device
     executed: the ladder's Σ rung · sweeps at it, the plain solver's
     B · min(max_iter, its sweep blocks) for each batch that ran (a restart
-    group's own on a mesh, padding restarts included)."""
+    group's own on a mesh, padding restarts included). ``fetch=False``:
+    the spectra stay on the device instead, a list of one (B, pad_k, G)
+    tensor a chunk, rows past k zero, with a list of the chunks' n_iter
+    tensors (``factorize_grid`` packs them for one copy)."""
     init = nmf_kwargs.get("init", "random")
     seeds = np.asarray(seeds)
     B = len(seeds)
@@ -298,7 +313,6 @@ def factorize_k(X_host, Xd: torch.Tensor, k: int, seeds,
             solve = (solve_nmf_batch_ladder if mesh is None else
                      functools.partial(solve_nmf_ladder_sharded, mesh))
             spec, n_iter, (rungs, sweeps) = solve(Xd, W0, Ht0, nmf_kwargs)
-            spec = spec[:, :k]
             executed += sum(r * s for r, s in zip(rungs, sweeps))
         else:
             if mesh is None:
@@ -306,12 +320,18 @@ def factorize_k(X_host, Xd: torch.Tensor, k: int, seeds,
             else:
                 _, Ht, n_iter = solve_nmf_batch_sharded(mesh, Xd, W0, Ht0,
                                                         nmf_kwargs)
-            spec = Ht[:, :, :k].transpose(1, 2)
+            spec = Ht.transpose(1, 2)
             groups = 1 if mesh is None else mesh.shape["restart"]
             executed += _plain_executed(n_iter.cpu().numpy(), groups,
                                         max_iter)
-        spectra.append(spec.cpu().numpy())
+        if not fetch:
+            spectra.append(spec)
+            n_iters.append(n_iter)
+            continue
+        spectra.append(spec[:, :k].cpu().numpy())
         n_iters.append(n_iter.cpu().numpy())
+    if not fetch:
+        return spectra, n_iters, executed
     return np.concatenate(spectra), np.concatenate(n_iters), executed
 
 
@@ -350,6 +370,154 @@ def _plain_executed(n_iter: np.ndarray, groups: int, max_iter: int) -> int:
     per = pad_to_multiple(n_iter, groups)[0].reshape(groups, -1)
     blocks = -(-per.max(axis=1) // BLOCK)
     return int((per.shape[1] * np.minimum(max_iter, BLOCK * blocks)).sum())
+
+
+def pipeline_all_fits(jobs, n_cells: int, itemsize: int) -> bool:
+    """Whether every K's solve may stay on the device until the grid is done
+    (cnmf_tpu/pipeline/cnmf.py:1472-1482): the factors of all K together,
+    2 · Σ pad_k · B · cells · itemsize bytes, under 2e9. ``jobs``: [(k,
+    seeds, iters)]. Else each K is fetched and written before the next."""
+    total = sum(pad_bucket(int(k)) * len(seeds) for k, seeds, _ in jobs)
+    return 2 * total * n_cells * itemsize < 2e9
+
+
+class HostFetch:
+    """One device-to-host copy of ``src``, started at construction
+    (cnmf_tpu/pipeline/cnmf.py:1627-1670, 1985, 2005). On a CUDA tensor: an
+    event recorded on the current stream, the one the solves ran on, gates
+    a copy on a side stream into pinned host memory (``non_blocking``).
+    ``src`` is marked as used on the side stream and held by this object,
+    so that the caching allocator cannot give its memory to a later solve
+    while the copy reads it. ``wait()``, from any thread, waits for the
+    copy's event and returns the host array, a numpy view that keeps the
+    pinned buffer alive. On the CPU the host array is the tensor's own
+    memory."""
+
+    def __init__(self, src: torch.Tensor):
+        self.src = src
+        self._done = None
+        if src.device.type != "cuda":
+            self._host = src.contiguous().numpy()
+            return
+        with torch.cuda.device(src.device):
+            ready = torch.cuda.Event()
+            ready.record(torch.cuda.current_stream(src.device))
+            side = torch.cuda.Stream(src.device)
+            side.wait_event(ready)
+            host = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
+            with torch.cuda.stream(side):
+                host.copy_(src, non_blocking=True)
+            src.record_stream(side)
+            self._done = torch.cuda.Event()
+            self._done.record(side)
+        self._host = host.numpy()
+
+    def wait(self) -> np.ndarray:
+        if self._done is not None:
+            self._done.synchronize()
+        return self._host
+
+
+def stream_barrier(t: torch.Tensor) -> None:
+    """Wait for the work queued on the current stream of ``t``'s device (the
+    solves), and nothing else: the phase split's barrier."""
+    if t.device.type == "cuda":
+        torch.cuda.current_stream(t.device).synchronize()
+
+
+def factorize_grid(X_host, Xd: torch.Tensor, jobs, nmf_kwargs: dict, write,
+                   *, restart_chunk: Optional[int] = None, mesh=None,
+                   device_init: Optional[bool] = None,
+                   x_mean: Optional[float] = None, report=None,
+                   phases: Optional[dict] = None, phases_lock=None,
+                   twin: bool = False, defer=None) -> dict:
+    """Every K of ``jobs`` ([(k, seeds, iters)], each K's restart seeds and
+    iteration numbers), dispatched as cnmf_tpu/pipeline/cnmf.py:1463-2021
+    (its default path; the staged and grid schedules are opt-in there and
+    not ported): ``factorize_k`` on each K, in ascending K.
+
+    Where every K's results may stay on the device (``pipeline_all_fits``)
+    and neither ``restart_chunk`` nor ``mesh`` splits a solve, the spectra
+    stay there until the last K is solved, and then every K's true-K rows
+    are packed into one tensor (``ops.nmf.pack_spectra_true_k``), which
+    crosses to the host in one copy (``HostFetch``) and is split back per K
+    by reshapes. Otherwise each K is fetched as it finishes
+    (``factorize_k``'s fetch).
+
+    ``write(k, iters, batch, dev)`` receives each K's host spectra (B, k,
+    G) in ``iters``' order, and ``dev`` = (packed tensor, first row, rows)
+    locating them in the pack on the device where ``twin``, else None.
+    ``defer(entries, packed, fetch)``: given, it takes over the pack
+    instead of the drain here (entries [(k, iters, first row, B)]; the
+    copy started, not yet waited for). ``mesh``: a ``parallel.mesh.Mesh``,
+    taken for the K where ``solvers.restart_axis_pays``. ``report(k, B,
+    seconds, timings, mesh_k, n_iter, executed)`` is called after each K's
+    solve. ``phases``: a dict whose init_s, dispatch_s, solve_wait_s,
+    result_fetch_s, write_s and result_bytes entries gain this grid's
+    share (under ``phases_lock`` when given); the copy then starts after
+    the barrier that ends solve_wait_s. Returns {k: (n_iter (B,), executed
+    restart-sweeps)}."""
+    lock = phases_lock or threading.Lock()
+
+    def add(key, value):
+        if phases is not None:
+            with lock:
+                phases[key] += value
+
+    pack_ok = (pipeline_all_fits(jobs, X_host.shape[0], Xd.element_size())
+               and restart_chunk is None and mesh is None)
+    sweeps, solved = {}, []
+    for k, seeds, iters in sorted(jobs, key=lambda job: int(job[0])):
+        k, seeds, iters = int(k), np.asarray(seeds), np.asarray(iters)
+        mesh_k = (mesh if mesh is not None and restart_axis_pays(
+            mesh, Xd.shape, len(seeds), k) else None)
+        timings = {}
+        t0 = time.perf_counter()
+        spec, n_iter, executed = factorize_k(
+            X_host, Xd, k, seeds, nmf_kwargs,
+            restart_chunk=restart_chunk, timings=timings, mesh=mesh_k,
+            device_init=device_init, x_mean=x_mean, fetch=not pack_ok)
+        seconds = time.perf_counter() - t0
+        add("init_s", timings["init"])
+        add("dispatch_s", seconds - timings["init"])
+        if pack_ok:
+            n_iter = torch.cat(n_iter).cpu().numpy()
+            solved.append((k, iters, spec[0] if len(spec) == 1
+                           else torch.cat(spec)))
+        sweeps[k] = (n_iter, executed)
+        if report is not None:
+            report(k, len(seeds), seconds, timings, mesh_k, n_iter, executed)
+        if not pack_ok:
+            add("result_bytes", spec.nbytes)
+            t0 = time.perf_counter()
+            write(k, iters, spec, None)
+            add("write_s", time.perf_counter() - t0)
+    if not solved:
+        return sweeps
+    packed = pack_spectra_true_k(tuple(h for _, _, h in solved),
+                                 ks=tuple(k for k, _, _ in solved))
+    entries, off = [], 0
+    for k, iters, h in solved:
+        entries.append((k, iters, off, h.shape[0]))
+        off += h.shape[0] * k
+    if defer is not None:
+        defer(entries, packed, HostFetch(packed))
+        return sweeps
+    t0 = time.perf_counter()
+    if phases is not None:
+        stream_barrier(packed)
+    t1 = time.perf_counter()
+    arr = HostFetch(packed).wait()
+    t2 = time.perf_counter()
+    add("solve_wait_s", t1 - t0)
+    add("result_fetch_s", t2 - t1)
+    add("result_bytes", arr.nbytes)
+    G = arr.shape[1]
+    for k, iters, off, B in entries:
+        write(k, iters, arr[off:off + B * k].reshape(B, k, G),
+              (packed, off, B * k) if twin else None)
+    add("write_s", time.perf_counter() - t2)
+    return sweeps
 
 
 def combine_arrays(spectra: Sequence[np.ndarray]) -> np.ndarray:

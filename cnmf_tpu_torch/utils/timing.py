@@ -52,6 +52,14 @@ def stage_timer(name: str, device=None):
                   flush=True)
 
 
+def note(text: str) -> None:
+    """Print one ``[cnmf-tpu timing]`` line to stderr when CNMF_TPU_TIMINGS=1
+    (e.g. combine's "stack memo hit" or "MISS" for each K,
+    cnmf_tpu/pipeline/cnmf.py:2992-2996)."""
+    if timings_verbose():
+        print(f"[cnmf-tpu timing] {text}", file=sys.stderr, flush=True)
+
+
 def sub_stage_marker(timings: Optional[dict]) -> Callable[[str], None]:
     """A ``mark(label)`` that records in ``timings`` (a dict; None records
     nothing) the seconds since the previous mark, or since the marker was

@@ -1,6 +1,9 @@
 """A fixture the port's CPU test modules share: the knobs of the
-threefry-seeded paths, the one-program consensus and the compact TPM unset
-for a module, so its runs take the CPU's defaults — the host's
+threefry-seeded paths, the one-program consensus, the compact TPM and the
+stage hand-off (the spectra twin, the background writer and its drain,
+the packing, the arena, the phase split, the storage dtype, the npz codec;
+CNMF_TPU_DRAIN_HOLD_S and CNMF_TPU_PACK_ALL are the JAX package's alone,
+read by its parity runs) unset for a module, so its runs take the CPU's defaults — the host's
 sklearn-exact draws (``solvers.device_init_enabled``,
 ``device_kmeanspp_enabled``), the one-program consensus seeded on the host,
 the TPM prefetch — whatever an earlier module of the process left in the
@@ -13,7 +16,10 @@ import pytest
 KNOBS = ("CNMF_TPU_DEVICE_INIT", "CNMF_TPU_DEVICE_KMEANSPP",
          "CNMF_TPU_FUSED_CONSENSUS", "CNMF_TPU_DEVICE_TPM",
          "CNMF_TPU_PREFETCH_TPM", "CNMF_TPU_DEVICE_NORM",
-         "CNMF_TPU_CSR_UPLOAD")
+         "CNMF_TPU_CSR_UPLOAD", "CNMF_TPU_DEVICE_SPECTRA",
+         "CNMF_TPU_ASYNC_WRITES", "CNMF_TPU_DRAIN_HOLD_S",
+         "CNMF_TPU_PACK_ALL", "CNMF_TPU_HOST_ARENA", "CNMF_TPU_PHASES",
+         "CNMF_TPU_PREPARE_DTYPE", "CNMF_TPU_COMPRESS")
 
 
 @pytest.fixture(autouse=True, scope="module")
