@@ -7,7 +7,9 @@ Phases, each printing its own line(s):
 
 1. environment: the card's name and power limit, torch/CUDA versions, and
    which of pandas, h5py, yaml and matplotlib are missing;
-2. build: every kernel of csrc/ into one library (build seconds; ptxas
+2. build: every kernel of csrc/ into one library, started on a background
+   thread by cNMF's autowarm (as factorize starts it) while the main path's
+   counts are drawn, the first launch waiting for it (build seconds; ptxas
    lines of the kernel families' registers: one line for the families
    without a stack frame or spill, one for each other family with the
    builds that keep a stack frame or spill);
@@ -40,10 +42,10 @@ Phases, each printing its own line(s):
    threshold 0.5) — through cNMF(device="cuda") when pandas, h5py and yaml
    import, else through the same stages in pipeline/stages.py, on the
    default schedule (factorize draws the random inits on the card and runs
-   the device ladder; consensus seeds its KMeans on the card): one line of
-   each
-   K's wall, sweeps and executed restart-sweeps, stage walls and the CD
-   kernels' launch counts, each of which must be > 0;
+   the device ladder; consensus seeds its KMeans on the card): stage walls
+   and the CD kernels' launch counts, each of which must be > 0 (each K's
+   wall, sweeps and executed restart-sweeps are on the ``[schedule]`` line
+   of 7.);
 5. k-selection over that run's merged spectra of K=5..13: silhouette,
    prediction error and wall of each K, and the products kernel's launches;
    then ``[fused]``: consensus at K=10 on the same merged spectra as one
@@ -92,14 +94,18 @@ Phases, each printing its own line(s):
    they launch is held against plain at a shard's shapes (the cell axis'
    1,350 rows, a restart group's first ladder rung);
 7. the CD factorize of every K again with the plain solver and on the
-   device ladder, in paired turns: per K its wall, sweeps, executed
-   restart-sweeps and idle share (torch.profiler); the ladder must give the
-   plain solver's n_iter and, as the CUDA default, its bits; then the
-   kernels each ladder rung takes at the MU slices' bucket, and the batch
-   check: every
-   launch of a step gives a restart the same bits on 100 of 104 restarts in
-   place and on 56, 32 or 16 of them shuffled as inside the 104, at every
-   bucket 8..64;
+   device ladder, in paired turns, on one line: per K its walls, sweeps,
+   executed restart-sweeps and idle shares (torch.profiler); the ladder
+   must give the plain solver's n_iter and, as the CUDA default, its bits;
+   then the kernels each ladder rung takes at the MU slices' bucket, and
+   the batch check: every launch of a step gives a restart the same bits on
+   100 of 104 restarts in place and on 56, 32 or 16 of them shuffled as
+   inside the 104, at every bucket 8..64; then ``[sched]``
+   (phase_sched): the grid through stages.factorize_grid on the staged,
+   merged-grid and compacted schedules against the default per-K path,
+   n_iter equal at every restart and the spectra's bits (or, where the
+   staged merge changes a restart's kernel bucket, consensus within
+   SCHED_SSE), and the autowarm's timeline;
 8. the KL path at bench.py's KL configuration — the same counts, K=10 × 100
    restarts with beta_loss="kullback-leibler" and at most 200 iterations,
    combine, consensus at K=10 — through pipeline/stages.py: stage walls,
@@ -660,6 +666,34 @@ def phase_mu_kernels(dev):
     return records
 
 
+def phase_autowarm(dev):
+    """The build as cNMF.factorize starts it (``cNMF._autowarm``: on a
+    background thread), the main path's counts drawn meanwhile, then a
+    first launch, which waits for the build. Returns (the counts, the
+    timeline from the build's start, the build's seconds)."""
+    import torch
+
+    from cnmf_tpu_torch.ops import cd_kernels as ck
+    from cnmf_tpu_torch.ops.kernel_lib import warm_times
+    from cnmf_tpu_torch.pipeline.cnmf import cNMF
+
+    with tempfile.TemporaryDirectory(dir=os.getcwd()) as workdir:
+        cNMF(output_dir=workdir, name="warm", device=dev)._autowarm()
+    counts = make_counts(2700, 10000)
+    t_counts = time.perf_counter()
+    ck.cd_w_half_sweep(torch.zeros(8, 8, device=dev),
+                       torch.zeros(1, 8, 8, device=dev),
+                       torch.ones(1, 8, 8, device=dev))
+    torch.cuda.synchronize()
+    t_first = time.perf_counter()
+    started, ended = warm_times()
+    warm = (f"started 0.000, counts drawn {t_counts - started:.3f}, built "
+            f"{ended - started:.3f}, first launch returned "
+            f"{t_first - started:.3f}")
+    assert started < t_counts and ended <= t_first, warm
+    return counts, warm, ended - started
+
+
 def make_counts(n_cells, n_genes, seed=7):
     from bench import make_counts as bench_counts
 
@@ -667,15 +701,13 @@ def make_counts(n_cells, n_genes, seed=7):
 
 
 def run_stages(counts, ks, n_iter, hvg, k_cons, dev, dtype=np.float32,
-               verbose=False, nmf_kwargs=None, k_stats=(),
-               density_threshold=0.5):
+               nmf_kwargs=None, k_stats=(), density_threshold=0.5):
     """prepare → factorize → combine → [k-stats] → consensus through
     pipeline/stages.py with ``nmf_kwargs`` (default: stages.nmf_run_params(),
     frobenius); ``k_stats``: the K whose K-selection stats run. Returns
     (stage walls after a device synchronize, {K: merged spectra}, consensus
     result, {K: sweeps of each restart}, the normalized counts tensor, the
-    k-stats rows). ``verbose``: one line of every K's wall, sweeps and
-    executed restart-sweeps, as cNMF.factorize prints them."""
+    k-stats rows)."""
     import torch
 
     from cnmf_tpu_torch.pipeline import stages
@@ -697,20 +729,12 @@ def run_stages(counts, ks, n_iter, hvg, k_cons, dev, dtype=np.float32,
     walls["prepare"] = wall(t0)
 
     t0 = time.perf_counter()
-    spectra, n_iters, parts = {}, {}, []
+    spectra, n_iters = {}, {}
     for k in sorted(set(ks)):
         rows = [i for i, (kk, _) in enumerate(grid) if kk == k]
-        t_k = time.perf_counter()
-        spectra[k], n_it, executed = stages.factorize_k(X_host, Xd, k,
-                                                        seeds[rows], kwargs)
-        n_iters[k] = n_it
-        parts.append(f"{k}: {time.perf_counter() - t_k:.3f}s "
-                     f"{n_it.max()}/{n_it.mean():.1f} {executed}")
+        spectra[k], n_iters[k], _ = stages.factorize_k(X_host, Xd, k,
+                                                       seeds[rows], kwargs)
     walls["factorize"] = wall(t0)
-    if verbose:
-        print(f"[factorize] {len(rows)} restarts, {kwargs['beta_loss']}, "
-              "default schedule (K: wall, sweeps max/mean, executed "
-              "restart-sweeps) " + "; ".join(parts), flush=True)
 
     t0 = time.perf_counter()
     merged = {k: stages.combine_arrays(list(s)) for k, s in spectra.items()}
@@ -846,35 +870,32 @@ def phase_schedules(X_host, Xd, ks, n_iter, kwargs, label):
                 assert (np.array_equal(spec, row["spec"])
                         and np.array_equal(n_it, row["n"])), (label, name, k)
                 row["walls"].append(wall)
-    lines = []
-    for name, rows in runs.items():
-        parts = [f"{k}: {np.mean(r['walls']):.3f}s {r['n'].max()}/"
-                 f"{r['n'].mean():.1f} {r['executed']} "
-                 f"{1 - r['busy'] / r['wall_p']:.1%}" for k, r in rows.items()]
-        total = "+".join(f"{sum(r['walls'][i] for r in rows.values()):.3f}"
-                         for i in range(2))
-        executed = (f", {sum(r['executed'] for r in rows.values())} "
-                    "restart-sweeps" if len(ks) > 1 else "")
-        lines.append(f"{name} " + "; ".join(parts) + f"; turns {total} s"
-                     + executed + ", device busy "
-                     f"{sum(r['busy'] for r in rows.values()):.3f} s")
-    head = (f"[schedule] {label} (K: wall, sweeps max/mean, executed "
-            "restart-sweeps, idle share)")
-    if len(ks) == 1:
-        lines = [head + " " + " | ".join(lines)]
-    else:
-        lines = [f"{head} {lines[0]}"] + [f"[schedule] {label} {line}"
-                                          for line in lines[1:]]
     plain, lad = runs["plain"], runs["ladder"]
+
+    def idle(r):
+        return 100 * (1 - r["busy"] / r["wall_p"])
+
+    parts = [f"{k}: {np.mean(plain[k]['walls']):.3f}/"
+             f"{np.mean(lad[k]['walls']):.3f}s {lad[k]['n'].max()}/"
+             f"{lad[k]['n'].mean():.1f} {plain[k]['executed']}/"
+             f"{lad[k]['executed']} {idle(plain[k]):.1f}/{idle(lad[k]):.1f}%"
+             for k in ks]
+    totals = "; ".join(
+        f"{name} turns " + "+".join(
+            f"{sum(r['walls'][i] for r in rows.values()):.3f}"
+            for i in range(2))
+        + f" s, {sum(r['executed'] for r in rows.values())} restart-sweeps, "
+        f"busy {sum(r['busy'] for r in rows.values()):.3f} s"
+        for name, rows in runs.items())
     same_n = all(np.array_equal(lad[k]["n"], plain[k]["n"]) for k in ks)
     diff = max(float(np.abs(lad[k]["spec"] - plain[k]["spec"]).max())
                for k in ks)
     default = device_ladder_enabled(Xd)
-    lines[-1] += (f"; ladder vs plain: same n_iter at every restart: "
-                  f"{same_n}, spectra max |diff| {diff:.3e}; ladder the CUDA "
-                  f"default: {default}")
-    for line in lines:
-        print(line, flush=True)
+    print(f"[schedule] {label} plain/ladder (K: walls, sweeps max/mean, "
+          "executed restart-sweeps, idle shares) " + "; ".join(parts)
+          + f"; {totals}; same n_iter at every restart: {same_n}, spectra "
+          f"max |diff| {diff:.3e}; ladder the CUDA default: {default}",
+          flush=True)
     assert not default or (same_n and diff == 0.0), (label, same_n, diff)
     return {name: {k: r["spec"] for k, r in rows.items()}
             for name, rows in runs.items()}
@@ -1169,6 +1190,122 @@ def phase_batch(dev):
     assert not other, other
 
 
+SCHED_KNOBS = ("CNMF_TPU_STAGED", "CNMF_TPU_GRID", "CNMF_TPU_COMPACT")
+SCHED_SSE = 1e-4          # consensus on a schedule's spectra against per-K
+
+
+def counted(wrappers, fn):
+    """fn() with the launch counts of ``wrappers`` (name → wrapper) set to
+    0 just before and read just after: (its result, {name: launches})."""
+    for w in wrappers.values():
+        w.launches = 0
+    out = fn()
+    return out, {name: w.launches for name, w in wrappers.items()}
+
+
+def sched_grid(X_host, Xd, jobs, kwargs):
+    """stages.factorize_grid on the schedule the environment picks:
+    (synchronized wall, {K: spectra (B, k, G)}, {K: n_iter}, executed
+    restart-sweeps, the CD half-sweeps' launches W/H)."""
+    import torch
+
+    from cnmf_tpu_torch.ops import cd_kernels as ck
+    from cnmf_tpu_torch.pipeline import stages
+
+    got = {}
+
+    def write(k, iters, batch, dev):
+        got[k] = np.array(batch)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sweeps, launches = counted(
+        {"cd_w_half_sweep": ck.cd_w_half_sweep,
+         "cd_h_half_sweep": ck.cd_h_half_sweep},
+        lambda: stages.factorize_grid(X_host, Xd, jobs, kwargs, write))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    assert all(n > 0 for n in launches.values()), launches
+    return (wall, got, {k: n for k, (n, _) in sweeps.items()},
+            sum(ex for _, ex in sweeps.values()), launches)
+
+
+def phase_sched(counts, hvg, X_host, Xd, ks, n_iter, k_cons, warm):
+    """``[sched]``: the CD main path's grid (``ks`` × ``n_iter`` restarts,
+    inits drawn on the card) through stages.factorize_grid on each opt-in
+    schedule (CNMF_TPU_STAGED=1, CNMF_TPU_GRID=1, CNMF_TPU_COMPACT=1)
+    against the default per-K device ladder, run before and after them:
+    synchronized walls, executed restart-sweeps, n_iter equal at every
+    restart (asserted) and the spectra's max |diff|, which must be 0 for the
+    grid and the compacted solve (their batches re-pack restarts within one
+    K bucket, where ``[batch]`` holds the bits) and, where the staged merge
+    moves a restart to another bucket's kernel and its bits differ, the
+    consensus of K=10 and of the K that differs most within SCHED_SSE of
+    the per-K one; then the autowarm's timeline (``warm``: seconds from its
+    start)."""
+    import torch
+
+    from cnmf_tpu_torch.pipeline import stages
+
+    grid, seeds = stages.replicate_seeds(ks, n_iter, 14)
+    jobs = [(k, seeds[[i for i, (kk, _) in enumerate(grid) if kk == k]],
+             np.arange(n_iter)) for k in ks]
+    kwargs = stages.nmf_run_params()
+    unset = dict.fromkeys(SCHED_KNOBS)
+    with env_knobs(unset):
+        ref = sched_grid(X_host, Xd, jobs, kwargs)
+    runs, parts, differ = {}, [], {}
+    launches = {name: 0 for name in ref[4]}
+    for knob in SCHED_KNOBS:
+        with env_knobs(dict(unset, **{knob: "1"})):
+            runs[knob] = wall, spec, n_it, executed, n_launch = sched_grid(
+                X_host, Xd, jobs, kwargs)
+        same_n = all(np.array_equal(n_it[k], ref[2][k]) for k in ks)
+        diffs = {k: float(np.abs(spec[k] - ref[1][k]).max()) for k in ks}
+        name = knob.split("_")[-1].lower()
+        for key, n in n_launch.items():
+            launches[key] += n
+        parts.append(f"{name} {wall:.3f} {executed} "
+                     + "/".join(map(str, n_launch.values()))
+                     + f" {same_n} {max(diffs.values()):.1e}")
+        assert same_n, (knob, {k: (n_it[k] != ref[2][k]).sum() for k in ks})
+        if knob != "CNMF_TPU_STAGED":
+            assert max(diffs.values()) == 0.0, (knob, diffs)
+        elif max(diffs.values()) > 0:
+            differ = diffs
+    with env_knobs(unset):
+        ref2 = sched_grid(X_host, Xd, jobs, kwargs)
+    assert all(np.array_equal(ref2[1][k], ref[1][k]) for k in ks)
+    print(f"[sched] CD K={ks[0]}..{ks[-1]} x {n_iter}, factorize_grid (wall "
+          "s, restart-sweeps, launches W/H; n_iter equal, max|diff| vs the "
+          f"per-K default): per-K {ref[0]:.3f}+{ref2[0]:.3f} {ref[3]}; "
+          + "; ".join(parts), flush=True)
+    if differ:
+        prep = stages.prepare_arrays(counts, num_highvar_genes=hvg)
+        tpm = torch.as_tensor(np.ascontiguousarray(prep.tpm, np.float32),
+                              device=Xd.device)
+        worst = max(differ, key=differ.get)
+        gaps = []
+        for k in sorted({k_cons, worst}):
+            res = [stages.consensus_arrays(
+                stages.combine_arrays(list(s[k])), k, Xd, tpm, prep.tpm_std,
+                prep.hvg_idx, kwargs, density_threshold=0.5)
+                for s in (ref[1], runs["CNMF_TPU_STAGED"][1])]
+            gap = {key: rel_sse(getattr(res[1], key), getattr(res[0], key))
+                   for key in ("spectra", "usages", "spectra_tpm",
+                               "spectra_score")}
+            gaps.append(f"K={k} " + "/".join(f"{v:.1e}" for v in
+                                             gap.values()))
+            assert max(gap.values()) < SCHED_SSE, (k, gap)
+        print("[sched] staged bits differ at K=" + ",".join(
+            f"{k}:{d:.1e}" for k, d in differ.items() if d > 0)
+            + "; consensus rel SSE spectra/usages/tpm/score "
+            + "; ".join(gaps) + f" (bound {SCHED_SSE:g})", flush=True)
+
+    print("[sched] autowarm (s from its start): build " + warm, flush=True)
+    return launches
+
+
 def phase_profile_refits(counts, hvg, dev, spectra, k, kwargs,
                          density_threshold, label, wrapper, k_stats=True):
     """A MU slice's k-stats (``k_stats``) and consensus at K=k on its merged
@@ -1245,19 +1382,29 @@ HOST_DRAWS = {"CNMF_TPU_DEVICE_INIT": "0", "CNMF_TPU_DEVICE_KMEANSPP": "0"}
 
 
 @contextlib.contextmanager
-def host_draws():
-    """HOST_DRAWS set for the block: the host's inits and kmeans++ seeding
-    on the card, the knobs restored after."""
-    saved = {knob: os.environ.get(knob) for knob in HOST_DRAWS}
-    os.environ.update(HOST_DRAWS)
+def env_knobs(values):
+    """The environment's knobs set to ``values`` for the block, restored
+    after (None: unset)."""
+    saved = {knob: os.environ.get(knob) for knob in values}
+    for knob, value in values.items():
+        if value is None:
+            os.environ.pop(knob, None)
+        else:
+            os.environ[knob] = value
     try:
         yield
     finally:
         for knob, value in saved.items():
             if value is None:
-                os.environ.pop(knob)
+                os.environ.pop(knob, None)
             else:
                 os.environ[knob] = value
+
+
+def host_draws():
+    """HOST_DRAWS set for the block: the host's inits and kmeans++ seeding
+    on the card, the knobs restored after."""
+    return env_knobs(HOST_DRAWS)
 
 
 def phase_k_selection(merged, Xd):
@@ -1716,7 +1863,7 @@ def mu_slice(label, counts, k_cons, n_iter, hvg, dev, kwargs, names,
     for fn in wrappers.values():
         fn.launches = fn.launches_b1 = 0
     walls, merged, result, n_iters, _, k_rows = run_stages(
-        counts, [k_cons], n_iter, hvg, k_cons, dev, verbose=True,
+        counts, [k_cons], n_iter, hvg, k_cons, dev,
         nmf_kwargs=kwargs, k_stats=k_stats,
         density_threshold=density_threshold)
     launches = {name: fn.launches for name, fn in wrappers.items()}
@@ -2724,10 +2871,10 @@ def main():
     from cnmf_tpu_torch.ops.kernel_lib import load_library
     from cnmf_tpu_torch.pipeline import stages
 
-    t0 = time.perf_counter()
+    counts, warm, built = phase_autowarm(dev)
     lib = load_library()
-    print(f"[build] {os.path.relpath(lib.so_path)} in "
-          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    print(f"[build] {os.path.relpath(lib.so_path)} in {built:.2f} s on the "
+          "autowarm's thread", flush=True)
     for line in ptxas_lines(lib.so_path + ".log"):
         print(line, flush=True)
 
@@ -2746,7 +2893,6 @@ def main():
 
     # 4. the main path at PBMC-3k scale
     ks, n_iter, hvg, k_cons = list(range(5, 14)), 100, 2000, 10
-    counts = make_counts(2700, 10000)
     wrappers = {"cd_w_half_sweep": ck.cd_w_half_sweep,
                 "cd_h_half_sweep": ck.cd_h_half_sweep,
                 "cd_sweep_from_products": ck.cd_sweep_from_products}
@@ -2761,7 +2907,7 @@ def main():
     else:
         route = f"stages.py ({', '.join(missing)} missing)"
         walls, merged, result, _, Xd, _ = run_stages(
-            counts, ks, n_iter, hvg, k_cons, dev, verbose=True)
+            counts, ks, n_iter, hvg, k_cons, dev)
         usage = check_result(result, k_cons, hvg)
     launches = {name: fn.launches for name, fn in wrappers.items()}
     assert np.allclose(usage.sum(axis=1), 1.0), "usage rows must sum to 1"
@@ -2793,12 +2939,14 @@ def main():
             dev, counts, hvg, ks, n_iter, k_cons, host)
     del host
 
-    # 7. the CD factorize on each schedule, the MU ladder's rungs and the
-    # batch check
+    # 7. the CD factorize on each schedule, the MU ladder's rungs, the
+    # batch check and the tail-compacting schedules
     X_host, Xd = path_input(counts, hvg, dev)
     phase_schedules(X_host, Xd, ks, n_iter, stages.nmf_run_params(), "CD")
     phase_ladder_tilings(Xd, k_cons)
     phase_batch(dev)
+    sched_launches = phase_sched(counts, hvg, X_host, Xd, ks, n_iter,
+                                 k_cons, warm)
 
     # 8. the KL path and 9. the Itakura-Saito path at bench.py's KL
     # configuration, each factorize again plain and on the ladder
@@ -2870,6 +3018,8 @@ def main():
              **({"launches_mesh": mesh_launches[name]}
                 if name in mesh_launches else {}),
              **({"launches_fused": fused[name]} if name in fused else {}),
+             **({"launches_sched": sched_launches[name]}
+                if name in sched_launches else {}),
              library_ms=None,
              **{key: float(f"{v:.4g}") if isinstance(v, float) else v
                 for key, v in records[name].items()})

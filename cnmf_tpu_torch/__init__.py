@@ -15,9 +15,12 @@ Every entry point runs on the card unless ``device="cpu"`` is passed; none
 falls back to the CPU. The command line is ``cnmf-tpu-torch`` (``python -m
 cnmf_tpu_torch.cli``).
 
-Float32 matrix products run in full float32: TF32 is switched off for
-matmuls and cuDNN when the package is imported, mirroring the JAX package's
-``MATMUL_PRECISION='highest'`` (cnmf_tpu/ops/nmf.py:41-44).
+Float32 matrix products run in full float32 by default: TF32 is switched
+off for matmuls and cuDNN when the package is imported, mirroring the JAX
+package's ``MATMUL_PRECISION='highest'`` (cnmf_tpu/ops/nmf.py:41-44).
+``CNMF_TPU_MATMUL_PRECISION=high`` or ``default`` relaxes torch's own
+products (TF32, or torch's ``medium``); the hand-written kernels stay full
+float32 (``utils/precision.py``).
 
 ``cNMF``, ``Preprocess`` and the file layer exported beside them (``AnnData``,
 ``read_h5ad``, ``write_h5ad``, ``save_df_to_npz``, ``save_df_to_text``,
@@ -27,11 +30,9 @@ matmuls and cuDNN when the package is imported, mirroring the JAX package's
 
 import importlib
 
-import torch
+from cnmf_tpu_torch.utils import precision as _precision
 
-torch.backends.cuda.matmul.allow_tf32 = False
-torch.backends.cudnn.allow_tf32 = False
-torch.set_float32_matmul_precision("highest")
+_precision.set_mode(_precision.knob_mode())
 
 __version__ = "0.1.0"
 

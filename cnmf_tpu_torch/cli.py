@@ -6,9 +6,10 @@ flags and defaults, on the port's ``cNMF``.
 Every stage runs on the CUDA card; ``CNMF_TPU_PLATFORM=cpu`` (the JAX CLI's
 knob) runs it on the CPU instead. The command writes its artifacts on the
 background writer (``CNMF_TPU_ASYNC_WRITES=1`` unless the environment sets
-it) and joins them, raising any failure, before it returns. ``warmup`` (the JAX package's compile-cache
-warm-up) is accepted so scripts written for that CLI still run, and does
-nothing: the port has no compiler cache to fill.
+it) and joins them, raising any failure, before it returns. ``warmup`` calls
+``cNMF.warmup`` (the JAX package's compile-cache warm-up): it builds the
+native host library and, on the card, the kernel library, both cached on
+disk for later processes, and prints the build seconds it returns.
 
     python -m cnmf_tpu_torch.cli prepare --output-dir out --name run \\
         -c counts.h5ad -k 5 6 7 -n 100 --seed 14
@@ -83,10 +84,6 @@ def cli_device() -> str:
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if args.command == "warmup":
-        print("warmup: nothing to do — the PyTorch port builds its kernels "
-              "on first use and has no compile cache to fill")
-        return
     # the stages' artifact writes ride the background writer: the
     # flush_writes() below joins them, and raises any failure, before the
     # command reports success (a library caller opts in itself); restored
@@ -136,6 +133,10 @@ def _run(args):
             )
     elif args.command == "k_selection_plot":
         cnmf_obj.k_selection_plot(close_fig=True)
+    elif args.command == "warmup":
+        # the libraries the run's first solve would build, built now and
+        # kept on disk for this process and later ones
+        print("warmup:", cnmf_obj.warmup(components=args.components))
     cnmf_obj.flush_writes()
 
 

@@ -9,7 +9,10 @@ of every source and header, and loads it with ctypes. ``ops/cd_kernels.py`` and
 ``ops/mu_kernels.py`` call their own symbols of it through
 ``kernel_function`` and ``library_constant``, which bind each symbol and
 read each constant once. Importing this module needs neither ``nvcc`` nor a
-GPU, and nothing is built for CPU tensors.
+GPU, and nothing is built for CPU tensors. ``start_build`` starts the build
+on a background thread (the autowarm of ``cNMF.factorize`` and
+``k_selection_plot``), so that it overlaps host work before the first
+launch; ``load_library`` then waits for that build and raises its error.
 """
 
 from __future__ import annotations
@@ -18,6 +21,8 @@ import ctypes
 import functools
 import os
 import threading
+import time
+from concurrent.futures import Future
 
 import torch
 
@@ -130,7 +135,54 @@ _LOAD_LOCK = threading.Lock()
 @functools.lru_cache(maxsize=None)
 def load_library():
     """Build (once per source hash) and load the kernels of ``csrc/``.
-    Never runs while a module is imported."""
+    Never runs while a module is imported. Where ``start_build`` has started
+    the build, wait for it: its library, or the very error it raised (an
+    error is not cached, so every call raises it)."""
+    build = _WARM.get("build")
+    if build is not None:
+        return build.result()
+    return _load_library()
+
+
+# the background build of ``start_build``: its future and its start and
+# end (time.perf_counter)
+_WARM = {}
+_WARM_LOCK = threading.Lock()
+
+
+def start_build() -> Future:
+    """Start ``load_library``'s build on a background thread, once per
+    process, and return its future (the one already started, on a later
+    call). ``warm_times()`` then reads when it started and ended."""
+    with _WARM_LOCK:
+        build = _WARM.get("build")
+        if build is None:
+            build = _WARM["build"] = Future()
+            _WARM["started"] = time.perf_counter()
+            threading.Thread(target=_warm_build, args=(build,),
+                             name="cnmf-kernel-build").start()
+    return build
+
+
+def _warm_build(build: Future):
+    try:
+        lib = _load_library()
+    except BaseException as exc:   # raised again by every load_library()
+        _WARM["ended"] = time.perf_counter()
+        build.set_exception(exc)
+        return
+    _WARM["ended"] = time.perf_counter()
+    build.set_result(lib)
+
+
+def warm_times():
+    """(started, ended) of ``start_build``'s build in ``time.perf_counter``
+    seconds, None for what has not happened."""
+    return _WARM.get("started"), _WARM.get("ended")
+
+
+@functools.lru_cache(maxsize=None)
+def _load_library():
     so_path = library_path()
     with _LOAD_LOCK:
         if not os.path.exists(so_path):

@@ -58,6 +58,7 @@ from cnmf_tpu_torch.ops.cd_kernels import (  # noqa: F401  (re-exported)
     cd_h_half_sweep,
     cd_sweep_from_products,
     cd_w_half_sweep,
+    numpy_dtype,
     pad_bucket,
 )
 from cnmf_tpu_torch.ops.init import nnls_w_init
@@ -73,6 +74,7 @@ from cnmf_tpu_torch.ops.mu_kernels import (
     restart_sums,
     wh_chunks,
 )
+from cnmf_tpu_torch.ops.host_fetch import HostFetch
 from cnmf_tpu_torch.parallel.collectives import broadcast, sum_shards
 from cnmf_tpu_torch.parallel.mesh import Shards
 
@@ -82,13 +84,17 @@ EPSILON = float(np.finfo(np.float32).eps)
 BLOCK = 10
 
 
-def _run_solve(block, state, steps: int):
+def _run_solve(block, state, steps: int) -> int:
     """Blocks of ``block()`` over ``state`` (done flags at ``state[-2]``)
-    until every restart is done or ``steps`` steps have run."""
+    until every restart is done or ``steps`` steps have run. Returns the
+    steps the blocks ran (``BLOCK`` a block, past ``steps`` included)."""
+    blocks = 0
     for n in range(-(-max(steps, 0) // BLOCK)):
         if n and bool(state[-2].all()):
             break
         block()
+        blocks += 1
+    return blocks * BLOCK
 
 
 def _cd_block(sweep, state, tol: float, limit: int):
@@ -154,15 +160,26 @@ def nmf_cd_segment(
     mask) is carried in and out; ``it0`` is the global sweep offset (sweep 0
     defines violation_init). Returns (W, Ht, violation_init, n_iter,
     done)."""
-    state = _cd_state((W, Ht), violation_init, n_iter, done, it0)
+    return _segment(X, (W, Ht, violation_init, n_iter, done), it0, seg_len,
+                    dict(tol=tol, update_H=update_H, l1_reg_W=l1_reg_W,
+                         l1_reg_H=l1_reg_H, l2_reg_W=l2_reg_W,
+                         l2_reg_H=l2_reg_H))[0]
+
+
+def _segment(X, state, it0: int, seg_len: int, seg_kwargs: dict):
+    """``nmf_cd_segment`` of ``state`` = (W, Ht, violation_init, n_iter,
+    done) with its keywords in ``seg_kwargs``. Returns (the new state, the
+    sweeps the device ran: whole blocks, past ``seg_len`` included)."""
+    kw = dict(seg_kwargs)
+    tol, update_H = kw.pop("tol"), kw.pop("update_H")
+    st = _cd_state(state[:2], *state[2:], it0)
 
     def sweep(W, Ht):
-        return _half_sweeps(X, W, Ht, update_H, l1_reg_W, l1_reg_H, l2_reg_W,
-                            l2_reg_H)
+        return _half_sweeps(X, W, Ht, update_H, **kw)
 
-    _run_solve(lambda: _cd_block(sweep, state, tol, it0 + seg_len), state,
-               seg_len)
-    return tuple(state[:5])
+    ran = _run_solve(lambda: _cd_block(sweep, st, tol, it0 + seg_len), st,
+                     seg_len)
+    return tuple(st[:5]), ran
 
 
 def nmf_coordinate_descent(
@@ -732,6 +749,287 @@ def nmf_mu_device_ladder(
                          l1_reg_W, l1_reg_H, l2_reg_W, l2_reg_H)
 
     return _run_ladder(state, make_block, ladder, B0, max_iter)
+
+
+# ----------------------------------------------------------------------
+# tail compaction from the host: the compacted, merged-grid and staged CD
+# ----------------------------------------------------------------------
+
+def _cd_seg_kwargs(tol, update_H, l1_reg_W, l1_reg_H, l2_reg_W, l2_reg_H):
+    return dict(tol=tol, update_H=update_H, l1_reg_W=l1_reg_W,
+                l1_reg_H=l1_reg_H, l2_reg_W=l2_reg_W, l2_reg_H=l2_reg_H)
+
+
+def _take(state, rows):
+    """The (W, Ht, violation_init, n_iter, done) rows of ``rows`` (host
+    indices) in that order."""
+    idx = torch.as_tensor(rows, device=state[0].device)
+    return tuple(t[idx] for t in state)
+
+
+def nmf_coordinate_descent_compacted(
+    X, W0, Ht0, *, tol: float = 1e-4, max_iter: int = 200,
+    update_H: bool = True, l1_reg_W: float = 0.0, l1_reg_H: float = 0.0,
+    l2_reg_W: float = 0.0, l2_reg_H: float = 0.0,
+    seg_len: int = 250, bucket: int = 32, info: Optional[dict] = None,
+):
+    """CD with between-segment restart compaction
+    (cnmf_tpu/ops/nmf.py:428-515): ``seg_len``-sweep segments of
+    ``nmf_cd_segment``, the done mask read on the host after each, and the
+    live restarts re-packed into a batch of the full B, or of ``bucket``
+    once they fit in it. Padding slots copy a live restart and start done.
+    Each restart's factors leave the batch, on the device, in the segment
+    that finishes it. Frozen restarts never change, so n_iter and the
+    factors are the plain solver's where a restart's arithmetic does not
+    depend on its batch (the CD kernels' tilings keep a restart's bits in
+    any batch, and so do the CPU's plain half-sweeps).
+
+    Returns (W (B, N, K), Ht (B, G, K), n_iter (B,)) on the device;
+    ``info``, a dict, gains "executed": the restart-sweeps the device ran."""
+    B = W0.shape[0]
+    dev = W0.device
+    kw = _cd_seg_kwargs(tol, update_H, l1_reg_W, l1_reg_H, l2_reg_W, l2_reg_H)
+    out_W, out_Ht = torch.empty_like(W0), torch.empty_like(Ht0)
+    out_n = torch.zeros(B, dtype=torch.int32, device=dev)
+    state = (W0, Ht0, torch.zeros(B, dtype=W0.dtype, device=dev),
+             torch.zeros(B, dtype=torch.int32, device=dev),
+             torch.zeros(B, dtype=torch.bool, device=dev))
+
+    def land(rows, restarts):
+        dst = torch.as_tensor(restarts, device=dev)
+        W, Ht, _, n, _ = _take(state, rows)
+        out_W[dst], out_Ht[dst], out_n[dst] = W, Ht, n
+
+    active, it, executed = np.arange(B), 0, 0
+    while len(active) and it < max_iter:
+        seg = min(seg_len, max_iter - it)
+        state, ran = _segment(X, state, it, seg, kw)
+        executed += ran * state[0].shape[0]
+        it += seg
+        if it >= max_iter:
+            break
+        done = state[4].cpu().numpy()[:len(active)]
+        finished, live = np.flatnonzero(done), np.flatnonzero(~done)
+        if finished.size:
+            land(finished, active[finished])
+        active = active[live]
+        if not len(active) or not finished.size:
+            continue
+        # survivors re-packed: two batch sizes only, the full B or bucket
+        target = bucket if len(live) <= bucket and B > bucket else B
+        pad = target - len(live)
+        state = _take(state, np.concatenate([live, live[:1].repeat(pad)]))
+        state = state[:4] + (torch.as_tensor(np.arange(target) >= len(live),
+                                             device=dev),)
+    if len(active):
+        land(np.arange(len(active)), active)
+    if info is not None:
+        info["executed"] = info.get("executed", 0) + executed
+    return out_W, out_Ht, out_n
+
+
+def nmf_cd_grid(
+    X, W0, Ht0, *, tol: float = 1e-4, max_iter: int = 200,
+    l1_reg_W: float = 0.0, l1_reg_H: float = 0.0,
+    l2_reg_W: float = 0.0, l2_reg_H: float = 0.0,
+    seg_len: int = 125, min_bucket: int = 32,
+):
+    """Tail-compacted batched CD over a merged restart grid
+    (cnmf_tpu/ops/nmf.py:537-612): every restart that shares one padded K,
+    across K values, in one batch that ``_cd_ladder_run`` shrinks through
+    the rungs of ``_ladder`` as restarts finish, between ``seg_len``-sweep
+    segments. The host reads each segment's done mask two segments late,
+    from a copy started when the segment was queued, and each re-pack's
+    spectra stream hostward as it is made. Exact as the compacted solve:
+    frozen restarts never change, ladder padding starts done.
+
+    Returns (spectra (B, K, G), n_iter (B,), executed (B,)) host arrays:
+    ``executed[r]`` the restart-sweeps the device ran in restart r's slot
+    (the ladder's padding slots counted with the restart in the batch's
+    first slot, so that their sum is the device's work). Usages are not
+    returned (factorize discards them)."""
+    B0, _, K = W0.shape
+    ladder = _ladder(B0, min_bucket)
+    Bp = ladder[0]
+    dev = W0.device
+    state = (_padded(W0, Bp), _padded(Ht0, Bp),
+             torch.zeros(Bp, dtype=W0.dtype, device=dev),
+             torch.zeros(Bp, dtype=torch.int32, device=dev),
+             torch.arange(Bp, device=dev) >= B0)
+    pos2orig = np.concatenate([np.arange(B0), np.full(Bp - B0, -1)])
+    executed = np.zeros(B0, np.int64)
+    fetches = _cd_ladder_run(
+        X, state, pos2orig, np.zeros(B0, bool), 0, max_iter,
+        _cd_seg_kwargs(tol, True, l1_reg_W, l1_reg_H, l2_reg_W, l2_reg_H),
+        seg_len, ladder, executed)
+    spec, n_iter = _extract_grid_results(fetches, B0, K, Ht0.shape[1],
+                                         numpy_dtype(W0.dtype))
+    return spec, n_iter, executed
+
+
+def _cd_ladder_run(X, state, pos2orig, done_orig, it0, max_iter,
+                   seg_kwargs, seg_len, ladder, executed):
+    """The segment and re-pack loop of the grid schedulers from a resumable
+    CD ``state`` (cnmf_tpu/ops/nmf.py:_cd_ladder_run :615-679).
+
+    ``state`` = (W, Ht, violation_init, n_iter, done) at batch size
+    ``len(pos2orig)``; ``pos2orig`` maps batch position → original restart
+    (-1: padding); ``done_orig``, the host's lagging knowledge of which
+    restarts are done, is updated in place, and so is ``executed`` (per
+    original restart, see ``nmf_cd_grid``). After each segment a copy of
+    its done mask starts (``HostFetch``: pinned memory, a side stream, an
+    event); the host waits for a mask two segments later, or, before a
+    re-pack to a smaller rung, for every mask but the newest. A re-pack
+    first starts the copy of the spectra, transposed to (B, K, G), and of
+    n_iter. Returns the fetches for ``_extract_grid_results``: (spectra,
+    n_iter, pos2orig snapshot, the done knowledge under which rows of that
+    fetch are final)."""
+    B0 = len(done_orig)
+    fetches, pending = [], []   # pending: (mask fetch, pos2orig snapshot)
+
+    def read_mask(entry):
+        mask, p2o = entry
+        m = mask.wait()[:len(p2o)]
+        done_orig[p2o[(p2o >= 0) & m]] = True
+
+    def rung_for(alive, cur):
+        return next((s for s in reversed(ladder) if s >= alive), cur)
+
+    it = it0
+    while it < max_iter:
+        seg = min(seg_len, max_iter - it)
+        state, ran = _segment(X, state, it, seg, seg_kwargs)
+        it += seg
+        real = pos2orig >= 0
+        np.add.at(executed, pos2orig[real], ran)
+        executed[pos2orig[0]] += ran * int((~real).sum())
+        pending.append((HostFetch(state[4]), pos2orig))
+        if len(pending) < 3 and it < max_iter:
+            continue
+        read_mask(pending.pop(0))
+        alive = int(B0 - done_orig.sum())
+        if alive == 0:
+            break
+        cur = len(pos2orig)
+        target = rung_for(alive, cur)
+        if target < cur and len(pending) > 1:
+            # about to re-pack: consume the older masks too, so that the
+            # re-pack sees every restart the device has reported done; the
+            # newest stays pending (reading it waits for the running segment)
+            while len(pending) > 1:
+                read_mask(pending.pop(0))
+            alive = int(B0 - done_orig.sum())
+            if alive == 0:
+                break
+            target = rung_for(alive, cur)
+        if target < cur:
+            fetches.append((HostFetch(state[1].transpose(1, 2).contiguous()),
+                            HostFetch(state[3]), pos2orig, done_orig.copy()))
+            keep = np.flatnonzero(real & ~done_orig[np.clip(pos2orig, 0, None)])
+            pad = target - len(keep)
+            state = _take(state, np.concatenate([keep, np.zeros(pad, np.int64)]))
+            pad_done = torch.as_tensor(np.arange(target) >= len(keep),
+                                       device=state[4].device)
+            state = state[:4] + (state[4] | pad_done,)
+            # a pending mask resolves through its own pos2orig snapshot
+            pos2orig = np.concatenate([pos2orig[keep], np.full(pad, -1)])
+    fetches.append((HostFetch(state[1].transpose(1, 2).contiguous()),
+                    HostFetch(state[3]), pos2orig, np.ones(B0, bool)))
+    return fetches
+
+
+def _extract_grid_results(fetches, B0, K, G, dtype):
+    """(spectra (B0, K, G), n_iter (B0,)) host arrays from the ladder's
+    fetches: each restart from the first fetch whose done knowledge marks it
+    final (it is frozen from then on)."""
+    out_spec = np.empty((B0, K, G), dtype)
+    out_n = np.zeros(B0, np.int32)
+    extracted = np.zeros(B0, bool)
+    for spec_f, n_f, p2o, known in fetches:
+        orig = np.clip(p2o, 0, None)
+        sel = (p2o >= 0) & known[orig] & ~extracted[orig]
+        if sel.any():
+            rows = p2o[sel]
+            out_spec[rows] = spec_f.wait()[sel]
+            out_n[rows] = n_f.wait()[:len(p2o)][sel]
+            extracted[rows] = True
+    return out_spec, out_n
+
+
+def nmf_cd_staged(
+    X, inits, *, tol: float = 1e-4, max_iter: int = 200,
+    l1_reg_W: float = 0.0, l1_reg_H: float = 0.0,
+    l2_reg_W: float = 0.0, l2_reg_H: float = 0.0,
+    s0: int = 250, seg_len: int = 125, min_bucket: int = 32,
+):
+    """Two-phase tail-compacted CD over a multi-K restart grid
+    (cnmf_tpu/ops/nmf.py:820-941). ``inits``: per-K (W0 (B_k, N, pad_k),
+    Ht0 (B_k, G, pad_k)) batches, pad_k free to differ.
+
+    Phase 1 runs one ``nmf_cd_segment`` of up to ``s0`` sweeps for each K,
+    each stopping when its own restarts are done, and starts the copies of
+    its spectra, n_iter and done mask. The survivors of every K then merge
+    on the device, zero-padded to the largest pad_k (a padded column starts
+    at zero and stays there), into one ``_cd_ladder_run`` continuation whose
+    batch follows how many are left. Exact as ``nmf_cd_grid``.
+
+    Returns per K, in input order, (spectra (B_k, pad_k, G), n_iter (B_k,),
+    executed (B_k,)) host arrays (``executed`` as in ``nmf_cd_grid``)."""
+    kw = _cd_seg_kwargs(tol, True, l1_reg_W, l1_reg_H, l2_reg_W, l2_reg_H)
+    s0 = min(s0, max_iter)
+    phase1 = []
+    for W0, Ht0 in inits:
+        B, dev = W0.shape[0], W0.device
+        st, ran = _segment(X, (W0, Ht0, torch.zeros(B, dtype=W0.dtype,
+                                                    device=dev),
+                               torch.zeros(B, dtype=torch.int32, device=dev),
+                               torch.zeros(B, dtype=torch.bool, device=dev)),
+                           0, s0, kw)
+        phase1.append((st, HostFetch(st[1].transpose(1, 2).contiguous()),
+                       HostFetch(st[3]), HostFetch(st[4]),
+                       np.full(B, ran, np.int64)))
+    results = [(spec.wait().copy(), n.wait().copy(), ex)
+               for _, spec, n, _, ex in phase1]
+    if s0 >= max_iter:
+        return results
+
+    pad_max = max(st[0].shape[2] for st, *_ in phase1)
+    survivors, parts = [], []   # (K index, row in its batch) per merged row
+    for i, (st, _, _, done_f, _) in enumerate(phase1):
+        keep = np.flatnonzero(~done_f.wait())
+        if not keep.size:
+            continue
+        part = list(_take(st, keep))
+        kpad = pad_max - part[0].shape[2]
+        if kpad:
+            part[:2] = [torch.nn.functional.pad(f, (0, kpad))
+                        for f in part[:2]]
+        parts.append(part)
+        survivors.extend((i, int(r)) for r in keep)
+    if not parts:
+        return results
+
+    n_sur = len(survivors)
+    ladder = _ladder(n_sur, min_bucket)
+    Bp = ladder[0]
+    W, Ht, vi, n_it, done = (torch.cat([p[j] for p in parts]) for j in range(5))
+    pad = Bp - n_sur
+    state = (_padded(W, Bp), _padded(Ht, Bp),
+             torch.cat([vi, vi.new_zeros(pad)]),
+             torch.cat([n_it, n_it.new_zeros(pad)]),
+             torch.cat([done, done.new_ones(pad)]))
+    executed = np.zeros(n_sur, np.int64)
+    fetches = _cd_ladder_run(
+        X, state, np.concatenate([np.arange(n_sur), np.full(pad, -1)]),
+        np.zeros(n_sur, bool), s0, max_iter, kw, seg_len, ladder, executed)
+    sur_spec, sur_n = _extract_grid_results(fetches, n_sur, pad_max,
+                                            Ht.shape[1], results[0][0].dtype)
+    for pos, (i, row) in enumerate(survivors):
+        spec, n, ex = results[i]
+        spec[row] = sur_spec[pos, :spec.shape[1]]
+        n[row] = sur_n[pos]
+        ex[row] += executed[pos]
+    return results
 
 
 # ----------------------------------------------------------------------

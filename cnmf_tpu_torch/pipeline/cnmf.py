@@ -776,6 +776,20 @@ class cNMF:
                   + " in consensus")
         return done
 
+    def _autowarm(self):
+        """The cold start of factorize and k-selection
+        (cnmf_tpu/pipeline/cnmf.py:2338, 2388): on a CUDA device, start the
+        kernel library's build on a background thread
+        (``ops.kernel_lib.start_build``, once per process), so that the
+        first launch finds it built or building; the library is cached on
+        disk for later processes. A no-op on the CPU or with
+        ``CNMF_TPU_AUTOWARM=0``. A failed build is not hidden: the first
+        launch raises its error."""
+        from cnmf_tpu_torch.ops import kernel_lib
+
+        if solvers.autowarm_enabled() and self.device.type == "cuda":
+            kernel_lib.start_build()
+
     def _load_run_params(self) -> dict:
         with open(self.paths["nmf_run_parameters"]) as fh:
             return yaml.safe_load(fh)
@@ -1018,8 +1032,18 @@ class cNMF:
         packed copy has landed: the writer waits for it (the deferred
         drain). ``CNMF_TPU_PHASES=1``: the wall's
         split lands in ``self._factorize_phases`` (and, with ``verbose``, on
-        a ``[Worker]`` line)."""
+        a ``[Worker]`` line).
+
+        On a CUDA device the kernel library's build starts first, on a
+        background thread (``_autowarm``), and overlaps the counts' read,
+        upload and restart draws. ``CNMF_TPU_STAGED=1`` or
+        ``CNMF_TPU_GRID=1`` solve the Ks together on a tail-compacted
+        schedule (``stages.factorize_grid``); their spectra arrive on the
+        host, so consensus and k-selection are fed from there.
+        ``CNMF_TPU_COMPACT=1`` compacts each K's restarts between segments
+        (``stages.factorize_k``)."""
         run_params = load_df_from_npz(self.paths["nmf_replicate_parameters"])
+        self._autowarm()
         # consensus's device buffers of an earlier stage would compete with
         # the solver for device memory
         self.clear_device_caches()
@@ -1743,6 +1767,7 @@ class cNMF:
         from cnmf_tpu_torch.pipeline.plots import k_selection_figure
 
         run_params = load_df_from_npz(self.paths["nmf_replicate_parameters"])
+        self._autowarm()
         norm_counts = self._read_h5ad_cached(self.paths["normalized_counts"])
         nmf_kwargs = self._load_run_params()
         pending = [

@@ -33,7 +33,11 @@ too (``fused_consensus_enabled``, ``device_tpm_enabled``,
 ``prefetch_tpm_enabled``, ``device_norm_enabled``; CNMF_TPU_CSR_UPLOAD's
 is ``ops.device_tpm.csr_upload_enabled``, where the JAX package has it),
 and those of the stage hand-off (``device_spectra_enabled``,
-``async_writes_enabled``, ``phases_enabled``).
+``async_writes_enabled``, ``phases_enabled``), of the opt-in schedules
+(``staged_enabled``, ``grid_enabled``, ``compact_enabled``;
+``solve_nmf_staged``, ``solve_nmf_grid``,
+``solve_nmf_batch(compact=True)``) and of the autowarm
+(``autowarm_enabled``).
 """
 
 from __future__ import annotations
@@ -56,7 +60,10 @@ from cnmf_tpu_torch.ops.nmf import (
     fixed_factor_gram,
     fixed_factor_product_transposed,
     nmf_cd_device_ladder,
+    nmf_cd_grid,
+    nmf_cd_staged,
     nmf_coordinate_descent,
+    nmf_coordinate_descent_compacted,
     nmf_mu_device_ladder,
     nmf_multiplicative_update,
     nnls_cd_fixed_spectra,
@@ -121,22 +128,27 @@ def solve_nmf_batch(
     Ht0: torch.Tensor,
     nmf_kwargs: dict,
     update_H: bool = True,
+    compact: bool = False,
+    info: Optional[dict] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Run the batched solver described by sklearn-style kwargs.
 
     X: (N, G); W0: (B, N, K); Ht0: (B, G, K), all on one device. Returns
-    (W, Ht, n_iter)."""
+    (W, Ht, n_iter). ``compact``: drop finished restarts from the batch
+    between segments (CD with update_H only,
+    ``ops.nmf.nmf_coordinate_descent_compacted``); ``info``, a dict, then
+    gains "executed", its restart-sweeps."""
     tol = float(nmf_kwargs.get("tol", 1e-4))
     max_iter = int(nmf_kwargs.get("max_iter", 200))
     l1_reg_W, l1_reg_H, l2_reg_W, l2_reg_H = _regularization(nmf_kwargs, X.shape)
+    regs = dict(l1_reg_W=l1_reg_W, l1_reg_H=l1_reg_H, l2_reg_W=l2_reg_W,
+                l2_reg_H=l2_reg_H)
     if _is_mu(nmf_kwargs):
         # any beta, on either device (ops.nmf picks the kernels per beta)
         return nmf_multiplicative_update(
             X, W0, Ht0,
             beta=beta_loss_to_float(nmf_kwargs.get("beta_loss", "frobenius")),
-            tol=tol, max_iter=max_iter, update_H=update_H,
-            l1_reg_W=l1_reg_W, l1_reg_H=l1_reg_H,
-            l2_reg_W=l2_reg_W, l2_reg_H=l2_reg_H,
+            tol=tol, max_iter=max_iter, update_H=update_H, **regs,
         )
     if not update_H:
         # fixed-spectra refit → products-distilled half-sweep loop
@@ -145,11 +157,82 @@ def solve_nmf_batch(
             l1_reg=l1_reg_W, l2_reg=l2_reg_W,
         )
         return W, Ht0, n_iter
+    if compact:
+        return nmf_coordinate_descent_compacted(
+            X, W0, Ht0, tol=tol, max_iter=max_iter, info=info, **regs)
     return nmf_coordinate_descent(
-        X, W0, Ht0, tol=tol, max_iter=max_iter, update_H=True,
-        l1_reg_W=l1_reg_W, l1_reg_H=l1_reg_H,
-        l2_reg_W=l2_reg_W, l2_reg_H=l2_reg_H,
+        X, W0, Ht0, tol=tol, max_iter=max_iter, update_H=True, **regs,
     )
+
+
+def compact_enabled() -> bool:
+    """The CNMF_TPU_COMPACT knob (cnmf_tpu/pipeline/cnmf.py:2138, 2180):
+    '1' solves each K's CD restarts with between-segment compaction
+    (``solve_nmf_batch(compact=True)``) instead of the device ladder or the
+    plain batched solver, on one device; default '0'."""
+    return os.environ.get("CNMF_TPU_COMPACT", "0") == "1"
+
+
+def grid_enabled() -> bool:
+    """The CNMF_TPU_GRID knob (cnmf_tpu/pipeline/cnmf.py:1838): '1' solves
+    every restart of a pad-K bucket as one tail-compacted schedule
+    (``solve_nmf_grid``); default '0'."""
+    return os.environ.get("CNMF_TPU_GRID", "0") == "1"
+
+
+def staged_enabled() -> bool:
+    """The CNMF_TPU_STAGED knob (cnmf_tpu/pipeline/cnmf.py:1777): '1' runs
+    the per-K solves for 250 sweeps, then one merged
+    ladder continuation of every K's survivors (``solve_nmf_staged``);
+    default '0'. It takes precedence over CNMF_TPU_GRID."""
+    return os.environ.get("CNMF_TPU_STAGED", "0") == "1"
+
+
+def autowarm_enabled() -> bool:
+    """The CNMF_TPU_AUTOWARM knob (cnmf_tpu/pipeline/cnmf.py:2338): '1'
+    (default) starts the kernel library's build on a background thread when
+    factorize or k-selection starts on a CUDA device; '0' leaves it to the
+    first launch."""
+    return os.environ.get("CNMF_TPU_AUTOWARM", "1") == "1"
+
+
+def _cd_only(nmf_kwargs: dict, name: str, shape):
+    """The regularization keywords of a CD-only scheduler on X of
+    ``shape``."""
+    if _is_mu(nmf_kwargs):
+        raise ValueError(f"{name} is CD/frobenius only")
+    return dict(zip(("l1_reg_W", "l1_reg_H", "l2_reg_W", "l2_reg_H"),
+                    _regularization(nmf_kwargs, shape)))
+
+
+def solve_nmf_grid(X, W0, Ht0, nmf_kwargs: dict, seg_len: int = 125,
+                   min_bucket: int = 32):
+    """Tail-compacted CD over a merged restart batch, every restart sharing
+    one padded component count across K values
+    (cnmf_tpu/pipeline/solvers.py:230; ``ops.nmf.nmf_cd_grid``). Returns
+    (spectra (B, pad_k, G), n_iter (B,), executed (B,)) host arrays.
+    CD/frobenius only."""
+    regs = _cd_only(nmf_kwargs, "solve_nmf_grid", X.shape)
+    return nmf_cd_grid(
+        X, W0, Ht0, tol=float(nmf_kwargs.get("tol", 1e-4)),
+        max_iter=int(nmf_kwargs.get("max_iter", 200)), seg_len=seg_len,
+        min_bucket=min_bucket, **regs)
+
+
+def solve_nmf_staged(X, inits, nmf_kwargs: dict, s0: int = 250,
+                     seg_len: int = 125, min_bucket: int = 32):
+    """Two-phase tail-compacted CD over per-K init batches
+    (cnmf_tpu/pipeline/solvers.py:665; ``ops.nmf.nmf_cd_staged``): per-K
+    segments of ``s0`` sweeps, then one merged
+    ladder continuation of the stragglers. Returns per K, in input order,
+    (spectra (B_k, pad_k, G), n_iter, executed) host arrays. CD/frobenius
+    only."""
+    regs = _cd_only(nmf_kwargs, "solve_nmf_staged", X.shape)
+    return nmf_cd_staged(
+        X, inits, tol=float(nmf_kwargs.get("tol", 1e-4)),
+        max_iter=int(nmf_kwargs.get("max_iter", 200)),
+        s0=s0, seg_len=seg_len,
+        min_bucket=min_bucket, **regs)
 
 
 def device_ladder_enabled(X: torch.Tensor, ladder: Optional[bool] = None) -> bool:

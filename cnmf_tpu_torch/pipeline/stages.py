@@ -7,9 +7,11 @@ files; they can also be driven directly on in-memory data:
   ``replicate_seeds`` and ``nmf_run_params``: the replicate grid and the
   solver kwargs;
 * ``factorize_k``: every restart of one K as one batched solve (CD or MU, as
-  the kwargs say), on the device ladder on CUDA; ``factorize_grid``: every
-  K of a run, their spectra packed on the device and fetched in one copy,
-  handed to a write callback per K;
+  the kwargs say), on the device ladder on CUDA (compacted between segments
+  under ``CNMF_TPU_COMPACT=1``); ``factorize_grid``: every K of a run,
+  their spectra packed on the device and fetched in one copy, handed to a
+  write callback per K (or, under ``CNMF_TPU_STAGED=1`` / ``CNMF_TPU_GRID=
+  1``, the Ks solved together on a tail-compacted schedule);
 * ``combine_arrays``: the per-restart spectra stacked into the merged matrix;
 * ``consensus_arrays``: KNN density filter, KMeans, cluster medians, the
   fixed-factor refits and the z-score OLS, dispatched as
@@ -52,6 +54,7 @@ from cnmf_tpu_torch.ops.consensus_fused import (
     scaled_hvg_tpm,
 )
 from cnmf_tpu_torch.ops.distance import local_density_from_spectra
+from cnmf_tpu_torch.ops.host_fetch import HostFetch
 from cnmf_tpu_torch.ops.init import nndsvd_init_batch, random_init_batch
 from cnmf_tpu_torch.ops.kmeans import kmeans_fit
 from cnmf_tpu_torch.ops.kstats import (
@@ -68,20 +71,26 @@ from cnmf_tpu_torch.ops.ols import efficient_ols_all_cols
 from cnmf_tpu_torch.ops.stats import fano_hvg_stats, mean_var
 from cnmf_tpu_torch.parallel.mesh import Shards, pad_to_multiple
 from cnmf_tpu_torch.pipeline.solvers import (
+    _is_mu,
     _regularization,
     beta_loss_to_float,
+    compact_enabled,
     device_init_enabled,
     device_kmeanspp_enabled,
     device_ladder_enabled,
     draw_restart_factors,
     fused_consensus_enabled,
+    grid_enabled,
     refit_spectra_transposed,
     refit_usages,
     restart_axis_pays,
     solve_nmf_batch,
     solve_nmf_batch_ladder,
     solve_nmf_batch_sharded,
+    solve_nmf_grid,
     solve_nmf_ladder_sharded,
+    solve_nmf_staged,
+    staged_enabled,
 )
 from cnmf_tpu_torch.utils.arena import host_arena
 from cnmf_tpu_torch.utils.timing import stage_timer, sub_stage_marker
@@ -263,7 +272,10 @@ def factorize_k(X_host, Xd: torch.Tensor, k: int, seeds,
     X_host: (cells × HVGs) dense array or CSR matrix (the host inits are
     made from it, at Xd's dtype); Xd: the same values as a dense tensor.
     ``ladder``: solve on the device ladder (None:
-    ``solvers.device_ladder_enabled``, on for CUDA tensors). ``timings``: a
+    ``solvers.device_ladder_enabled``, on for CUDA tensors).
+    ``CNMF_TPU_COMPACT=1`` (``solvers.compact_enabled``; CD on one device)
+    takes the between-segment compacted solve instead of the ladder or the
+    plain solver (cnmf_tpu/pipeline/cnmf.py:2180-2190). ``timings``: a
     dict whose "init" entry gains the seconds the inits took until they lay
     on the device (host draw, padding and upload; or the device draw,
     synchronized) and whose "init_on" entry says where they were drawn
@@ -290,9 +302,10 @@ def factorize_k(X_host, Xd: torch.Tensor, k: int, seeds,
         # 4 × B×N×K buffers) within ~4 GB of device memory
         per_restart = Xd.shape[0] * pad_k * Xd.element_size() * 4
         restart_chunk = max(1, int(4e9 / max(per_restart, 1)))
-    use_ladder = device_ladder_enabled(Xd, ladder)
     if mesh is not None and mesh.size == 1:
         mesh = None   # one device means no mesh
+    compact = compact_enabled() and not _is_mu(nmf_kwargs) and mesh is None
+    use_ladder = device_ladder_enabled(Xd, ladder) and not compact
     restart_axis = mesh is not None and mesh.shape["cell"] == 1
     if device_init is None:
         device_init = device_init_enabled(Xd.device)
@@ -314,6 +327,12 @@ def factorize_k(X_host, Xd: torch.Tensor, k: int, seeds,
                      functools.partial(solve_nmf_ladder_sharded, mesh))
             spec, n_iter, (rungs, sweeps) = solve(Xd, W0, Ht0, nmf_kwargs)
             executed += sum(r * s for r, s in zip(rungs, sweeps))
+        elif compact:
+            info = {}
+            _, Ht, n_iter = solve_nmf_batch(Xd, W0, Ht0, nmf_kwargs,
+                                            compact=True, info=info)
+            spec = Ht.transpose(1, 2)
+            executed += info["executed"]
         else:
             if mesh is None:
                 _, Ht, n_iter = solve_nmf_batch(Xd, W0, Ht0, nmf_kwargs)
@@ -381,43 +400,6 @@ def pipeline_all_fits(jobs, n_cells: int, itemsize: int) -> bool:
     return 2 * total * n_cells * itemsize < 2e9
 
 
-class HostFetch:
-    """One device-to-host copy of ``src``, started at construction
-    (cnmf_tpu/pipeline/cnmf.py:1627-1670, 1985, 2005). On a CUDA tensor: an
-    event recorded on the current stream, the one the solves ran on, gates
-    a copy on a side stream into pinned host memory (``non_blocking``).
-    ``src`` is marked as used on the side stream and held by this object,
-    so that the caching allocator cannot give its memory to a later solve
-    while the copy reads it. ``wait()``, from any thread, waits for the
-    copy's event and returns the host array, a numpy view that keeps the
-    pinned buffer alive. On the CPU the host array is the tensor's own
-    memory."""
-
-    def __init__(self, src: torch.Tensor):
-        self.src = src
-        self._done = None
-        if src.device.type != "cuda":
-            self._host = src.contiguous().numpy()
-            return
-        with torch.cuda.device(src.device):
-            ready = torch.cuda.Event()
-            ready.record(torch.cuda.current_stream(src.device))
-            side = torch.cuda.Stream(src.device)
-            side.wait_event(ready)
-            host = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
-            with torch.cuda.stream(side):
-                host.copy_(src, non_blocking=True)
-            src.record_stream(side)
-            self._done = torch.cuda.Event()
-            self._done.record(side)
-        self._host = host.numpy()
-
-    def wait(self) -> np.ndarray:
-        if self._done is not None:
-            self._done.synchronize()
-        return self._host
-
-
 def stream_barrier(t: torch.Tensor) -> None:
     """Wait for the work queued on the current stream of ``t``'s device (the
     solves), and nothing else: the phase split's barrier."""
@@ -432,9 +414,21 @@ def factorize_grid(X_host, Xd: torch.Tensor, jobs, nmf_kwargs: dict, write,
                    phases: Optional[dict] = None, phases_lock=None,
                    twin: bool = False, defer=None) -> dict:
     """Every K of ``jobs`` ([(k, seeds, iters)], each K's restart seeds and
-    iteration numbers), dispatched as cnmf_tpu/pipeline/cnmf.py:1463-2021
-    (its default path; the staged and grid schedules are opt-in there and
-    not ported): ``factorize_k`` on each K, in ascending K.
+    iteration numbers), dispatched as cnmf_tpu/pipeline/cnmf.py:1463-2021:
+    by default ``factorize_k`` on each K, in ascending K.
+
+    Under ``CNMF_TPU_STAGED=1`` or ``CNMF_TPU_GRID=1`` (staged first), where
+    the pack below may be made and the solver is CD, every K's inits are
+    drawn first and the Ks solve together (``_factorize_merged``): the staged
+    schedule (``solvers.solve_nmf_staged``: every K's own segment of 250
+    sweeps, then one merged continuation) or the merged
+    grid (``solvers.solve_nmf_grid``, one schedule per pad-K bucket); both
+    are kept for parity with the JAX package, and on the card neither has
+    beaten the per-K ladder on a measured workload (PERF.md). Their
+    spectra arrive on the host, so there is no packed copy on the device and
+    no twin (``write``'s ``dev`` is None): a same-process consensus and
+    k-selection are then fed from the host, as in the JAX package, on the
+    same device.
 
     Where every K's results may stay on the device (``pipeline_all_fits``)
     and neither ``restart_chunk`` nor ``mesh`` splits a solve, the spectra
@@ -452,11 +446,13 @@ def factorize_grid(X_host, Xd: torch.Tensor, jobs, nmf_kwargs: dict, write,
     copy started, not yet waited for). ``mesh``: a ``parallel.mesh.Mesh``,
     taken for the K where ``solvers.restart_axis_pays``. ``report(k, B,
     seconds, timings, mesh_k, n_iter, executed)`` is called after each K's
-    solve. ``phases``: a dict whose init_s, dispatch_s, solve_wait_s,
-    result_fetch_s, write_s and result_bytes entries gain this grid's
-    share (under ``phases_lock`` when given); the copy then starts after
-    the barrier that ends solve_wait_s. Returns {k: (n_iter (B,), executed
-    restart-sweeps)}."""
+    solve (the staged and grid schedules: after the schedule, ``seconds``
+    its wall, the same for each of its Ks, and ``timings`` the K's own
+    draws). ``phases``: a dict whose init_s,
+    dispatch_s, solve_wait_s, result_fetch_s, write_s and result_bytes
+    entries gain this grid's share (under ``phases_lock`` when given); the
+    copy then starts after the barrier that ends solve_wait_s. Returns
+    {k: (n_iter (B,), executed restart-sweeps)}."""
     lock = phases_lock or threading.Lock()
 
     def add(key, value):
@@ -466,6 +462,12 @@ def factorize_grid(X_host, Xd: torch.Tensor, jobs, nmf_kwargs: dict, write,
 
     pack_ok = (pipeline_all_fits(jobs, X_host.shape[0], Xd.element_size())
                and restart_chunk is None and mesh is None)
+    if pack_ok and not _is_mu(nmf_kwargs):
+        schedule = ("staged" if staged_enabled() else
+                    "grid" if grid_enabled() else None)
+        if schedule is not None:
+            return _factorize_merged(schedule, X_host, Xd, jobs, nmf_kwargs,
+                                     write, device_init, x_mean, report, add)
     sweeps, solved = {}, []
     for k, seeds, iters in sorted(jobs, key=lambda job: int(job[0])):
         k, seeds, iters = int(k), np.asarray(seeds), np.asarray(iters)
@@ -517,6 +519,68 @@ def factorize_grid(X_host, Xd: torch.Tensor, jobs, nmf_kwargs: dict, write,
         write(k, iters, arr[off:off + B * k].reshape(B, k, G),
               (packed, off, B * k) if twin else None)
     add("write_s", time.perf_counter() - t2)
+    return sweeps
+
+
+def _factorize_merged(schedule, X_host, Xd, jobs, nmf_kwargs, write,
+                      device_init, x_mean, report, add) -> dict:
+    """``factorize_grid`` on the staged or the merged-grid schedule
+    (cnmf_tpu/pipeline/cnmf.py:1771-1918): each K's inits as
+    ``factorize_k`` draws them (``restart_factors``), then one
+    ``solve_nmf_staged`` over every K, or one ``solve_nmf_grid`` over each
+    pad-K bucket's inits concatenated, sliced back per K. init_s gains the
+    draws' seconds and solve_wait_s the schedules'; each K's spectra go to
+    ``write`` with no twin."""
+    init = nmf_kwargs.get("init", "random")
+    dtype = numpy_dtype(Xd.dtype)
+    if device_init is None:
+        device_init = device_init_enabled(Xd.device)
+    device_init = device_init and init == "random"
+    if device_init and x_mean is None:
+        x_mean = x_mean_for_init(X_host, dtype)
+    jobs = [(int(k), np.asarray(seeds), np.asarray(iters))
+            for k, seeds, iters in sorted(jobs, key=lambda job: int(job[0]))]
+    if schedule == "staged":
+        groups = [jobs]
+    else:
+        buckets = {}
+        for job in jobs:
+            buckets.setdefault(pad_bucket(job[0]), []).append(job)
+        groups = [buckets[p] for p in sorted(buckets)]
+    sweeps = {}
+    for group in groups:
+        # one timings dict a K: each K reports its own draws' seconds
+        timings = [{"init": 0.0, "init_on": "device" if device_init else
+                    "host"} for _ in group]
+        t0 = time.perf_counter()
+        inits = [restart_factors(X_host, Xd, k, seeds, init, pad_bucket(k),
+                                 t, device_init, x_mean)
+                 for (k, seeds, _), t in zip(group, timings)]
+        t1 = time.perf_counter()
+        if schedule == "staged":
+            outs = solve_nmf_staged(Xd, inits, nmf_kwargs)
+        else:
+            spec, n_iter, executed = solve_nmf_grid(
+                Xd, torch.cat([w for w, _ in inits]),
+                torch.cat([h for _, h in inits]), nmf_kwargs)
+            ends = np.cumsum([len(seeds) for _, seeds, _ in group])
+            outs = [(spec[e - len(s):e], n_iter[e - len(s):e],
+                     executed[e - len(s):e])
+                    for (_, s, _), e in zip(group, ends)]
+        del inits
+        seconds = time.perf_counter() - t1
+        add("init_s", t1 - t0)
+        add("solve_wait_s", seconds)
+        for (k, seeds, iters), (spec, n_iter, executed), t in zip(
+                group, outs, timings):
+            sweeps[k] = (n_iter, int(executed.sum()))
+            if report is not None:
+                report(k, len(seeds), seconds, t, None, n_iter, sweeps[k][1])
+            batch = np.ascontiguousarray(spec[:, :k])
+            add("result_bytes", batch.nbytes)
+            t2 = time.perf_counter()
+            write(k, iters, batch, None)
+            add("write_s", time.perf_counter() - t2)
     return sweeps
 
 

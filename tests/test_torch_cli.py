@@ -155,10 +155,87 @@ def test_cli_rejects_unknown_command():
         torch_cli.main(["frobnicate"])
 
 
-def test_cli_warmup_is_a_no_op(tmp_path, capsys):
-    torch_cli.main(["warmup", "--output-dir", str(tmp_path), "--name", "x"])
-    assert "nothing to do" in capsys.readouterr().out
-    assert not os.listdir(tmp_path)
+def test_cli_warmup_calls_cnmf_warmup(tmp_path, capsys, monkeypatch):
+    """``warmup`` calls cNMF.warmup with the command's components and
+    prints what it returns, as the JAX CLI does; on the CPU that is the
+    native library's build alone (no kernel library to build)."""
+    from cnmf_tpu_torch.pipeline.cnmf import cNMF
+
+    base = ["--output-dir", str(tmp_path), "--name", "x"]
+    torch_cli.main(["warmup", *base])
+    out = capsys.readouterr().out
+    assert "nothing to do" not in out
+    assert "warmup: {'native_library': " in out and "kernel_library" not in out
+    calls = []
+
+    def spy(self, components=None, verbose=True, parallel=4):
+        calls.append((self.device.type, components))
+        return {"kernel_library": 1.25}
+
+    monkeypatch.setattr(cNMF, "warmup", spy)
+    torch_cli.main(["warmup", *base, "-k", "5", "7"])
+    assert calls == [("cpu", [5, 7])]
+    assert "warmup: {'kernel_library': 1.25}" in capsys.readouterr().out
+
+
+def test_autowarm_noop_on_cpu_and_wired(counts_fn, tmp_path, monkeypatch):
+    """The autowarm (tests/test_warmup.py::test_autowarm_sweep_noop_on_cpu_
+    and_wired for the port): factorize and k_selection_plot each call
+    ``_autowarm`` once, before their work; on the CPU it starts no build.
+    On a CUDA device it starts ``kernel_lib.start_build`` (once per process:
+    that function's own guard), and CNMF_TPU_AUTOWARM=0 opts out."""
+    import torch
+
+    from cnmf_tpu_torch.ops import kernel_lib
+    from cnmf_tpu_torch.pipeline.cnmf import cNMF
+
+    builds = []
+    monkeypatch.setattr(kernel_lib, "start_build",
+                        lambda: builds.append(1))
+    obj = cNMF(output_dir=str(tmp_path), name="aw", device="cpu")
+    obj.prepare(counts_fn=counts_fn, components=[4, 5], n_iter=3, seed=2,
+                num_highvar_genes=40)
+    calls = []
+    orig = obj._autowarm
+    monkeypatch.setattr(obj, "_autowarm", lambda: (calls.append(1),
+                                                   orig()))
+    obj.factorize(verbose=False, use_mesh=False)
+    assert len(calls) == 1
+    obj.combine()
+    obj.k_selection_plot(close_fig=True)
+    assert len(calls) == 2 and builds == []
+    obj.device = torch.device("cuda")   # no tensor is made: the gate alone
+    monkeypatch.setenv("CNMF_TPU_AUTOWARM", "0")
+    obj._autowarm()
+    assert builds == []
+    monkeypatch.delenv("CNMF_TPU_AUTOWARM")
+    obj._autowarm()
+    cNMF(output_dir=str(tmp_path), name="aw2", device="cuda")._autowarm()
+    assert builds == [1, 1]
+
+
+def test_failed_background_build_raises_at_first_load(monkeypatch):
+    """A build the autowarm started and that failed is not hidden: every
+    ``load_library`` call raises its very error, and the build's start and
+    end are recorded."""
+    from cnmf_tpu_torch.ops import kernel_lib
+
+    failure = RuntimeError("nvcc failed: csrc/x.cu")
+
+    def broken():
+        raise failure
+
+    kernel_lib.load_library.cache_clear()   # nothing loads on the CPU
+    monkeypatch.setattr(kernel_lib, "_WARM", {})
+    monkeypatch.setattr(kernel_lib, "_load_library", broken)
+    build = kernel_lib.start_build()
+    assert kernel_lib.start_build() is build
+    for _ in range(2):
+        with pytest.raises(RuntimeError) as info:
+            kernel_lib.load_library()
+        assert info.value is failure
+    started, ended = kernel_lib.warm_times()
+    assert started <= ended
 
 
 def test_cli_device_follows_the_platform_knob(monkeypatch):

@@ -180,3 +180,36 @@ def test_wide_k_solve_matches_jax(solver):
     assert _rel(W_p[:, :, :70].numpy(), W_j) < FACTOR_TOL
     assert _rel(Ht_p[:, :, :70].numpy(), Ht_j) < FACTOR_TOL
     assert not W_p[:, :, 70:].any() and not Ht_p[:, :, 70:].any()
+
+
+def test_atlas_f32_stop_rule_matches_jax():
+    """The atlas recipe (extras/atlas_validate.synthesize) at 2,000 cells ×
+    1,000 genes, 200 HVGs, K=12 (padded to 16) × 3 restarts, float32: the
+    plain CD solves of both packages stop at the same sweep of every
+    restart, well before max_iter, where the port's float64 solve stops
+    too. (On the card
+    the atlas at 100,000 cells runs its float32 restarts to max_iter, the
+    kernels and the plain float32 solve alike; the stop rule is the JAX
+    package's.)"""
+    from extras.atlas_validate import synthesize
+    from cnmf_tpu_torch.pipeline import stages
+
+    prep = stages.prepare_arrays(synthesize(2000, 1000, block=1000),
+                                 num_highvar_genes=200)
+    norm = prep.norm.toarray() if hasattr(prep.norm, "toarray") else prep.norm
+    n_iter, inputs = {}, {}
+    for dtype in (np.float64, np.float32):
+        X = np.ascontiguousarray(norm, dtype=dtype)
+        W0, Ht0 = jax_init.random_init_batch(X, 12, [1, 2, 3], dtype=dtype)
+        pad = ((0, 0), (0, 0), (0, 4))
+        W0, Ht0 = np.pad(W0, pad), np.pad(Ht0, pad)
+        inputs[dtype] = X, W0, Ht0
+        _, _, n = pt_nmf.nmf_coordinate_descent(
+            torch.from_numpy(X), torch.from_numpy(W0), torch.from_numpy(Ht0),
+            tol=1e-4, max_iter=1000)
+        n_iter[dtype] = n.numpy()
+    _, _, n_j = jax_nmf.nmf_coordinate_descent(
+        *map(jnp.asarray, inputs[np.float32]), tol=1e-4, max_iter=1000)
+    np.testing.assert_array_equal(n_iter[np.float32], np.asarray(n_j))
+    assert n_iter[np.float32].max() < 100
+    np.testing.assert_array_equal(n_iter[np.float32], n_iter[np.float64])
