@@ -120,7 +120,14 @@ Phases, each printing its own line(s):
    the B=1 refits apart; ``[fused]``; its factorize plain and on the
    ladder, and
    its k-stats and consensus (the stages of the B=1 refits) under
-   torch.profiler;
+   torch.profiler; then ``[mu-precision]``, the MU precision ladder: each
+   TF32 kernel of csrc/mu_tf32.cu against its twin (tf32_within) at the
+   KL factorize shape on the path's X, K=16 and 8, with its ms beside the
+   f32 kernel's and its bound (tf32_bound); then bench.py's KL arm and its
+   IS twin through solvers.solve_nmf_batch with
+   CNMF_TPU_MU_PRECISION_LADDER off / on / on / off: walls, each phase's
+   sweeps, TF32 and f32 launches (TF32 > 0 on, 0 off), the final error,
+   spectra and K=10 consensus on against off (reported, not bounded);
 10. Preprocess with Harmony at a 4-sample study's size (4 batches of 5,000
    cells × 10,000 genes, tests/test_preprocess.py's recipe; 2,000 seurat_v3
    HVGs, PCA 50, Harmony's 100 clusters) through
@@ -155,9 +162,11 @@ Phases, each printing its own line(s):
 12. a JSON line of the kernels (times, the bound of the work at the main
    shape, launches on the main path, the MU kernels' B=1 launches and the
    CD kernels' atlas-path launches and those of one one-program consensus
-   of each slice apart, the refits' times, bounds and
-   splits, the products-given kernel's atlas times), the card line, and the
-   result line {"ok": true, "device": {...}}.
+   of each slice apart; the other shapes' times are on their own lines),
+   then the three TF32 entry points (launches over the ladder arms' on
+   turns, their W side's numbers, ms_h the H side's, f32_ms the f32
+   kernel's), the card line, and the result line {"ok": true, "device":
+   {...}}.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after.
@@ -251,6 +260,27 @@ KL_KERNELS = KL_NUMERATORS + ("kl_x_log_wh",)
 BETA_KERNELS = ("beta_mu_w_terms", "beta_mu_h_terms")
 BETAS = (0.0, 1.5)   # Itakura-Saito, and a beta that takes powf
 MU_REFIT_KERNELS = ("kl_mu_w_numerator", "kl_x_log_wh", "beta_mu_w_terms")
+# the MU precision ladder's coarse phase: the TF32 wrappers (csrc/mu_tf32.cu)
+# against their twins. Kernel and twin round the same operands and take
+# exact products; they differ (1) by the f32 sums, the mma adding each
+# 8-entry product to its accumulator with its own rounding, an error that
+# grows with the contraction's C/8 steps (TF32_KERNEL_L2, of the relative
+# Frobenius error and of each entry), and (2) by a TF32 rounding of the
+# elementwise factor that flips where S differs in its last f32 bit: one
+# TF32 ulp, at most 2^-10 of a term, and the terms are nonnegative, so of
+# an entry (tf32_within)
+TF32_KERNEL_L2 = 1e-4
+TF32_FLIP = 2.0 ** -10
+TF32_FLOPS = 495e12   # the H100 SXM's dense TF32 tensor-core peak at 700 W
+TF32_KERNELS = ("kl_mu_w_numerator_tf32", "kl_mu_h_numerator_tf32",
+                "kl_x_log_wh_tf32", "beta_mu_w_terms_tf32",
+                "beta_mu_h_terms_tf32")
+# csrc/mu_tf32.cu's entry points, each with the wrappers that launch it
+TF32_ENTRIES = {"mu_kl_numerator_tf32": ("kl_mu_w_numerator_tf32",
+                                         "kl_mu_h_numerator_tf32"),
+                "mu_beta_terms_tf32": ("beta_mu_w_terms_tf32",
+                                       "beta_mu_h_terms_tf32"),
+                "mu_kl_x_log_wh_tf32": ("kl_x_log_wh_tf32",)}
 
 
 def card_line():
@@ -353,6 +383,43 @@ def kernel_work(name, X, B, N, G, K):
             4 * (N * G + B * (N + G) * K + 2 * B * out * K))
 
 
+def tf32_within(kernel, twin):
+    """(within both bounds, worst relative Frobenius error, worst max error
+    over the largest value) of TF32 results against their twins."""
+    import torch
+
+    ok, l2, rel = True, 0.0, 0.0
+    for a, b in zip(as_list(kernel), as_list(twin)):
+        d, top = (a - b).abs(), float(b.abs().max())
+        l2 = max(l2, float(torch.linalg.vector_norm(a - b)
+                           / torch.linalg.vector_norm(b)))
+        rel = max(rel, float(d.max()) / max(top, 1e-30))
+        ok &= bool((d <= (TF32_FLIP + TF32_KERNEL_L2) * b.abs()
+                    + 1e-6 * top).all())
+    return ok and l2 <= TF32_KERNEL_L2, l2, rel
+
+
+def tf32_bound(name, X, B, N, G, K):
+    """(bound ms, what binds) of a TF32 wrapper's launch: its products at
+    the TF32 peak and its divisions, reciprocals, powers and logs (one each)
+    on the f32 pipe, the two units working at once, counted where the data
+    needs them as ``kernel_work`` counts them; its bytes those of the f32
+    kernel of the same function."""
+    base = name[:-len("_tf32")]
+    nz = int((X != 0).sum())
+    if base in KL_NUMERATORS:
+        tc, f32 = 4 * K * B * nz, B * nz
+    elif base == "kl_x_log_wh":
+        gt = int((X > np.finfo(np.float32).eps).sum())
+        tc, f32 = 2 * K * B * gt, B * gt
+    else:
+        tc, f32 = B * (4 * K * N * G + 2 * K * nz), B * (N * G + nz)
+    t_ops = max(tc / TF32_FLOPS, f32 / F32_FLOPS)
+    t_bytes = kernel_work(base, X, B, N, G, K)[1] / HBM_BYTES_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
 class RaggedLines:
     """Ragged cases folded into one line for a phase's kernels: for each
     entry point its cases (register buckets and wide K together), the
@@ -403,21 +470,25 @@ def main_record(records, name, K, abs_err, suffix="", **values):
     rec.update({key + suffix: v for key, v in values.items()})
 
 
-def grid_text(tiling, B, M):
+def grid_text(tiling, B, M, brief=False):
     """A launch's grid over B restarts and M output rows, from its kernel's
     tiling (rows a block owns, restarts, threads, blocks an SM holds, and
     for the general-beta kernels the contraction's splits and entries a
-    split): its blocks and their waves of as many blocks as an SM holds."""
+    split): its blocks and their waves of as many blocks as an SM holds
+    (``brief``: the split, blocks and waves alone)."""
     import torch
 
     rows, rb, threads, per_sm, *split = tiling
     splits, per_split = split or (1, None)
     blocks = -(-M // rows) * -(-B // rb) * splits
     sms = torch.cuda.get_device_properties(0).multi_processor_count
+    waves = f"{blocks / max(per_sm * sms, 1):.2f} waves"
+    if brief:
+        cut = f"split {splits}x{per_split}, " if splits > 1 else ""
+        return f"{cut}{blocks} blocks, {waves}"
     cut = f"split {splits} x {per_split} entries, " if splits > 1 else ""
     return (f"grid {cut}{blocks} blocks of {rb} restarts x {rows} rows, "
-            f"{threads} threads, {per_sm}/SM, "
-            f"{blocks / max(per_sm * sms, 1):.2f} waves")
+            f"{threads} threads, {per_sm}/SM, {waves}")
 
 
 def phase_kernels(dev):
@@ -591,7 +662,7 @@ def phase_mu_kernels(dev):
             else:
                 yield name, None, ""
 
-    records, folded = {}, []
+    records, folded, refits = {}, [], {}
     every = KL_KERNELS + BETA_KERNELS
     cases = ([(m, "main", pad, False, every, BETAS) for m, pad in MU_MAIN]
              + [(m, tag, 0, tr, MU_REFIT_KERNELS, (0.0,))
@@ -635,6 +706,13 @@ def phase_mu_kernels(dev):
                 # the other main bucket: one folded line below
                 folded.append(f"{name}{beta_txt} rel={rel_err:.1e} "
                               f"{ms:.4f}/{plain_ms:.4f}/{bound_ms:.4f}")
+            elif tag != "main":
+                # the refits: one folded line for each shape below
+                refits.setdefault((tag, shape_text(shape)), []).append(
+                    f"{name} {rel_err:.1e} {ms:.4f}/{plain_ms:.4f}/"
+                    f"{bound_ms:.4f} " + grid_text(
+                        tiling, shape["B"], shape["G" if h_side else "N"],
+                        brief=True))
             else:
                 print(f"[kernel] {name}{beta_txt} {tag} {shape_text(shape)}"
                       f": rel={rel_err:.3e} abs={abs_err:.3e} "
@@ -658,6 +736,9 @@ def phase_mu_kernels(dev):
     (k8, pad8), = [(m, pad) for m, pad in MU_MAIN if m["K"] != 16]
     print(f"[kernel] MU main {shape_text(k8)} K0={pad8} (kernel/plain/bound "
           "ms): " + "; ".join(folded), flush=True)
+    for (tag, shape), parts in refits.items():
+        print(f"[kernel] {tag} {shape} (beta 0; rel, kernel/plain/bound ms, "
+              "grid): " + "; ".join(parts), flush=True)
     ragged_lines.print()
     for label, kinds in covered.items():
         assert MU_COVER <= kinds, (label, sorted(MU_COVER - kinds))
@@ -1888,6 +1969,155 @@ def mu_slice(label, counts, k_cons, n_iter, hvg, dev, kwargs, names,
     return launches, launches_b1, merged[k_cons]
 
 
+def phase_mu_precision_kernels(X_host, Xd):
+    """``[mu-precision]`` line 1: each TF32 wrapper against its twin at the
+    KL factorize shape (the path's X, B=100, K=16 and K=8 with 3 zero
+    columns, both sides; the general-beta terms at beta 0, and 1.5 for the
+    bounds alone), within ``tf32_within``'s bounds, with the medians of 10
+    calls of it and of the f32 wrapper beside its bound. Returns {name:
+    record}."""
+    import torch
+
+    from cnmf_tpu_torch.ops import mu_kernels as mk
+
+    rng = np.random.RandomState(3)
+    records, parts = {}, []
+    B, (N, G) = 100, X_host.shape
+    for K, pad in ((16, 0), (8, 3)):
+        avg = np.sqrt(X_host.mean() / K)
+        W, Ht = ((avg * np.abs(rng.randn(B, M, K))).astype(np.float32)
+                 for M in (N, G))
+        W[:, :, K - pad:] = 0.0
+        Ht[:, :, K - pad:] = 0.0
+        W, Ht = (torch.as_tensor(a, device=Xd.device) for a in (W, Ht))
+        for name in TF32_KERNELS:
+            kernel, twin = getattr(mk, name), getattr(mk, name + "_plain")
+            f32 = getattr(mk, name[:-len("_tf32")])
+            worst = worst_l2 = worst_abs = 0.0
+            for beta in ((None,) if "kl" in name else (0.0, 1.5)):
+                args = (Xd, W, Ht) if beta is None else (Xd, W, Ht, beta)
+                out = kernel(*args)
+                check_pad(out, pad)
+                ref = twin(*args)
+                ok, l2, rel = tf32_within(out, ref)
+                assert ok, (name, beta, K, l2, rel)
+                worst, worst_l2 = max(worst, rel), max(worst_l2, l2)
+                worst_abs = max(worst_abs, compare(out, ref)[0])
+            args = args if beta is None else (Xd, W, Ht, 0.0)
+            ms, f32_ms = timed_ms(lambda: kernel(*args)), timed_ms(
+                lambda: f32(*args))
+            plain_ms = timed_ms(lambda: twin(*args), reps=3)
+            bound_ms, by = tf32_bound(name, X_host, B, N, G, K)
+            short = name[:-len("_tf32")].replace("_mu", "").replace(
+                "_numerator", "").replace("_terms", "")
+            parts.append(f"{short} {worst_l2:.0e}/{worst:.0e} "
+                         f"{ms:.4f}/{f32_ms:.4f}/"
+                         f"{bound_ms:.4f}" + ("" if K == 16 else " (K8)"))
+            main_record(records, name, K, worst_abs, ms=ms, f32_ms=f32_ms,
+                        plain_ms=plain_ms)
+            if K == 16:
+                records[name].update(bound_ms=bound_ms, bound_by=by)
+    print(f"[mu-precision] TF32 kernels vs twins (L2 rel <= "
+          f"{TF32_KERNEL_L2:g} / max rel, each entry within 2^-10 + "
+          f"{TF32_KERNEL_L2:g} of itself; "
+          f"ms tf32/f32/bound) B={B} N={N} G={G} K=16 and K=8 (3 zero "
+          "columns), beta terms at 0 and 1.5: "
+          + "; ".join(parts), flush=True)
+    return records
+
+
+def phase_mu_precision(X_host, Xd, counts, hvg, k, n_restarts, arms):
+    """``[mu-precision]`` lines 2-3: bench.py's KL arm and its IS twin (K=k
+    × n_restarts, max_iter 200) through solvers.solve_nmf_batch, the
+    per-K batched solver factorize runs with CNMF_TPU_DEVICE_LADDER=0,
+    from inits drawn on the card, with CNMF_TPU_MU_PRECISION_LADDER
+    off / on / on / off: walls, Σ n_iter of each phase (on) and of the solve
+    (off), the TF32 and f32 launches of each turn (TF32 > 0 on, 0 off), each
+    restart's final divergence on / off (median and max), the spectra's
+    relative SSE and the consensus at K=k on / off (relative SSE, the
+    largest of its artifacts). The divergence is sklearn's error, sqrt(2
+    div). Every restart's n_iter <= max_iter + 10, and
+    torch's float32 precision reads highest after the arms. ``arms``:
+    [(label, nmf kwargs, density threshold)]. Returns {TF32 wrapper:
+    launches over the on turns}."""
+    import torch
+
+    from cnmf_tpu_torch.ops import mu_kernels as mk
+    from cnmf_tpu_torch.ops.cd_kernels import pad_bucket
+    from cnmf_tpu_torch.ops.nmf import beta_divergence_error
+    from cnmf_tpu_torch.pipeline import solvers, stages
+
+    _, seeds = stages.replicate_seeds([k], n_restarts, 14)
+    W0, Ht0 = solvers.draw_restart_factors(
+        seeds, stages.x_mean_for_init(X_host, np.float32), k, pad_bucket(k),
+        *Xd.shape, Xd.device, Xd.dtype)
+    prep = stages.prepare_arrays(counts, num_highvar_genes=hvg)
+    tpm = torch.as_tensor(np.ascontiguousarray(prep.tpm, np.float32),
+                          device=Xd.device)
+    tf32_launches = dict.fromkeys(TF32_KERNELS, 0)
+    for label, kwargs, density in arms:
+        beta = solvers.beta_loss_to_float(kwargs["beta_loss"])
+        names = KL_KERNELS if beta == 1 else BETA_KERNELS
+        f32 = {n: getattr(mk, n) for n in names}
+        tf32 = {n + "_tf32": getattr(mk, n + "_tf32") for n in names}
+        turns = {}
+        for mode in ("0", "1", "1", "0"):
+            info = {}
+            with env_knobs({"CNMF_TPU_DEVICE_LADDER": "0",
+                            "CNMF_TPU_MU_PRECISION_LADDER": mode}):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                (W, Ht, n_it), launches = counted(
+                    dict(f32, **tf32), lambda: solvers.solve_nmf_batch(
+                        Xd, W0, Ht0, kwargs, info=info))
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            n_tf32 = sum(launches[n] for n in tf32)
+            assert (n_tf32 > 0) == (mode == "1"), (label, mode, launches)
+            assert int(n_it.max()) <= kwargs["max_iter"] + 10, (label, mode)
+            if mode == "1":
+                for n in tf32:
+                    tf32_launches[n] += launches[n]
+            turn = turns.setdefault(mode, dict(walls=[], launches=[]))
+            turn["walls"].append(wall)
+            turn["launches"].append(f"{n_tf32}/"
+                                    f"{sum(launches[n] for n in f32)}")
+            if "W" not in turn:
+                phases = info.get("phase_n_iter", (n_it,))
+                turn.update(W=W, Ht=Ht, n=n_it, phases="+".join(
+                    str(int(p.sum())) for p in phases))
+            else:
+                turn["same"] = bool(torch.equal(Ht, turn["Ht"]))
+        off, on = turns["0"], turns["1"]
+        err = [beta_divergence_error(Xd, t["W"], t["Ht"], beta) for t in
+               (off, on)]
+        # sklearn's error sqrt(2 div) clamps a negative divergence to 0 (IS
+        # subtracts X's full element count): 0 against 0 is no change
+        gap = ((err[1] - err[0]) / err[0].clamp(min=1e-30)).cpu().numpy()
+        spec = {m: t["Ht"].transpose(1, 2)[:, :k].cpu().numpy()
+                for m, t in turns.items()}
+        res = [stages.consensus_arrays(
+            stages.combine_arrays(list(spec[m])), k, Xd, tpm, prep.tpm_std,
+            prep.hvg_idx, kwargs, density_threshold=density)
+            for m in ("0", "1")]
+        cons = max(rel_sse(getattr(res[1], key), getattr(res[0], key))
+                   for key in ("spectra", "usages", "spectra_tpm",
+                               "spectra_score"))
+        print(f"[mu-precision] {label} K={k} x {n_restarts} max_iter "
+              f"{kwargs['max_iter']}, off/on/on/off: walls "
+              f"{off['walls'][0]:.3f}/{on['walls'][0]:.3f}/"
+              f"{on['walls'][1]:.3f}/{off['walls'][1]:.3f} s; sum n_iter off "
+              f"{off['phases']}, on coarse+finish {on['phases']}; launches "
+              f"TF32/f32 {'/'.join(on['launches'])} on, "
+              f"{'/'.join(off['launches'])} off; final error (on-off)/off "
+              f"median {np.median(gap):.2e} max {gap.max():.2e}; "
+              f"spectra rel SSE {rel_sse(spec['1'], spec['0']):.2e}; "
+              f"consensus rel SSE {cons:.2e}; turns repeat bits "
+              f"{off['same']}/{on['same']}", flush=True)
+    assert torch.get_float32_matmul_precision() == "highest"
+    return tf32_launches
+
+
 # the [preprocess] phase: a 4-sample study for cNMF with Harmony —
 # tests/test_preprocess.py:make_batched_adata's recipe at 4 batches of 5,000
 # cells × 10,000 genes, Preprocess at its published defaults (2,000 seurat_v3
@@ -2935,7 +3165,7 @@ def main():
     # paths from the host's draws on two shards of the card
     host = phase_seeded(dev, counts, hvg, ks, n_iter, k_cons)
     with host_draws():
-        mesh_kernel, mesh_launches = phase_mesh(
+        _, mesh_launches = phase_mesh(
             dev, counts, hvg, ks, n_iter, k_cons, host)
     del host
 
@@ -2974,19 +3204,19 @@ def main():
                          is_kwargs, IS_DENSITY_THRESHOLD, "IS",
                          "beta_mu_w_terms")
 
+    # 9b. the MU precision ladder: the TF32 kernels against their twins,
+    # then the KL and IS arms with the knob off and on
+    records.update(phase_mu_precision_kernels(X_host, Xd))
+    launches.update(phase_mu_precision(
+        X_host, Xd, counts, hvg, k_cons, n_iter,
+        [("KL", kl_kwargs, 0.5), ("IS", is_kwargs, IS_DENSITY_THRESHOLD)]))
+
     # 10. Preprocess with Harmony, and cNMF on its output
     phase_preprocess(dev)
 
     # 11. the atlas path: sparse counts at 100,000 x 20,000, the TPM on the
     # card and over the device limit
-    atlas_kernel, atlas_launches = phase_atlas(dev)
-    for M, v in atlas_kernel.items():
-        records["cd_sweep_from_products"].update({
-            f"{key}_atlas_m{M}": float(f"{v[key]:.4g}")
-            for key in ("ms", "alone_ms", "plain_ms", "bound_ms")})
-    records["cd_sweep_from_products"].update({
-        f"{key}_cells": float(f"{mesh_kernel[key]:.4g}")
-        for key in ("ms", "alone_ms", "plain_ms", "bound_ms")})
+    _, atlas_launches = phase_atlas(dev)
 
     # 12. results
     replaces = {"cd_w_half_sweep": "cnmf_tpu/ops/pallas_cd.py:118",
@@ -3006,25 +3236,39 @@ def main():
     for part in fused_launches.values():
         for name, n in part.items():
             fused[name] = fused.get(name, 0) + n
-    # no single PyTorch call computes any of these functions; measured
-    # values to 4 significant digits, well inside their run-to-run spread
+    extra = {"launches_b1": launches_b1, "launches_atlas": atlas_launches,
+             "launches_mesh": mesh_launches, "launches_fused": fused,
+             "launches_sched": sched_launches}
+
+    def numbers(rec, keys=("max_abs_err", "ms", "plain_ms", "bound_ms",
+                           "bound_by")):
+        # measured values to 4 significant digits, well inside their
+        # run-to-run spread; the other shapes' are on the [kernel] lines
+        return {key: float(f"{rec[key]:.4g}") if isinstance(rec[key], float)
+                else rec[key] for key in keys}
+
+    # csrc/mu_tf32.cu's entry points, numbers of their W-side wrapper (ms_h:
+    # the H side's, f32_ms: the f32 kernel's); they replace no Pallas kernel
+    tf32 = [dict(name=entry, route="cuda",
+                 source="cnmf_tpu_torch/csrc/mu_tf32.cu",
+                 replaces="none; cnmf_tpu/ops/nmf.py:"
+                 + ("1036" if "log" in entry else "1092"),
+                 launches=sum(launches[w] for w in wrappers), library_ms=None,
+                 **numbers(records[wrappers[0]]),
+                 f32_ms=float(f"{records[wrappers[0]]['f32_ms']:.4g}"),
+                 **({"ms_h": float(f"{records[wrappers[1]]['ms']:.4g}")}
+                    if len(wrappers) > 1 else {}))
+            for entry, wrappers in TF32_ENTRIES.items()]
+    # no single PyTorch call computes any of these functions
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=sources[name],
              replaces=replaces[name], launches=launches[name],
-             **({"launches_b1": launches_b1[name]} if name in launches_b1
-                else {}),
-             **({"launches_atlas": atlas_launches[name]}
-                if name in atlas_launches else {}),
-             **({"launches_mesh": mesh_launches[name]}
-                if name in mesh_launches else {}),
-             **({"launches_fused": fused[name]} if name in fused else {}),
-             **({"launches_sched": sched_launches[name]}
-                if name in sched_launches else {}),
-             library_ms=None,
-             **{key: float(f"{v:.4g}") if isinstance(v, float) else v
-                for key, v in records[name].items()})
+             **{key: v[name] for key, v in extra.items() if name in v},
+             library_ms=None, **numbers(records[name]),
+             **({"alone_ms": float(f"{records[name]['alone_ms']:.4g}")}
+                if "alone_ms" in records[name] else {}))
         for name in replaces
-    ]}, separators=(",", ":")))
+    ] + tf32}, separators=(",", ":")))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

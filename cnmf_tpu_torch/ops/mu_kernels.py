@@ -29,6 +29,16 @@ The plain versions follow the JAX package's XLA path (``_mu_w_terms_chunked``,
 Each wrapper counts its kernel launches in a ``launches`` attribute, and
 those with one restart (B=1, the consensus and k-stats refits) also in
 ``launches_b1``.
+
+The ``*_tf32`` wrappers are the coarse phase of the MU precision ladder
+(``ops.nmf.nmf_mu_precision_ladder``): the same functions with both
+products in TF32 on the tensor cores (``csrc/mu_tf32.cu``; any K a multiple
+of 8, any B). They replace no Pallas kernel: the JAX package's coarse phase
+runs its "default"-precision XLA products (cnmf_tpu/ops/nmf.py:1092-1207,
+:1036). Their plain twins round F, Fo and the elementwise factor to TF32
+with ``tf32_round``, as the kernels' ``cvt.rna`` does, then run the f32
+plain terms; the twins serve the tests and ``chip_smoke.py``, never the
+solvers, which take the TF32 route on CUDA tensors only.
 """
 
 from __future__ import annotations
@@ -48,6 +58,7 @@ from cnmf_tpu_torch.ops.kernel_lib import (
     device_kind,
     kernel_function,
     launch,
+    library_constant,
 )
 
 EPSILON = float(np.finfo(np.float32).eps)
@@ -115,6 +126,24 @@ def kl_h_denominator(W):
     return torch.where(w_sum == 0, 1.0, w_sum)[:, None, :]
 
 
+def tf32_round(x):
+    """float32 ``x`` rounded to TF32 (10 mantissa bits) to nearest, ties
+    away from zero, as ``cvt.rna.tf32.f32``: the 13 low mantissa bits of the
+    magnitude rounded off, a carry moving into the exponent (the largest
+    finite values round to inf); inf and nan are kept. Subnormals round as
+    their bits do."""
+    if x.dtype != torch.float32:
+        raise TypeError(f"tf32_round takes float32, got {x.dtype}")
+    bits = x.view(torch.int32)
+    rounded = (bits + 0x1000) & -0x2000
+    special = (bits & 0x7F800000) == 0x7F800000
+    return torch.where(special, bits, rounded).view(torch.float32)
+
+
+def _rounded(t, rnd):
+    return t if rnd is None else rnd(t)
+
+
 def _sliced_bmm(A, B, per_split):
     """A·B over their shared axis in slices of ``per_split`` entries (None:
     one slice), each slice's product and then the slices' sum in order."""
@@ -127,32 +156,38 @@ def _sliced_bmm(A, B, per_split):
     return out
 
 
-def mu_w_terms_plain(X, W, Ht, beta: float, per_split=None):
+def mu_w_terms_plain(X, W, Ht, beta: float, per_split=None, rnd=None):
     """W-update numerator (X ∘ WH^(β−2))·Hᵀ and denominator (β=1:
     ``kl_w_denominator``, else WH^(β−1)·Hᵀ), each (B, N, K); beta != 2.
     ``per_split``: sum the contraction (G) in slices of that many entries and
     then the slices in order, as a split launch of the general-beta kernel
-    does (``split_plan``)."""
+    does (``split_plan``). ``rnd``: applied to each elementwise factor
+    before its product (the TF32 twins' ``tf32_round``)."""
     num = torch.empty_like(W)
     den = None if beta == 1 else torch.empty_like(W)
     for sl, _, Htb, WH in wh_chunks(W, Ht):
-        num[sl] = _sliced_bmm(_num_ratio(X, WH, beta), Htb, per_split)
+        num[sl] = _sliced_bmm(_rounded(_num_ratio(X, WH, beta), rnd), Htb,
+                              per_split)
         if den is not None:
-            den[sl] = _sliced_bmm(_den_factor(WH, beta), Htb, per_split)
+            den[sl] = _sliced_bmm(_rounded(_den_factor(WH, beta), rnd), Htb,
+                                  per_split)
     if den is None:
         den = kl_w_denominator(Ht).expand_as(num)
     return num, den
 
 
-def mu_h_terms_plain(X, W, Ht, beta: float):
+def mu_h_terms_plain(X, W, Ht, beta: float, rnd=None):
     """Ht-update numerator Wᵀ·(X ∘ WH^(β−2)) and denominator (β=1:
-    ``kl_h_denominator``, else Wᵀ·WH^(β−1)), each (B, G, K); beta != 2."""
+    ``kl_h_denominator``, else Wᵀ·WH^(β−1)), each (B, G, K); beta != 2.
+    ``rnd`` as in ``mu_w_terms_plain``."""
     num = torch.empty_like(Ht)
     den = None if beta == 1 else torch.empty_like(Ht)
     for sl, Wb, _, WH in wh_chunks(W, Ht):
-        num[sl] = torch.bmm(_num_ratio(X, WH, beta).transpose(1, 2), Wb)
+        num[sl] = torch.bmm(
+            _rounded(_num_ratio(X, WH, beta), rnd).transpose(1, 2), Wb)
         if den is not None:
-            den[sl] = torch.bmm(_den_factor(WH, beta).transpose(1, 2), Wb)
+            den[sl] = torch.bmm(
+                _rounded(_den_factor(WH, beta), rnd).transpose(1, 2), Wb)
     if den is None:
         den = kl_h_denominator(W).expand_as(num)
     return num, den
@@ -190,6 +225,38 @@ def kl_x_log_wh_plain(X, W, Ht, per_split=None):
     return out
 
 
+# the TF32 twins: the operands of both products rounded as the kernels'
+# cvt.rna rounds them, the products and sums in f32
+
+def kl_mu_w_numerator_tf32_plain(X, W, Ht):
+    """Plain twin of ``kl_mu_w_numerator_tf32``."""
+    return mu_w_terms_plain(X, tf32_round(W), tf32_round(Ht), 1.0,
+                            rnd=tf32_round)[0]
+
+
+def kl_mu_h_numerator_tf32_plain(X, W, Ht):
+    """Plain twin of ``kl_mu_h_numerator_tf32``."""
+    return mu_h_terms_plain(X, tf32_round(W), tf32_round(Ht), 1.0,
+                            rnd=tf32_round)[0]
+
+
+def kl_x_log_wh_tf32_plain(X, W, Ht):
+    """Plain twin of ``kl_x_log_wh_tf32``."""
+    return kl_x_log_wh_plain(X, tf32_round(W), tf32_round(Ht))
+
+
+def beta_mu_w_terms_tf32_plain(X, W, Ht, beta: float):
+    """Plain twin of ``beta_mu_w_terms_tf32``."""
+    return mu_w_terms_plain(X, tf32_round(W), tf32_round(Ht), beta,
+                            rnd=tf32_round)
+
+
+def beta_mu_h_terms_tf32_plain(X, W, Ht, beta: float):
+    """Plain twin of ``beta_mu_h_terms_tf32``."""
+    return mu_h_terms_plain(X, tf32_round(W), tf32_round(Ht), beta,
+                            rnd=tf32_round)
+
+
 # ----------------------------------------------------------------------
 # the CUDA kernels
 # ----------------------------------------------------------------------
@@ -203,7 +270,9 @@ _BETA_SPLIT_ARGS = (VP, I32, I32, I64, I64, VP, VP, I32, I32, F32, I32, I32,
 _ARGTYPES = {"mu_kl_numerator": _ARGS, "mu_kl_x_log_wh": _ARGS,
              "mu_kl_x_log_wh_split": _SPLIT_ARGS,
              "mu_beta_terms": _BETA_ARGS,
-             "mu_beta_terms_split": _BETA_SPLIT_ARGS}
+             "mu_beta_terms_split": _BETA_SPLIT_ARGS,
+             "mu_kl_numerator_tf32": _ARGS, "mu_kl_x_log_wh_tf32": _ARGS,
+             "mu_beta_terms_tf32": _BETA_ARGS}
 
 
 def _x_strides(X, transposed):
@@ -451,7 +520,81 @@ def beta_mu_h_terms(X, W, Ht, beta: float):
     return outs
 
 
+# ----------------------------------------------------------------------
+# the TF32 wrappers: the precision ladder's coarse phase
+# ----------------------------------------------------------------------
+
+def kl_mu_w_numerator_tf32(X, W, Ht):
+    """``kl_mu_w_numerator`` with both products in TF32
+    (``csrc/mu_tf32.cu``); replaces no Pallas kernel."""
+    name = "kl_mu_w_numerator_tf32"
+    if device_kind(name, W) == "cpu":
+        return kl_mu_w_numerator_tf32_plain(X, W, Ht)
+    (out,) = _launch(name, "mu_kl_numerator_tf32", X, W, Ht,
+                     (torch.empty_like(W),), transposed=False)
+    _count(kl_mu_w_numerator_tf32, W.shape[0])
+    return out
+
+
+def kl_mu_h_numerator_tf32(X, W, Ht):
+    """``kl_mu_h_numerator`` with both products in TF32, X read transposed
+    by its strides; replaces no Pallas kernel."""
+    name = "kl_mu_h_numerator_tf32"
+    if device_kind(name, Ht) == "cpu":
+        return kl_mu_h_numerator_tf32_plain(X, W, Ht)
+    (out,) = _launch(name, "mu_kl_numerator_tf32", X, Ht, W,
+                     (torch.empty_like(Ht),), transposed=True)
+    _count(kl_mu_h_numerator_tf32, W.shape[0])
+    return out
+
+
+def kl_x_log_wh_tf32(X, W, Ht):
+    """``kl_x_log_wh`` with W·H in TF32: per row tile and restart a double
+    partial, summed over row tiles in a fixed order; replaces no Pallas
+    kernel."""
+    name = "kl_x_log_wh_tf32"
+    if device_kind(name, W) == "cpu":
+        return kl_x_log_wh_tf32_plain(X, W, Ht)
+    B, M, K = W.shape
+    rows = library_constant("mu_tf32_rows", K)
+    part = torch.empty((-(-M // rows), B), dtype=torch.float64,
+                       device=W.device)
+    _launch(name, "mu_kl_x_log_wh_tf32", X, W, Ht, (part,), False)
+    _count(kl_x_log_wh_tf32, B)
+    return part.sum(dim=0).to(torch.float32)
+
+
+def beta_mu_w_terms_tf32(X, W, Ht, beta: float):
+    """``beta_mu_w_terms`` with all four products in TF32; replaces no
+    Pallas kernel."""
+    name = "beta_mu_w_terms_tf32"
+    _check_beta(name, beta)
+    if device_kind(name, W) == "cpu":
+        return beta_mu_w_terms_tf32_plain(X, W, Ht, beta)
+    outs = _launch(name, "mu_beta_terms_tf32", X, W, Ht,
+                   (torch.empty_like(W), torch.empty_like(W)), False,
+                   float(beta))
+    _count(beta_mu_w_terms_tf32, W.shape[0])
+    return outs
+
+
+def beta_mu_h_terms_tf32(X, W, Ht, beta: float):
+    """``beta_mu_h_terms`` with all four products in TF32, X read
+    transposed by its strides; replaces no Pallas kernel."""
+    name = "beta_mu_h_terms_tf32"
+    _check_beta(name, beta)
+    if device_kind(name, Ht) == "cpu":
+        return beta_mu_h_terms_tf32_plain(X, W, Ht, beta)
+    outs = _launch(name, "mu_beta_terms_tf32", X, Ht, W,
+                   (torch.empty_like(Ht), torch.empty_like(Ht)), True,
+                   float(beta))
+    _count(beta_mu_h_terms_tf32, W.shape[0])
+    return outs
+
+
 WRAPPERS = (kl_mu_w_numerator, kl_mu_h_numerator, kl_x_log_wh,
             beta_mu_w_terms, beta_mu_h_terms)
-for _fn in WRAPPERS:
+TF32_WRAPPERS = (kl_mu_w_numerator_tf32, kl_mu_h_numerator_tf32,
+                 kl_x_log_wh_tf32, beta_mu_w_terms_tf32, beta_mu_h_terms_tf32)
+for _fn in WRAPPERS + TF32_WRAPPERS:
     _fn.launches = _fn.launches_b1 = 0

@@ -8,7 +8,10 @@ and every MU term at beta != 2 (KL, Itakura-Saito, any other beta) through
 ``ops.mu_kernels``: the fused Hopper kernels for CUDA tensors, the plain
 PyTorch versions for CPU tensors. beta=2 MU runs plain matmuls everywhere,
 and the divergence at beta ∉ {1, 2} plain torch ops (the JAX package has no
-kernel for either).
+kernel for either). The MU precision ladder (``nmf_mu_precision_ladder``)
+runs a coarse phase at ``precision="default"``: on CUDA its beta != 2 terms
+and KL divergence go through the TF32 kernels (the ``*_tf32`` wrappers),
+and the divergence at beta ∉ {1, 2} takes TF32-rounded operands.
 
 CD semantics mirror sklearn's, as in the JAX package:
 
@@ -65,13 +68,19 @@ from cnmf_tpu_torch.ops.init import nnls_w_init
 from cnmf_tpu_torch.ops.mu_kernels import (
     CHUNK,
     beta_mu_h_terms,
+    beta_mu_h_terms_tf32,
     beta_mu_w_terms,
+    beta_mu_w_terms_tf32,
     kl_h_denominator,
     kl_mu_h_numerator,
+    kl_mu_h_numerator_tf32,
     kl_mu_w_numerator,
+    kl_mu_w_numerator_tf32,
     kl_w_denominator,
     kl_x_log_wh,
+    kl_x_log_wh_tf32,
     restart_sums,
+    tf32_round,
     wh_chunks,
 )
 from cnmf_tpu_torch.ops.host_fetch import HostFetch
@@ -357,12 +366,17 @@ def _kl_x_terms(X):
     return X_log_X, torch.where(mask, X, 0.0).sum()
 
 
-def _beta_divergence_chunked(X, W, Ht, beta: float):
+def _beta_divergence_chunked(X, W, Ht, beta: float, tf32: bool = False):
     """beta ∉ {1, 2}: beta_div per restart from chunked reconstructions
     (sklearn's dense _beta_divergence: X <= eps excluded from the elementwise
     terms, WH floored at eps). The batch is padded with copies of its first
     restart to whole chunks of ``mu_kernels.CHUNK``, so every chunk's
-    reduction has one shape and a restart's bits do not depend on B."""
+    reduction has one shape and a restart's bits do not depend on B.
+    ``tf32``: W and Ht rounded to TF32 before the f32 products, the JAX
+    package's "default"-precision product (which XLA takes outside any
+    kernel, cnmf_tpu/ops/nmf.py:967-1033)."""
+    if tf32:
+        W, Ht = tf32_round(W), tf32_round(Ht)
     B = W.shape[0]
     size = -(-B // CHUNK) * CHUNK
     W, Ht = _padded(W, size), _padded(Ht, size)
@@ -386,9 +400,13 @@ def _beta_divergence_chunked(X, W, Ht, beta: float):
     return divs[:B]
 
 
-def beta_divergence_error(X, W, Ht, beta: float, x_terms=None):
+def beta_divergence_error(X, W, Ht, beta: float, x_terms=None,
+                          tf32: bool = False):
     """sqrt(2·beta_div(X, WH)) per restart (sklearn square_root=True).
-    ``x_terms``: ``_kl_x_terms(X)``, when the caller has it (beta=1)."""
+    ``x_terms``: ``_kl_x_terms(X)``, when the caller has it (beta=1).
+    ``tf32``: W·H in TF32 (the coarse phase on CUDA, ``_tf32_route``): the
+    TF32 divergence kernel at beta 1, TF32-rounded operands of the chunked
+    reconstruction at beta ∉ {1, 2}; beta 2 ignores it."""
     if beta == 2:
         return frobenius_error(X, W, Ht)
     if beta == 1:
@@ -397,9 +415,10 @@ def beta_divergence_error(X, W, Ht, beta: float, x_terms=None):
         # depend on the batch
         sum_WH = restart_sums(
             (restart_sums(W) * restart_sums(Ht))[:, :, None])[:, 0]
-        divs = -kl_x_log_wh(X, W, Ht) + X_log_X - sum_X + sum_WH
+        x_log_wh = kl_x_log_wh_tf32 if tf32 else kl_x_log_wh
+        divs = -x_log_wh(X, W, Ht) + X_log_X - sum_X + sum_WH
     else:
-        divs = _beta_divergence_chunked(X, W, Ht, beta)
+        divs = _beta_divergence_chunked(X, W, Ht, beta, tf32)
     return torch.sqrt((2.0 * divs).clamp(min=0.0))
 
 
@@ -417,27 +436,39 @@ def _mu_step(F, numerator, denominator, gamma, l1_reg, l2_reg):
     return F * delta
 
 
-def _mu_update_w(X, W, Ht, beta, gamma, l1_reg, l2_reg):
+def _mu_update_w(X, W, Ht, beta, gamma, l1_reg, l2_reg, tf32=False):
+    """The W update; ``tf32``: the beta != 2 terms in TF32."""
     if beta == 2:
         numerator = _shared_x_dot(X, Ht)
         denominator = torch.bmm(W, _gram(Ht))
     elif beta == 1:
-        numerator = kl_mu_w_numerator(X, W, Ht)
+        numerator = (kl_mu_w_numerator_tf32 if tf32 else
+                     kl_mu_w_numerator)(X, W, Ht)
         denominator = kl_w_denominator(Ht)
     else:
-        numerator, denominator = beta_mu_w_terms(X, W, Ht, beta)
+        numerator, denominator = (beta_mu_w_terms_tf32 if tf32 else
+                                  beta_mu_w_terms)(X, W, Ht, beta)
     return _mu_step(W, numerator, denominator, gamma, l1_reg, l2_reg)
 
 
-def _mu_update_h(X, W, Ht, beta, gamma, l1_reg, l2_reg):
+def _mu_h_terms(X, W, Ht, beta, tf32=False):
+    """The H update's beta != 2 numerator (and denominator, but at beta 1)
+    on one X: (numerator, denominator or None)."""
+    if beta == 1:
+        return (kl_mu_h_numerator_tf32 if tf32 else
+                kl_mu_h_numerator)(X, W, Ht), None
+    return (beta_mu_h_terms_tf32 if tf32 else beta_mu_h_terms)(X, W, Ht, beta)
+
+
+def _mu_update_h(X, W, Ht, beta, gamma, l1_reg, l2_reg, tf32=False):
+    """The Ht update; ``tf32``: the beta != 2 terms in TF32."""
     if beta == 2:
         numerator = _shared_xt_dot(X, W)
         denominator = torch.bmm(Ht, _gram(W))
-    elif beta == 1:
-        numerator = kl_mu_h_numerator(X, W, Ht)
-        denominator = kl_h_denominator(W)
     else:
-        numerator, denominator = beta_mu_h_terms(X, W, Ht, beta)
+        numerator, denominator = _mu_h_terms(X, W, Ht, beta, tf32)
+        if beta == 1:
+            denominator = kl_h_denominator(W)
     return _mu_step(Ht, numerator, denominator, gamma, l1_reg, l2_reg)
 
 
@@ -451,20 +482,24 @@ def _mu_state(W0, Ht0, error_init, done):
 
 
 class _MuTerms:
-    """The MU updates and the divergence of one X on one device."""
+    """The MU updates and the divergence of one X on one device; ``tf32``:
+    the coarse phase's TF32 products (``_tf32_route``)."""
 
-    def __init__(self, X, beta):
-        self.X, self.beta = X, beta
+    def __init__(self, X, beta, tf32=False):
+        self.X, self.beta, self.tf32 = X, beta, tf32
         self.x_terms = _kl_x_terms(X) if beta == 1 else None
 
     def update_w(self, W, Ht, gamma, l1_reg, l2_reg):
-        return _mu_update_w(self.X, W, Ht, self.beta, gamma, l1_reg, l2_reg)
+        return _mu_update_w(self.X, W, Ht, self.beta, gamma, l1_reg, l2_reg,
+                            self.tf32)
 
     def update_h(self, W, Ht, gamma, l1_reg, l2_reg):
-        return _mu_update_h(self.X, W, Ht, self.beta, gamma, l1_reg, l2_reg)
+        return _mu_update_h(self.X, W, Ht, self.beta, gamma, l1_reg, l2_reg,
+                            self.tf32)
 
     def error(self, W, Ht):
-        return beta_divergence_error(self.X, W, Ht, self.beta, self.x_terms)
+        return beta_divergence_error(self.X, W, Ht, self.beta, self.x_terms,
+                                     self.tf32)
 
 
 def _mu_block(terms, state, beta, tol, limit, update_H,
@@ -511,6 +546,32 @@ def _mu_block(terms, state, beta, tol, limit, update_H,
     return block
 
 
+# the product precisions of the JAX API (cnmf_tpu/ops/nmf.py:1213-1235)
+PRECISIONS = (None, "highest", "high", "default")
+
+
+def _tf32_route(precision, X) -> bool:
+    """Whether a MU solve at ``precision`` on X's device runs its beta != 2
+    products in TF32: "default" (the precision ladder's coarse phase, the
+    JAX package's one-pass product) on a CUDA device. Every other precision,
+    and any on the CPU, is full precision, as XLA's CPU backend ignores
+    the setting; no global torch flag is touched."""
+    if precision not in PRECISIONS:
+        raise ValueError(f"precision={precision!r}: one of {PRECISIONS}")
+    return precision == "default" and X.device.type == "cuda"
+
+
+def _mu_terms(X, beta, precision, W0, Ht0):
+    """(the MU terms of X at ``precision``, W0 and Ht0 as the terms take
+    them: lists of shards where X is ``Shards``)."""
+    tf32 = _tf32_route(precision, X)
+    if not isinstance(X, Shards):
+        return _MuTerms(X, beta, tf32), W0, Ht0
+    terms = (_RowShardTerms if X.axis == 0 else _ColShardTerms)(X, beta, tf32)
+    W0s, Ht0s = (f.parts if isinstance(f, Shards) else f for f in (W0, Ht0))
+    return terms, W0s, Ht0s
+
+
 def nmf_multiplicative_update(
     X: torch.Tensor,
     W0: torch.Tensor,
@@ -525,6 +586,7 @@ def nmf_multiplicative_update(
     l2_reg_W: float = 0.0,
     l2_reg_H: float = 0.0,
     chunk: int = CHUNK,
+    precision: Optional[str] = None,
     error_init0: Optional[torch.Tensor] = None,
     prev_error0: Optional[torch.Tensor] = None,
     done0: Optional[torch.Tensor] = None,
@@ -541,6 +603,10 @@ def nmf_multiplicative_update(
     ``chunk``: the JAX package's restart chunk of the reconstruction; here
     the reconstructions always go in chunks of ``mu_kernels.CHUNK``
     restarts, the fixed order the kernels' sums take, whatever is passed.
+    ``precision``: None, "highest", "high" or "default" (anything else
+    raises); "default" runs the beta != 2 terms and divergence in TF32 on a
+    CUDA device (``_tf32_route``), the precision ladder's coarse phase; on
+    the CPU, and at beta 2, it changes nothing.
     ``error_init0`` / ``prev_error0``: (B,) starting values of the stopping
     rule's denominator and previous error (default: the divergence at W0,
     Ht0); ``done0``: (B,) bool, restarts that start stopped
@@ -551,14 +617,9 @@ def nmf_multiplicative_update(
     transpose of a row-sharded matrix: the spectra refit), with Ht0 the
     matching ``Shards``, W0 on the first shard's device and update_H False.
     The sharded factor comes back as ``Shards``."""
-    if isinstance(X, Shards):
-        terms = (_RowShardTerms if X.axis == 0 else _ColShardTerms)(X, beta)
-        if X.axis == 1 and update_H:
-            raise ValueError("a column-sharded X solves with H fixed only")
-        W0s, Ht0s = (f.parts if isinstance(f, Shards) else f
-                     for f in (W0, Ht0))
-    else:
-        terms, W0s, Ht0s = _MuTerms(X, beta), W0, Ht0
+    if isinstance(X, Shards) and X.axis == 1 and update_H:
+        raise ValueError("a column-sharded X solves with H fixed only")
+    terms, W0s, Ht0s = _mu_terms(X, beta, precision, W0, Ht0)
     dtype = Ht0s.dtype if isinstance(W0s, list) else W0s.dtype
     B = Ht0s[0].shape[0] if isinstance(Ht0s, list) else Ht0s.shape[0]
     error_init = (error_init0 if error_init0 is not None else
@@ -575,6 +636,49 @@ def nmf_multiplicative_update(
     W, Ht = (Shards(f, f0.n_rows, axis=1) if isinstance(f0, Shards) else f
              for f, f0 in ((state[0], W0), (state[1], Ht0)))
     return W, Ht, state[4]
+
+
+def nmf_mu_precision_ladder(
+    X, W0, Ht0, *, beta, tol=1e-4, max_iter=200, update_H=True,
+    l1_reg_W=0.0, l1_reg_H=0.0, l2_reg_W=0.0, l2_reg_H=0.0, chunk=CHUNK,
+    use_pallas_finish=False, coarse_precision="default",
+    finish_precision=None, info: Optional[dict] = None,
+):
+    """Two-phase MU (cnmf_tpu/ops/nmf.py:1329-1389): a coarse solve at
+    ``coarse_precision`` until sklearn's stop rule fires, then a finish at
+    ``finish_precision`` from the coarse factors that carries the rule
+    across: its denominator is the error at (W0, Ht0) and its previous
+    error the coarse factors' error, both at the finish precision, and the
+    coarse phase's max_iter exhaustions enter it stopped (``done0``), so no
+    restart runs more than one check block past sklearn's sweep budget.
+    Returns (W, Ht, n_iter), n_iter the sum of both phases' sweeps.
+
+    On CUDA the coarse phase's beta != 2 terms and divergence run the TF32
+    kernels (``_tf32_route``), the finish the f32 kernels; the factors stay
+    on the device between the phases. On the CPU both phases run the same
+    arithmetic, as the JAX package's do there. X may be ``Shards`` as in
+    ``nmf_multiplicative_update``. ``chunk`` and ``use_pallas_finish`` are
+    taken for the JAX API (the f32 kernels always finish on CUDA).
+    ``info``, a dict, gains "phase_n_iter": each phase's n_iter (B,)
+    tensors on the device."""
+    regs = dict(l1_reg_W=l1_reg_W, l1_reg_H=l1_reg_H, l2_reg_W=l2_reg_W,
+                l2_reg_H=l2_reg_H)
+
+    def error(W, Ht):
+        terms, Ws, Hts = _mu_terms(X, beta, finish_precision, W, Ht)
+        return terms.error(Ws, Hts)
+
+    err_init = error(W0, Ht0)
+    W1, Ht1, n1 = nmf_multiplicative_update(
+        X, W0, Ht0, beta=beta, tol=tol, max_iter=max_iter, update_H=update_H,
+        precision=coarse_precision, **regs)
+    W2, Ht2, n2 = nmf_multiplicative_update(
+        X, W1, Ht1, beta=beta, tol=tol, max_iter=max_iter, update_H=update_H,
+        precision=finish_precision, error_init0=err_init,
+        prev_error0=error(W1, Ht1), done0=n1 >= max_iter, **regs)
+    if info is not None:
+        info["phase_n_iter"] = (n1, n2)
+    return W2, Ht2, n1 + n2
 
 
 def _data_and_fixed(X, H, device):
@@ -1091,15 +1195,17 @@ class _RowShardTerms:
     update runs on each shard; the H update's numerator and denominator and
     the divergence's terms are summed over shards."""
 
-    def __init__(self, X, beta):
+    def __init__(self, X, beta, tf32=False):
         self.Xs, self.devices, self.beta = X.parts, X.devices, beta
+        self.tf32 = tf32
         self.pad_elems = (X.padded_rows - X.n_rows) * X.shape[1]
         self.x_terms = _sum_x_terms(self.Xs) if beta == 1 else None
         self.x_sq = (sum_shards([torch.sum(x * x) for x in self.Xs])
                      if beta == 2 else None)
 
     def update_w(self, Ws, Ht, gamma, l1_reg, l2_reg):
-        return [_mu_update_w(x, w, h, self.beta, gamma, l1_reg, l2_reg)
+        return [_mu_update_w(x, w, h, self.beta, gamma, l1_reg, l2_reg,
+                             self.tf32)
                 for x, w, h in zip(self.Xs, Ws, broadcast(Ht, self.devices))]
 
     def update_h(self, Ws, Ht, gamma, l1_reg, l2_reg):
@@ -1108,18 +1214,16 @@ class _RowShardTerms:
             numerator = sum_shards([_shared_xt_dot(x, w)
                                     for x, w in zip(self.Xs, Ws)])
             denominator = torch.bmm(Ht, sum_shards([_gram(w) for w in Ws]))
-        elif beta == 1:
-            Hts = broadcast(Ht, self.devices)
-            numerator = sum_shards([kl_mu_h_numerator(x, w, h)
-                                    for x, w, h in zip(self.Xs, Ws, Hts)])
-            w_sum = sum_shards([restart_sums(w) for w in Ws])
-            denominator = torch.where(w_sum == 0, 1.0, w_sum)[:, None, :]
         else:
             Hts = broadcast(Ht, self.devices)
-            terms = [beta_mu_h_terms(x, w, h, beta)
+            terms = [_mu_h_terms(x, w, h, beta, self.tf32)
                      for x, w, h in zip(self.Xs, Ws, Hts)]
             numerator = sum_shards([t[0] for t in terms])
-            denominator = sum_shards([t[1] for t in terms])
+            if beta == 1:
+                w_sum = sum_shards([restart_sums(w) for w in Ws])
+                denominator = torch.where(w_sum == 0, 1.0, w_sum)[:, None, :]
+            else:
+                denominator = sum_shards([t[1] for t in terms])
         return _mu_step(Ht, numerator, denominator, gamma, l1_reg, l2_reg)
 
     def error(self, Ws, Ht):
@@ -1136,12 +1240,13 @@ class _RowShardTerms:
             X_log_X, sum_X = self.x_terms
             w_sum = sum_shards([restart_sums(w) for w in Ws])
             sum_WH = restart_sums((w_sum * restart_sums(Ht))[:, :, None])[:, 0]
-            divs = (-sum_shards([kl_x_log_wh(x, w, h)
+            x_log_wh = kl_x_log_wh_tf32 if self.tf32 else kl_x_log_wh
+            divs = (-sum_shards([x_log_wh(x, w, h)
                                  for x, w, h in zip(self.Xs, Ws, Hts)])
                     + X_log_X - sum_X + sum_WH)
         else:
             divs = _beta_div_from(sum_shards([
-                _beta_divergence_chunked(x, w, h, beta)
+                _beta_divergence_chunked(x, w, h, beta, self.tf32)
                 for x, w, h in zip(self.Xs, Ws, Hts)]), beta, self.pad_elems)
         return torch.sqrt((2.0 * divs).clamp(min=0.0))
 
@@ -1153,8 +1258,8 @@ class _ColShardTerms:
     TPM. They are ``_RowShardTerms`` of Xᵀ's row shards with the factors'
     roles swapped: W's update is their H update."""
 
-    def __init__(self, X, beta):
-        self.rows = _RowShardTerms(X.T, beta)
+    def __init__(self, X, beta, tf32=False):
+        self.rows = _RowShardTerms(X.T, beta, tf32)
 
     def update_w(self, W, Hts, gamma, l1_reg, l2_reg):
         return self.rows.update_h(Hts, W, gamma, l1_reg, l2_reg)

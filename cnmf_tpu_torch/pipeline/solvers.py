@@ -36,8 +36,10 @@ and those of the stage hand-off (``device_spectra_enabled``,
 ``async_writes_enabled``, ``phases_enabled``), of the opt-in schedules
 (``staged_enabled``, ``grid_enabled``, ``compact_enabled``;
 ``solve_nmf_staged``, ``solve_nmf_grid``,
-``solve_nmf_batch(compact=True)``) and of the autowarm
-(``autowarm_enabled``).
+``solve_nmf_batch(compact=True)``), of the MU precision ladder
+(``mu_precision_ladder_enabled``: ``solve_nmf_batch``'s MU solves with H
+updated run ``ops.nmf.nmf_mu_precision_ladder``, a TF32 coarse phase on the
+card then an f32 finish) and of the autowarm (``autowarm_enabled``).
 """
 
 from __future__ import annotations
@@ -65,6 +67,7 @@ from cnmf_tpu_torch.ops.nmf import (
     nmf_coordinate_descent,
     nmf_coordinate_descent_compacted,
     nmf_mu_device_ladder,
+    nmf_mu_precision_ladder,
     nmf_multiplicative_update,
     nnls_cd_fixed_spectra,
     nnls_cd_from_products,
@@ -137,18 +140,26 @@ def solve_nmf_batch(
     (W, Ht, n_iter). ``compact``: drop finished restarts from the batch
     between segments (CD with update_H only,
     ``ops.nmf.nmf_coordinate_descent_compacted``); ``info``, a dict, then
-    gains "executed", its restart-sweeps."""
+    gains "executed", its restart-sweeps. With CNMF_TPU_MU_PRECISION_LADDER
+    on, a MU solve with H updated runs ``ops.nmf.nmf_mu_precision_ladder``
+    and ``info`` gains "phase_n_iter", each phase's n_iter."""
     tol = float(nmf_kwargs.get("tol", 1e-4))
     max_iter = int(nmf_kwargs.get("max_iter", 200))
     l1_reg_W, l1_reg_H, l2_reg_W, l2_reg_H = _regularization(nmf_kwargs, X.shape)
     regs = dict(l1_reg_W=l1_reg_W, l1_reg_H=l1_reg_H, l2_reg_W=l2_reg_W,
                 l2_reg_H=l2_reg_H)
     if _is_mu(nmf_kwargs):
-        # any beta, on either device (ops.nmf picks the kernels per beta)
+        # any beta, on either device (ops.nmf picks the kernels per beta);
+        # CNMF_TPU_MU_PRECISION_LADDER: a coarse TF32 phase, then the finish
+        # (cnmf_tpu/pipeline/solvers.py:201-214)
+        beta = beta_loss_to_float(nmf_kwargs.get("beta_loss", "frobenius"))
+        if update_H and mu_precision_ladder_enabled():
+            return nmf_mu_precision_ladder(
+                X, W0, Ht0, beta=beta, tol=tol, max_iter=max_iter, info=info,
+                **regs)
         return nmf_multiplicative_update(
-            X, W0, Ht0,
-            beta=beta_loss_to_float(nmf_kwargs.get("beta_loss", "frobenius")),
-            tol=tol, max_iter=max_iter, update_H=update_H, **regs,
+            X, W0, Ht0, beta=beta, tol=tol, max_iter=max_iter,
+            update_H=update_H, **regs,
         )
     if not update_H:
         # fixed-spectra refit → products-distilled half-sweep loop
@@ -163,6 +174,16 @@ def solve_nmf_batch(
     return nmf_coordinate_descent(
         X, W0, Ht0, tol=tol, max_iter=max_iter, update_H=True, **regs,
     )
+
+
+def mu_precision_ladder_enabled() -> bool:
+    """The CNMF_TPU_MU_PRECISION_LADDER knob (cnmf_tpu/pipeline/
+    solvers.py:221-227): '1' runs ``solve_nmf_batch``'s MU solves with H
+    updated as the two-phase precision ladder; default '0'. The factors
+    then agree with the one-phase solve to the finish's stop rule, not bit
+    for bit. The device ladder (the card's default factorize) does not take
+    it, as in the JAX package."""
+    return os.environ.get("CNMF_TPU_MU_PRECISION_LADDER", "0") == "1"
 
 
 def compact_enabled() -> bool:

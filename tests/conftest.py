@@ -32,3 +32,8 @@ jax.config.update(
                  ".jax_cache"),
 )
 jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card and nvcc; skips without them")

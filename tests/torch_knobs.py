@@ -2,10 +2,10 @@
 threefry-seeded paths, the one-program consensus, the compact TPM and the
 stage hand-off (the spectra twin, the background writer and its drain,
 the packing, the arena, the phase split, the storage dtype, the npz codec;
-the tail-compacting schedules, the autowarm and the matmul precision,
-which the package reads when it is imported; CNMF_TPU_DRAIN_HOLD_S,
-CNMF_TPU_PACK_ALL, CNMF_TPU_STAGED_S0 and CNMF_TPU_MU_PRECISION_LADDER are
-the JAX package's alone, read by its parity runs) unset for a module, so its runs take the CPU's defaults — the host's
+the tail-compacting schedules, the MU precision ladder, the autowarm and
+the matmul precision, which the package reads when it is imported;
+CNMF_TPU_DRAIN_HOLD_S, CNMF_TPU_PACK_ALL and CNMF_TPU_STAGED_S0 are the JAX
+package's alone, read by its parity runs) unset for a module, so its runs take the CPU's defaults — the host's
 sklearn-exact draws (``solvers.device_init_enabled``,
 ``device_kmeanspp_enabled``), the one-program consensus seeded on the host,
 the TPM prefetch — whatever an earlier module of the process left in the
