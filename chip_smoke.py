@@ -256,6 +256,11 @@ MU_WHOLE = [dict(B=90, N=300 + 37 * i, G=260 + 29 * i, K=K)
 TILED_EDGE = [dict(B=97, N=2701, G=1999, K=16),
               dict(B=97, N=2701, G=1999, K=8)]
 KL_NUMERATORS = ("kl_mu_w_numerator", "kl_mu_h_numerator")
+# the KL numerator's split launch (csrc/mu_kl.cu), a kernel of its own on
+# the JSON line with the usage refit's numbers (the spectra refit's are on
+# the [kernel] refit line)
+SPLIT = "mu_kl_numerator_split"
+SPLIT_KEYS = ("alone_ms", "whole_ms", "splits")
 KL_KERNELS = KL_NUMERATORS + ("kl_x_log_wh",)
 BETA_KERNELS = ("beta_mu_w_terms", "beta_mu_h_terms")
 BETAS = (0.0, 1.5)   # Itakura-Saito, and a beta that takes powf
@@ -441,17 +446,17 @@ class RaggedLines:
         def text(kinds):
             return ", ".join(f"{k} {n}" for k, n in kinds.items())
 
-        # the kernels each case ran, once for the line when every entry
-        # point that counts them ran the same ones
-        kinds = {text(r["kinds"]) for r in self.rows.values() if r["kinds"]}
-        shared = kinds.pop() if len(kinds) == 1 else None
+        # the kernels each case ran, once for the line for the entry points
+        # that ran the kernels most of them ran
+        kinds = [text(r["kinds"]) for r in self.rows.values() if r["kinds"]]
+        shared = max(kinds, key=kinds.count) if kinds else None
         print("[kernel] ragged, K=8..64 and 72,136, zero K columns stay 0 "
               "(cases, worst max_rel_diff / max_abs_err"
               + (f"; * cases by kernel: {shared}" if shared else "")
               + "): " + "; ".join(
-                  f"{name} {r['n']}" + ("*" if shared and r["kinds"] else
-                                        f" ({text(r['kinds'])})"
-                                        if r["kinds"] else "")
+                  f"{name} {r['n']}" + (
+                      "*" if r["kinds"] and text(r["kinds"]) == shared else
+                      f" ({text(r['kinds'])})" if r["kinds"] else "")
                   + f" {r['rel']:.3e} / {r['abs']:.3e}"
                   for name, r in self.rows.items()), flush=True)
 
@@ -487,8 +492,8 @@ def grid_text(tiling, B, M, brief=False):
         cut = f"split {splits}x{per_split}, " if splits > 1 else ""
         return f"{cut}{blocks} blocks, {waves}"
     cut = f"split {splits} x {per_split} entries, " if splits > 1 else ""
-    return (f"grid {cut}{blocks} blocks of {rb} restarts x {rows} rows, "
-            f"{threads} threads, {per_sm}/SM, {waves}")
+    return (f"grid {cut}{blocks}, {rb}x{rows}, {threads} thr, {per_sm}/SM, "
+            f"{waves}")
 
 
 def phase_kernels(dev):
@@ -496,7 +501,6 @@ def phase_kernels(dev):
     import torch
 
     from cnmf_tpu_torch.ops import cd_kernels as ck
-    from cnmf_tpu_torch.ops.kernel_lib import kernel_function, raise_on
 
     rng = np.random.RandomState(0)
     ragged_lines = RaggedLines()
@@ -545,7 +549,7 @@ def phase_kernels(dev):
                               f"{bound_ms:.4f}")
             else:
                 print(f"[kernel] {name} main {shape_text(shape)}: "
-                      f"rel={rel_err:.3e} abs={abs_err:.3e} kernel_ms={ms:.4f} "
+                      f"rel={rel_err:.3e} kernel_ms={ms:.4f} "
                       f"plain_ms={plain_ms:.4f} product_ms={product_ms:.4f} "
                       f"bound_ms={bound_ms:.4f} of_bound={bound_ms / ms:.1%}; "
                       f"{grid}", flush=True)
@@ -584,23 +588,88 @@ def phase_kernels(dev):
             continue
         ms = timed_ms(lambda: kernel(F, gram, P, **regs))
         plain_ms = timed_ms(lambda: plain(F, gram, P, **regs))
-        # the kernel alone, on buffers allocated once: what of the wrapper's
-        # time the device takes
-        out, part = torch.empty_like(F), torch.empty((M, B), device=dev)
-        launch = kernel_function("cd_half_sweep_products", ck._PRODUCTS_ARGS)
-        ptrs = (P.data_ptr(), M, F.data_ptr(), gram.data_ptr(), 0.0, B, K,
-                out.data_ptr(), part.data_ptr(),
-                torch.cuda.current_stream().cuda_stream)
-        alone_ms = device_ms(lambda: raise_on(name, launch(*ptrs)))
-        bound_ms, by = bound(2 * M * K * K * B, 4 * (3 * B * M * K + B * K * K))
+        # the kernel alone: what of the wrapper's time the device takes
+        alone_ms = products_alone_ms(F, gram, P)
+        bound_ms, by = bound(2 * M * K * K * B,
+                             4 * (3 * B * M * K + B * K * K + B))
+        per_call = len(device_kernels(lambda: kernel(F, gram, P, **regs)))
+        assert per_call == 1, per_call
+        same = products_keep_bits(F, gram, P, regs)
         print(f"[kernel] {name} main {shape_text(shape)} {regs}: "
-              f"rel={rel_err:.3e} abs={abs_err:.3e} "
+              f"rel={rel_err:.3e} "
               f"kernel_ms={ms:.4f} alone_ms={alone_ms:.4f} "
-              f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f}", flush=True)
+              f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} "
+              f"of_bound={bound_ms / alone_ms:.1%}; " + grid_text(
+                  ck.products_tiling(B, M, K), B, M)
+              + f"; {per_call} kernel a call; {same}", flush=True)
         records[name] = dict(max_abs_err=abs_err, ms=ms, alone_ms=alone_ms,
                              plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by)
     ragged_lines.print()
     return records
+
+
+def products_alone_ms(F, gram, P):
+    """Device ms of one products-given launch alone (l1 = l2 = 0), on
+    buffers allocated once."""
+    import torch
+
+    from cnmf_tpu_torch.ops import cd_kernels as ck
+    from cnmf_tpu_torch.ops.kernel_lib import kernel_function, raise_on
+
+    B, M, K = F.shape
+    out, viol = torch.empty_like(F), torch.empty(B, device=F.device)
+    tickets, part = ck.products_workspace(F.device, B,
+                                          B * -(-M // ck.VIOLATION_ROWS))
+    launch = kernel_function("cd_half_sweep_products", ck._PRODUCTS_ARGS)
+    ptrs = (P.data_ptr(), M, F.data_ptr(), gram.data_ptr(), 0.0, 0.0, B, K,
+            out.data_ptr(), part.data_ptr(), tickets.data_ptr(),
+            viol.data_ptr(), torch.cuda.current_stream(F.device).cuda_stream)
+    return device_ms(lambda: raise_on("products", launch(*ptrs)))
+
+
+def device_kernels(fn, tries=3):
+    """The names of the device kernels one call of ``fn`` launches
+    (torch.profiler), after a warm-up call. A session that records no
+    device event at all is taken again, up to ``tries`` times: on an H100
+    the profiler now and then drops a whole session's device events."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with quiet_profile(ProfilerActivity.CUDA) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == DeviceType.CUDA]
+        if names:
+            break
+    return names
+
+
+def products_keep_bits(F, gram, P, regs):
+    """The products-given sweep of restart 0 (B = 1) against its rows in a
+    batch of one copy a SM, which takes the bucket's whole tile of rows:
+    the factor's and the violation's bits must be the same (a row's
+    arithmetic and the violation's order do not follow the tiling). Returns
+    the text for the line."""
+    import torch
+
+    from cnmf_tpu_torch.ops import cd_kernels as ck
+
+    B, M, K = F.shape
+    copies = torch.cuda.get_device_properties(F.device).multi_processor_count
+    one = ck.cd_sweep_from_products(F[:1], gram[:1], P[:1], **regs)
+    batch = ck.cd_sweep_from_products(
+        *(t[:1].expand(copies, *t.shape[1:]).contiguous()
+          for t in (F, gram, P)), **regs)
+    same = all(torch.equal(a, b[:1]) for a, b in zip(one, batch))
+    rows = (ck.products_tiling(1, M, K)[0],
+            ck.products_tiling(copies, M, K)[0])
+    assert same, rows
+    return f"bits of B=1 = B={copies}'s ({rows[0]} / {rows[1]} rows a block)"
 
 
 def kernel_kind(tiling, B, K):
@@ -626,6 +695,11 @@ MU_COVER = ({("one-row", K) for K in range(8, 65, 8)}
             | {("tiled partial", 8), ("tiled partial", 16),
                ("wide", 72), ("wide", 136)})
 SPLIT_KERNELS = BETA_KERNELS + ("kl_x_log_wh",)   # the kernels MU_COVER holds
+# the KL numerators: MU_COVER but the one-row kernel whole at the tiled
+# buckets, which take the restart-tiled kernel wherever B fills a block's
+# restarts and X has a unit stride; KL_SPLIT_EDGE splits the H side at 16
+KL_COVER = MU_COVER - {("one-row", 8), ("one-row", 16)}
+KL_SPLIT_EDGE = [dict(B=2, N=301, G=257, K=16)]
 
 
 def phase_mu_kernels(dev):
@@ -669,15 +743,19 @@ def phase_mu_kernels(dev):
                 for m, tag, tr in MU_REFIT]
              + [(r, "ragged", PAD_COLS, False, every, BETAS)
                 for r in MU_RAGGED]
-             + [(r, "ragged", PAD_COLS, False, SPLIT_KERNELS, BETAS)
-                for r in MU_WHOLE + TILED_EDGE])
+             + [(r, "ragged", PAD_COLS, False, SPLIT_KERNELS + KL_NUMERATORS,
+                 BETAS) for r in MU_WHOLE + TILED_EDGE]
+             + [(r, "ragged", PAD_COLS, False, KL_NUMERATORS, BETAS)
+                for r in KL_SPLIT_EDGE])
     covered = {}
     for shape, tag, pad, transposed, names, betas in cases:
         X_host, X, W, Ht = problem(**shape, pad=pad, transposed=transposed)
         for name, beta, suffix in runs(names, betas):
             kernel, plain = getattr(mk, name), getattr(mk, name + "_plain")
             args = (X, W, Ht) if beta is None else (X, W, Ht, beta)
+            split_before = kernel.launches_split
             out = kernel(*args)
+            split_ran = kernel.launches_split > split_before
             check_pad(out, pad)
             abs_err, rel_err = compare(out, plain(*args))
             assert rel_err <= KERNEL_REL_BOUND, (name, beta, tag, shape, rel_err)
@@ -691,10 +769,10 @@ def phase_mu_kernels(dev):
             else:
                 tiling = mk.kl_numerator_tiling(X, shape["B"], shape["K"],
                                                 h_side)
-            kind = None
-            if name in SPLIT_KERNELS:
-                kind = kernel_kind(tiling, shape["B"], shape["K"])
-                covered.setdefault(label, set()).add((kind, shape["K"]))
+            # the route the tiling reports is the one the wrapper counted
+            assert split_ran == (tiling[4] > 1), (name, tag, shape, tiling)
+            kind = kernel_kind(tiling, shape["B"], shape["K"])
+            covered.setdefault(label, set()).add((kind, shape["K"]))
             if tag == "ragged":
                 ragged_lines.add(label, shape["K"], rel_err, abs_err, kind)
                 continue
@@ -707,15 +785,24 @@ def phase_mu_kernels(dev):
                 folded.append(f"{name}{beta_txt} rel={rel_err:.1e} "
                               f"{ms:.4f}/{plain_ms:.4f}/{bound_ms:.4f}")
             elif tag != "main":
-                # the refits: one folded line for each shape below
+                # the refits: one folded line for each shape below; the KL
+                # numerator against its twin in the split's order, with its
+                # launches alone beside the one-row kernel's unsplit
+                alone = ""
+                if name in KL_NUMERATORS:
+                    abs_err, rel_err = compare(out, plain(
+                        *args, per_split=tiling[5]))
+                    alone_ms, whole_ms = numerator_alone_ms(
+                        X, W, Ht, h_side, *tiling[4:])
+                    alone = f" alone {alone_ms:.4f} (whole {whole_ms:.4f})"
                 refits.setdefault((tag, shape_text(shape)), []).append(
                     f"{name} {rel_err:.1e} {ms:.4f}/{plain_ms:.4f}/"
-                    f"{bound_ms:.4f} " + grid_text(
+                    f"{bound_ms:.4f}{alone} " + grid_text(
                         tiling, shape["B"], shape["G" if h_side else "N"],
                         brief=True))
             else:
                 print(f"[kernel] {name}{beta_txt} {tag} {shape_text(shape)}"
-                      f": rel={rel_err:.3e} abs={abs_err:.3e} "
+                      f": rel={rel_err:.3e} "
                       f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
                       f"bound_ms={bound_ms:.4f} "
                       f"of_bound={bound_ms / ms:.1%}; " + grid_text(
@@ -730,21 +817,64 @@ def phase_mu_kernels(dev):
             else:
                 refit = tag.split()[0]   # "usage" or "spectra"
                 records[name].update({f"{refit}_refit_ms": ms,
-                                      f"{refit}_refit_bound_ms": bound_ms})
-                if name in SPLIT_KERNELS:
-                    records[name][f"{refit}_refit_splits"] = tiling[4]
+                                      f"{refit}_refit_bound_ms": bound_ms,
+                                      f"{refit}_refit_splits": tiling[4]})
+                if name in KL_NUMERATORS:
+                    split_record(records, refit, ms, plain_ms, bound_ms, by,
+                                 abs_err, alone_ms, whole_ms, tiling[4])
     (k8, pad8), = [(m, pad) for m, pad in MU_MAIN if m["K"] != 16]
     print(f"[kernel] MU main {shape_text(k8)} K0={pad8} (kernel/plain/bound "
           "ms): " + "; ".join(folded), flush=True)
-    for (tag, shape), parts in refits.items():
-        print(f"[kernel] {tag} {shape} (beta 0; rel, kernel/plain/bound ms, "
-              "grid): " + "; ".join(parts), flush=True)
+    print("[kernel] B=1 refits (beta 0; rel, kernel/plain/bound ms, grid): "
+          + " | ".join(f"{tag} {shape}: " + "; ".join(parts)
+                       for (tag, shape), parts in refits.items()), flush=True)
     ragged_lines.print()
     for label, kinds in covered.items():
-        assert MU_COVER <= kinds, (label, sorted(MU_COVER - kinds))
+        cover = KL_COVER if label in KL_NUMERATORS else MU_COVER
+        assert cover <= kinds, (label, sorted(cover - kinds))
     print(f"[kernel] coverage: {len(covered)} entry points ran every kernel "
-          "of MU_COVER", flush=True)
+          "of MU_COVER / KL_COVER", flush=True)
     return records
+
+
+def numerator_alone_ms(X, W, Ht, transposed, splits, per_split):
+    """Device ms of one KL numerator launch alone, on buffers allocated once
+    (F owns the rows: W, or Ht for ``transposed``): the split route (the
+    split kernel and the slices' sum), and the one-row kernel unsplit (the
+    route before the split)."""
+    import torch
+
+    from cnmf_tpu_torch.ops import mu_kernels as mk
+    from cnmf_tpu_torch.ops.kernel_lib import kernel_function, raise_on
+
+    F, Fo = (Ht, W) if transposed else (W, Ht)
+    B, M, K = F.shape
+    C, sxm, sxc = mk._x_strides(X, transposed)
+    out = torch.empty_like(F)
+    work = torch.empty((splits, *F.shape), device=F.device)
+    stream = torch.cuda.current_stream().cuda_stream
+    head = (X.data_ptr(), M, C, sxm, sxc, Fo.data_ptr(), F.data_ptr(), B, K)
+    split = kernel_function("mu_kl_numerator_split", mk._NUM_SPLIT_ARGS)
+    whole = kernel_function("mu_kl_numerator", mk._ARGS)
+    return (device_ms(lambda: raise_on("split", split(
+                *head, splits, per_split, work.data_ptr(), out.data_ptr(),
+                stream))),
+            device_ms(lambda: raise_on("whole", whole(
+                *head, out.data_ptr(), stream))))
+
+
+def split_record(records, refit, ms, plain_ms, bound_ms, by, abs_err,
+                 alone_ms, whole_ms, splits):
+    """The JSON line's record of mu_kl_numerator_split: the usage refit's
+    numbers (the wrapper's ms, its twin's, the bound, the launches alone and
+    the one-row kernel's unsplit), the spectra refit's beside them."""
+    rec = records.setdefault("mu_kl_numerator_split", dict(max_abs_err=0.0))
+    rec["max_abs_err"] = max(rec["max_abs_err"], abs_err)
+    prefix = "" if refit == "usage" else f"{refit}_"
+    rec.update({prefix + "ms": ms, prefix + "plain_ms": plain_ms,
+                prefix + "bound_ms": bound_ms, prefix + "bound_by": by,
+                prefix + "alone_ms": alone_ms, prefix + "whole_ms": whole_ms,
+                prefix + "splits": splits})
 
 
 def phase_autowarm(dev):
@@ -877,16 +1007,29 @@ def run_cnmf(counts, ks, n_iter, hvg, k_cons, workdir):
     return walls, usage.values, merged, Xd
 
 
+@contextlib.contextmanager
+def quiet_profile(*activities):
+    """A torch.profiler session of ``activities`` over the block, without
+    the profiler's note that a new session clears the last one's events."""
+    import warnings
+
+    from torch.profiler import profile
+
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", ".*Profiler clears events")
+        with profile(activities=list(activities)) as prof:
+            yield prof
+
+
 def profiled(fn, n_top=4):
     """fn() under torch.profiler, synchronized: (its result, wall seconds,
     device-busy seconds, the n_top ops that take most of the device)."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with quiet_profile(ProfilerActivity.CPU, ProfilerActivity.CUDA) as prof:
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
@@ -1227,8 +1370,8 @@ def phase_batch(dev):
         "gram": (None, lambda X, W, Ht: (ck._gram(W), ck._gram(Ht))),
         "cd W": (None, ck.cd_w_half_sweep),
         "cd H": (None, ck.cd_h_half_sweep),
-        "kl num W": (None, mk.kl_mu_w_numerator),
-        "kl num H": (None, mk.kl_mu_h_numerator),
+        "kl num W": (1.0, mk.kl_mu_w_numerator),
+        "kl num H": (1.0, mk.kl_mu_h_numerator),
         "kl den": (None, lambda X, W, Ht: (mk.kl_w_denominator(Ht),
                                           mk.kl_h_denominator(W))),
         "kl div": (1.0, mk.kl_x_log_wh),
@@ -1558,26 +1701,28 @@ def sync_sites(fn):
               f"{os.path.basename(caller.filename)}:{caller.lineno}"] += 1
 
     torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("warn")
-    try:
-        with warnings.catch_warnings():
-            warnings.simplefilter("always")
-            warnings.showwarning = hook
+    # inside the hook's block: the mode's own note (a prototype) is not printed
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = hook
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
             out = fn()
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
     return out, dict(sites)
 
 
 def phase_fused(label, merged, counts, hvg, k, dev, kwargs, wrappers,
-                density_threshold=0.5):
+                density_threshold=0.5, split=()):
     """Consensus at K=k on a slice's merged spectra through the one-program
     path (the CUDA default: ops/consensus_fused.fused_consensus_full) and
     step by step (CNMF_TPU_FUSED_CONSENSUS=0's path), in paired turns: the
     labels must be equal, every artifact within FUSED_SSE, and the one
     program's synchronizing calls (sync_sites) only the Lloyd and refit
     loops' block checks and one drain. Prints the walls, the calls of
-    each and the launches of ``wrappers`` in one one-program run."""
+    each and the launches of ``wrappers`` in one one-program run, with the
+    split entry point's launches of the ``split`` wrappers under SPLIT."""
     import torch
 
     from cnmf_tpu_torch.ops import consensus_fused, kmeans, nmf
@@ -1596,6 +1741,8 @@ def phase_fused(label, merged, counts, hvg, k, dev, kwargs, wrappers,
     for fused in (True, False, False, True):
         for fn in wrappers.values():
             fn.launches = 0
+        for name in split:
+            wrappers[name].launches_split = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         res[fused] = run(fused)
@@ -1604,6 +1751,9 @@ def phase_fused(label, merged, counts, hvg, k, dev, kwargs, wrappers,
         if fused:
             launches = {name: fn.launches for name, fn in wrappers.items()
                         if fn.launches}
+            if split:
+                launches[SPLIT] = sum(wrappers[name].launches_split
+                                      for name in split)
     syncs = {fused: sync_sites(lambda: run(fused))[1]
              for fused in (True, False)}
     kinds = {source_site(kmeans, "torch.stack([new_done.all(), emptied])"):
@@ -1936,19 +2086,20 @@ def mu_slice(label, counts, k_cons, n_iter, hvg, dev, kwargs, names,
              k_stats=(), density_threshold=0.5):
     """One MU path at bench.py's KL configuration through pipeline/stages.py;
     returns the launches of ``names``' wrappers, each of which must be > 0,
-    of those the launches with one restart (the refits), and the merged
-    spectra of K=k_cons."""
+    of those the launches with one restart (the refits) and those of a
+    split entry point, and the merged spectra of K=k_cons."""
     from cnmf_tpu_torch.ops import mu_kernels as mk
 
     wrappers = {name: getattr(mk, name) for name in names}
     for fn in wrappers.values():
-        fn.launches = fn.launches_b1 = 0
+        fn.launches = fn.launches_b1 = fn.launches_split = 0
     walls, merged, result, n_iters, _, k_rows = run_stages(
         counts, [k_cons], n_iter, hvg, k_cons, dev,
         nmf_kwargs=kwargs, k_stats=k_stats,
         density_threshold=density_threshold)
     launches = {name: fn.launches for name, fn in wrappers.items()}
     launches_b1 = {name: fn.launches_b1 for name, fn in wrappers.items()}
+    split = {name: fn.launches_split for name, fn in wrappers.items()}
     usage = check_result(result, k_cons, hvg)
     assert np.allclose(usage.sum(axis=1), 1.0), "usage rows must sum to 1"
     its = n_iters[k_cons]
@@ -1966,7 +2117,7 @@ def mu_slice(label, counts, k_cons, n_iter, hvg, dev, kwargs, names,
           f"launches {launches}, of which B=1 {launches_b1}",
           flush=True)
     assert all(n > 0 for n in launches.values()), launches
-    return launches, launches_b1, merged[k_cons]
+    return launches, launches_b1, split, merged[k_cons]
 
 
 def phase_mu_precision_kernels(X_host, Xd):
@@ -2433,7 +2584,6 @@ def phase_atlas_products_kernel(dev, shapes):
     import torch
 
     from cnmf_tpu_torch.ops import cd_kernels as ck
-    from cnmf_tpu_torch.ops.kernel_lib import kernel_function, raise_on
 
     rng = np.random.RandomState(1)
     out = {}
@@ -2455,13 +2605,9 @@ def phase_atlas_products_kernel(dev, shapes):
         assert rel_err <= KERNEL_REL_BOUND, ("atlas products", M, rel_err)
         ms = timed_ms(lambda: kernel(F, gram, P))
         plain_ms = timed_ms(lambda: plain(F, gram, P))
-        res, part = torch.empty_like(F), torch.empty((M, B), device=dev)
-        launch = kernel_function("cd_half_sweep_products", ck._PRODUCTS_ARGS)
-        ptrs = (P.data_ptr(), M, F.data_ptr(), gram.data_ptr(), 0.0, B, K,
-                res.data_ptr(), part.data_ptr(),
-                torch.cuda.current_stream().cuda_stream)
-        alone_ms = device_ms(lambda: raise_on("products", launch(*ptrs)))
-        bound_ms, by = bound(2 * M * K * K * B, 4 * (3 * B * M * K + B * K * K))
+        alone_ms = products_alone_ms(F, gram, P)
+        bound_ms, by = bound(2 * M * K * K * B,
+                             4 * (3 * B * M * K + B * K * K + B))
         out[M] = dict(rel=rel_err, abs=abs_err, ms=ms, alone_ms=alone_ms,
                       plain_ms=plain_ms, bound_ms=bound_ms, by=by)
     return out
@@ -2774,7 +2920,6 @@ def phase_mesh_products_kernel(Xd, mesh_devices, K=16, B=100):
     import torch
 
     from cnmf_tpu_torch.ops import cd_kernels as ck
-    from cnmf_tpu_torch.ops.kernel_lib import kernel_function, raise_on
     from cnmf_tpu_torch.parallel.collectives import sum_shards
     from cnmf_tpu_torch.parallel.mesh import put_cells
 
@@ -2791,15 +2936,11 @@ def phase_mesh_products_kernel(Xd, mesh_devices, K=16, B=100):
     kernel, plain = ck.cd_sweep_from_products, ck.cd_sweep_from_products_plain
     abs_err, rel_err = compare(kernel(Ht, gram, P), plain(Ht, gram, P))
     assert rel_err <= KERNEL_REL_BOUND, ("mesh products", rel_err)
-    res, part = torch.empty_like(Ht), torch.empty((G, B), device=Xd.device)
-    launch = kernel_function("cd_half_sweep_products", ck._PRODUCTS_ARGS)
-    ptrs = (P.data_ptr(), G, Ht.data_ptr(), gram.data_ptr(), 0.0, B, K,
-            res.data_ptr(), part.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
-    bound_ms, by = bound(2 * G * K * K * B, 4 * (3 * B * G * K + B * K * K))
+    bound_ms, by = bound(2 * G * K * K * B,
+                         4 * (3 * B * G * K + B * K * K + B))
     return dict(rel=rel_err, abs=abs_err,
                 ms=timed_ms(lambda: kernel(Ht, gram, P)),
-                alone_ms=device_ms(lambda: raise_on("products", launch(*ptrs))),
+                alone_ms=products_alone_ms(Ht, gram, P),
                 plain_ms=timed_ms(lambda: plain(Ht, gram, P)),
                 bound_ms=bound_ms, by=by,
                 matmul_ms=timed_ms(lambda: ck._shared_xt_dot(Xs.parts[0],
@@ -3110,8 +3251,9 @@ def main():
 
     # 3. kernels against plain, then the small slices against the CPU
     print(f"[kernel] rel = max|kernel-plain|/max|plain| <= "
-          f"{KERNEL_REL_BOUND:g}, abs = max|kernel-plain| (f32); K0: zero K "
-          "columns; of_bound = bound/kernel ms", flush=True)
+          f"{KERNEL_REL_BOUND:g} (f32; max|kernel-plain| on the JSON line); "
+          "K0: zero K columns; of_bound = bound/kernel ms; grid: blocks, "
+          "restarts x rows a block, threads, blocks an SM holds", flush=True)
     records = phase_kernels(dev)
     records.update(phase_mu_kernels(dev))
     kl_kwargs = stages.nmf_run_params(beta_loss="kullback-leibler",
@@ -3180,19 +3322,25 @@ def main():
 
     # 8. the KL path and 9. the Itakura-Saito path at bench.py's KL
     # configuration, each factorize again plain and on the ladder
-    part, launches_b1, kl_spectra = mu_slice("kl", counts, k_cons, n_iter,
-                                             hvg, dev, kl_kwargs, KL_KERNELS)
+    part, launches_b1, split, kl_spectra = mu_slice(
+        "kl", counts, k_cons, n_iter, hvg, dev, kl_kwargs, KL_KERNELS)
     launches.update(part)
+    # the numerators' launches of the split entry point, as their wrappers
+    # counted them
+    launches[SPLIT] = sum(split[name] for name in KL_NUMERATORS)
+    assert launches[SPLIT] > 0 and records[SPLIT]["splits"] > 1 \
+        and records[SPLIT]["spectra_splits"] > 1, records[SPLIT]
     fused_launches["kl"] = phase_fused(
         "KL", kl_spectra, counts, hvg, k_cons, dev, kl_kwargs,
-        {name: getattr(mk, name) for name in KL_KERNELS})
+        {name: getattr(mk, name) for name in KL_KERNELS},
+        split=KL_NUMERATORS)
+    assert fused_launches["kl"][SPLIT] > 0, fused_launches["kl"]
     phase_schedules(X_host, Xd, [k_cons], n_iter, kl_kwargs, "KL")
     phase_profile_refits(counts, hvg, dev, kl_spectra, k_cons,
                          kl_kwargs, 0.5, "KL", "kl_x_log_wh", k_stats=False)
-    part, b1, is_spectra = mu_slice("is", counts, k_cons, n_iter, hvg, dev,
-                                    is_kwargs, BETA_KERNELS,
-                                    k_stats=[k_cons],
-                                    density_threshold=IS_DENSITY_THRESHOLD)
+    part, b1, _, is_spectra = mu_slice(
+        "is", counts, k_cons, n_iter, hvg, dev, is_kwargs, BETA_KERNELS,
+        k_stats=[k_cons], density_threshold=IS_DENSITY_THRESHOLD)
     launches.update(part)
     launches_b1.update(b1)
     fused_launches["is"] = phase_fused(
@@ -3223,12 +3371,13 @@ def main():
                 "cd_h_half_sweep": "cnmf_tpu/ops/pallas_cd.py:162",
                 "cd_sweep_from_products": "cnmf_tpu/ops/pallas_cd.py:58",
                 "kl_mu_w_numerator": "cnmf_tpu/ops/pallas_mu.py:89",
+                SPLIT: "cnmf_tpu/ops/pallas_mu.py:89",
                 "kl_mu_h_numerator": "cnmf_tpu/ops/pallas_mu.py:394",
                 "kl_x_log_wh": "cnmf_tpu/ops/pallas_mu.py:357",
                 "beta_mu_w_terms": "cnmf_tpu/ops/pallas_mu.py:198",
                 "beta_mu_h_terms": "cnmf_tpu/ops/pallas_mu.py:281"}
     sources = {name: "cnmf_tpu_torch/csrc/" + (
-        "mu_kl.cu" if name in KL_KERNELS else
+        "mu_kl.cu" if name in KL_KERNELS + (SPLIT,) else
         "mu_beta.cu" if name in BETA_KERNELS else "cd_half_sweep.cu")
         for name in replaces}
     # launches in one one-program consensus of each slice, by kernel
@@ -3263,10 +3412,10 @@ def main():
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=sources[name],
              replaces=replaces[name], launches=launches[name],
-             **{key: v[name] for key, v in extra.items() if name in v},
+             **{key: v[name] for key, v in extra.items() if v.get(name)},
              library_ms=None, **numbers(records[name]),
-             **({"alone_ms": float(f"{records[name]['alone_ms']:.4g}")}
-                if "alone_ms" in records[name] else {}))
+             **numbers(records[name], [key for key in SPLIT_KEYS
+                                       if key in records[name]]))
         for name in replaces
     ] + tf32}, separators=(",", ":")))
     print(card)

@@ -39,8 +39,21 @@
 // to RB.K FMAs and each staged F_other value to a whole row tile, the
 // asynchronous ring keeps the staging's latency off the FMA pipes, and each
 // thread works its copy addresses out once, so the main loop is mostly
-// FMAs. The products-given kernel does no product and keeps one restart a
-// block.
+// FMAs.
+//
+// The products-given kernel (cd_products_kernel) does no product and keeps
+// one restart a block. It is called once a sweep of every CD refit (the
+// consensus and k-selection refits, B = 1, M = 1,350-10,000; the cell
+// axis's H half, B = 100), so what bounds it is latency, not bytes (3 x
+// M x K floats, 0.6 us at M = 10,000, K = 16): each row's K column updates
+// are K chained dots and divisions. One launch does the whole call: the
+// l2 term goes onto the gram's diagonal as the block stages it, and the
+// violation is summed in the launch (sweep_violation: partials of 32 rows,
+// then each restart's last block adds them in a fixed order), so the
+// wrapper makes no other launch. Where the bucket's tile of rows would leave SMs idle (B = 1:
+// 40 blocks at M = 10,000, K = 16) the launch takes one row a thread and,
+// if that is still under a wave, one warp a block (products_tiling). A
+// row's arithmetic is the same in every tiling.
 
 // Padded rows, contraction columns and K columns are exact no-ops: rows past M
 // and contraction entries past C load as 0, and a zero K column has a zero
@@ -78,15 +91,17 @@ struct Tile {
 
 // All K sequential HALS column updates of the thread's R rows, in column order
 // 0..K-1 (cnmf_tpu/ops/pallas_cd.py:_column_sweep). gram carries l2 on its
-// diagonal, p has l1 subtracted. Returns the summed |projected gradient| over
-// live columns. f and p are indexed only by the unrolled j, so they stay in
-// registers when the column loop over t is rolled; the compares against t
-// fold away where it is unrolled.
+// diagonal, p has l1 subtracted. viol[r]: row r's summed |projected
+// gradient| over live columns, column by column. f and p are indexed only by
+// the unrolled j, so they stay in registers when the column loop over t is
+// rolled; the compares against t fold away where it is unrolled.
 template <int K, int R>
-__device__ __forceinline__ float column_sweep(float (&f)[R][K],
-                                              const float (&p)[R][K],
-                                              const float* __restrict__ gram) {
-  float viol = 0.f;
+__device__ __forceinline__ void column_sweep(float (&f)[R][K],
+                                             const float (&p)[R][K],
+                                             const float* __restrict__ gram,
+                                             float (&viol)[R]) {
+#pragma unroll
+  for (int r = 0; r < R; ++r) viol[r] = 0.f;
 #pragma unroll(Tile<K>::kSweepUnroll)
   for (int t = 0; t < K; ++t) {
     const float hess = gram[t * K + t];
@@ -105,7 +120,7 @@ __device__ __forceinline__ float column_sweep(float (&f)[R][K],
       grad -= pt;
       const float pgrad = ft == 0.f ? fminf(grad, 0.f) : grad;
       if (live) {
-        viol += fabsf(pgrad);
+        viol[r] += fabsf(pgrad);
         const float fnew = fmaxf(ft - grad / hess, 0.f);
 #pragma unroll
         for (int j = 0; j < K; ++j)
@@ -113,12 +128,22 @@ __device__ __forceinline__ float column_sweep(float (&f)[R][K],
       }
     }
   }
-  return viol;
 }
 
-template <int K>
-__device__ __forceinline__ void load_gram(float* gs, const float* __restrict__ gram) {
-  for (int i = threadIdx.x; i < K * K; i += kThreads) gs[i] = gram[i];
+// gs = gram (K x K, 16-byte aligned), l2 added to its diagonal, staged by
+// the block's NT threads.
+template <int K, int NT>
+__device__ __forceinline__ void load_gram(float* gs,
+                                          const float* __restrict__ gram,
+                                          float l2) {
+  for (int i = threadIdx.x; i < K * K / 4; i += NT) {
+    float v[4];
+    ld4(v, gram + 4 * i);
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if ((4 * i + e) % (K + 1) == 0) v[e] += l2;
+    *reinterpret_cast<float4*>(gs + 4 * i) = make_float4(v[0], v[1], v[2], v[3]);
+  }
 }
 
 // ---- the fused half-sweep of the register buckets ----
@@ -353,7 +378,9 @@ cd_fused_kernel(const float* __restrict__ X, int M, int C, long long sxm,
     }
 #pragma unroll
     for (int k = 0; k < K; ++k) p[0][k] -= l1;
-    vs[pr] = column_sweep<K, 1>(f, p, gs + rb * K * K);
+    float v[1];
+    column_sweep<K, 1>(f, p, gs + rb * K * K, v);
+    vs[pr] = v[0];
 #pragma unroll
     for (int k = 0; k < K; k += 4)
       *reinterpret_cast<float4*>(Fout + off + k) =
@@ -372,48 +399,120 @@ cd_fused_kernel(const float* __restrict__ X, int M, int C, long long sxm,
   }
 }
 
-// The same sweep on a precomputed product P (B, M, K).
-template <int K>
-__global__ void __launch_bounds__(kThreads)
+// ---- the products-given sweep ----
+
+// Rows of one violation partial: a warp's, summed by warp_tree.
+constexpr int kSegRows = 32;
+
+// The sum of x over the warp's 32 lanes, lane i adding lane i + o for o =
+// 16, 8, 4, 2, 1 (a shuffle-down tree), in lane 0.
+__device__ __forceinline__ float warp_tree(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_down_sync(0xffffffffu, x, o);
+  return x;
+}
+
+// The violation of a products-given launch, in one pass of its blocks. vs
+// holds the violations of the block's TM rows m0.. (0 past M). Warp w sums
+// the block's segments w, w + NT / 32, ... of kSegRows rows, each by
+// warp_tree, into seg_part (B, nseg), nseg = ceil(M / kSegRows). The block
+// then takes its restart's ticket; the last of the restart's blocks sums
+// its nseg partials (lane l adds the partials l, l + 32, ... in order, then
+// warp_tree adds the lanes) into viol[b], and sets the ticket back to 0 for
+// the next launch on its stream, so the restarts' sums run in parallel.
+// The order depends on M alone, not on the tiling or on which block
+// finishes last: no float atomics, the same bits every run and at every B.
+template <int TM, int NT>
+__device__ __forceinline__ void sweep_violation(const float* vs, int m0, int M,
+                                                float* __restrict__ seg_part,
+                                                unsigned* __restrict__ tickets,
+                                                float* __restrict__ viol) {
+  __shared__ bool last;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int b = blockIdx.x;
+  const int nseg = (M + kSegRows - 1) / kSegRows;
+  for (int s = warp; s < TM / kSegRows; s += NT / 32) {
+    const float x = warp_tree(vs[s * kSegRows + lane]);
+    const int seg = m0 / kSegRows + s;
+    if (lane == 0 && seg < nseg) seg_part[(size_t)b * nseg + seg] = x;
+  }
+  __threadfence();  // the partials are visible before the ticket is taken
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(tickets + b, 1u) == gridDim.y - 1;
+  __syncthreads();
+  if (!last || warp != 0) return;
+  __threadfence();
+  const float* part = seg_part + (size_t)b * nseg;
+  float x = 0.f;
+  int i = lane;
+  // eight loads in flight (3,125 partials at M = 100,000), added in order
+  for (; i + 7 * 32 < nseg; i += 8 * 32) {
+    float p[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) p[u] = __ldcg(part + i + u * 32);
+#pragma unroll
+    for (int u = 0; u < 8; ++u) x += p[u];
+  }
+  for (; i < nseg; i += 32) x += __ldcg(part + i);
+  x = warp_tree(x);
+  if (lane == 0) {
+    viol[b] = x;
+    tickets[b] = 0u;
+  }
+}
+
+// The sweep on a precomputed product P (B, M, K): R rows a thread (row m0 +
+// threadIdx.x + r * NT), NT threads a block; gram (B, K, K) without l2,
+// which is added as the block stages it. grid (B, ceil(M / (R * NT))).
+template <int K, int R, int NT>
+__global__ void __launch_bounds__(NT)
 cd_products_kernel(const float* __restrict__ P, int M,
                    const float* __restrict__ F, const float* __restrict__ gram,
-                   float l1, float* __restrict__ Fout,
-                   float* __restrict__ viol_part) {
-  constexpr int R = Tile<K>::kRows;
-  constexpr int TM = Tile<K>::kTileM;
-  __shared__ float gs[K * K];
+                   float l1, float l2, float* __restrict__ Fout,
+                   float* __restrict__ seg_part, unsigned* __restrict__ tickets,
+                   float* __restrict__ viol) {
+  static_assert(R == 1 || NT == kThreads, "load_rows: rows kThreads apart");
+  constexpr int TM = R * NT;
+  __shared__ __align__(16) float gs[K * K];
+  __shared__ float vs[TM];
   const int b = blockIdx.x;
   const int m0 = blockIdx.y * TM;
-  load_gram<K>(gs, gram + (size_t)b * K * K);
+  load_gram<K, NT>(gs, gram + (size_t)b * K * K, l2);
 
   const size_t off = (size_t)b * M * K;
   float p[R][K];
   cnmf::load_rows<K, R>(p, P + off, m0, M);
 #pragma unroll
   for (int r = 0; r < R; ++r) {
-    const bool valid = m0 + threadIdx.x + r * kThreads < M;
+    const bool valid = m0 + threadIdx.x + r * NT < M;
 #pragma unroll
     for (int k = 0; k < K; ++k) p[r][k] = valid ? p[r][k] - l1 : 0.f;
   }
   float f[R][K];
   cnmf::load_rows<K, R>(f, F + off, m0, M);
   __syncthreads();
-  const float v = column_sweep<K, R>(f, p, gs);
+  float v[R];
+  column_sweep<K, R>(f, p, gs, v);
   cnmf::store_rows<K, R>(Fout + off, f, m0, M);
-  cnmf::block_sum_to(v, viol_part + (size_t)blockIdx.y * gridDim.x + b);
+#pragma unroll
+  for (int r = 0; r < R; ++r) vs[threadIdx.x + r * NT] = v[r];
+  __syncthreads();
+  sweep_violation<TM, NT>(vs, m0, M, seg_part, tickets, viol);
 }
 
 // column_sweep() on a row f (updated in place) and its product p (l1 not yet
-// subtracted), both in device memory, with the gram read from device memory.
+// subtracted), both in device memory, with the gram read from device memory
+// and l2 added to its diagonal.
 __device__ __forceinline__ float column_sweep_wide(float* __restrict__ f,
                                                    const float* __restrict__ p,
                                                    const float* __restrict__ gram,
-                                                   float l1, int K) {
+                                                   float l1, float l2, int K) {
   float viol = 0.f;
   for (int t = 0; t < K; ++t) {
-    const float hess = __ldg(gram + t * K + t);
+    const float hess = __ldg(gram + t * K + t) + l2;
     float grad = 0.f;
-    for (int j = 0; j < K; ++j) grad = fmaf(f[j], __ldg(gram + j * K + t), grad);
+    for (int j = 0; j < K; ++j)
+      grad = fmaf(f[j], j == t ? hess : __ldg(gram + j * K + t), grad);
     const float ft = f[t];
     grad -= p[t] - l1;
     const float pgrad = ft == 0.f ? fminf(grad, 0.f) : grad;
@@ -459,27 +558,33 @@ cd_fused_wide(const float* __restrict__ X, int M, int C, long long sxm,
   if (live) {
     float* f = Fout + off;
     for (int k = 0; k < K; ++k) f[k] = F[off + k];
-    v = column_sweep_wide(f, p, gram + (size_t)b * K * K, l1, K);
+    v = column_sweep_wide(f, p, gram + (size_t)b * K * K, l1, 0.f, K);
   }
   cnmf::block_sum_to(v, viol_part + (size_t)blockIdx.y * gridDim.x + b);
 }
 
-// cd_products_kernel for K above the register buckets.
+// cd_products_kernel for K above the register buckets, one row a thread.
 __global__ void __launch_bounds__(kThreads)
 cd_products_wide(const float* __restrict__ P, int M,
                  const float* __restrict__ F, const float* __restrict__ gram,
-                 float l1, int K, float* __restrict__ Fout,
-                 float* __restrict__ viol_part) {
+                 float l1, float l2, int K, float* __restrict__ Fout,
+                 float* __restrict__ seg_part, unsigned* __restrict__ tickets,
+                 float* __restrict__ viol) {
+  __shared__ float vs[kThreads];
   const int b = blockIdx.x;
-  const int row = blockIdx.y * kThreads + threadIdx.x;
+  const int m0 = blockIdx.y * kThreads;
+  const int row = m0 + threadIdx.x;
   float v = 0.f;
   if (row < M) {
     const size_t off = ((size_t)b * M + row) * K;
     float* f = Fout + off;
     for (int k = 0; k < K; ++k) f[k] = F[off + k];
-    v = column_sweep_wide(f, P + off, gram + (size_t)b * K * K, l1, K);
+    v = column_sweep_wide(f, P + off, gram + (size_t)b * K * K, l1, l2, K);
   }
-  cnmf::block_sum_to(v, viol_part + (size_t)blockIdx.y * gridDim.x + b);
+  vs[threadIdx.x] = v;
+  __syncthreads();
+  sweep_violation<kThreads, kThreads>(vs, m0, M, seg_part, tickets,
+                                      viol);
 }
 
 dim3 wide_grid(int B, int M) { return dim3(B, (M + kThreads - 1) / kThreads); }
@@ -543,14 +648,58 @@ int fused_tiling(int field) {
   return 0;
 }
 
+// The tiling of a products-given launch at bucket K for B restarts of M
+// rows: 0 the bucket's Tile rows a thread and kThreads threads where that
+// grid fills a wave (a block on each SM), else 1 row a thread of kThreads
+// where that does, else 1 row a thread of 32. Each row's sweep runs the same
+// arithmetic in every tiling, so the factor keeps its bits; fewer rows a
+// block put the refits' B = 1 grids on more SMs (K = 16: 40 blocks at
+// M = 10,000 with the bucket's tile, 313 with one warp's rows).
+template <int K>
+int products_tiling(int B, int M) {
+  constexpr int R = Tile<K>::kRows;
+  const long long sms = cnmf::sm_count();
+  const auto blocks = [&](int rows) {
+    return (long long)B * ((M + rows - 1) / rows);
+  };
+  if (blocks(R * kThreads) >= sms) return 0;
+  return blocks(kThreads) >= sms ? 1 : 2;
+}
+
+// Rows a block owns in tiling t of products_tiling.
+template <int K>
+int products_rows(int t) {
+  return t == 0 ? Tile<K>::kRows * kThreads : t == 1 ? kThreads : 32;
+}
+
+// Blocks of tiling t an SM holds at once; 0 where that cannot be read.
+template <int K>
+int products_per_sm(int t) {
+  if (t == 0)
+    return cnmf::blocks_per_sm(cd_products_kernel<K, Tile<K>::kRows, kThreads>,
+                               kThreads);
+  if (t == 1)
+    return cnmf::blocks_per_sm(cd_products_kernel<K, 1, kThreads>, kThreads);
+  return cnmf::blocks_per_sm(cd_products_kernel<K, 1, 32>, 32);
+}
+
 template <int K>
 int launch_products(const float* P, int M, const float* F, const float* gram,
-                    float l1, int B, float* Fout, float* viol_part,
-                    cudaStream_t stream) {
-  constexpr int TM = Tile<K>::kTileM;
-  const dim3 grid(B, (M + TM - 1) / TM);
-  cd_products_kernel<K><<<grid, kThreads, 0, stream>>>(P, M, F, gram, l1, Fout,
-                                                       viol_part);
+                    float l1, float l2, int B, float* Fout, float* seg_part,
+                    unsigned* tickets, float* viol, cudaStream_t stream) {
+  constexpr int R = Tile<K>::kRows;
+  const int t = products_tiling<K>(B, M);
+  const int rows = products_rows<K>(t);
+  const dim3 grid(B, (M + rows - 1) / rows);
+  if (t == 0)
+    cd_products_kernel<K, R, kThreads><<<grid, kThreads, 0, stream>>>(
+        P, M, F, gram, l1, l2, Fout, seg_part, tickets, viol);
+  else if (t == 1)
+    cd_products_kernel<K, 1, kThreads><<<grid, kThreads, 0, stream>>>(
+        P, M, F, gram, l1, l2, Fout, seg_part, tickets, viol);
+  else
+    cd_products_kernel<K, 1, 32><<<grid, 32, 0, stream>>>(
+        P, M, F, gram, l1, l2, Fout, seg_part, tickets, viol);
   return (int)cudaGetLastError();
 }
 
@@ -558,16 +707,36 @@ int launch_products(const float* P, int M, const float* F, const float* gram,
 
 extern "C" {
 
-// Rows one block of the products-given sweep owns at K (sizes its (tiles, B)
-// violation partials): a register bucket's tile, one row per thread for a
-// wide K, 0 for a K that is not a positive multiple of 8.
-int cd_tile_rows(int K) {
-#define CD_CASE(KK) \
-  case KK:          \
-    return Tile<KK>::kTileM;
+// The tiling of a products-given launch at K for B restarts of M rows: field
+// 0 the rows a block owns, 1 the restarts it owns (1), 2 its threads, 3 how
+// many of its blocks an SM holds at once. 0 for a K that has no kernel, or
+// a field that does not exist or cannot be read.
+int cd_products_tiling(int K, int B, int M, int field) {
+  int t = -1, rows = kThreads, threads = kThreads, per_sm = 0;
+#define CD_CASE(KK)                                              \
+  case KK:                                                       \
+    t = products_tiling<KK>(B, M);                               \
+    rows = products_rows<KK>(t);                                 \
+    threads = t == 2 ? 32 : kThreads;                            \
+    if (field == 3) per_sm = products_per_sm<KK>(t);             \
+    break;
   switch (K) { CNMF_K_BUCKETS(CD_CASE) }
 #undef CD_CASE
-  return cnmf::is_wide_k(K) ? kThreads : 0;
+  if (t < 0) {
+    if (!cnmf::is_wide_k(K)) return 0;
+    if (field == 3) per_sm = cnmf::blocks_per_sm(cd_products_wide, kThreads);
+  }
+  switch (field) {
+    case 0:
+      return rows;
+    case 1:
+      return 1;
+    case 2:
+      return threads;
+    case 3:
+      return per_sm;
+  }
+  return 0;
 }
 
 // The fused half-sweep's tiling at K, for X read row-major (transposed = 0,
@@ -632,19 +801,26 @@ int cd_half_sweep_fused(const float* X, int M, int C, long long sxm,
   return (int)cudaGetLastError();
 }
 
-// One half-sweep from a precomputed product P (B, M, K).
+// One half-sweep from a precomputed product P (B, M, K) in one launch: gram
+// (B, K, K) without l2 (added to its diagonal in the kernel), Fout (B, M, K),
+// viol (B,) the summed |projected gradient| of each restart. seg_part: B x
+// ceil(M / 32) floats of scratch; tickets: B counters that are 0 before the
+// launch and after it (the caller zeroes them once; launches that share
+// them go on one stream).
 int cd_half_sweep_products(const float* P, int M, const float* F,
-                           const float* gram, float l1, int B, int K,
-                           float* Fout, float* viol_part, void* stream) {
-#define CD_CASE(KK)                                                  \
-  case KK:                                                           \
-    return launch_products<KK>(P, M, F, gram, l1, B, Fout, viol_part, \
-                               (cudaStream_t)stream);
+                           const float* gram, float l1, float l2, int B, int K,
+                           float* Fout, float* seg_part, unsigned* tickets,
+                           float* viol, void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+#define CD_CASE(KK)                                                         \
+  case KK:                                                                  \
+    return launch_products<KK>(P, M, F, gram, l1, l2, B, Fout, seg_part,    \
+                               tickets, viol, s);
   switch (K) { CNMF_K_BUCKETS(CD_CASE) }
 #undef CD_CASE
   if (!cnmf::is_wide_k(K)) return (int)cudaErrorInvalidValue;
-  cd_products_wide<<<wide_grid(B, M), kThreads, 0, (cudaStream_t)stream>>>(
-      P, M, F, gram, l1, K, Fout, viol_part);
+  cd_products_wide<<<wide_grid(B, M), kThreads, 0, s>>>(
+      P, M, F, gram, l1, l2, K, Fout, seg_part, tickets, viol);
   return (int)cudaGetLastError();
 }
 

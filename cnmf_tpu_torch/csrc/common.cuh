@@ -1,11 +1,14 @@
 // What the hand-written kernels of this directory share: the block shape, the
 // K buckets they are instantiated for, row loads and stores of a (B, M, K)
 // factor held in registers, the staging of an X tile in shared memory, the
-// block reduction of per-thread partials, and the helpers of the wide
-// (runtime-K) variants.
+// block reduction of per-thread partials, the sum of a split contraction's
+// slices, the occupancy and SM count a launch reads, and the helpers of the
+// wide (runtime-K) variants.
 #pragma once
 
 #include <cuda_runtime.h>
+
+#include <atomic>
 
 namespace cnmf {
 
@@ -167,6 +170,68 @@ __device__ __forceinline__ void block_sum_to(T v, T* out) {
     for (int w = 0; w < kThreads / 32; ++w) s += warp_sums[w];
     *out = s;
   }
+}
+
+// ---- a contraction split across blocks ----
+
+// For part z = blockIdx.y (kParts of them, 1 or 2), out_z[i] = the sum over
+// slices s = 0, 1, ... of the workspace's partials, in that order; work
+// (kParts, S, n) holds part 0's partials, then part 1's. grid (ceil(n4 /
+// threads), kParts), n4 = n / 4. The split launches of the KL numerator and
+// the general-beta terms (ops/mu_kernels.split_plan) end with it.
+template <int kParts>
+__global__ void __launch_bounds__(kThreads)
+split_sum_kernel(const float4* __restrict__ work, int splits, long long n4,
+                 float4* __restrict__ out0, float4* __restrict__ out1) {
+  static_assert(kParts == 1 || kParts == 2, "one or two parts");
+  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (i >= n4) return;
+  const float4* p = work + (long long)blockIdx.y * splits * n4 + i;
+  float4 s = p[0];
+  for (int z = 1; z < splits; ++z) {
+    const float4 v = p[z * n4];
+    s.x += v.x;
+    s.y += v.y;
+    s.z += v.z;
+    s.w += v.w;
+  }
+  (kParts == 1 || blockIdx.y == 0 ? out0 : out1)[i] = s;
+}
+
+// ---- what a launch reads of the card ----
+
+// How many blocks of `threads` threads of `kernel`, with `smem` bytes of
+// dynamic shared memory, an SM holds at once; 0 where that cannot be read.
+template <typename Kernel>
+int blocks_per_sm(Kernel kernel, int threads, int smem = 0) {
+  int n = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, threads,
+                                                    smem) != cudaSuccess) {
+    cudaGetLastError();  // leave no error for the next launch to report
+    return 0;
+  }
+  return n;
+}
+
+// The SMs of the current device, read once per device (the refits' launches
+// ask on every call); 0 where that cannot be read.
+inline int sm_count() {
+  constexpr int kDevices = 64;
+  static std::atomic<int> cached[kDevices];  // 0: not yet read
+  int dev = 0, n = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) {
+    cudaGetLastError();
+    return 0;
+  }
+  if (dev < kDevices && (n = cached[dev].load(std::memory_order_relaxed)))
+    return n;
+  if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
+      cudaSuccess) {
+    cudaGetLastError();
+    return 0;
+  }
+  if (dev < kDevices) cached[dev].store(n, std::memory_order_relaxed);
+  return n;
 }
 
 // ---- wide variants (K above the register buckets) ----

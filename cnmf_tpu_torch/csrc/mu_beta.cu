@@ -50,7 +50,7 @@
 //   consensus refits: 22 or 79 blocks for 132 SMs), the launch splits the
 //   contraction into S slices of whole 32-entry chunks, one per
 //   blockIdx.z; each slice writes its partial num and den to a workspace,
-//   and beta_split_sum_kernel adds the partials in slice order. With S = 1
+//   and cnmf::split_sum_kernel adds the partials in slice order. With S = 1
 //   the kernel writes num and den itself.
 // - K above the register buckets (beta_terms_wide, common.cuh's helpers): the
 //   row read from F, the accumulators in the output buffers; never split.
@@ -365,27 +365,6 @@ beta_terms_kernel(const float* __restrict__ X, int M, int C, long long sxm,
   cnmf::store_rows<K, 1>(den + out_off, ad, m0, M);
 }
 
-// num[i] and den[i] = the sum over slices s = 0, 1, ... of the workspace's
-// partials, in that order; work (2, S, n) holds the num partials, then the
-// den partials. grid (ceil(n4 / threads), 2), n4 = n / 4.
-__global__ void __launch_bounds__(kThreads)
-beta_split_sum_kernel(const float4* __restrict__ work, int splits,
-                      long long n4, float4* __restrict__ num,
-                      float4* __restrict__ den) {
-  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (i >= n4) return;
-  const float4* p = work + (long long)blockIdx.y * splits * n4 + i;
-  float4 s = p[0];
-  for (int z = 1; z < splits; ++z) {
-    const float4 v = p[z * n4];
-    s.x += v.x;
-    s.y += v.y;
-    s.z += v.z;
-    s.w += v.w;
-  }
-  (blockIdx.y == 0 ? num : den)[i] = s;
-}
-
 // beta_terms_kernel for K above the register buckets.
 template <bool IS>
 __global__ void __launch_bounds__(kThreads)
@@ -421,43 +400,18 @@ beta_terms_wide(const float* __restrict__ X, int M, int C, long long sxm,
   }
 }
 
-// How many blocks of `threads` threads of `kernel` an SM holds at once; 0
-// where that cannot be read.
-template <typename Kernel>
-int blocks_per_sm(Kernel kernel, int threads) {
-  int n = 0;
-  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, threads, 0) !=
-      cudaSuccess) {
-    cudaGetLastError();  // leave no error for the next launch to report
-    return 0;
-  }
-  return n;
-}
-
-// The SMs of the current device; 0 where that cannot be read.
-int sm_count() {
-  int dev = 0, n = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
-          cudaSuccess) {
-    cudaGetLastError();
-    return 0;
-  }
-  return n;
-}
-
 // Whether the restart-tiled kernel's grid over B restarts of M rows fills
 // the card as its tiling asks (BetaCfg's half waves).
 template <int K, bool IS, bool kT>
 bool tiled_fills(int B, int M) {
   using T = BetaCfg<K, kT>;
   static const int per_sm =
-      blocks_per_sm(beta_terms_tiled_kernel<K, IS, kT>, T::kThreads);
+      cnmf::blocks_per_sm(beta_terms_tiled_kernel<K, IS, kT>, T::kThreads);
   const long long blocks = (long long)((B + T::kRB - 1) / T::kRB) *
                            ((M + T::kTM - 1) / T::kTM);
   const int half_waves = IS ? T::kHalfWavesIS : T::kHalfWavesPow;
   return B >= T::kRB &&
-         2 * blocks >= (long long)half_waves * per_sm * sm_count();
+         2 * blocks >= (long long)half_waves * per_sm * cnmf::sm_count();
 }
 
 // The unsplit launch's kernel at a bucket of the restart-tiled one: 1 the
@@ -541,7 +495,8 @@ int tiled_field(int field) {
     case 2:
       return T::kThreads;
     case 3:
-      return blocks_per_sm(beta_terms_tiled_kernel<K, IS, kT>, T::kThreads);
+      return cnmf::blocks_per_sm(beta_terms_tiled_kernel<K, IS, kT>,
+                                 T::kThreads);
   }
   return 0;
 }
@@ -565,10 +520,11 @@ int tiling(int K, int B, int M, long long sxm, long long sxc, int field) {
   if (field != 3) return 0;
 #define BETA_OCC_CASE(KK) \
   case KK:                \
-    return blocks_per_sm(beta_terms_kernel<KK, IS, true>, kThreads);
+    return cnmf::blocks_per_sm(beta_terms_kernel<KK, IS, true>, kThreads);
   switch (K) { CNMF_K_BUCKETS(BETA_OCC_CASE) }
 #undef BETA_OCC_CASE
-  return cnmf::is_wide_k(K) ? blocks_per_sm(beta_terms_wide<IS>, kThreads) : 0;
+  return cnmf::is_wide_k(K) ? cnmf::blocks_per_sm(beta_terms_wide<IS>, kThreads)
+                            : 0;
 }
 
 }  // namespace
@@ -617,7 +573,7 @@ int mu_beta_terms_split(const float* X, int M, int C, long long sxm,
   if (rc != 0) return rc;
   const long long n4 = n / 4;
   const dim3 grid((unsigned)((n4 + kThreads - 1) / kThreads), 2);
-  beta_split_sum_kernel<<<grid, kThreads, 0, s>>>(
+  cnmf::split_sum_kernel<2><<<grid, kThreads, 0, s>>>(
       reinterpret_cast<const float4*>(work), splits, n4,
       reinterpret_cast<float4*>(num), reinterpret_cast<float4*>(den));
   return (int)cudaGetLastError();

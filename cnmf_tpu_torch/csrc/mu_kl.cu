@@ -56,7 +56,17 @@
 //   chunk is read from shared memory as a broadcast; X is re-read by every
 //   (tile, restart) block, the restart index fastest in the grid so that
 //   co-resident blocks share an X tile in the 50 MB L2. At K = 56 and 64 the
-//   compiler, caching the staged row as well, spills 24-28 bytes.
+//   compiler, caching the staged row as well, spills 24-28 bytes. Where its
+//   grid is under 2 waves (the B = 1 refits: 22 blocks of usages, 79 of
+//   spectra, for 132 SMs) a launch through mu_kl_numerator_split splits the
+//   contraction into slices of whole 32-entry chunks, one per blockIdx.z:
+//   each block writes its slice's partial rows to a workspace, and
+//   cnmf::split_sum_kernel adds the slices in order, as the general-beta
+//   split does (ops/mu_kernels.split_plan). A slice's chain of K-FMA dots,
+//   divisions and accumulations is 1 / splits of the whole, so 2-4 blocks
+//   on every SM hide each other's latency; the workspace of splits x B x
+//   M x K floats (3.6-3.8 MB at the refits) is written once and read once
+//   more. No atomics: the same bits every run.
 //
 // The divergence term has three designs of its own:
 // - The restart-tiled one (kl_x_log_wh_tiled_kernel), for the KL
@@ -521,29 +531,37 @@ kl_x_log_wh_tiled_kernel(const float* __restrict__ X, int M, int C,
 
 // ---- one row per thread ----
 
-// grid (B, tiles); X element (m, c) at X[m * sxm + c * sxc]; F (B, M, K) owns
-// the rows, Fo (B, C, K) is contracted over. out (B, M, K).
-template <int K>
+// grid (B, tiles, S); X element (m, c) at X[m * sxm + c * sxc]; F (B, M, K)
+// owns the rows, Fo (B, C, K) is contracted over. kSplit: block z sums the
+// entries [z . per_split, min(C, (z + 1) . per_split)) (per_split a multiple
+// of kChunk) into slice z of out, (S, B, M, K); else every entry into out,
+// (B, M, K).
+template <int K, bool kSplit>
 __global__ void __launch_bounds__(kThreads)
 kl_numerator_kernel(const float* __restrict__ X, int M, int C, long long sxm,
                     long long sxc, const float* __restrict__ Fo,
-                    const float* __restrict__ F, float* __restrict__ out) {
+                    const float* __restrict__ F, int per_split,
+                    float* __restrict__ out) {
   __shared__ float xs[kChunk][kThreads + 1];
   __shared__ __align__(16) float fs[kChunk][K];
   const int b = blockIdx.x;
   const int m0 = blockIdx.y * kThreads;
+  const int c_begin = kSplit ? blockIdx.z * per_split : 0;
+  const int c_end = kSplit ? min(C, c_begin + per_split) : C;
   const float* fo = Fo + (size_t)b * C * K;
   const size_t off = (size_t)b * M * K;
+  const size_t out_off =
+      kSplit ? ((size_t)blockIdx.z * gridDim.x + b) * M * K : off;
 
   float f[1][K], acc[1][K];
   cnmf::load_rows<K, 1>(f, F + off, m0, M);
 #pragma unroll
   for (int k = 0; k < K; ++k) acc[0][k] = 0.f;
 
-  for (int c0 = 0; c0 < C; c0 += kChunk) {
+  for (int c0 = c_begin; c0 < c_end; c0 += kChunk) {
     __syncthreads();  // the previous chunk is consumed
-    cnmf::stage_chunk<K, kThreads, kChunk>(xs, fs, X, M, C, sxm, sxc, fo, m0,
-                                           c0);
+    cnmf::stage_chunk<K, kThreads, kChunk>(xs, fs, X, M, c_end, sxm, sxc, fo,
+                                           m0, c0);
     __syncthreads();
 #pragma unroll 4
     for (int c = 0; c < kChunk; ++c) {
@@ -558,7 +576,7 @@ kl_numerator_kernel(const float* __restrict__ X, int M, int C, long long sxm,
       for (int k = 0; k < K; ++k) acc[0][k] = fmaf(ratio, fs[c][k], acc[0][k]);
     }
   }
-  cnmf::store_rows<K, 1>(out + off, acc, m0, M);
+  cnmf::store_rows<K, 1>(out + out_off, acc, m0, M);
 }
 
 // The same loop without accumulators: part[z, tile, b] = sum over the
@@ -663,8 +681,6 @@ kl_x_log_wh_wide(const float* __restrict__ X, int M, int C, long long sxm,
   cnmf::block_sum_to(sum, part + (size_t)blockIdx.y * gridDim.x + b);
 }
 
-dim3 grid_of(int B, int M) { return dim3(B, (M + kThreads - 1) / kThreads); }
-
 // The numerator kernel a launch at bucket K takes: 1 the restart-tiled one
 // with X read along its unit stride by rows (sxc = 1), 2 the restart-tiled
 // one with X's unit stride along the rows (sxm = 1), 0 one row per thread
@@ -690,31 +706,6 @@ int launch_tiled(const float* X, int M, int C, long long sxm, long long sxc,
   return (int)cudaGetLastError();
 }
 
-// How many blocks of `threads` threads of `kernel`, with `smem` bytes of
-// dynamic shared memory, an SM holds at once; 0 where that cannot be read.
-template <typename Kernel>
-int blocks_per_sm(Kernel kernel, int threads, int smem = 0) {
-  int n = 0;
-  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, threads,
-                                                    smem) != cudaSuccess) {
-    cudaGetLastError();  // leave no error for the next launch to report
-    return 0;
-  }
-  return n;
-}
-
-// The SMs of the current device; 0 where that cannot be read.
-int sm_count() {
-  int dev = 0, n = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
-          cudaSuccess) {
-    cudaGetLastError();
-    return 0;
-  }
-  return n;
-}
-
 template <int K, bool kT>
 int tiled_field(int field) {
   using T = KlCfg<K, kT>;
@@ -726,7 +717,8 @@ int tiled_field(int field) {
     case 2:
       return T::kThreads;
     case 3:
-      return blocks_per_sm(kl_numerator_tiled_kernel<K, kT>, T::kThreads);
+      return cnmf::blocks_per_sm(kl_numerator_tiled_kernel<K, kT>,
+                                 T::kThreads);
   }
   return 0;
 }
@@ -767,8 +759,8 @@ int xlw_tiled_field(int field) {
     case 3:
       return xlw_prepare<K>() != 0
                  ? 0
-                 : blocks_per_sm(kl_x_log_wh_tiled_kernel<K>, T::kThreads,
-                                 T::kSmemBytes);
+                 : cnmf::blocks_per_sm(kl_x_log_wh_tiled_kernel<K>,
+                                       T::kThreads, T::kSmemBytes);
   }
   return 0;
 }
@@ -786,7 +778,7 @@ bool xlw_tiled(int B, int M, long long sxc) {
   const int groups = (B + T::kRB - 1) / T::kRB;
   const long long blocks = (long long)groups * ((M + T::kTM - 1) / T::kTM);
   return sxc == 1 && 4 * B >= 3 * T::kRB * groups &&
-         2 * blocks >= (long long)T::kHalfWaves * per_sm * sm_count();
+         2 * blocks >= (long long)T::kHalfWaves * per_sm * cnmf::sm_count();
 }
 
 template <int K>
@@ -799,6 +791,40 @@ int launch_xlw_tiled(const float* X, int M, int C, long long sxm,
   kl_x_log_wh_tiled_kernel<K><<<grid, T::kThreads, T::kSmemBytes, stream>>>(
       X, M, C, sxm, Fo, F, B, part);
   return (int)cudaGetLastError();
+}
+
+// The one-row numerator over `splits` slices of per_split entries into out,
+// (splits, B, M, K); the wide variant (splits = 1 only) above the register
+// buckets.
+int launch_numerator_one_row(const float* X, int M, int C, long long sxm,
+                             long long sxc, const float* Fo, const float* F,
+                             int B, int K, int splits, int per_split,
+                             float* out, cudaStream_t stream) {
+  const dim3 grid(B, (M + kThreads - 1) / kThreads, splits);
+#define NUM_CASE(KK)                                                     \
+  case KK:                                                               \
+    if (splits > 1)                                                      \
+      kl_numerator_kernel<KK, true><<<grid, kThreads, 0, stream>>>(      \
+          X, M, C, sxm, sxc, Fo, F, per_split, out);                     \
+    else                                                                 \
+      kl_numerator_kernel<KK, false><<<grid, kThreads, 0, stream>>>(     \
+          X, M, C, sxm, sxc, Fo, F, per_split, out);                     \
+    return (int)cudaGetLastError();
+  switch (K) { CNMF_K_BUCKETS(NUM_CASE) }
+#undef NUM_CASE
+  if (splits != 1 || !cnmf::is_wide_k(K)) return (int)cudaErrorInvalidValue;
+  kl_numerator_wide<<<grid, kThreads, 0, stream>>>(X, M, C, sxm, sxc, Fo, F,
+                                                   K, out);
+  return (int)cudaGetLastError();
+}
+
+// Whether a split launch is valid: K a register bucket, splits >= 2 slices
+// of per_split entries (a multiple of kChunk) that cover C, the last slice
+// taking the rest.
+bool valid_split(int C, int K, int splits, int per_split) {
+  return K <= cnmf::kRegMaxK && splits >= 2 && per_split > 0 &&
+         per_split % kChunk == 0 && (long long)(splits - 1) * per_split < C &&
+         (long long)splits * per_split >= C;
 }
 
 // The one-row divergence kernel over `splits` slices of per_split entries
@@ -832,8 +858,11 @@ extern "C" {
 
 // The tiling mu_kl_numerator takes for a launch at K, B and X's strides:
 // field 0 the rows a block owns, 1 the restarts it owns, 2 its threads, 3
-// how many of its blocks an SM holds at once. 0 for a K that has no kernel,
-// or a field that does not exist or cannot be read.
+// how many of its blocks an SM holds at once (of the one-row kernel: its
+// split build's), 4 the entries each slice of a split contraction holds a
+// whole number of (0: the kernel does not split). mu_kl_numerator_split runs
+// the one-row kernel, whose tiling is that of B = 1. 0 for a K that has no
+// kernel, or a field that does not exist or cannot be read.
 int mu_kl_numerator_tiling(int K, int B, long long sxm, long long sxc,
                            int field) {
   const int layout = tiled_layout(K, B, sxm, sxc);
@@ -847,13 +876,15 @@ int mu_kl_numerator_tiling(int K, int B, long long sxm, long long sxc,
 #undef KL_TILING_CASE
   if (field == 0 || field == 2) return kThreads;
   if (field == 1) return 1;
+  if (field == 4) return K <= cnmf::kRegMaxK ? kChunk : 0;
   if (field != 3) return 0;
 #define KL_OCC_CASE(KK) \
   case KK:              \
-    return blocks_per_sm(kl_numerator_kernel<KK>, kThreads);
+    return cnmf::blocks_per_sm(kl_numerator_kernel<KK, true>, kThreads);
   switch (K) { CNMF_K_BUCKETS(KL_OCC_CASE) }
 #undef KL_OCC_CASE
-  return cnmf::is_wide_k(K) ? blocks_per_sm(kl_numerator_wide, kThreads) : 0;
+  return cnmf::is_wide_k(K) ? cnmf::blocks_per_sm(kl_numerator_wide, kThreads)
+                            : 0;
 }
 
 // out (B, M, K) = sum_c X(m, c) / max(F[m] . F_other[c], eps) . F_other[c],
@@ -874,16 +905,29 @@ int mu_kl_numerator(const float* X, int M, int C, long long sxm, long long sxc,
     break;
   switch (K) { KL_TILED_BUCKETS(KL_TILED_CASE) }
 #undef KL_TILED_CASE
-#define MU_CASE(KK)                                                       \
-  case KK:                                                                \
-    kl_numerator_kernel<KK><<<grid_of(B, M), kThreads, 0, s>>>(           \
-        X, M, C, sxm, sxc, F_other, F, out);                              \
-    return (int)cudaGetLastError();
-  switch (K) { CNMF_K_BUCKETS(MU_CASE) }
-#undef MU_CASE
-  if (!cnmf::is_wide_k(K)) return (int)cudaErrorInvalidValue;
-  kl_numerator_wide<<<grid_of(B, M), kThreads, 0, s>>>(X, M, C, sxm, sxc,
-                                                       F_other, F, K, out);
+  return launch_numerator_one_row(X, M, C, sxm, sxc, F_other, F, B, K, 1, C,
+                                  out, s);
+}
+
+// mu_kl_numerator with the contraction split into `splits` >= 2 slices of
+// per_split entries (a multiple of 32; the last slice takes the rest), one
+// row per thread, K a register bucket (8..64). The slices' partials go to
+// `work` (splits x B x M x K floats), then are summed in slice order into
+// out; both launches go on `stream`.
+int mu_kl_numerator_split(const float* X, int M, int C, long long sxm,
+                          long long sxc, const float* F_other, const float* F,
+                          int B, int K, int splits, int per_split,
+                          float* work, float* out, void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (!valid_split(C, K, splits, per_split)) return (int)cudaErrorInvalidValue;
+  const int rc = launch_numerator_one_row(X, M, C, sxm, sxc, F_other, F, B, K,
+                                          splits, per_split, work, s);
+  if (rc != 0) return rc;
+  const long long n4 = (long long)B * M * K / 4;
+  cnmf::split_sum_kernel<1>
+      <<<dim3((unsigned)((n4 + kThreads - 1) / kThreads), 1), kThreads, 0,
+          s>>>(reinterpret_cast<const float4*>(work), splits, n4,
+               reinterpret_cast<float4*>(out), reinterpret_cast<float4*>(out));
   return (int)cudaGetLastError();
 }
 
@@ -908,10 +952,11 @@ int mu_kl_x_log_wh_tiling(int K, int B, int M, long long sxc, int field) {
   if (field != 3) return 0;
 #define XLW_OCC_CASE(KK) \
   case KK:               \
-    return blocks_per_sm(kl_x_log_wh_kernel<KK, true>, kThreads);
+    return cnmf::blocks_per_sm(kl_x_log_wh_kernel<KK, true>, kThreads);
   switch (K) { CNMF_K_BUCKETS(XLW_OCC_CASE) }
 #undef XLW_OCC_CASE
-  return cnmf::is_wide_k(K) ? blocks_per_sm(kl_x_log_wh_wide, kThreads) : 0;
+  return cnmf::is_wide_k(K) ? cnmf::blocks_per_sm(kl_x_log_wh_wide, kThreads)
+                            : 0;
 }
 
 // part (tiles, B): per (row tile, restart) the sum over X(m, c) > eps of
@@ -940,10 +985,7 @@ int mu_kl_x_log_wh_split(const float* X, int M, int C, long long sxm,
                          long long sxc, const float* F_other, const float* F,
                          int B, int K, int splits, int per_split, double* part,
                          void* stream) {
-  if (K > cnmf::kRegMaxK || splits < 2 || per_split <= 0 ||
-      per_split % kChunk != 0 || (long long)(splits - 1) * per_split >= C ||
-      (long long)splits * per_split < C)
-    return (int)cudaErrorInvalidValue;
+  if (!valid_split(C, K, splits, per_split)) return (int)cudaErrorInvalidValue;
   return launch_xlw_one_row(X, M, C, sxm, sxc, F_other, F, B, K, splits,
                             per_split, part, (cudaStream_t)stream);
 }

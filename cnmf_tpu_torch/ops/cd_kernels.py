@@ -20,7 +20,9 @@ The kernel computes the data product (X·Ht for W, Xᵀ·W for Ht) inside its
 own body, as the Pallas kernels did (pallas_cd.py:86, :100); the (K, K) grams
 are computed outside, as pallas_cd.py:124 and :167 do. A third entry point,
 ``cd_sweep_from_products``, runs the same sweep on a precomputed product —
-every fixed-factor refit of the consensus stage goes through it.
+every fixed-factor refit of the consensus stage goes through it — in one
+launch that also sums the violation, in an order its plain twin repeats
+(``violation_in_order``).
 
 Each wrapper counts its kernel launches in a ``launches`` attribute, so a run
 can show that its main path went through the kernels. The library is built
@@ -44,6 +46,7 @@ from cnmf_tpu_torch.ops.kernel_lib import (
     kernel_function,
     launch,
     library_constant,
+    stream_handle,
 )
 
 
@@ -128,21 +131,23 @@ def _gram(F, acc=None):
     return torch.bmm(Fa.transpose(1, 2), Fa).to(F.dtype)
 
 
-def _cd_half_sweep(F, G, P, l1_reg: float, l2_reg: float):
+def _cd_half_sweep(F, G, P, l1_reg: float, l2_reg: float, by_row=False):
     """One cyclic CD pass updating factor F (cnmf_tpu.ops.nmf._cd_half_sweep).
 
     F (B, M, K) factor being updated; G (B, K, K) gram of the other factor;
     P (B, M, K) data product. Column order 0..K-1 (sklearn shuffle=False);
     columns whose hessian G[t, t] is 0 are skipped. Returns the updated F (a
     new tensor, updated in place column by column) and the per-restart summed
-    |projected gradient| violation."""
+    |projected gradient| violation; ``by_row``: each row's (B, M), summed
+    column by column, instead."""
     B, M, K = F.shape
     if l2_reg != 0.0:
         G = G + l2_reg * torch.eye(K, dtype=G.dtype, device=G.device)
     if l1_reg != 0.0:
         P = P - l1_reg
     F = F.clone()
-    violation = torch.zeros(B, dtype=F.dtype, device=F.device)
+    violation = torch.zeros((B, M) if by_row else B, dtype=F.dtype,
+                            device=F.device)
     for t in range(K):
         g_col = G[:, :, t]
         hess = G[:, t, t]
@@ -150,7 +155,12 @@ def _cd_half_sweep(F, G, P, l1_reg: float, l2_reg: float):
         grad = torch.bmm(F, g_col.unsqueeze(2)).squeeze(2) - P[:, :, t]
         pgrad = torch.where(f_col == 0, grad.clamp(max=0.0), grad)
         live = hess != 0
-        violation = violation + torch.where(live, pgrad.abs().sum(dim=1), 0.0)
+        if by_row:
+            violation = violation + torch.where(live[:, None], pgrad.abs(),
+                                                0.0)
+        else:
+            violation = violation + torch.where(live, pgrad.abs().sum(dim=1),
+                                                0.0)
         safe_hess = torch.where(live, hess, 1.0)
         f_new = (f_col - grad / safe_hess[:, None]).clamp(min=0.0)
         F[:, :, t] = torch.where(live[:, None], f_new, f_col)
@@ -171,9 +181,43 @@ def cd_h_half_sweep_plain(X, W, Ht, *, l1_reg=0.0, l2_reg=0.0):
                           l1_reg, l2_reg)
 
 
+# rows of one violation partial of the products-given kernel (a warp's)
+VIOLATION_ROWS = 32
+
+
+def warp_tree(v):
+    """v (..., 32) summed over its last axis as a warp's shuffle-down tree
+    adds it (``cd_half_sweep.cu:warp_tree``): lane i adds lane i + o for o =
+    16, 8, 4, 2, 1; lane 0's sum."""
+    for o in (16, 8, 4, 2, 1):
+        v = v[..., :o] + v[..., o:2 * o]
+    return v[..., 0]
+
+
+def violation_in_order(by_row):
+    """Each restart's violation from its rows' (B, M) in the products-given
+    kernel's order (``cd_half_sweep.cu:sweep_violation``): each segment of
+    ``VIOLATION_ROWS`` rows by ``warp_tree`` (rows past M add 0), then each
+    restart's segments, lane l adding the segments l, l + 32, ... in order
+    and ``warp_tree`` the lanes."""
+    B, M = by_row.shape
+    nseg = -(-M // VIOLATION_ROWS)
+    rows = torch.nn.functional.pad(by_row, (0, nseg * VIOLATION_ROWS - M))
+    seg = warp_tree(rows.reshape(B, nseg, VIOLATION_ROWS))
+    rounds = -(-nseg // 32)
+    seg = torch.nn.functional.pad(seg, (0, rounds * 32 - nseg)).reshape(
+        B, rounds, 32)
+    lanes = torch.zeros((B, 32), dtype=by_row.dtype, device=by_row.device)
+    for r in range(rounds):
+        lanes = lanes + seg[:, r]
+    return warp_tree(lanes)
+
+
 def cd_sweep_from_products_plain(F, gram, P, *, l1_reg=0.0, l2_reg=0.0):
-    """Plain version of ``cd_sweep_from_products``."""
-    return _cd_half_sweep(F, gram, P, l1_reg, l2_reg)
+    """Plain version of ``cd_sweep_from_products``: the rows' violations
+    summed in the kernel's order (``violation_in_order``)."""
+    F_new, by_row = _cd_half_sweep(F, gram, P, l1_reg, l2_reg, by_row=True)
+    return F_new, violation_in_order(by_row)
 
 
 # ----------------------------------------------------------------------
@@ -182,18 +226,20 @@ def cd_sweep_from_products_plain(F, gram, P, *, l1_reg=0.0, l2_reg=0.0):
 
 _FUSED_ARGS = (VP, I32, I32, I64, I64, VP, VP, VP, F32, I32, I32, VP, VP, VP,
                VP)
-_PRODUCTS_ARGS = (VP, I32, VP, VP, F32, I32, I32, VP, VP, VP)
+_PRODUCTS_ARGS = (VP, I32, VP, VP, F32, F32, I32, I32, VP, VP, VP, VP, VP)
 
 
 # largest K whose rows the kernels hold in registers (csrc/common.cuh)
 REGISTER_MAX_K = 64
 
 
-def _tile_rows(name, K):
-    """Rows one block of the products-given sweep owns at K; raises for a K
-    that has no kernel."""
-    check_k(name, K)
-    return library_constant("cd_tile_rows", K)
+def products_tiling(B, M, K):
+    """The products-given sweep's tiling for B restarts of M rows at K:
+    (rows a block owns, restarts it owns, threads per block, blocks an SM
+    holds at once). Raises for a K that has no kernel."""
+    check_k("products_tiling", K)
+    fn = kernel_function("cd_products_tiling", (I32, I32, I32, I32))
+    return tuple(fn(K, B, M, field) for field in range(4))
 
 
 def fused_tiling(K, transposed):
@@ -268,10 +314,38 @@ def cd_h_half_sweep(X, W, Ht, *, l1_reg=0.0, l2_reg=0.0):
     return out
 
 
+# each (device index, stream)'s scratch of the products-given sweep
+_PRODUCTS_WORK = {}
+
+
+def products_workspace(device, B, n):
+    """The products-given sweep's scratch on the current stream of
+    ``device``: (at least B int32 tickets, at least n float32 violation
+    partials). The tickets are zeroed when they are made and each launch's
+    last block of a restart sets its ticket back to 0; both are kept for
+    the stream (launches on one stream run in turn, so they share them) and
+    made anew, twice the size, where a launch needs more."""
+    if device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    key = (device.index, stream_handle(device))
+    tickets, part = _PRODUCTS_WORK.get(key, (None, None))
+    if tickets is None or tickets.numel() < B:
+        tickets = torch.zeros(max(B, 0 if tickets is None else
+                                  2 * tickets.numel()),
+                              dtype=torch.int32, device=device)
+    if part is None or part.numel() < n:
+        part = torch.empty(max(n, 0 if part is None else 2 * part.numel()),
+                           dtype=torch.float32, device=device)
+    _PRODUCTS_WORK[key] = tickets, part
+    return tickets, part
+
+
 def cd_sweep_from_products(F, gram, P, *, l1_reg=0.0, l2_reg=0.0):
     """One half-sweep of F (B,M,K) from a precomputed gram (B,K,K) and data
     product P (B,M,K) — the fixed-factor refit loop of
-    ``nnls_cd_from_products``. Returns (F_new, violation (B,))."""
+    ``nnls_cd_from_products``. Returns (F_new, violation (B,)). On CUDA one
+    launch: l2 goes onto the gram's diagonal and the violation is summed
+    inside it."""
     name = "cd_sweep_from_products"
     if device_kind(name, F) == "cpu":
         return cd_sweep_from_products_plain(F, gram, P, l1_reg=l1_reg,
@@ -280,16 +354,18 @@ def cd_sweep_from_products(F, gram, P, *, l1_reg=0.0, l2_reg=0.0):
     if P.shape != F.shape or gram.shape != (B, K, K):
         raise ValueError(f"{name}: shapes F {tuple(F.shape)}, gram "
                          f"{tuple(gram.shape)}, P {tuple(P.shape)}")
-    gram = _with_l2(gram, l2_reg)
     check_cuda(name, F, gram, P)
-    tiles = -(-M // _tile_rows(name, K))
+    check_k(name, K)
     out = torch.empty_like(F)
-    part = torch.empty((tiles, B), dtype=torch.float32, device=F.device)
+    viol = torch.empty(B, dtype=torch.float32, device=F.device)
+    tickets, part = products_workspace(F.device, B,
+                                       B * -(-M // VIOLATION_ROWS))
     launch(name, kernel_function("cd_half_sweep_products", _PRODUCTS_ARGS), F,
-           P.data_ptr(), M, F.data_ptr(), gram.data_ptr(), float(l1_reg), B,
-           K, out.data_ptr(), part.data_ptr())
+           P.data_ptr(), M, F.data_ptr(), gram.data_ptr(), float(l1_reg),
+           float(l2_reg), B, K, out.data_ptr(), part.data_ptr(),
+           tickets.data_ptr(), viol.data_ptr())
     cd_sweep_from_products.launches += 1
-    return out, part.sum(dim=0)
+    return out, viol
 
 
 cd_w_half_sweep.launches = 0

@@ -259,12 +259,21 @@ def raise_on(name, rc):
         raise RuntimeError(f"{name}: kernel launch failed, CUDA error {rc}")
 
 
+def stream_handle(device) -> int:
+    """The raw handle of ``device``'s current CUDA stream, read with torch's
+    own accessor and without building a ``torch.cuda.Stream``, which costs a
+    refit's wrapper a few microseconds a call."""
+    index = device.index
+    return torch._C._cuda_getCurrentRawStream(
+        torch.cuda.current_device() if index is None else index)
+
+
 def launch(name, fn, t, *args):
     """``fn(*args, stream)`` into the current stream of ``t``'s device, with
     that device current (a kernel launches only into a stream of the
     current device, and a mesh's thread holds tensors of several cards);
     raises on a launch error."""
-    stream = torch.cuda.current_stream(t.device).cuda_stream
+    stream = stream_handle(t.device)
     if t.device.index == torch.cuda.current_device():
         rc = fn(*args, stream)
     else:

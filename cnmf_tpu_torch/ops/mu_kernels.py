@@ -15,9 +15,10 @@ tensors lie:
   version. The KL numerators take one of two kernels by shape
   (``kl_numerator_tiling``); both give the same bits. The general-beta
   terms and the KL divergence term do the same (``beta_terms_tiling``,
-  ``kl_x_log_wh_tiling``), and where ``split_plan`` finds the grid too
-  small to fill the card (the B=1 consensus refits) the contraction is
-  split across blocks, whose partials are summed in a fixed order.
+  ``kl_x_log_wh_tiling``), and where the one-row kernel's grid is too
+  small to fill the card (``split_plan``: the B=1 consensus refits) all
+  three split the contraction across blocks, whose partials are summed in
+  a fixed order.
 * CPU tensors run the plain PyTorch versions below at the tensors' dtype.
 
 The plain versions follow the JAX package's XLA path (``_mu_w_terms_chunked``,
@@ -28,7 +29,8 @@ The plain versions follow the JAX package's XLA path (``_mu_w_terms_chunked``,
 
 Each wrapper counts its kernel launches in a ``launches`` attribute, and
 those with one restart (B=1, the consensus and k-stats refits) also in
-``launches_b1``.
+``launches_b1``; the f32 wrappers count their launches of a split entry
+point also in ``launches_split``.
 
 The ``*_tf32`` wrappers are the coarse phase of the MU precision ladder
 (``ops.nmf.nmf_mu_precision_ladder``): the same functions with both
@@ -176,31 +178,36 @@ def mu_w_terms_plain(X, W, Ht, beta: float, per_split=None, rnd=None):
     return num, den
 
 
-def mu_h_terms_plain(X, W, Ht, beta: float, rnd=None):
+def mu_h_terms_plain(X, W, Ht, beta: float, per_split=None, rnd=None):
     """Ht-update numerator Wᵀ·(X ∘ WH^(β−2)) and denominator (β=1:
     ``kl_h_denominator``, else Wᵀ·WH^(β−1)), each (B, G, K); beta != 2.
-    ``rnd`` as in ``mu_w_terms_plain``."""
+    ``per_split`` and ``rnd`` as in ``mu_w_terms_plain``, the contraction
+    here over N."""
     num = torch.empty_like(Ht)
     den = None if beta == 1 else torch.empty_like(Ht)
     for sl, Wb, _, WH in wh_chunks(W, Ht):
-        num[sl] = torch.bmm(
-            _rounded(_num_ratio(X, WH, beta), rnd).transpose(1, 2), Wb)
+        num[sl] = _sliced_bmm(
+            _rounded(_num_ratio(X, WH, beta), rnd).transpose(1, 2), Wb,
+            per_split)
         if den is not None:
-            den[sl] = torch.bmm(
-                _rounded(_den_factor(WH, beta), rnd).transpose(1, 2), Wb)
+            den[sl] = _sliced_bmm(
+                _rounded(_den_factor(WH, beta), rnd).transpose(1, 2), Wb,
+                per_split)
     if den is None:
         den = kl_h_denominator(W).expand_as(num)
     return num, den
 
 
-def kl_mu_w_numerator_plain(X, W, Ht):
-    """Plain version of ``kl_mu_w_numerator``."""
-    return mu_w_terms_plain(X, W, Ht, 1.0)[0]
+def kl_mu_w_numerator_plain(X, W, Ht, per_split=None):
+    """Plain version of ``kl_mu_w_numerator``; ``per_split`` as
+    ``mu_w_terms_plain`` takes it."""
+    return mu_w_terms_plain(X, W, Ht, 1.0, per_split=per_split)[0]
 
 
-def kl_mu_h_numerator_plain(X, W, Ht):
-    """Plain version of ``kl_mu_h_numerator``."""
-    return mu_h_terms_plain(X, W, Ht, 1.0)[0]
+def kl_mu_h_numerator_plain(X, W, Ht, per_split=None):
+    """Plain version of ``kl_mu_h_numerator``; ``per_split`` as
+    ``mu_h_terms_plain`` takes it (the contraction over N)."""
+    return mu_h_terms_plain(X, W, Ht, 1.0, per_split=per_split)[0]
 
 
 # plain versions of beta_mu_w_terms and beta_mu_h_terms (beta ∉ {1, 2})
@@ -263,11 +270,14 @@ def beta_mu_h_terms_tf32_plain(X, W, Ht, beta: float):
 
 _ARGS = (VP, I32, I32, I64, I64, VP, VP, I32, I32, VP, VP)
 _SPLIT_ARGS = (VP, I32, I32, I64, I64, VP, VP, I32, I32, I32, I32, VP, VP)
+_NUM_SPLIT_ARGS = _SPLIT_ARGS + (VP,)
 _BETA_ARGS = (VP, I32, I32, I64, I64, VP, VP, I32, I32, F32, VP, VP, VP)
 _BETA_SPLIT_ARGS = (VP, I32, I32, I64, I64, VP, VP, I32, I32, F32, I32, I32,
                     VP, VP, VP, VP)
 # each entry point's argument types
-_ARGTYPES = {"mu_kl_numerator": _ARGS, "mu_kl_x_log_wh": _ARGS,
+_ARGTYPES = {"mu_kl_numerator": _ARGS,
+             "mu_kl_numerator_split": _NUM_SPLIT_ARGS,
+             "mu_kl_x_log_wh": _ARGS,
              "mu_kl_x_log_wh_split": _SPLIT_ARGS,
              "mu_beta_terms": _BETA_ARGS,
              "mu_beta_terms_split": _BETA_SPLIT_ARGS,
@@ -283,24 +293,14 @@ def _x_strides(X, transposed):
     return (N, sg, sn) if transposed else (G, sn, sg)
 
 
-def kl_numerator_tiling(X, B, K, transposed=False):
-    """The tiling the KL numerator kernel takes at these inputs (the W
-    numerator, or the H numerator for ``transposed``): (rows a block owns,
-    restarts it owns, threads, blocks an SM holds at once). The KL
-    factorize's buckets (K = 8, 16) run the restart-tiled kernel where B
-    fills its restarts, everything else one row per thread."""
-    _, sxm, sxc = _x_strides(X, transposed)
-    fn = kernel_function("mu_kl_numerator_tiling", (I32, I32, I64, I64, I32))
-    return tuple(fn(K, B, sxm, sxc, field) for field in range(4))
-
-
 def split_plan(B: int, M: int, C: int, sms: int, rows: int, per_sm: int,
                chunk: int):
-    """How the general-beta kernels and the KL divergence term split a
-    contraction of C entries for B restarts of M output rows on a card of
-    ``sms`` SMs, given their one-row kernel's ``rows`` a block, the blocks
-    of it an SM holds at once and the ``chunk`` of entries a slice holds a
-    whole number of (0: it cannot split) → (splits, entries_per_split).
+    """How the one-row kernels (the KL numerator and divergence term, the
+    general-beta terms) split a contraction of C entries for B restarts of
+    M output rows on a card of ``sms`` SMs, given their one-row kernel's
+    ``rows`` a block, the blocks of it an SM holds at once and the
+    ``chunk`` of entries a slice holds a whole number of (0: it cannot
+    split) → (splits, entries_per_split).
 
     A wave here is one block on each SM. Where the one-row kernel's grid,
     B·⌈M/rows⌉ blocks, is under 2 waves, the contraction is split into slices
@@ -320,61 +320,92 @@ def split_plan(B: int, M: int, C: int, sms: int, rows: int, per_sm: int,
 
 _TILING_ARGS = (I32, I32, I32, I64, I64, F32, I32)
 _XLW_TILING_ARGS = (I32, I32, I32, I64, I32)
+_NUM_TILING_ARGS = (I32, I32, I64, I64, I32)
+# the kernel families ``_tiling_report`` and ``_split`` take besides a beta
+NUMERATOR, DIVERGENCE = "kl_numerator", "kl_x_log_wh"
 
 
-def _tiling_report(beta):
-    """The library's tiling report of the general-beta kernels at ``beta``,
-    or of the KL divergence term for None, as (K, B, M, sxm, sxc, field) →
-    int."""
-    if beta is None:
+def _tiling_report(family):
+    """The library's tiling report of a kernel family — the KL numerator
+    (``NUMERATOR``), the KL divergence term (``DIVERGENCE``) or the
+    general-beta kernels at the beta ``family`` — as (K, B, M, sxm, sxc,
+    field) → int."""
+    if family == NUMERATOR:
+        fn = kernel_function("mu_kl_numerator_tiling", _NUM_TILING_ARGS)
+        return lambda K, B, M, sxm, sxc, field: fn(K, B, sxm, sxc, field)
+    if family == DIVERGENCE:
         fn = kernel_function("mu_kl_x_log_wh_tiling", _XLW_TILING_ARGS)
         return lambda K, B, M, sxm, sxc, field: fn(K, B, M, sxc, field)
     fn = kernel_function("mu_beta_terms_tiling", _TILING_ARGS)
     return lambda K, B, M, sxm, sxc, field: fn(K, B, M, sxm, sxc,
-                                               float(beta), field)
+                                               float(family), field)
 
 
 @functools.lru_cache(maxsize=None)
-def _one_row_plan_args(K: int, beta, index: int):
+def _one_row_plan_args(K: int, family, index: int):
     """(SMs, rows a block, blocks an SM holds, split chunk) of the one-row
-    kernel at bucket K on device ``index`` (``beta`` as ``_tiling_report``
+    kernel at bucket K on device ``index`` (``family`` as ``_tiling_report``
     takes it), read once from the library."""
-    fn = _tiling_report(beta)
+    fn = _tiling_report(family)
     with torch.cuda.device(index):
         sms = torch.cuda.get_device_properties(index).multi_processor_count
         return (sms,) + tuple(fn(K, 1, 1, 1, 1, field) for field in (0, 3, 4))
 
 
-def _split(X, B, M, K, transposed, beta):
+@functools.lru_cache(maxsize=None)
+def _numerator_tiled(K: int, B: int, sxm: int, sxc: int) -> bool:
+    """Whether an unsplit KL numerator launch takes the restart-tiled kernel
+    (the KL factorize's buckets where B fills a block's restarts and X has
+    a unit stride), which is never split."""
+    return _tiling_report(NUMERATOR)(K, B, 0, sxm, sxc, 1) > 1
+
+
+def _split(X, B, M, K, transposed, family):
     """(splits, entries a split) of a launch with B restarts of M rows,
     ``split_plan`` with what the library reports of the card and the
-    kernel (``beta`` as ``_tiling_report`` takes it)."""
+    kernel (``family`` as ``_tiling_report`` takes it)."""
+    C, sxm, sxc = _x_strides(X, transposed)
+    if family == NUMERATOR and _numerator_tiled(K, B, sxm, sxc):
+        return 1, C
     # the one-row general-beta kernel has two builds: beta = 0 and any other
-    key = None if beta is None else 0.0 if beta == 0 else 0.5
-    C = X.shape[0 if transposed else 1]
+    key = family if family in (NUMERATOR, DIVERGENCE) else (
+        0.0 if family == 0 else 0.5)
     return split_plan(B, M, C, *_one_row_plan_args(K, key, X.device.index))
 
 
 def launch_splits(X, B: int, K: int, beta: float) -> tuple:
     """The contraction splits (``split_plan``) of the kernel launches one MU
-    iteration on CUDA makes with B restarts at bucket K: the divergence
-    term's at beta 1, the general-beta terms' W and H sides at any other
-    beta but 2 (which runs no kernel)."""
+    iteration on CUDA makes with B restarts at bucket K: at beta 1 the
+    divergence term's and the W and H numerators', at any other beta but 2
+    (which runs no kernel) the general-beta terms' W and H sides."""
+    N, G = X.shape
     if beta == 1:
-        return (_split(X, B, X.shape[0], K, False, None)[0],)
-    return (_split(X, B, X.shape[0], K, False, beta)[0],
-            _split(X, B, X.shape[1], K, True, beta)[0])
+        return (_split(X, B, N, K, False, DIVERGENCE)[0],
+                _split(X, B, N, K, False, NUMERATOR)[0],
+                _split(X, B, G, K, True, NUMERATOR)[0])
+    return (_split(X, B, N, K, False, beta)[0],
+            _split(X, B, G, K, True, beta)[0])
 
 
-def _tiling(X, B, M, K, transposed, beta):
+def _tiling(X, B, M, K, transposed, family):
     """(rows a block owns, restarts it owns, threads, blocks an SM holds at
     once, splits of the contraction, entries a split) of a launch."""
-    splits, per_split = _split(X, B, M, K, transposed, beta)
+    splits, per_split = _split(X, B, M, K, transposed, family)
     _, sxm, sxc = _x_strides(X, transposed)
-    fn = _tiling_report(beta)
+    fn = _tiling_report(family)
     b = 1 if splits > 1 else B   # a split runs the one-row kernel
     return tuple(fn(K, b, M, sxm, sxc, field)
                  for field in range(4)) + (splits, per_split)
+
+
+def kl_numerator_tiling(X, B, K, transposed=False):
+    """The grid the KL numerator takes at these inputs (the W numerator, or
+    the H numerator for ``transposed``), as ``beta_terms_tiling`` reports
+    it. The KL factorize's buckets (K = 8, 16) run the restart-tiled kernel
+    where B fills its restarts and X has a unit stride, the B=1 refits a
+    split contraction, everything else one row per thread."""
+    M = X.shape[1 if transposed else 0]
+    return _tiling(X, B, M, K, transposed, NUMERATOR)
 
 
 def beta_terms_tiling(X, F, beta, transposed=False):
@@ -392,7 +423,7 @@ def kl_x_log_wh_tiling(X, B, K):
     8, 16) run the restart-tiled kernel where X is read along its unit
     stride and the grid fills the card, the B=1 refits a split contraction,
     everything else one row per thread."""
-    return _tiling(X, B, X.shape[0], K, False, None)
+    return _tiling(X, B, X.shape[0], K, False, DIVERGENCE)
 
 
 def _launch(name, symbol, X, F, F_other, outs, transposed, *extra):
@@ -421,19 +452,32 @@ def _count(fn, B):
     fn.launches_b1 += int(B == 1)
 
 
-def _beta_launch(name, X, F, F_other, transposed, beta):
-    """(num, den) of the general-beta kernels, split as ``split_plan``
-    says."""
+def _split_launch(fn, symbols, n_outs, X, F, F_other, transposed, family,
+                  *extra):
+    """The ``n_outs`` outputs of the wrapper ``fn``'s launch of a
+    one-row-kernel family, its contraction split as ``split_plan`` says:
+    ``symbols`` (whole entry point, split entry point), the split one given
+    a workspace of each output's slices; ``extra`` as ``_launch`` takes it.
+    Counts the launch on ``fn``."""
+    name = fn.__name__
     B, M, K = F.shape
     check_k(name, K)
-    splits, per_split = _split(X, B, M, K, transposed, beta)
-    outs = (torch.empty_like(F), torch.empty_like(F))
+    splits, per_split = _split(X, B, M, K, transposed, family)
+    outs = tuple(torch.empty_like(F) for _ in range(n_outs))
     if splits == 1:
-        return _launch(name, "mu_beta_terms", X, F, F_other, outs, transposed,
-                       float(beta))
-    work = torch.empty((2, splits, *F.shape), dtype=F.dtype, device=F.device)
-    return _launch(name, "mu_beta_terms_split", X, F, F_other, outs,
-                   transposed, float(beta), splits, per_split, work)
+        _launch(name, symbols[0], X, F, F_other, outs, transposed, *extra)
+    else:
+        work = torch.empty((n_outs, splits, *F.shape), dtype=F.dtype,
+                           device=F.device)
+        _launch(name, symbols[1], X, F, F_other, outs, transposed, *extra,
+                splits, per_split, work)
+        fn.launches_split += 1
+    _count(fn, B)
+    return outs
+
+
+_BETA_SYMBOLS = ("mu_beta_terms", "mu_beta_terms_split")
+_NUMERATOR_SYMBOLS = ("mu_kl_numerator", "mu_kl_numerator_split")
 
 
 # ----------------------------------------------------------------------
@@ -445,9 +489,8 @@ def kl_mu_w_numerator(X, W, Ht):
     cnmf_tpu/ops/pallas_mu.py:kl_mu_w_numerator."""
     if device_kind("kl_mu_w_numerator", W) == "cpu":
         return kl_mu_w_numerator_plain(X, W, Ht)
-    (out,) = _launch("kl_mu_w_numerator", "mu_kl_numerator", X, W, Ht,
-                     (torch.empty_like(W),), transposed=False)
-    _count(kl_mu_w_numerator, W.shape[0])
+    (out,) = _split_launch(kl_mu_w_numerator, _NUMERATOR_SYMBOLS, 1, X,
+                           W, Ht, False, NUMERATOR)
     return out
 
 
@@ -456,9 +499,8 @@ def kl_mu_h_numerator(X, W, Ht):
     Replaces cnmf_tpu/ops/pallas_mu.py:kl_mu_h_numerator."""
     if device_kind("kl_mu_h_numerator", Ht) == "cpu":
         return kl_mu_h_numerator_plain(X, W, Ht)
-    (out,) = _launch("kl_mu_h_numerator", "mu_kl_numerator", X, Ht, W,
-                     (torch.empty_like(Ht),), transposed=True)
-    _count(kl_mu_h_numerator, W.shape[0])
+    (out,) = _split_launch(kl_mu_h_numerator, _NUMERATOR_SYMBOLS, 1, X,
+                           Ht, W, True, NUMERATOR)
     return out
 
 
@@ -471,7 +513,7 @@ def kl_x_log_wh(X, W, Ht):
         return kl_x_log_wh_plain(X, W, Ht)
     B, M, K = W.shape
     check_k(name, K)
-    splits, per_split = _split(X, B, M, K, False, None)
+    splits, per_split = _split(X, B, M, K, False, DIVERGENCE)
     # the rows a block owns (a split runs the one-row kernel, B = 1's)
     rows = kernel_function("mu_kl_x_log_wh_tiling", _XLW_TILING_ARGS)(
         K, 1 if splits > 1 else B, M, X.stride(1), 0)
@@ -482,6 +524,7 @@ def kl_x_log_wh(X, W, Ht):
     else:
         _launch(name, "mu_kl_x_log_wh_split", X, W, Ht, (part,), False,
                 splits, per_split)
+        kl_x_log_wh.launches_split += 1
     _count(kl_x_log_wh, B)
     # the partials of every slice and row tile, summed in a fixed order
     return part.view(-1, B).sum(dim=0).to(torch.float32)
@@ -502,9 +545,8 @@ def beta_mu_w_terms(X, W, Ht, beta: float):
     _check_beta(name, beta)
     if device_kind(name, W) == "cpu":
         return beta_mu_w_terms_plain(X, W, Ht, beta)
-    outs = _beta_launch(name, X, W, Ht, False, beta)
-    _count(beta_mu_w_terms, W.shape[0])
-    return outs
+    return _split_launch(beta_mu_w_terms, _BETA_SYMBOLS, 2, X, W, Ht,
+                         False, beta, float(beta))
 
 
 def beta_mu_h_terms(X, W, Ht, beta: float):
@@ -515,9 +557,8 @@ def beta_mu_h_terms(X, W, Ht, beta: float):
     _check_beta(name, beta)
     if device_kind(name, Ht) == "cpu":
         return beta_mu_h_terms_plain(X, W, Ht, beta)
-    outs = _beta_launch(name, X, Ht, W, True, beta)
-    _count(beta_mu_h_terms, W.shape[0])
-    return outs
+    return _split_launch(beta_mu_h_terms, _BETA_SYMBOLS, 2, X, Ht, W,
+                         True, beta, float(beta))
 
 
 # ----------------------------------------------------------------------
@@ -598,3 +639,5 @@ TF32_WRAPPERS = (kl_mu_w_numerator_tf32, kl_mu_h_numerator_tf32,
                  kl_x_log_wh_tf32, beta_mu_w_terms_tf32, beta_mu_h_terms_tf32)
 for _fn in WRAPPERS + TF32_WRAPPERS:
     _fn.launches = _fn.launches_b1 = 0
+for _fn in WRAPPERS:
+    _fn.launches_split = 0

@@ -22,7 +22,10 @@ from cnmf_tpu_torch import cNMF
 from cnmf_tpu_torch import ops as pt_ops
 from cnmf_tpu_torch.io.anndata_lite import AnnData
 from cnmf_tpu_torch.utils import timing
-from torch_knobs import host_draws_by_default  # noqa: F401 (autouse)
+from torch_knobs import (  # noqa: F401 (autouse)
+    host_draws_by_default,
+    one_torch_thread,
+)
 
 # keywords of the JAX API that select TPU code paths (Pallas kernels, their
 # interpret mode, the TPU matmul precision)

@@ -22,6 +22,7 @@ from cnmf_tpu.ops.nmf import (
 from cnmf_tpu_torch.ops import cd_kernels as ck
 from cnmf_tpu_torch.ops.kernel_lib import load_library
 from cnmf_tpu_torch.ops.nmf import nnls_cd_from_products
+from torch_knobs import one_torch_thread  # noqa: F401 (autouse)
 
 # the shapes of tests/test_pallas_kernels.py::test_cd_half_sweeps_match_xla
 B, N, G, K = 3, 1100, 300, 8
@@ -209,13 +210,16 @@ def test_padding_stays_exactly_zero(half):
     np.testing.assert_allclose(violp, viol, rtol=1e-12)
 
 
+@pytest.mark.parametrize("M", [500, 1100])
 @pytest.mark.parametrize("l1,l2", REGS)
-def test_products_mode_matches_jax(l1, l2):
+def test_products_mode_matches_jax(l1, l2, M):
     """One products-given sweep equals the XLA sweep on the same products,
-    and the full products refit loop matches nnls_cd_from_products (f64:
-    identical sweep counts, factors to 1e-12)."""
+    its violation summed in the kernel's order (``violation_in_order``: at
+    M = 1100 over 35 segments, two per lane for three lanes), and the full
+    products refit loop matches nnls_cd_from_products (f64: identical sweep
+    counts, factors to 1e-12)."""
     rng = np.random.RandomState(8)
-    M, Kp = 500, 16
+    Kp = 16
     Hfix = np.abs(rng.randn(B, 90, Kp))
     Hfix[:, :, -3:] = 0.0
     gram = np.einsum("bgk,bgl->bkl", Hfix, Hfix)
@@ -238,6 +242,37 @@ def test_products_mode_matches_jax(l1, l2):
     np.testing.assert_array_equal(n_iter.numpy(), np.asarray(n_ref))
     np.testing.assert_allclose(W.numpy(), np.asarray(W_ref), rtol=1e-12,
                                atol=1e-12)
+
+
+def _shfl_down_sum(v):
+    """Lane 0 of a warp's shuffle-down sum of v (32 float32 values),
+    emulated lane by lane: a lane that reads past lane 31 keeps its own."""
+    v = list(v)
+    for o in (16, 8, 4, 2, 1):
+        v = [v[i] + (v[i + o] if i + o < 32 else v[i]) for i in range(32)]
+    return v[0]
+
+
+@pytest.mark.parametrize("M", [1, 31, 33, 1100, 2085])
+def test_products_violation_order(M):
+    """``violation_in_order`` adds a restart's row violations as the
+    products-given kernel does: each segment of 32 rows by a shuffle-down
+    tree, lane l the segments l, l + 32, ... in order, then the lanes by the
+    tree (emulated here lane by lane, f32, bit for bit); in f64 it is the
+    plain sum within 1e-12."""
+    rng = np.random.RandomState(M)
+    rows = np.abs(rng.randn(2, M)).astype(np.float32)
+    out = ck.violation_in_order(_t(rows))
+    for b in range(2):
+        padded = np.zeros(-(-M // 32) * 32, np.float32)
+        padded[:M] = rows[b]
+        lanes = [np.float32(0.0)] * 32
+        for i in range(0, len(padded), 32):
+            lanes[i // 32 % 32] += _shfl_down_sum(padded[i:i + 32])
+        assert out[b].item() == _shfl_down_sum(lanes)
+    f64 = ck.violation_in_order(_t(rows.astype(np.float64)))
+    np.testing.assert_allclose(f64.numpy(), rows.astype(np.float64).sum(1),
+                               rtol=1e-12)
 
 
 def test_cpu_path_needs_no_compiler_and_launches_nothing(monkeypatch):

@@ -26,7 +26,10 @@ from cnmf_tpu_torch.io.dataframe import load_df_from_npz, save_df_to_npz
 from cnmf_tpu_torch.ops import consensus_fused as pt_fused
 from cnmf_tpu_torch.parallel.mesh import split_rows
 from cnmf_tpu_torch.pipeline import stages
-from torch_knobs import host_draws_by_default  # noqa: F401 (autouse)
+from torch_knobs import (  # noqa: F401 (autouse)
+    host_draws_by_default,
+    one_torch_thread,
+)
 
 RTOL, ATOL_REL = 1e-6, 1e-8
 DENSITY_REL = 1e-12

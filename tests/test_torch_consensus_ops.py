@@ -13,6 +13,7 @@ from cnmf_tpu.ops import ols as jax_ols
 from cnmf_tpu_torch.ops import distance as pt_distance
 from cnmf_tpu_torch.ops import kmeans as pt_kmeans
 from cnmf_tpu_torch.ops import ols as pt_ols
+from torch_knobs import one_torch_thread  # noqa: F401 (autouse)
 
 TOL = dict(rtol=1e-8, atol=1e-8)
 

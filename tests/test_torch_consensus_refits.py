@@ -25,7 +25,10 @@ from cnmf_tpu_torch.ops import kmeans
 from cnmf_tpu_torch.pipeline import stages
 
 from test_torch_pipeline import GOLDEN_DIR, _golden_counts
-from torch_knobs import host_draws_by_default  # noqa: F401 (autouse)
+from torch_knobs import (  # noqa: F401 (autouse)
+    host_draws_by_default,
+    one_torch_thread,
+)
 
 K = 6
 SSE_TOL = 1e-4

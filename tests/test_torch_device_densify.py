@@ -13,6 +13,7 @@ from cnmf_tpu.ops.device_densify import (
 )
 from cnmf_tpu_torch.native import densify_csr
 from cnmf_tpu_torch.ops import device_densify as dd
+from torch_knobs import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _random_csr(n, g, density, seed, dtype=np.float64):

@@ -28,6 +28,7 @@ from cnmf_tpu_torch import cNMF as TorchCNMF
 from cnmf_tpu_torch.ops.init import random_init_batch_device
 from cnmf_tpu_torch.parallel import mesh as pm
 from cnmf_tpu_torch.pipeline import solvers, stages
+from torch_knobs import one_torch_thread  # noqa: F401 (autouse)
 
 INIT_RTOL = {np.float32: 1e-6, np.float64: 1e-14}
 SOLVE_TOL = dict(rtol=1e-9, atol=1e-12)

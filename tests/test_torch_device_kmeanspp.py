@@ -27,7 +27,10 @@ from cnmf_tpu_torch import cNMF as TorchCNMF
 from cnmf_tpu_torch.ops import prng
 from cnmf_tpu_torch.ops.kmeans import PAD_SENTINEL, seed_kmeanspp_batch
 from cnmf_tpu_torch.pipeline import stages
-from torch_knobs import host_draws_by_default  # noqa: F401 (autouse)
+from torch_knobs import (  # noqa: F401 (autouse)
+    host_draws_by_default,
+    one_torch_thread,
+)
 
 CENTER_TOL = 1e-12
 SSE_TOL = 1e-4

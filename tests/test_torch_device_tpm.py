@@ -19,7 +19,10 @@ from cnmf_tpu_torch.ops import device_tpm
 from cnmf_tpu_torch.ops.normalize import normalize_total
 from cnmf_tpu_torch.parallel import mesh as parallel_mesh
 from cnmf_tpu_torch.parallel.mesh import Shards
-from torch_knobs import host_draws_by_default  # noqa: F401 (autouse)
+from torch_knobs import (  # noqa: F401 (autouse)
+    host_draws_by_default,
+    one_torch_thread,
+)
 
 
 def counts(n=130, g=220, lam=1.5, seed=4):

@@ -21,6 +21,7 @@ import pytest
 from cnmf_tpu import harmony as jax_harmony
 from cnmf_tpu.ops.kmeans import kmeans_fit
 from cnmf_tpu_torch import harmony as torch_harmony
+from torch_knobs import one_torch_thread  # noqa: F401 (autouse)
 
 MAX_H = 3
 MAX_K = 5

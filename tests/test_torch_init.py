@@ -20,7 +20,10 @@ from cnmf_tpu.io.dataframe import load_df_from_npz
 from cnmf_tpu.ops import init as jinit
 from cnmf_tpu_torch import cNMF as TorchCNMF
 from cnmf_tpu_torch.ops import init as tinit
-from torch_knobs import host_draws_by_default  # noqa: F401 (autouse)
+from torch_knobs import (  # noqa: F401 (autouse)
+    host_draws_by_default,
+    one_torch_thread,
+)
 
 VARIANTS = ["nndsvd", "nndsvda", "nndsvdar"]
 FACTORIZE_REL = 1e-6

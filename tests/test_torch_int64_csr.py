@@ -16,7 +16,10 @@ import scipy.sparse as sp
 from cnmf_tpu_torch.native import csr_col_moments, csr_col_subset, densify_csr
 from cnmf_tpu_torch.ops.device_densify import device_densify_csr
 from cnmf_tpu_torch.ops.normalize import csr_column_subset
-from torch_knobs import host_draws_by_default  # noqa: F401 (autouse)
+from torch_knobs import (  # noqa: F401 (autouse)
+    host_draws_by_default,
+    one_torch_thread,
+)
 
 
 def _as_i64(X: sp.csr_matrix) -> sp.csr_matrix:

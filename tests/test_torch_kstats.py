@@ -18,6 +18,7 @@ from cnmf_tpu.ops import silhouette as jax_sil
 from cnmf_tpu_torch.ops import kstats as pt_kstats
 from cnmf_tpu_torch.ops import nmf as pt_nmf
 from cnmf_tpu_torch.ops import silhouette as pt_sil
+from torch_knobs import one_torch_thread  # noqa: F401 (autouse)
 
 SIL_ABS = 1e-10
 SSE_REL = 1e-10

@@ -15,6 +15,7 @@ from cnmf_tpu.ops import kstats as jax_kstats
 from cnmf_tpu_torch.ops import kmeans as pt_kmeans
 from cnmf_tpu_torch.ops import kstats as pt_kstats
 from cnmf_tpu_torch.pipeline import stages
+from torch_knobs import one_torch_thread  # noqa: F401 (autouse)
 
 SIL_ABS = 1e-8
 ERR_REL = 1e-6

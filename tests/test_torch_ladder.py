@@ -20,7 +20,10 @@ from cnmf_tpu_torch.ops import mu_kernels as mk
 from cnmf_tpu_torch.ops import nmf as pt_nmf
 from cnmf_tpu_torch.pipeline import solvers as pt_solvers
 from cnmf_tpu_torch.pipeline import stages
-from torch_knobs import host_draws_by_default  # noqa: F401 (autouse)
+from torch_knobs import (  # noqa: F401 (autouse)
+    host_draws_by_default,
+    one_torch_thread,
+)
 
 LADDER_ATOL = 1e-10
 FACTOR_TOL = 1e-10   # the block loops against the JAX plain solvers, f64

@@ -31,7 +31,10 @@ from cnmf_tpu_torch.ops.cd_kernels import factors_from_numpy
 from cnmf_tpu_torch.parallel import collectives
 from cnmf_tpu_torch.parallel import mesh as pm
 from cnmf_tpu_torch.pipeline import solvers
-from torch_knobs import host_draws_by_default  # noqa: F401 (autouse)
+from torch_knobs import (  # noqa: F401 (autouse)
+    host_draws_by_default,
+    one_torch_thread,
+)
 
 TOL = dict(rtol=1e-9, atol=1e-12)
 CPU8 = ["cpu"] * 8

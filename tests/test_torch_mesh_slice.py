@@ -26,7 +26,10 @@ from test_torch_mesh_pipeline import (
     planted_counts,
     write_counts,
 )
-from torch_knobs import host_draws_by_default  # noqa: F401 (autouse)
+from torch_knobs import (  # noqa: F401 (autouse)
+    host_draws_by_default,
+    one_torch_thread,
+)
 
 
 def rel_sse(a, b):

@@ -27,6 +27,7 @@ from cnmf_tpu.pipeline import solvers as jax_solvers
 from cnmf_tpu_torch.ops import mu_kernels as mk
 from cnmf_tpu_torch.ops import nmf as pt_nmf
 from cnmf_tpu_torch.pipeline import solvers as pt_solvers
+from torch_knobs import one_torch_thread  # noqa: F401 (autouse)
 
 NUM_RTOL = 2e-5
 BETA_RTOL = 3e-5
@@ -99,10 +100,11 @@ def test_beta_terms_plain_matches_pallas_interpret(interpret_mode, beta, B, K):
 
 SMS, ROWS, CHUNK = 132, 128, 32   # an H100's SMs; one-row rows, split chunk
 # blocks of each one-row kernel an H100 SM holds at once, by bucket, as its
-# split build reports them (the general-beta terms at beta 0, and the KL
-# divergence term)
+# split build reports them (the general-beta terms at beta 0, the KL
+# divergence term and the KL numerator)
 PER_SM = {"beta_terms": {8: 7, 16: 4, 24: 3, 40: 2, 64: 2, 72: 2},
-          "kl_x_log_wh": {8: 9, 16: 8, 24: 10, 40: 5, 64: 4, 72: 5}}
+          "kl_x_log_wh": {8: 9, 16: 8, 24: 10, 40: 5, 64: 4, 72: 5},
+          "kl_numerator": {8: 8, 16: 5, 24: 3, 40: 2, 64: 2, 72: 5}}
 PLANNED = sorted(PER_SM)   # the kernels that split their contraction
 REFITS = [(1, 2700, 2000), (1, 10000, 2700)]   # usage, spectra (B, M, C)
 
@@ -224,6 +226,41 @@ def test_x_log_wh_split_order_plain_matches_pallas_interpret(interpret_mode,
     torch.testing.assert_close(split, whole, rtol=1e-12, atol=0)
 
 
+@pytest.mark.parametrize("splits", [2, 3])
+@pytest.mark.parametrize("view", [False, True])
+@pytest.mark.parametrize("side", ["w", "h"])
+def test_kl_numerator_split_order_plain_matches_pallas_interpret(
+        interpret_mode, side, view, splits):
+    """The KL numerator split's order in plain PyTorch (each slice's
+    product, then the slices in order) at B=1, K=16, the contraction off the
+    32-entry chunks (G = 217 for the W side, N = 203 for the H side): f32
+    against the Pallas kernel in interpret mode (NUM_RTOL), and f64 against
+    the JAX package's XLA terms (``_mu_w_terms_chunked`` /
+    ``_mu_h_terms_chunked``) within 1e-12; X row-major or a transposed
+    view (the spectra refit's X)."""
+    X, W, Ht = kernel_problem(1, 16, G=217, seed=6)
+    per_split = _per_split(X.shape[1 if side == "w" else 0], splits)
+    pallas = pm.kl_mu_w_numerator if side == "w" else pm.kl_mu_h_numerator
+    plain = (mk.kl_mu_w_numerator_plain if side == "w"
+             else mk.kl_mu_h_numerator_plain)
+    jax_terms = (jax_nmf._mu_w_terms_chunked if side == "w"
+                 else jax_nmf._mu_h_terms_chunked)
+
+    def x_of(a):
+        return _t(a.T).T if view else _t(a)
+
+    ref = np.asarray(pallas(jnp.asarray(X), jnp.asarray(W), jnp.asarray(Ht)))
+    out = plain(x_of(X), _t(W), _t(Ht), per_split=per_split)
+    assert out.shape == ref.shape
+    np.testing.assert_allclose(out.numpy(), ref, rtol=NUM_RTOL)
+    assert not out[:, :, -2:].any()
+    X64, W64, Ht64 = (a.astype(np.float64) for a in (X, W, Ht))
+    split = plain(x_of(X64), _t(W64), _t(Ht64), per_split=per_split)
+    exact = np.asarray(jax_terms(jnp.asarray(X64), jnp.asarray(W64),
+                                 jnp.asarray(Ht64), 1.0, 1)[0])
+    np.testing.assert_allclose(split.numpy(), exact, rtol=1e-12, atol=0)
+
+
 def test_beta_wrappers_refuse_kl_and_frobenius():
     X, W, Ht = (_t(a) for a in kernel_problem(3, 8))
     for name in BETA_KERNELS:
@@ -259,6 +296,7 @@ def test_cpu_tensors_launch_nothing(monkeypatch):
     for name in KERNELS + BETA_KERNELS:
         monkeypatch.setattr(getattr(mk, name), "launches", 0)
         monkeypatch.setattr(getattr(mk, name), "launches_b1", 0)
+        monkeypatch.setattr(getattr(mk, name), "launches_split", 0)
     X, W, Ht = (_t(a) for a in kernel_problem(3, 8))
     for name in KERNELS:
         getattr(mk, name)(X, W, Ht)
@@ -266,7 +304,8 @@ def test_cpu_tensors_launch_nothing(monkeypatch):
         getattr(mk, name)(X, W, Ht, 0.0)
     assert [getattr(mk, name).launches for name in KERNELS + BETA_KERNELS] \
         == [0] * 5
-    assert not any(fn.launches_b1 for fn in mk.WRAPPERS)
+    assert not any(fn.launches_b1 or fn.launches_split
+                   for fn in mk.WRAPPERS)
     assert load_library.cache_info().currsize == 0
 
 

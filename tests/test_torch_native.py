@@ -17,6 +17,7 @@ from cnmf_tpu_torch import native
 from cnmf_tpu_torch.io.anndata_lite import AnnData
 from cnmf_tpu_torch.ops.normalize import csr_column_subset
 from cnmf_tpu_torch.ops.stats import mean_var
+from torch_knobs import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _rand_csr(seed, n=60, g=40, density=0.2):

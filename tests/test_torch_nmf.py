@@ -15,6 +15,7 @@ from cnmf_tpu_torch.ops import init as pt_init
 from cnmf_tpu_torch.ops import nmf as pt_nmf
 from cnmf_tpu_torch.ops.cd_kernels import factors_from_numpy
 from cnmf_tpu_torch.pipeline import solvers as pt_solvers
+from torch_knobs import one_torch_thread  # noqa: F401 (autouse)
 
 FACTOR_TOL = 1e-6
 

@@ -28,6 +28,7 @@ from cnmf_tpu.simulate import simulate_counts as jax_simulate
 from cnmf_tpu_torch.ops import hvg_seurat as torch_hvg
 from cnmf_tpu_torch.ops.pca import pca as torch_pca
 from cnmf_tpu_torch.simulate import simulate_counts as torch_simulate
+from torch_knobs import one_torch_thread  # noqa: F401 (autouse)
 
 PKGS = {"jax": (jax_ad.AnnData, jax_pp), "torch": (torch_ad.AnnData, torch_pp)}
 PCA_ABS = 1e-4

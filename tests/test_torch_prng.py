@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from cnmf_tpu_torch.ops import prng
+from torch_knobs import one_torch_thread  # noqa: F401 (autouse)
 
 SEEDS = [0, 1, 14, 123456789, 2**31 - 1, 2**32 - 1]
 NORMAL_ULPS = {np.float32: 4, np.float64: 32}

@@ -28,7 +28,10 @@ from cnmf_tpu_torch import cNMF
 from cnmf_tpu_torch.io.dataframe import load_df_from_npz
 from cnmf_tpu_torch.ops import ols as pt_ols
 from cnmf_tpu_torch.pipeline import solvers, stages
-from torch_knobs import host_draws_by_default  # noqa: F401 (autouse)
+from torch_knobs import (  # noqa: F401 (autouse)
+    host_draws_by_default,
+    one_torch_thread,
+)
 
 KW = {"solver": "cd", "beta_loss": "frobenius", "tol": 1e-4, "max_iter": 300,
       "alpha_W": 0.0, "l1_ratio": 0.0}

@@ -24,6 +24,7 @@ import pytest
 import torch
 
 from cnmf_tpu_torch.ops import mu_kernels as mk
+from torch_knobs import one_torch_thread  # noqa: F401 (autouse)
 
 TF32_KERNEL_L2 = 1e-4
 TF32_FLIP = 2.0 ** -10

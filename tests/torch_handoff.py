@@ -20,13 +20,12 @@ import threading
 
 import numpy as np
 import pandas as pd
-import pytest
-import torch
 
 from cnmf_tpu_torch import cNMF
 from cnmf_tpu_torch.io.anndata_lite import AnnData
 from cnmf_tpu_torch.io.dataframe import load_df_from_npz
 from cnmf_tpu_torch.io.h5ad import write_h5ad
+from torch_knobs import one_torch_thread  # noqa: F401 (autouse, re-exported)
 
 ARTIFACTS = ("consensus_spectra", "consensus_usages", "gene_spectra_tpm",
              "gene_spectra_score", "starcat_spectra")
@@ -35,19 +34,6 @@ STACK_RTOL = 1e-12
 PARITY = dict(ks=(3, 4), k=4, n_iter=6, seed=7, hvg=50, max_iter=200)
 CONSENSUS = dict(density_threshold=2.0, local_neighborhood_size=2.0,
                  show_clustering=False)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """Run a module's torch ops on one intra-op thread (restored after):
-    its tensors are tiny, and beside the other test workers the default
-    thread count oversubscribes the cores, where each op's parallel region
-    stalls (these five files took 764 s under ``-n 4`` with eight threads a
-    process, 36 s with one)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def write_counts(path, seed, n_cells=60, n_genes=120):

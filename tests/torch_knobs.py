@@ -1,4 +1,6 @@
-"""A fixture the port's CPU test modules share: the knobs of the
+"""Fixtures the port's CPU test modules share. ``one_torch_thread``: every
+module's torch ops on one intra-op thread. ``host_draws_by_default``: the
+knobs of the
 threefry-seeded paths, the one-program consensus, the compact TPM and the
 stage hand-off (the spectra twin, the background writer and its drain,
 the packing, the arena, the phase split, the storage dtype, the npz codec;
@@ -11,9 +13,11 @@ sklearn-exact draws (``solvers.device_init_enabled``,
 the TPM prefetch — whatever an earlier module of the process left in the
 environment (``__graft_entry__.dryrun_multichip`` sets
 ``CNMF_TPU_DEVICE_INIT=force`` for the rest of its process). A test that
-sets a knob itself still does. Import it into a test module to use it."""
+sets a knob itself still does. Import a fixture by name into a test module
+to use it."""
 
 import pytest
+import torch
 
 KNOBS = ("CNMF_TPU_DEVICE_INIT", "CNMF_TPU_DEVICE_KMEANSPP",
          "CNMF_TPU_FUSED_CONSENSUS", "CNMF_TPU_DEVICE_TPM",
@@ -33,3 +37,18 @@ def host_draws_by_default():
         for knob in KNOBS:
             mp.delenv(knob, raising=False)
         yield
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Run a module's torch ops on one intra-op thread (restored after):
+    its tensors are tiny, and beside the other test workers the default
+    thread count oversubscribes the cores, where each op's parallel region
+    stalls (the five stage hand-off files took 764 s under ``-n 4`` with
+    eight threads a process, 36 s with one; under ``-n 6 --dist loadfile``
+    tests/test_torch_ladder.py's tests took 561 s in all with eight, 9.5 s
+    with one)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
