@@ -2,7 +2,7 @@
 """Times a restart-tiled kernel of the port against other versions of it on
 one CUDA card, and checks that every version gives the tree's bits.
 
-    python3 chip_tune_cd.py [--kernel cd|kl|beta|xlogwh]
+    python3 chip_tune_cd.py [--kernel cd|kl|beta|xlogwh|tf32]
                             [--against NAME=CSRC_DIR ...] [--rounds 10]
 
 Builds this checkout's source of the kernel ("tree") and the same file of
@@ -52,8 +52,25 @@ Also prints how many blocks of the one-row kernel's split build an SM
 holds at every bucket, and each case's bound (chip_smoke.kernel_work on
 its X).
 
+--kernel tf32: the MU precision ladder's TF32 KL numerator and beta terms
+(csrc/mu_tf32.cu, mu_kl_numerator_tf32 and mu_beta_terms_tf32 at beta 0 and
+1.5): the factorize at K=16 and 8 (3 zero columns) on the KL path's X
+(path_inputs), both sides; buckets 24 and 64 (B=20, both sides); and B=13
+and 17 with G not a multiple of 4 (X moved by 4-byte cp.async). Each build
+is held to the plain twin within chip_smoke.tf32_within's bounds, not to
+the tree's bits (the sum order differs between designs). A build that
+exports mu_tf32_stage takes its staging scratch
+(ops/mu_kernels._tf32_scratch's shape, from that build's mu_tf32_restarts),
+an older one (no staging) the older arguments. Also prints, per case, how
+the tree moves X (TMA or cp.async), and holds what keeps the mma.sync
+kernel (tc_terms_kernel) to the tree's bits in every build: the divergence
+term at the factorize shape (K=16 and 8) and the two entry points at the
+wide K=72.
+
 Prints the registers and spills of every build, the instruction mix of the
-tree's main loop at K=8 and 16 (cuobjdump), one line per case with every
+tree's main loop at K=8 and 16 (cuobjdump; for tf32 the wgmma kernel's,
+its main loop the backward branch with the most HGMMA), one line per case
+with every
 build's median ms per launch and the tree's grid (blocks, restarts per
 block, blocks per SM, waves on the card's SMs, and a split's slices), and
 the card's name and power limit. Exits 1 if a check failed.
@@ -112,6 +129,17 @@ XLW_CASES = [c[:6] + (c[7], "synthetic") for c in KL_CASES if c[6] == "W"] + [
     ("factorize", 100, 2700, 2000, 8, 3, False, "path"),
     ("usage refit", 1, 2700, 2000, 16, 0, False, "path"),
     ("spectra refit", 1, 10000, 2700, 16, 0, True, "path")]
+# (label, B, N, G, K, zero K columns, side, X's source): --kernel tf32's
+# cases, each run for the KL numerator and the beta terms at TF32_BETAS
+TF32_CASES = [("factorize", 100, 2700, 2000, K, ZERO_COLS.get(K, 0), side,
+               "path") for K in (16, 8) for side in "WH"] + [
+    (f"bucket {K}", 20, 2700, 2000, K, 0, side, "synthetic")
+    for K in (24, 64) for side in "WH"] + [
+    ("ragged", 13, 522, 97, 8, 2, "W", "synthetic"),
+    ("ragged", 13, 522, 97, 8, 2, "H", "synthetic"),
+    ("ragged", 17, 450, 333, 16, 2, "W", "synthetic"),
+    ("ragged", 17, 450, 333, 16, 2, "H", "synthetic")]
+TF32_BETAS = (None, 0.0, 1.5)   # None: the KL numerator
 LAUNCHES = 5
 REL_BOUND = 1e-4
 SPLIT_BOUND = 1e-6   # a split launch against the unsplit one, in norm
@@ -125,16 +153,21 @@ KERNELS = {"cd": ("cd_half_sweep.cu", "cd_fused_kernel", ("cd_fused_kernel",)),
            "beta": ("mu_beta.cu", "beta_terms_tiled_kernel",
                     ("beta_terms_tiled_kernel",)),
            "xlogwh": ("mu_kl.cu", "kl_x_log_wh_tiled_kernel",
-                      ("kl_x_log_wh_tiled_kernel", "kl_x_log_wh_kernel"))}
+                      ("kl_x_log_wh_tiled_kernel", "kl_x_log_wh_kernel")),
+           "tf32": ("mu_tf32.cu", "wg_terms_kernel",
+                    ("wg_terms_kernel", "stage_kernel", "tc_terms_kernel"))}
+# the template argument of wg_terms_kernel after KB (the op) by name
+TF32_OPS = {"0": "KL", "1": "IS", "2": "beta"}
 
 
-def loop_mix(so_path, family, K):
+def loop_mix(so_path, family, K, key="FFMA"):
     """The instruction mix of the family's main loop at bucket K, for each
     value of its bool template arguments (chip_smoke.BOOL_TAGS: W or H, and
-    beta or IS; "-" for a family without them): {tag: (instructions, FFMA,
-    the five most common other opcodes)} from cuobjdump's SASS. The main
-    loop is the backward branch whose body holds the most FFMA; a body
-    counts both ways of a branch inside it."""
+    beta or IS; "-" for a family without them; for wg_terms_kernel its op,
+    TF32_OPS): {tag: (instructions, key opcodes, the five most common other
+    opcodes)} from cuobjdump's SASS. The main loop is the backward branch
+    whose body holds the most ``key`` opcodes; a body counts both ways of a
+    branch inside it."""
     from torch.utils.cpp_extension import CUDA_HOME
 
     from chip_smoke import template_tag
@@ -144,7 +177,10 @@ def loop_mix(so_path, family, K):
                           text=True).stdout
     out = {}
     for func in re.split(r"\n\s*Function : ", sass):
-        m = re.match(rf"\S*{family}ILi{K}E((?:Lb[01]E)*)E", func)
+        if family == "wg_terms_kernel":
+            m = re.match(rf"\S*{family}ILi{K // 8}ELi(\d)EE", func)
+        else:
+            m = re.match(rf"\S*{family}ILi{K}E((?:Lb[01]E)*)E", func)
         if not m:
             continue
         ops = [(int(a, 16), op, ln) for ln in func.split("\n") for a, op in
@@ -156,14 +192,17 @@ def loop_mix(so_path, family, K):
             if op.startswith("BRA") and tgt and int(tgt.group(1), 16) < addr:
                 body = [o for a, o, _ in ops
                         if int(tgt.group(1), 16) <= a <= addr]
-                n = sum(o.startswith("FFMA") for o in body)
+                n = sum(o.startswith(key) for o in body)
                 best = max(best, (n, body))
         n, body = best
         rest = collections.Counter(o.split(".")[0] for o in body
-                                   if not o.startswith("FFMA"))
-        bools = [("", b) for b in re.findall(r"Lb([01])E", m.group(1))]
-        out[template_tag(family, bools) or "-"] = (len(body), n,
-                                                   rest.most_common(5))
+                                   if not o.startswith(key))
+        if family == "wg_terms_kernel":
+            tag = TF32_OPS[m.group(1)]
+        else:
+            bools = [("", b) for b in re.findall(r"Lb([01])E", m.group(1))]
+            tag = template_tag(family, bools) or "-"
+        out[tag] = (len(body), n, rest.most_common(5))
     return out
 
 
@@ -556,6 +595,177 @@ def xlogwh_cases(sos, sms, failed):
     return cases
 
 
+def tf32_cases(sos, sms, failed):
+    """The TF32 KL numerator and beta terms: (label, {build: call}, grid)
+    per case of TF32_CASES and op, every build held to the plain twin
+    within chip_smoke.tf32_within's bounds."""
+    import torch
+
+    from chip_smoke import tf32_within
+    from cnmf_tpu_torch.ops import mu_kernels as mk
+    from cnmf_tpu_torch.ops.kernel_lib import I32, VP
+
+    libs = {name: ctypes.CDLL(so) for name, so in sos.items()}
+    staged = {name: hasattr(lib, "mu_tf32_stage") for name, lib in libs.items()}
+    fns = {}
+    for name, so in sos.items():
+        for symbol, argtypes in (("mu_kl_numerator_tf32", mk._ARGS),
+                                 ("mu_beta_terms_tf32", mk._BETA_ARGS)):
+            if staged[name]:
+                argtypes = mk._ARGTYPES[symbol]
+            fns[name, symbol] = raising(bind(so, symbol, argtypes), symbol)
+    tree = libs["tree"]
+    tree.mu_tf32_x_mode.argtypes = [VP, I32, I32, ctypes.c_longlong,
+                                    ctypes.c_longlong]
+    stream = torch.cuda.current_stream().cuda_stream
+    rng = np.random.RandomState(1)
+    dev = torch.device("cuda")
+    path = path_inputs()
+    cases = []
+    for label, B, N, G, K, pad, side, source in TF32_CASES:
+        if source == "path":
+            X = path["norm"]
+        else:
+            X = (rng.gamma(1.0, 1.0, (N, G)) * (rng.rand(N, G) > 0.3)).astype(
+                np.float32)
+        assert X.shape == (N, G), (label, X.shape)
+        avg = np.sqrt(X.mean() / K)
+        W = (avg * np.abs(rng.randn(B, N, K))).astype(np.float32)
+        Ht = (avg * np.abs(rng.randn(B, G, K))).astype(np.float32)
+        W[:, :, K - pad:] = 0.0
+        Ht[:, :, K - pad:] = 0.0
+        X, W, Ht = (torch.as_tensor(a, device=dev) for a in (X, W, Ht))
+        transposed = side == "H"
+        F, Fo = (Ht, W) if transposed else (W, Ht)
+        M = F.shape[1]
+        C, sxm, sxc = mk._x_strides(X, transposed)
+        xmode = ("TMA", "TMA transposed", "cp.async")[
+            tree.mu_tf32_x_mode(X.data_ptr(), M, C, sxm, sxc)]
+        for beta in TF32_BETAS:
+            kl = beta is None
+            symbol = "mu_kl_numerator_tf32" if kl else "mu_beta_terms_tf32"
+            twin = getattr(mk, ("kl_mu_{}_numerator_tf32_plain" if kl else
+                                "beta_mu_{}_terms_tf32_plain").format(
+                                    "h" if transposed else "w"))
+            ref = twin(X, W, Ht) if kl else twin(X, W, Ht, beta)
+            calls, checks = {}, []
+            for name in sos:
+                outs = tuple(torch.empty_like(F) for _ in range(1 if kl else 2))
+                args = (X, M, C, sxm, sxc, Fo, F, B, K) + (
+                    () if kl else (beta,))
+                if staged[name]:
+                    tile = libs[name].mu_tf32_restarts(K, mk.tf32_op(beta))
+                    chunk = libs[name].mu_tf32_chunk()
+                    scratch = torch.empty(
+                        (-(-C // chunk), -(-B // tile) * tile, 2 * chunk * K),
+                        dtype=torch.float32, device=dev)
+                    args = args + (scratch,)
+                call = bound_call(fns[name, symbol], *args, *outs, stream)
+                call()
+                torch.cuda.synchronize()
+                ok, l2, rel = tf32_within(outs if not kl else outs[0], ref)
+                calls[name] = call
+                checks.append(f"{name} {l2:.2e}/{rel:.2e}{'' if ok else ' FAIL'}")
+                if not ok:
+                    failed.append(f"{label} K={K} {side} "
+                                  f"{'KL' if kl else f'beta={beta:g}'} {name}: "
+                                  f"L2 {l2:.3e}, max rel {rel:.3e}")
+            tag = (f"{label}{', path X' if source == 'path' else ''} B={B} "
+                   f"N={N} G={G} K={K} {side} "
+                   f"{'KL' if kl else f'beta={beta:g}'}")
+            print(f"[tune-check] {tag}: vs twin (L2 rel / max rel) "
+                  f"{', '.join(checks)}", flush=True)
+            tile = tree.mu_tf32_restarts(K, mk.tf32_op(beta))
+            blocks = -(-M // 128) * -(-B // tile)
+            cases.append((tag, calls, f"X by {xmode}, 128 rows x {tile} "
+                          f"restarts, {blocks} blocks, {blocks / sms:.2f} "
+                          "blocks an SM"))
+    tf32_kept_bits(libs, staged, fns, path["norm"], stream, failed)
+    return cases
+
+
+def tf32_kept_bits(libs, staged, fns, X, stream, failed):
+    """What runs the mma.sync kernel (tc_terms_kernel) must keep its bits in
+    every build: the divergence term (mu_kl_x_log_wh_tf32) at the
+    factorize shape, K=16 and 8, and the KL numerator and beta terms (0,
+    1.5) at the wide K=72, both sides, on the path's X; one line, each
+    build against the tree."""
+    import torch
+
+    from cnmf_tpu_torch.ops import mu_kernels as mk
+
+    dev = torch.device("cuda")
+    X = torch.as_tensor(X, device=dev)
+    N, G = X.shape
+    rng = np.random.RandomState(2)
+    notes = []
+    for K, B in ((16, 100), (8, 100), (72, 10)):
+        avg = np.sqrt(float(X.mean()) / K)
+        W, Ht = (torch.as_tensor((avg * np.abs(rng.randn(B, M, K))).astype(
+            np.float32), device=dev) for M in (N, G))
+        runs = []
+        if K <= 64:   # the divergence term, at every K on tc_terms_kernel
+            C, sxm, sxc = mk._x_strides(X, False)
+            runs.append((f"divergence K={K}", lambda name: _xlogwh(
+                libs[name], X, N, C, sxm, sxc, Ht, W, B, K, stream)))
+        else:
+            for side in "WH":
+                F, Fo = (Ht, W) if side == "H" else (W, Ht)
+                M = F.shape[1]
+                C, sxm, sxc = mk._x_strides(X, side == "H")
+                for beta in TF32_BETAS:
+                    symbol = ("mu_kl_numerator_tf32" if beta is None
+                              else "mu_beta_terms_tf32")
+                    runs.append((f"K={K} {side} "
+                                 f"{'KL' if beta is None else f'beta={beta:g}'}",
+                                 lambda name, F=F, Fo=Fo, M=M, C=C, sxm=sxm,
+                                 sxc=sxc, beta=beta, symbol=symbol: _wide(
+                                     fns[name, symbol], staged[name], X, M,
+                                     C, sxm, sxc, Fo, F, B, K, beta, stream)))
+        for label, run in runs:
+            ref = run("tree")
+            same = [all(torch.equal(a, b) for a, b in zip(run(name), ref))
+                    for name in libs if name != "tree"]
+            notes.append(f"{label} {all(same)}")
+            if not all(same):
+                failed.append(f"kept bits: {label} differ from the tree's")
+    print(f"[tune-check] tc_terms_kernel, bits equal to the tree's in every "
+          f"build: {', '.join(notes)}", flush=True)
+
+
+def _xlogwh(lib, X, M, C, sxm, sxc, Fo, F, B, K, stream):
+    """mu_kl_x_log_wh_tf32's partials, (ceil(M / rows), B)."""
+    import torch
+
+    from cnmf_tpu_torch.ops import mu_kernels as mk
+
+    fn = bind(lib._name, "mu_kl_x_log_wh_tf32", mk._ARGS)
+    rows = lib.mu_tf32_rows(K)
+    part = torch.zeros((-(-M // rows), B), dtype=torch.float64,
+                       device=X.device)
+    raising(fn, "mu_kl_x_log_wh_tf32")(
+        X.data_ptr(), M, C, sxm, sxc, Fo.data_ptr(), F.data_ptr(), B, K,
+        part.data_ptr(), stream)
+    torch.cuda.synchronize()
+    return (part,)
+
+
+def _wide(fn, staged, X, M, C, sxm, sxc, Fo, F, B, K, beta, stream):
+    """A wide-K launch of the KL numerator (beta None) or the beta terms;
+    a build with staging takes a null scratch there."""
+    import torch
+
+    outs = tuple(torch.empty_like(F) for _ in range(1 if beta is None else 2))
+    args = [X.data_ptr(), M, C, sxm, sxc, Fo.data_ptr(), F.data_ptr(), B, K]
+    if beta is not None:
+        args.append(beta)
+    if staged:
+        args.append(None)
+    fn(*args, *(o.data_ptr() for o in outs), stream)
+    torch.cuda.synchronize()
+    return outs
+
+
 def grid_text(tiling, B, M, sms, splits=1, per_split=None):
     rows, rb, threads, per_sm = tiling
     blocks = -(-M // rows) * -(-B // rb) * splits
@@ -597,18 +807,44 @@ def main():
     for name, (so, lines) in built.items():
         for ln in lines:
             print(f"[tune-ptxas] {name}: {ln}", flush=True)
-    sos = {name: so for name, (so, _) in built.items()}
-    for K in (8, 16):
-        for half, (n, ffma, rest) in sorted(
-                loop_mix(sos["tree"], family, K).items()):
-            print(f"[tune-sass] tree {family} K={K} {half}: main loop {n} "
-                  f"instructions, FFMA {ffma} ({ffma / n:.0%}); then {rest}",
+    if args.kernel == "tf32":
+        # ptxas's notes on the wgmma pipeline (serialized products), by
+        # wg_terms_kernel<KB, op>
+        notes, regs, cur = collections.defaultdict(list), [], None
+        with open(built["tree"][0] + ".log") as fh:
+            for ln in fh:
+                m = re.search(r"entry function '\S*wg_terms_kernelILi(\d)ELi(\d)",
+                              ln)
+                if m or "entry function" in ln:
+                    cur = (f"K={8 * int(m.group(1))} {TF32_OPS[m.group(2)]}"
+                           if m else None)
+                r = re.search(r"Used (\d+) registers", ln)
+                if r and cur:
+                    regs.append(f"{cur}:{r.group(1)}")
+                if "wgmma" in ln:
+                    m = re.search(r"wg_terms_kernelILi(\d)ELi(\d)", ln)
+                    why = re.sub(r" for the function.*|'\w+'", "", ln.strip())
+                    notes[why].append(f"K={8 * int(m.group(1))} "
+                                      f"{TF32_OPS[m.group(2)]}" if m else "?")
+        for why, where in notes.items():
+            print(f"[tune-ptxas] tree: {why}: {', '.join(sorted(where))}",
                   flush=True)
+        print(f"[tune-ptxas] tree wg_terms_kernel registers: {' '.join(regs)}",
+              flush=True)
+    sos = {name: so for name, (so, _) in built.items()}
+    key = "HGMMA" if args.kernel == "tf32" else "FFMA"
+    for K in (8, 16):
+        for half, (n, hits, rest) in sorted(
+                loop_mix(sos["tree"], family, K, key).items()):
+            print(f"[tune-sass] tree {family} K={K} {half}: main loop {n} "
+                  f"instructions, {key} {hits} ({hits / max(n, 1):.0%}); "
+                  f"then {rest}", flush=True)
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     failed = []
     cases = {"cd": cd_cases, "kl": kl_cases, "beta": beta_cases,
-             "xlogwh": xlogwh_cases}[args.kernel](sos, sms, failed)
+             "xlogwh": xlogwh_cases, "tf32": tf32_cases}[args.kernel](
+                 sos, sms, failed)
 
     times = collections.defaultdict(list)
     names = list(sos)

@@ -37,10 +37,14 @@ The ``*_tf32`` wrappers are the coarse phase of the MU precision ladder
 products in TF32 on the tensor cores (``csrc/mu_tf32.cu``; any K a multiple
 of 8, any B). They replace no Pallas kernel: the JAX package's coarse phase
 runs its "default"-precision XLA products (cnmf_tpu/ops/nmf.py:1092-1207,
-:1036). Their plain twins round F, Fo and the elementwise factor to TF32
-with ``tf32_round``, as the kernels' ``cvt.rna`` does, then run the f32
-plain terms; the twins serve the tests and ``chip_smoke.py``, never the
-solvers, which take the TF32 route on CUDA tensors only.
+:1036). At K = 8..64 the KL numerators and the beta terms run warpgroup
+``wgmma`` products on two TF32 copies of the contracted factor, which the
+same C call first writes into scratch the wrapper allocates
+(``tf32_stage_plain`` is their plain version and ``tf32_stage_order``
+their layout). Their plain twins round F, Fo and the elementwise factor to
+TF32 with ``tf32_round``, as the kernels do, then run the f32 plain terms;
+the twins serve the tests and ``chip_smoke.py``, never the solvers, which
+take the TF32 route on CUDA tensors only.
 """
 
 from __future__ import annotations
@@ -232,8 +236,44 @@ def kl_x_log_wh_plain(X, W, Ht, per_split=None):
     return out
 
 
-# the TF32 twins: the operands of both products rounded as the kernels'
-# cvt.rna rounds them, the products and sums in f32
+# the TF32 kernels' staged copies of the contracted factor (csrc/mu_tf32.cu,
+# stage_kernel): the second product takes S's accumulator column 2t of each
+# 8 entries as its k = t and column 2t + 1 as its k = t + 4, so its copy holds
+# the entries of each 8 in this order
+TF32_PERM = (0, 2, 4, 6, 1, 3, 5, 7)
+
+
+def tf32_stage_order(K: int, chunk: int):
+    """(entry, k) of a restart's chunk of the contracted factor (``chunk``
+    entries of K values) that each float of its staged copy holds, as two
+    int arrays of 2·chunk·K: first the S product's operand [K/4][chunk][4],
+    then the second product's [chunk/4][K][4] with the entries of each 8 in
+    ``TF32_PERM``'s order."""
+    i = np.arange(chunk * K)
+    s_entry, s_k = i % (4 * chunk) // 4, i // (4 * chunk) * 4 + i % 4
+    pos = i // (4 * K) * 4 + i % 4
+    t_entry = pos // 8 * 8 + np.asarray(TF32_PERM)[pos % 8]
+    return (np.concatenate([s_entry, t_entry]),
+            np.concatenate([s_k, i % (4 * K) // 4]))
+
+
+def tf32_stage_plain(F_other, Bp: int, chunk: int):
+    """Plain version of ``mu_tf32_stage``: F_other (B, C, K) for Bp >= B
+    restarts as (ceil(C / chunk), Bp, 2·chunk·K), each chunk of each restart
+    in ``tf32_stage_order``'s layout, ``tf32_round``-ed, zero past C and
+    B."""
+    B, C, K = F_other.shape
+    nq = -(-C // chunk)
+    padded = F_other.new_zeros((Bp, nq * chunk, K))
+    padded[:B, :C] = F_other
+    entry, k = tf32_stage_order(K, chunk)
+    rows = torch.as_tensor(np.arange(nq)[:, None] * chunk + entry[None, :])
+    cols = torch.as_tensor(np.broadcast_to(k, rows.shape).copy())
+    return tf32_round(padded[:, rows, cols].transpose(0, 1).contiguous())
+
+
+# the TF32 twins: the operands of both products rounded as the kernels
+# round them, the products and sums in f32
 
 def kl_mu_w_numerator_tf32_plain(X, W, Ht):
     """Plain twin of ``kl_mu_w_numerator_tf32``."""
@@ -281,8 +321,11 @@ _ARGTYPES = {"mu_kl_numerator": _ARGS,
              "mu_kl_x_log_wh_split": _SPLIT_ARGS,
              "mu_beta_terms": _BETA_ARGS,
              "mu_beta_terms_split": _BETA_SPLIT_ARGS,
-             "mu_kl_numerator_tf32": _ARGS, "mu_kl_x_log_wh_tf32": _ARGS,
-             "mu_beta_terms_tf32": _BETA_ARGS}
+             "mu_kl_x_log_wh_tf32": _ARGS,
+             # the TF32 terms take their staging scratch before the outputs
+             "mu_kl_numerator_tf32": _ARGS[:9] + (VP, VP, VP),
+             "mu_beta_terms_tf32": _BETA_ARGS[:10] + (VP, VP, VP, VP),
+             "mu_tf32_stage": (VP, I32, I32, I32, I32, VP, VP)}
 
 
 def _x_strides(X, transposed):
@@ -565,6 +608,51 @@ def beta_mu_h_terms(X, W, Ht, beta: float):
 # the TF32 wrappers: the precision ladder's coarse phase
 # ----------------------------------------------------------------------
 
+def tf32_op(beta=None) -> int:
+    """``mu_tf32_restarts``' op: 0 the KL numerator (beta None), 1 the beta
+    terms at beta 0, 2 at any other beta."""
+    return 0 if beta is None else 1 if beta == 0 else 2
+
+
+def _tf32_scratch(F_other, op: int):
+    """The scratch a TF32 KL-numerator or beta-terms launch (``tf32_op``)
+    stages F_other (B, C, K) into at a register bucket
+    (``tf32_stage_plain``'s shape, B rounded up to the kernel's restart
+    tile); None at a wide K."""
+    B, C, K = F_other.shape
+    tile = library_constant("mu_tf32_restarts", K, op)
+    if not tile:
+        return None
+    chunk = library_constant("mu_tf32_chunk")
+    return torch.empty((-(-C // chunk), -(-B // tile) * tile, 2 * chunk * K),
+                       dtype=torch.float32, device=F_other.device)
+
+
+def tf32_stage(F_other, Bp: int):
+    """``csrc/mu_tf32.cu``'s staging alone on a CUDA F_other (B, C, K) for
+    Bp restarts: what ``tf32_stage_plain`` computes (the card tests hold
+    the two to the same bits)."""
+    name = "tf32_stage"
+    check_cuda(name, F_other)
+    B, C, K = F_other.shape
+    chunk = library_constant("mu_tf32_chunk")
+    out = torch.empty((-(-C // chunk), Bp, 2 * chunk * K),
+                      dtype=torch.float32, device=F_other.device)
+    launch(name, kernel_function("mu_tf32_stage", _ARGTYPES["mu_tf32_stage"]),
+           F_other, F_other.data_ptr(), B, C, K, Bp, out.data_ptr())
+    return out
+
+
+def tf32_x_mode(X, transposed=False) -> int:
+    """How a TF32 launch at a register bucket moves X (N, G) into shared
+    memory: 0 TMA, 1 TMA with X read transposed, 2 four-byte cp.async (X's
+    pitch or base not 16-byte aligned, or no unit stride)."""
+    M = X.shape[1] if transposed else X.shape[0]
+    C, sxm, sxc = _x_strides(X, transposed)
+    return kernel_function("mu_tf32_x_mode", (VP, I32, I32, I64, I64))(
+        X.data_ptr(), M, C, sxm, sxc)
+
+
 def kl_mu_w_numerator_tf32(X, W, Ht):
     """``kl_mu_w_numerator`` with both products in TF32
     (``csrc/mu_tf32.cu``); replaces no Pallas kernel."""
@@ -572,7 +660,7 @@ def kl_mu_w_numerator_tf32(X, W, Ht):
     if device_kind(name, W) == "cpu":
         return kl_mu_w_numerator_tf32_plain(X, W, Ht)
     (out,) = _launch(name, "mu_kl_numerator_tf32", X, W, Ht,
-                     (torch.empty_like(W),), transposed=False)
+                     (torch.empty_like(W),), False, _tf32_scratch(Ht, 0))
     _count(kl_mu_w_numerator_tf32, W.shape[0])
     return out
 
@@ -584,7 +672,7 @@ def kl_mu_h_numerator_tf32(X, W, Ht):
     if device_kind(name, Ht) == "cpu":
         return kl_mu_h_numerator_tf32_plain(X, W, Ht)
     (out,) = _launch(name, "mu_kl_numerator_tf32", X, Ht, W,
-                     (torch.empty_like(Ht),), transposed=True)
+                     (torch.empty_like(Ht),), True, _tf32_scratch(W, 0))
     _count(kl_mu_h_numerator_tf32, W.shape[0])
     return out
 
@@ -614,7 +702,7 @@ def beta_mu_w_terms_tf32(X, W, Ht, beta: float):
         return beta_mu_w_terms_tf32_plain(X, W, Ht, beta)
     outs = _launch(name, "mu_beta_terms_tf32", X, W, Ht,
                    (torch.empty_like(W), torch.empty_like(W)), False,
-                   float(beta))
+                   float(beta), _tf32_scratch(Ht, tf32_op(beta)))
     _count(beta_mu_w_terms_tf32, W.shape[0])
     return outs
 
@@ -628,7 +716,7 @@ def beta_mu_h_terms_tf32(X, W, Ht, beta: float):
         return beta_mu_h_terms_tf32_plain(X, W, Ht, beta)
     outs = _launch(name, "mu_beta_terms_tf32", X, Ht, W,
                    (torch.empty_like(Ht), torch.empty_like(Ht)), True,
-                   float(beta))
+                   float(beta), _tf32_scratch(W, tf32_op(beta)))
     _count(beta_mu_h_terms_tf32, W.shape[0])
     return outs
 

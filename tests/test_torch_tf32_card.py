@@ -2,9 +2,13 @@
 (``csrc/mu_tf32.cu`` through the ``*_tf32`` wrappers of
 ``ops.mu_kernels``) against their plain twins, on a CUDA card: every
 register bucket and a wide K, both sides (X read by rows and transposed by
-its strides), B off the kernels' restart pairs, ragged rows and
-contraction, zero K columns that must stay zero. Marked ``cuda``: without a
-card every test skips. This file imports no JAX.
+its strides), beta 0, 0.5, 1.5 and 3, B off the kernels' restart tiles (1,
+R - 1, R + 1 and 100 at every bucket), ragged rows and contraction, X's
+pitch a multiple of 4 floats (TMA) or not (4-byte cp.async), zero K columns
+that must stay zero; a restart's output bits the same at every B and in
+every slot of the restart tile; the staging of the contracted factor bit
+for bit against ``tf32_stage_plain``. Marked ``cuda``: without a card every
+test skips. This file imports no JAX.
 
 Run on a card: ``python -m pytest tests/test_torch_tf32_card.py -q``.
 
@@ -32,7 +36,14 @@ TF32_FLIP = 2.0 ** -10
 # 16-byte staging, any other their 4-byte one
 CASES = [dict(B=3, N=131, G=77, K=8), dict(B=5, N=200, G=152, K=16),
          dict(B=1, N=67, G=300, K=24), dict(B=4, N=97, G=64, K=40),
-         dict(B=2, N=90, G=45, K=64), dict(B=3, N=70, G=41, K=72)]
+         dict(B=2, N=90, G=45, K=64), dict(B=3, N=70, G=41, K=72),
+         dict(B=6, N=150, G=96, K=32), dict(B=3, N=129, G=50, K=48),
+         dict(B=2, N=70, G=128, K=56)]
+BUCKETS = (8, 16, 24, 32, 40, 48, 56, 64)
+# (wrapper, beta): the KL numerators, and the beta terms at each beta
+TERMS = [("kl_mu_w_numerator_tf32", None), ("kl_mu_h_numerator_tf32", None)] + [
+    (f"beta_mu_{side}_terms_tf32", beta) for beta in (0.0, 0.5, 1.5, 3.0)
+    for side in "wh"]
 
 
 @pytest.fixture
@@ -68,16 +79,9 @@ def flip_bound(a, b):
     return ok and l2 <= TF32_KERNEL_L2, l2, float(d.max()) / max(top, 1e-30)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("transposed", [False, True])
-@pytest.mark.parametrize("shape", CASES, ids=lambda s: f"K{s['K']}")
-@pytest.mark.parametrize("name,beta", [
-    ("kl_mu_w_numerator_tf32", None), ("kl_mu_h_numerator_tf32", None),
-    ("kl_x_log_wh_tf32", None), ("beta_mu_w_terms_tf32", 0.0),
-    ("beta_mu_h_terms_tf32", 0.0), ("beta_mu_w_terms_tf32", 1.5),
-    ("beta_mu_h_terms_tf32", 1.5)])
-def test_tf32_kernel_matches_its_twin(card, name, beta, shape, transposed):
-    X, W, Ht = _problem(card, **shape, transposed=transposed)
+def _check_twin(name, beta, X, W, Ht, note):
+    """One launch of the wrapper ``name``, counted, within ``flip_bound``
+    of its twin, its zero K columns zero; returns its outputs."""
     args = (X, W, Ht) if beta is None else (X, W, Ht, beta)
     fn, twin = getattr(mk, name), getattr(mk, name + "_plain")
     before = fn.launches
@@ -90,9 +94,112 @@ def test_tf32_kernel_matches_its_twin(card, name, beta, shape, transposed):
     for a, b in zip(outs, refs):
         assert torch.isfinite(a).all()
         ok, l2, rel = flip_bound(a, b)
-        assert ok, (name, beta, shape, l2, rel)
+        assert ok, (name, beta, note, l2, rel)
         if a.ndim == 3:
             assert not a[:, :, -2:].any()
+    return outs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("transposed", [False, True])
+@pytest.mark.parametrize("shape", CASES, ids=lambda s: f"K{s['K']}")
+@pytest.mark.parametrize("name,beta", [
+    ("kl_mu_w_numerator_tf32", None), ("kl_mu_h_numerator_tf32", None),
+    ("kl_x_log_wh_tf32", None), ("beta_mu_w_terms_tf32", 0.0),
+    ("beta_mu_h_terms_tf32", 0.0), ("beta_mu_w_terms_tf32", 1.5),
+    ("beta_mu_h_terms_tf32", 1.5), ("beta_mu_w_terms_tf32", 0.5),
+    ("beta_mu_h_terms_tf32", 0.5), ("beta_mu_w_terms_tf32", 3.0),
+    ("beta_mu_h_terms_tf32", 3.0)])
+def test_tf32_kernel_matches_its_twin(card, name, beta, shape, transposed):
+    X, W, Ht = _problem(card, **shape, transposed=transposed)
+    _check_twin(name, beta, X, W, Ht, shape)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", (8, 16, 64))
+@pytest.mark.parametrize("name,beta", TERMS, ids=str)
+def test_tf32_zero_rows(card, name, beta, K):
+    """Zero rows of W and Ht make S zero along a row and a column: the
+    floored factors (eps), and for 1 < beta < 2 the den factor of S
+    unfloored (0), as the twin computes them."""
+    X, W, Ht = _problem(card, 3, 131, 77, K, transposed=False)
+    W[:, 5] = 0.0
+    Ht[:, 7] = 0.0
+    _check_twin(name, beta, X, W, Ht, ("zero rows", K))
+
+
+def _tile(beta, K):
+    """The restarts a block of the kernel owns at K (beta None: the KL
+    numerator)."""
+    return mk.library_constant("mu_tf32_restarts", K, mk.tf32_op(beta))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", BUCKETS)
+@pytest.mark.parametrize("name,beta", TERMS[:4] + TERMS[6:7], ids=str)
+def test_tf32_restart_tiles(card, name, beta, K):
+    """B = 1, R - 1, R + 1 and 100 restarts at every bucket, on ragged rows
+    and contraction with X's pitch a multiple of 4 floats (TMA) and not
+    (cp.async)."""
+    R = _tile(beta, K)
+    for B in sorted({1, max(R - 1, 1), R + 1, 100}):
+        for N, G in ((131, 77), (200, 152)):
+            X, W, Ht = _problem(card, B, N, G, K, transposed=False)
+            _check_twin(name, beta, X, W, Ht, (B, N, G, K))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", BUCKETS)
+@pytest.mark.parametrize("name,beta", TERMS, ids=str)
+def test_tf32_restart_bits_do_not_depend_on_its_slot(card, name, beta, K):
+    """Each restart of a batch of 2R + 1 has the bits it has alone (B=1) and
+    in the batch rolled by one (every restart in another slot of its
+    restart tile, the last one in the first tile)."""
+    R = _tile(beta, K)
+    B = 2 * R + 1
+    X, W, Ht = _problem(card, B, 150, 120, K, transposed=False)
+    fn = getattr(mk, name)
+    args = () if beta is None else (beta,)
+
+    def run(W, Ht):
+        out = fn(X, W, Ht, *args)
+        return out if isinstance(out, tuple) else (out,)
+
+    full = run(W, Ht)
+    rolled = run(W.roll(1, 0).contiguous(), Ht.roll(1, 0).contiguous())
+    for a, b in zip(full, rolled):
+        assert torch.equal(a, b.roll(-1, 0)), (name, beta, K)
+    for b in (0, R - 1, R, B - 1):
+        alone = run(W[b:b + 1].contiguous(), Ht[b:b + 1].contiguous())
+        for a, c in zip(full, alone):
+            assert torch.equal(a[b:b + 1], c), (name, beta, K, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", BUCKETS)
+def test_tf32_stage_matches_plain(card, K):
+    """``mu_tf32_stage`` writes ``tf32_stage_plain``'s bits: chunks past C
+    and restarts past B zero."""
+    chunk = mk.library_constant("mu_tf32_chunk")
+    rng = np.random.RandomState(K)
+    for B, C, Bp in ((1, 77, 4), (5, 200, 8), (3, 33, 3)):
+        F = torch.as_tensor(rng.gamma(1.0, 1.0, (B, C, K)).astype(np.float32),
+                            device=card)
+        got = mk.tf32_stage(F, Bp)
+        torch.cuda.synchronize()
+        assert torch.equal(got, mk.tf32_stage_plain(F, Bp, chunk)), (B, C, K)
+
+
+@pytest.mark.cuda
+def test_tf32_x_mode(card):
+    """X moves by TMA where its pitch is a multiple of 4 floats (read by
+    rows or transposed), by 4-byte cp.async otherwise."""
+    X, _, _ = _problem(card, 1, 40, 64, 8, transposed=False)
+    assert mk.tf32_x_mode(X) == 0
+    assert mk.tf32_x_mode(X, transposed=True) == 1
+    X, _, _ = _problem(card, 1, 40, 63, 8, transposed=False)
+    assert mk.tf32_x_mode(X) == 2
+    assert mk.tf32_x_mode(X, transposed=True) == 2
 
 
 @pytest.mark.cuda
