@@ -176,6 +176,7 @@ no CUDA device the script exits 2 and prints no result.
 """
 
 import contextlib
+import functools
 import importlib.util
 import json
 import os
@@ -203,6 +204,9 @@ IS_DENSITY_THRESHOLD = 2.0
 # and HBM3
 F32_FLOPS = 67e12
 HBM_BYTES_S = 3.35e12
+# the special-function lanes an SM of Hopper (logs, reciprocals, exp2), run
+# at the card's maximum SM clock (special_rate)
+SFU_LANES = 16
 # the main path's two fused-kernel buckets: K=9..13 pad to 16, K=5..8 to 8
 # (K=5 carries 3 zero columns)
 MAIN = [(dict(B=100, N=2700, G=2000, K=16), 0),
@@ -276,6 +280,9 @@ MU_REFIT_KERNELS = ("kl_mu_w_numerator", "kl_x_log_wh", "beta_mu_w_terms")
 # an entry (tf32_within)
 TF32_KERNEL_L2 = 1e-4
 TF32_FLIP = 2.0 ** -10
+# the TF32 divergence term, each restart against its float64 plain version
+# (the rounded factors): the kernel's f32 S and logf against exact ones
+XLW_EXACT = 1e-6
 TF32_FLOPS = 495e12   # the H100 SXM's dense TF32 tensor-core peak at 700 W
 TF32_KERNELS = ("kl_mu_w_numerator_tf32", "kl_mu_h_numerator_tf32",
                 "kl_x_log_wh_tf32", "beta_mu_w_terms_tf32",
@@ -358,34 +365,66 @@ def check_pad(out, pad):
             "padding moved"
 
 
-def bound(flops, nbytes):
-    """(bound ms, what binds): the larger of the operations over the f32
-    peak and the compulsory bytes over the HBM rate."""
-    t_ops, t_bytes = flops / F32_FLOPS, nbytes / HBM_BYTES_S
+@functools.lru_cache(maxsize=None)
+def special_rate():
+    """Special-function operations a second on card 0: SFU_LANES an SM at
+    the card's maximum SM clock (``nvidia-smi --query-gpu=clocks.max.sm``)."""
+    import torch
+
+    mhz = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        check=True, capture_output=True, text=True).stdout.split()[0]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return sms * SFU_LANES * float(mhz) * 1e6
+
+
+def bound(flops, nbytes, special=0, tc=0):
+    """(bound ms, what binds): the largest of four times, the FMA-pipe
+    operations over the f32 peak, the special-function operations over
+    ``special_rate()``, the tensor-core operations over the TF32 peak and
+    the compulsory bytes over the HBM rate ("operations" for any of the
+    first three)."""
+    t_ops = max(flops / F32_FLOPS, tc / TF32_FLOPS,
+                special / special_rate() if special else 0.0)
+    t_bytes = nbytes / HBM_BYTES_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes")
 
 
-def kernel_work(name, X, B, N, G, K):
-    """(operations, compulsory bytes) of one launch at these inputs, an FMA
-    two operations and a division, reciprocal, power or log one. What the
-    data decides is counted from X: the KL numerators need the
-    reconstruction only where X is nonzero, the divergence term where X >
-    eps; the general-beta denominator needs it everywhere."""
+def kernel_work(name, X, B, N, G, K, beta=None):
+    """(FMA-pipe operations, compulsory bytes, special-function operations)
+    of one launch at these inputs: an FMA two operations, a log, reciprocal
+    or division one special-function operation and a power two (a log and
+    an exponential). What the data decides is counted from X: the KL
+    numerators need the reconstruction only where X is nonzero, the
+    divergence term where X > eps; the general-beta terms (``beta``: 0, or
+    another) need it everywhere, one reciprocal (beta 0) or one power an
+    entry serving both factors."""
     nz = int((X != 0).sum())
     if name.startswith("cd_"):
         M, C = (N, G) if name == "cd_w_half_sweep" else (G, N)
         return (2 * M * C * K * B + 2 * M * K * K * B,
-                4 * (M * C + 2 * B * M * K + B * C * K + B * K * K))
+                4 * (M * C + 2 * B * M * K + B * C * K + B * K * K),
+                B * M * K)
     if name in ("kl_mu_w_numerator", "kl_mu_h_numerator"):
         out = N if name == "kl_mu_w_numerator" else G
-        return B * nz * (4 * K + 1), 4 * (N * G + B * (N + G) * K + B * out * K)
+        return (B * nz * 4 * K,
+                4 * (N * G + B * (N + G) * K + B * out * K), B * nz)
     if name == "kl_x_log_wh":
         gt = int((X > np.finfo(np.float32).eps).sum())
-        return B * gt * (2 * K + 2), 4 * (N * G + B * (N + G) * K) + 8 * B
+        return (B * gt * (2 * K + 1), 4 * (N * G + B * (N + G) * K) + 8 * B,
+                B * gt)
     out = N if name == "beta_mu_w_terms" else G
-    return (B * (N * G * (4 * K + 1) + nz * (2 * K + 1)),
-            4 * (N * G + B * (N + G) * K + 2 * B * out * K))
+    return (B * (N * G * 4 * K + nz * 2 * K),
+            4 * (N * G + B * (N + G) * K + 2 * B * out * K),
+            B * N * G * (1 if beta == 0 else 2))
+
+
+def products_work(B, M, K):
+    """``kernel_work``'s three counts for the products-given sweep: its
+    K×K gram products and a division an update."""
+    return 2 * M * K * K * B, 4 * (3 * B * M * K + B * K * K + B), B * M * K
 
 
 def tf32_within(kernel, twin):
@@ -404,25 +443,24 @@ def tf32_within(kernel, twin):
     return ok and l2 <= TF32_KERNEL_L2, l2, rel
 
 
-def tf32_bound(name, X, B, N, G, K):
-    """(bound ms, what binds) of a TF32 wrapper's launch: its products at
-    the TF32 peak and its divisions, reciprocals, powers and logs (one each)
-    on the f32 pipe, the two units working at once, counted where the data
-    needs them as ``kernel_work`` counts them; its bytes those of the f32
+def tf32_bound(name, X, B, N, G, K, beta=None):
+    """(bound ms, what binds) of a TF32 wrapper's launch (``bound``): its
+    products on the tensor cores, its elementwise multiplies on the FMA
+    pipe and its special-function operations as ``kernel_work`` counts
+    them, each counted where the data needs it; its bytes those of the f32
     kernel of the same function."""
     base = name[:-len("_tf32")]
     nz = int((X != 0).sum())
+    _, nbytes, special = kernel_work(base, X, B, N, G, K, beta)
     if base in KL_NUMERATORS:
-        tc, f32 = 4 * K * B * nz, B * nz
+        tc, fma = 4 * K * B * nz, B * nz
     elif base == "kl_x_log_wh":
         gt = int((X > np.finfo(np.float32).eps).sum())
-        tc, f32 = 2 * K * B * gt, B * gt
+        tc, fma = 2 * K * B * gt, B * gt
     else:
-        tc, f32 = B * (4 * K * N * G + 2 * K * nz), B * (N * G + nz)
-    t_ops = max(tc / TF32_FLOPS, f32 / F32_FLOPS)
-    t_bytes = kernel_work(base, X, B, N, G, K)[1] / HBM_BYTES_S
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
-                                       else "bytes")
+        tc = B * (4 * K * N * G + 2 * K * nz)
+        fma = B * (2 * nz if beta == 0 else N * G + nz)
+    return bound(fma, nbytes, special, tc)
 
 
 class RaggedLines:
@@ -590,8 +628,7 @@ def phase_kernels(dev):
         plain_ms = timed_ms(lambda: plain(F, gram, P, **regs))
         # the kernel alone: what of the wrapper's time the device takes
         alone_ms = products_alone_ms(F, gram, P)
-        bound_ms, by = bound(2 * M * K * K * B,
-                             4 * (3 * B * M * K + B * K * K + B))
+        bound_ms, by = bound(*products_work(B, M, K))
         per_call = len(device_kernels(lambda: kernel(F, gram, P, **regs)))
         assert per_call == 1, per_call
         same = products_keep_bits(F, gram, P, regs)
@@ -779,7 +816,8 @@ def phase_mu_kernels(dev):
             ms = timed_ms(lambda: kernel(*args))
             plain_ms = timed_ms(lambda: plain(*args))
             beta_txt = "" if beta is None else f" beta={beta:g}"
-            bound_ms, by = bound(*kernel_work(name, X_host, **shape))
+            bound_ms, by = bound(*kernel_work(name, X_host, **shape,
+                                              beta=beta))
             if tag == "main" and shape["K"] != 16:
                 # the other main bucket: one folded line below
                 folded.append(f"{name}{beta_txt} rel={rel_err:.1e} "
@@ -2125,11 +2163,13 @@ def phase_mu_precision_kernels(X_host, Xd):
     KL factorize shape (the path's X, B=100, K=16 and K=8 with 3 zero
     columns, both sides; the general-beta terms at beta 0, and 1.5 for the
     bounds alone), within ``tf32_within``'s bounds, with the medians of 10
-    calls of it and of the f32 wrapper beside its bound. Returns {name:
-    record}."""
+    calls of it and of the f32 wrapper beside its bound; the divergence
+    term's restarts within XLW_EXACT of its float64 plain version, and its
+    grid's blocks. Returns {name: record}."""
     import torch
 
     from cnmf_tpu_torch.ops import mu_kernels as mk
+    from cnmf_tpu_torch.ops.kernel_lib import library_constant
 
     rng = np.random.RandomState(3)
     records, parts = {}, []
@@ -2158,10 +2198,20 @@ def phase_mu_precision_kernels(X_host, Xd):
             ms, f32_ms = timed_ms(lambda: kernel(*args)), timed_ms(
                 lambda: f32(*args))
             plain_ms = timed_ms(lambda: twin(*args), reps=3)
-            bound_ms, by = tf32_bound(name, X_host, B, N, G, K)
+            bound_ms, by = tf32_bound(name, X_host, B, N, G, K,
+                                      None if "kl" in name else 0.0)
             short = name[:-len("_tf32")].replace("_mu", "").replace(
                 "_numerator", "").replace("_terms", "")
-            parts.append(f"{short} {worst_l2:.0e}/{worst:.0e} "
+            note = ""
+            if name == "kl_x_log_wh_tf32":
+                # each restart within XLW_EXACT of float64, and the grid
+                exact = mk.kl_x_log_wh_tf32_partials_plain(Xd, W, Ht).sum(0)
+                err = float(((out.double() - exact).abs() / exact.abs()).max())
+                assert err <= XLW_EXACT, (name, K, err)
+                blocks = -(-N // mk.tf32_rows(K)) * -(-B // library_constant(
+                    "mu_tf32_restarts", K, mk.TF32_DIVERGENCE_OP))
+                note = f" f64 {err:.0e}, {blocks} blocks"
+            parts.append(f"{short} {worst_l2:.0e}/{worst:.0e}{note} "
                          f"{ms:.4f}/{f32_ms:.4f}/"
                          f"{bound_ms:.4f}" + ("" if K == 16 else " (K8)"))
             main_record(records, name, K, worst_abs, ms=ms, f32_ms=f32_ms,
@@ -2606,8 +2656,7 @@ def phase_atlas_products_kernel(dev, shapes):
         ms = timed_ms(lambda: kernel(F, gram, P))
         plain_ms = timed_ms(lambda: plain(F, gram, P))
         alone_ms = products_alone_ms(F, gram, P)
-        bound_ms, by = bound(2 * M * K * K * B,
-                             4 * (3 * B * M * K + B * K * K + B))
+        bound_ms, by = bound(*products_work(B, M, K))
         out[M] = dict(rel=rel_err, abs=abs_err, ms=ms, alone_ms=alone_ms,
                       plain_ms=plain_ms, bound_ms=bound_ms, by=by)
     return out
@@ -2936,8 +2985,7 @@ def phase_mesh_products_kernel(Xd, mesh_devices, K=16, B=100):
     kernel, plain = ck.cd_sweep_from_products, ck.cd_sweep_from_products_plain
     abs_err, rel_err = compare(kernel(Ht, gram, P), plain(Ht, gram, P))
     assert rel_err <= KERNEL_REL_BOUND, ("mesh products", rel_err)
-    bound_ms, by = bound(2 * G * K * K * B,
-                         4 * (3 * B * G * K + B * K * K + B))
+    bound_ms, by = bound(*products_work(B, G, K))
     return dict(rel=rel_err, abs=abs_err,
                 ms=timed_ms(lambda: kernel(Ht, gram, P)),
                 alone_ms=products_alone_ms(Ht, gram, P),

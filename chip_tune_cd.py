@@ -52,24 +52,27 @@ Also prints how many blocks of the one-row kernel's split build an SM
 holds at every bucket, and each case's bound (chip_smoke.kernel_work on
 its X).
 
---kernel tf32: the MU precision ladder's TF32 KL numerator and beta terms
-(csrc/mu_tf32.cu, mu_kl_numerator_tf32 and mu_beta_terms_tf32 at beta 0 and
-1.5): the factorize at K=16 and 8 (3 zero columns) on the KL path's X
-(path_inputs), both sides; buckets 24 and 64 (B=20, both sides); and B=13
-and 17 with G not a multiple of 4 (X moved by 4-byte cp.async). Each build
-is held to the plain twin within chip_smoke.tf32_within's bounds, not to
-the tree's bits (the sum order differs between designs). A build that
-exports mu_tf32_stage takes its staging scratch
-(ops/mu_kernels._tf32_scratch's shape, from that build's mu_tf32_restarts),
-an older one (no staging) the older arguments. Also prints, per case, how
-the tree moves X (TMA or cp.async), and holds what keeps the mma.sync
-kernel (tc_terms_kernel) to the tree's bits in every build: the divergence
-term at the factorize shape (K=16 and 8) and the two entry points at the
-wide K=72.
+--kernel tf32: the MU precision ladder's TF32 kernels (csrc/mu_tf32.cu:
+mu_kl_numerator_tf32, mu_beta_terms_tf32 at beta 0 and 1.5, and on the W
+side mu_kl_x_log_wh_tf32): the factorize at K=16 and 8 (3 zero columns) on
+the KL path's X (path_inputs), both sides; buckets 24 and 64 (B=20, both
+sides); and B=13 and 17 with G not a multiple of 4 (X moved by 4-byte
+cp.async). Each build is held to the plain twin within
+chip_smoke.tf32_within's bounds, the divergence term also to its float64
+plain version (mu_kernels.kl_x_log_wh_tf32_partials_plain summed, within
+XLW_EXACT a restart), and the KL numerator and beta terms of every build
+to the tree's bits. A build that exports mu_tf32_stage takes its staging
+scratch (ops/mu_kernels._tf32_scratch's shape, from that build's
+mu_tf32_restarts), an older one (no staging) the older arguments. Also
+prints, per case, how the tree moves X (TMA or cp.async), its grid
+(blocks, and waves of one block an SM) and the case's bound
+(chip_smoke.tf32_bound), and holds what keeps the mma.sync kernel
+(tc_terms_kernel) to the tree's bits in every build: the three entry
+points at the wide K=72.
 
 Prints the registers and spills of every build, the instruction mix of the
-tree's main loop at K=8 and 16 (cuobjdump; for tf32 the wgmma kernel's,
-its main loop the backward branch with the most HGMMA), one line per case
+tree's main loop at K=8 and 16 (cuobjdump; for tf32 the wgmma kernels',
+each main loop the backward branch with the most HGMMA), one line per case
 with every
 build's median ms per launch and the tree's grid (blocks, restarts per
 block, blocks per SM, waves on the card's SMs, and a split's slices), and
@@ -155,9 +158,12 @@ KERNELS = {"cd": ("cd_half_sweep.cu", "cd_fused_kernel", ("cd_fused_kernel",)),
            "xlogwh": ("mu_kl.cu", "kl_x_log_wh_tiled_kernel",
                       ("kl_x_log_wh_tiled_kernel", "kl_x_log_wh_kernel")),
            "tf32": ("mu_tf32.cu", "wg_terms_kernel",
-                    ("wg_terms_kernel", "stage_kernel", "tc_terms_kernel"))}
+                    ("wg_terms_kernel", "wg_xlogwh_kernel", "stage_kernel",
+                     "tc_terms_kernel"))}
 # the template argument of wg_terms_kernel after KB (the op) by name
 TF32_OPS = {"0": "KL", "1": "IS", "2": "beta"}
+# --kernel tf32's wgmma kernels, each main loop reported
+TF32_FAMILIES = ("wg_terms_kernel", "wg_xlogwh_kernel")
 
 
 def loop_mix(so_path, family, K, key="FFMA"):
@@ -179,6 +185,8 @@ def loop_mix(so_path, family, K, key="FFMA"):
     for func in re.split(r"\n\s*Function : ", sass):
         if family == "wg_terms_kernel":
             m = re.match(rf"\S*{family}ILi{K // 8}ELi(\d)EE", func)
+        elif family == "wg_xlogwh_kernel":
+            m = re.match(rf"\S*{family}ILi{K // 8}EE()", func)
         else:
             m = re.match(rf"\S*{family}ILi{K}E((?:Lb[01]E)*)E", func)
         if not m:
@@ -199,6 +207,8 @@ def loop_mix(so_path, family, K, key="FFMA"):
                                    if not o.startswith(key))
         if family == "wg_terms_kernel":
             tag = TF32_OPS[m.group(1)]
+        elif family == "wg_xlogwh_kernel":
+            tag = "divergence"
         else:
             bools = [("", b) for b in re.findall(r"Lb([01])E", m.group(1))]
             tag = template_tag(family, bools) or "-"
@@ -596,12 +606,13 @@ def xlogwh_cases(sos, sms, failed):
 
 
 def tf32_cases(sos, sms, failed):
-    """The TF32 KL numerator and beta terms: (label, {build: call}, grid)
-    per case of TF32_CASES and op, every build held to the plain twin
-    within chip_smoke.tf32_within's bounds."""
+    """The TF32 KL numerator, beta terms and divergence term: (label,
+    {build: call}, grid) per case of TF32_CASES and op, every build held to
+    the plain twin within chip_smoke.tf32_within's bounds, the divergence
+    term to its float64 plain version and the others to the tree's bits."""
     import torch
 
-    from chip_smoke import tf32_within
+    from chip_smoke import tf32_bound, tf32_within
     from cnmf_tpu_torch.ops import mu_kernels as mk
     from cnmf_tpu_torch.ops.kernel_lib import I32, VP
 
@@ -610,7 +621,8 @@ def tf32_cases(sos, sms, failed):
     fns = {}
     for name, so in sos.items():
         for symbol, argtypes in (("mu_kl_numerator_tf32", mk._ARGS),
-                                 ("mu_beta_terms_tf32", mk._BETA_ARGS)):
+                                 ("mu_beta_terms_tf32", mk._BETA_ARGS),
+                                 ("mu_kl_x_log_wh_tf32", mk._ARGS)):
             if staged[name]:
                 argtypes = mk._ARGTYPES[symbol]
             fns[name, symbol] = raising(bind(so, symbol, argtypes), symbol)
@@ -629,6 +641,7 @@ def tf32_cases(sos, sms, failed):
             X = (rng.gamma(1.0, 1.0, (N, G)) * (rng.rand(N, G) > 0.3)).astype(
                 np.float32)
         assert X.shape == (N, G), (label, X.shape)
+        X_host = X
         avg = np.sqrt(X.mean() / K)
         W = (avg * np.abs(rng.randn(B, N, K))).astype(np.float32)
         Ht = (avg * np.abs(rng.randn(B, G, K))).astype(np.float32)
@@ -641,55 +654,86 @@ def tf32_cases(sos, sms, failed):
         C, sxm, sxc = mk._x_strides(X, transposed)
         xmode = ("TMA", "TMA transposed", "cp.async")[
             tree.mu_tf32_x_mode(X.data_ptr(), M, C, sxm, sxc)]
-        for beta in TF32_BETAS:
-            kl = beta is None
-            symbol = "mu_kl_numerator_tf32" if kl else "mu_beta_terms_tf32"
-            twin = getattr(mk, ("kl_mu_{}_numerator_tf32_plain" if kl else
-                                "beta_mu_{}_terms_tf32_plain").format(
-                                    "h" if transposed else "w"))
-            ref = twin(X, W, Ht) if kl else twin(X, W, Ht, beta)
-            calls, checks = {}, []
+        # the divergence term has a W side only
+        for op in TF32_BETAS + (() if transposed else ("divergence",)):
+            kl, div = op is None, op == "divergence"
+            beta = None if kl or div else op
+            symbol = ("mu_kl_x_log_wh_tf32" if div else "mu_kl_numerator_tf32"
+                      if kl else "mu_beta_terms_tf32")
+            twin = getattr(mk, "kl_x_log_wh_tf32_plain" if div else (
+                "kl_mu_{}_numerator_tf32_plain" if kl else
+                "beta_mu_{}_terms_tf32_plain").format(
+                    "h" if transposed else "w"))
+            ref = twin(X, W, Ht) if beta is None else twin(X, W, Ht, beta)
+            if div:
+                exact = mk.kl_x_log_wh_tf32_partials_plain(X, W, Ht).sum(0)
+            what = "divergence" if div else "KL" if kl else f"beta={beta:g}"
+            tag = (f"{label}{', path X' if source == 'path' else ''} B={B} "
+                   f"N={N} G={G} K={K} {side} {what}")
+            calls, checks, tree_out = {}, [], None
             for name in sos:
-                outs = tuple(torch.empty_like(F) for _ in range(1 if kl else 2))
                 args = (X, M, C, sxm, sxc, Fo, F, B, K) + (
-                    () if kl else (beta,))
-                if staged[name]:
-                    tile = libs[name].mu_tf32_restarts(K, mk.tf32_op(beta))
-                    chunk = libs[name].mu_tf32_chunk()
-                    scratch = torch.empty(
-                        (-(-C // chunk), -(-B // tile) * tile, 2 * chunk * K),
-                        dtype=torch.float32, device=dev)
-                    args = args + (scratch,)
+                    () if beta is None else (beta,))
+                if div:
+                    rows = libs[name].mu_tf32_rows(K)
+                    outs = (torch.zeros((-(-M // rows), B),
+                                        dtype=torch.float64, device=dev),)
+                else:
+                    outs = tuple(torch.empty_like(F)
+                                 for _ in range(1 if kl else 2))
+                    if staged[name]:
+                        tile = libs[name].mu_tf32_restarts(K, mk.tf32_op(beta))
+                        chunk = libs[name].mu_tf32_chunk()
+                        args = args + (torch.empty(
+                            (-(-C // chunk), -(-B // tile) * tile,
+                             2 * chunk * K), dtype=torch.float32, device=dev),)
                 call = bound_call(fns[name, symbol], *args, *outs, stream)
                 call()
                 torch.cuda.synchronize()
-                ok, l2, rel = tf32_within(outs if not kl else outs[0], ref)
+                got = (outs[0].cumsum(dim=0)[-1],) if div else outs
+                ok, l2, rel = tf32_within(
+                    got[0].float() if div or kl else got, ref)
+                note = ""
+                if div:
+                    err = float(((got[0] - exact).abs() / exact.abs()).max())
+                    note = f" f64 {err:.1e}"
+                    if err > XLW_EXACT:
+                        failed.append(f"{tag} {name}: {err:.3e} from f64")
+                elif tree_out is None:
+                    tree_out = [o.clone() for o in outs]
+                elif not all(torch.equal(a, b) for a, b in zip(outs, tree_out)):
+                    note = " BITS"
+                    failed.append(f"{tag} {name}: bits differ from the tree's")
                 calls[name] = call
-                checks.append(f"{name} {l2:.2e}/{rel:.2e}{'' if ok else ' FAIL'}")
+                checks.append(f"{name} {l2:.2e}/{rel:.2e}{note}"
+                              f"{'' if ok else ' FAIL'}")
                 if not ok:
-                    failed.append(f"{label} K={K} {side} "
-                                  f"{'KL' if kl else f'beta={beta:g}'} {name}: "
-                                  f"L2 {l2:.3e}, max rel {rel:.3e}")
-            tag = (f"{label}{', path X' if source == 'path' else ''} B={B} "
-                   f"N={N} G={G} K={K} {side} "
-                   f"{'KL' if kl else f'beta={beta:g}'}")
-            print(f"[tune-check] {tag}: vs twin (L2 rel / max rel) "
+                    failed.append(f"{tag} {name}: L2 {l2:.3e}, max rel "
+                                  f"{rel:.3e}")
+            print(f"[tune-check] {tag}: vs twin (L2 rel / max rel"
+                  f"{'; divergence vs f64' if div else '; bits vs tree'}) "
                   f"{', '.join(checks)}", flush=True)
-            tile = tree.mu_tf32_restarts(K, mk.tf32_op(beta))
+            tile = tree.mu_tf32_restarts(
+                K, mk.TF32_DIVERGENCE_OP if div else mk.tf32_op(beta))
             blocks = -(-M // 128) * -(-B // tile)
+            bound_ms, _ = tf32_bound(
+                ("kl_x_log_wh" if div else
+                 f"kl_mu_{side.lower()}_numerator" if kl else
+                 f"beta_mu_{side.lower()}_terms") + "_tf32",
+                X_host, B, N, G, K, beta)
             cases.append((tag, calls, f"X by {xmode}, 128 rows x {tile} "
                           f"restarts, {blocks} blocks, {blocks / sms:.2f} "
-                          "blocks an SM"))
+                          f"waves; bound {bound_ms:.4f} ms"))
     tf32_kept_bits(libs, staged, fns, path["norm"], stream, failed)
     return cases
 
 
 def tf32_kept_bits(libs, staged, fns, X, stream, failed):
     """What runs the mma.sync kernel (tc_terms_kernel) must keep its bits in
-    every build: the divergence term (mu_kl_x_log_wh_tf32) at the
-    factorize shape, K=16 and 8, and the KL numerator and beta terms (0,
-    1.5) at the wide K=72, both sides, on the path's X; one line, each
-    build against the tree."""
+    every build: the divergence term (mu_kl_x_log_wh_tf32), the KL
+    numerator and the beta terms (0, 1.5) at the wide K=72, both sides but
+    the divergence's W only, on the path's X; one line, each build against
+    the tree."""
     import torch
 
     from cnmf_tpu_torch.ops import mu_kernels as mk
@@ -699,36 +743,33 @@ def tf32_kept_bits(libs, staged, fns, X, stream, failed):
     N, G = X.shape
     rng = np.random.RandomState(2)
     notes = []
-    for K, B in ((16, 100), (8, 100), (72, 10)):
-        avg = np.sqrt(float(X.mean()) / K)
-        W, Ht = (torch.as_tensor((avg * np.abs(rng.randn(B, M, K))).astype(
-            np.float32), device=dev) for M in (N, G))
-        runs = []
-        if K <= 64:   # the divergence term, at every K on tc_terms_kernel
-            C, sxm, sxc = mk._x_strides(X, False)
-            runs.append((f"divergence K={K}", lambda name: _xlogwh(
-                libs[name], X, N, C, sxm, sxc, Ht, W, B, K, stream)))
-        else:
-            for side in "WH":
-                F, Fo = (Ht, W) if side == "H" else (W, Ht)
-                M = F.shape[1]
-                C, sxm, sxc = mk._x_strides(X, side == "H")
-                for beta in TF32_BETAS:
-                    symbol = ("mu_kl_numerator_tf32" if beta is None
-                              else "mu_beta_terms_tf32")
-                    runs.append((f"K={K} {side} "
-                                 f"{'KL' if beta is None else f'beta={beta:g}'}",
-                                 lambda name, F=F, Fo=Fo, M=M, C=C, sxm=sxm,
-                                 sxc=sxc, beta=beta, symbol=symbol: _wide(
-                                     fns[name, symbol], staged[name], X, M,
-                                     C, sxm, sxc, Fo, F, B, K, beta, stream)))
-        for label, run in runs:
-            ref = run("tree")
-            same = [all(torch.equal(a, b) for a, b in zip(run(name), ref))
-                    for name in libs if name != "tree"]
-            notes.append(f"{label} {all(same)}")
-            if not all(same):
-                failed.append(f"kept bits: {label} differ from the tree's")
+    K, B = 72, 10
+    avg = np.sqrt(float(X.mean()) / K)
+    W, Ht = (torch.as_tensor((avg * np.abs(rng.randn(B, M, K))).astype(
+        np.float32), device=dev) for M in (N, G))
+    C, sxm, sxc = mk._x_strides(X, False)
+    runs = [(f"divergence K={K}", lambda name, C=C, sxm=sxm, sxc=sxc: _xlogwh(
+        libs[name], X, N, C, sxm, sxc, Ht, W, B, K, stream))]
+    for side in "WH":
+        F, Fo = (Ht, W) if side == "H" else (W, Ht)
+        M = F.shape[1]
+        C, sxm, sxc = mk._x_strides(X, side == "H")
+        for beta in TF32_BETAS:
+            symbol = ("mu_kl_numerator_tf32" if beta is None
+                      else "mu_beta_terms_tf32")
+            runs.append((f"K={K} {side} "
+                         f"{'KL' if beta is None else f'beta={beta:g}'}",
+                         lambda name, F=F, Fo=Fo, M=M, C=C, sxm=sxm,
+                         sxc=sxc, beta=beta, symbol=symbol: _wide(
+                             fns[name, symbol], staged[name], X, M,
+                             C, sxm, sxc, Fo, F, B, K, beta, stream)))
+    for label, run in runs:
+        ref = run("tree")
+        same = [all(torch.equal(a, b) for a, b in zip(run(name), ref))
+                for name in libs if name != "tree"]
+        notes.append(f"{label} {all(same)}")
+        if not all(same):
+            failed.append(f"kept bits: {label} differ from the tree's")
     print(f"[tune-check] tc_terms_kernel, bits equal to the tree's in every "
           f"build: {', '.join(notes)}", flush=True)
 
@@ -813,32 +854,37 @@ def main():
         notes, regs, cur = collections.defaultdict(list), [], None
         with open(built["tree"][0] + ".log") as fh:
             for ln in fh:
-                m = re.search(r"entry function '\S*wg_terms_kernelILi(\d)ELi(\d)",
-                              ln)
+                m = re.search(r"entry function '\S*wg_(terms|xlogwh)_kernel"
+                              r"ILi(\d)E(?:Li(\d))?", ln)
                 if m or "entry function" in ln:
-                    cur = (f"K={8 * int(m.group(1))} {TF32_OPS[m.group(2)]}"
+                    cur = (f"K={8 * int(m.group(2))} "
+                           + (TF32_OPS[m.group(3)] if m.group(3) else "div")
                            if m else None)
                 r = re.search(r"Used (\d+) registers", ln)
                 if r and cur:
                     regs.append(f"{cur}:{r.group(1)}")
                 if "wgmma" in ln:
-                    m = re.search(r"wg_terms_kernelILi(\d)ELi(\d)", ln)
+                    m = re.search(r"wg_(terms|xlogwh)_kernelILi(\d)E"
+                                  r"(?:Li(\d))?", ln)
                     why = re.sub(r" for the function.*|'\w+'", "", ln.strip())
-                    notes[why].append(f"K={8 * int(m.group(1))} "
-                                      f"{TF32_OPS[m.group(2)]}" if m else "?")
+                    notes[why].append(
+                        f"K={8 * int(m.group(2))} "
+                        + (TF32_OPS[m.group(3)] if m.group(3) else "div")
+                        if m else "?")
         for why, where in notes.items():
             print(f"[tune-ptxas] tree: {why}: {', '.join(sorted(where))}",
                   flush=True)
-        print(f"[tune-ptxas] tree wg_terms_kernel registers: {' '.join(regs)}",
-              flush=True)
+        print(f"[tune-ptxas] tree wg_terms_kernel / wg_xlogwh_kernel "
+              f"(div) registers: {' '.join(regs)}", flush=True)
     sos = {name: so for name, (so, _) in built.items()}
     key = "HGMMA" if args.kernel == "tf32" else "FFMA"
-    for K in (8, 16):
-        for half, (n, hits, rest) in sorted(
-                loop_mix(sos["tree"], family, K, key).items()):
-            print(f"[tune-sass] tree {family} K={K} {half}: main loop {n} "
-                  f"instructions, {key} {hits} ({hits / max(n, 1):.0%}); "
-                  f"then {rest}", flush=True)
+    for fam in TF32_FAMILIES if args.kernel == "tf32" else (family,):
+        for K in (8, 16):
+            for half, (n, hits, rest) in sorted(
+                    loop_mix(sos["tree"], fam, K, key).items()):
+                print(f"[tune-sass] tree {fam} K={K} {half}: main loop {n} "
+                      f"instructions, {key} {hits} ({hits / max(n, 1):.0%}); "
+                      f"then {rest}", flush=True)
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     failed = []

@@ -23,33 +23,39 @@
 // sums and, rarely, by a TF32 rounding of P that flips where S or the
 // elementwise step differs in its last bits.
 //
-// Two designs. The KL numerator and the beta terms at K = 8..64 (the
-// register buckets) run the Hopper design below (namespace hop): warpgroup
-// wgmma products, the elementwise step in registers, a ring of TMA-fed
-// slots, one X tile staged for a tile of R restarts. On one H100 80GB HBM3
-// at 700 W (chip_tune_cd.py --kernel tf32, PERF.md), at the KL factorize
-// shape (B=100, N=2700, G=2000, K=16, the path's X) the KL numerator takes
-// 0.366 ms W / 0.330 ms H a call, staging included, the beta 0 terms
-// 0.427 / 0.462 and the beta 1.5 terms 0.653 / 0.772; the mma.sync
-// design below took 1.188 / 1.250, 1.774 / 1.892 and 4.611 / 4.929 in the
-// same run. What bounds them: the two products are 4·B·N·G·K = 34.6 GFLOP,
-// 0.07 ms at 495 TFLOP/s; the elementwise step's reciprocal (or log and
-// power) of each of the 5.4e8 entries runs on the 16 special-function
-// lanes an SM, 0.15 ms (0.3 ms for the general beta's two), beside about 6
-// other instructions an entry (0.11 ms of issue); at one block an SM, the
-// KL numerator's 286 blocks of 128 rows x 8 restarts run in 3 rounds for
-// 2.17 waves' work; the staging kernel adds about 0.02 ms. The divergence
-// term (mu_kl_x_log_wh_tf32) at every K, and the wide variant (K > 64) of
-// the other two, keep the mma.sync design (tc_terms_kernel), its bits and
-// its times.
+// Two designs. At K = 8..64 (the register buckets) all three run the
+// Hopper design below (namespace hop): warpgroup wgmma products, the
+// elementwise step in registers, a ring of TMA-fed slots, one X tile staged
+// for a tile of R restarts. On one H100 80GB HBM3 at 700 W (chip_tune_cd.py
+// --kernel tf32, PERF.md), at the KL factorize shape (B=100, N=2700,
+// G=2000, K=16, the path's X) the KL numerator takes 0.366 ms W / 0.330 ms
+// H a call, staging included, the beta 0 terms 0.427 / 0.462 and the beta
+// 1.5 terms 0.653 / 0.772; the mma.sync design below took 1.188 / 1.250,
+// 1.774 / 1.892 and 4.611 / 4.929 in the same run. What bounds them: the
+// two products are 4·B·N·G·K = 34.6 GFLOP, 0.07 ms at 495 TFLOP/s; the
+// elementwise step's reciprocal (or log and power) of each of the 5.4e8
+// entries runs on the 16 special-function lanes an SM, 0.15 ms (0.3 ms for
+// the general beta's two), beside about 6 other instructions an entry
+// (0.11 ms of issue); at one block an SM, the KL numerator's 286 blocks of
+// 128 rows x 8 restarts run in 3 rounds for 2.17 waves' work; the staging
+// kernel adds about 0.02 ms. The divergence term (wg_xlogwh_kernel) needs
+// only S: one wgmma product a restart, then the masked log of all 5.4e8
+// entries in registers, X > eps or not (a warp's lanes hold different
+// entries). It takes 0.4456 ms at that shape (K=8 0.3953; the mma.sync
+// kernel 1.4166 / 1.0663 in the same run, the f32 kernel about 0.92 /
+// 0.70); each entry's lg2.approx and conversion to double bound it (both
+// run at 16 an SM a clock: 0.29 ms), not the product (0.035 ms). The wide
+// variant (K > 64) of all three keeps the mma.sync design
+// (tc_terms_kernel), its bits and its times.
 //
-// The mma.sync design: a block of 8 warps owns 2 row groups of kRB = 4
-// restarts; warp w the row group w % 2 of restart w / 2, MT 16-row tiles (2
-// up to K = 32, else 1), so a block owns 32 MT rows. The contraction runs in
+// The mma.sync design (the wide variant): a block of 8 warps owns 2 row
+// groups of 16 rows of kRB = 4 restarts, warp w the row group w % 2 of
+// restart w / 2, and its output columns in groups of 64, one per
+// blockIdx.z, each computing S over all of K again. The contraction runs in
 // chunks of kCC = 32 entries through a 2-slot cp.async ring: each chunk's X
 // tile is staged once for the four restarts (16-byte copies along X's unit
-// stride where its pitch and base allow, else 4-byte ones), each restart's
-// Fo chunk once for its two row groups; per chunk a warp runs mma.sync.
+// stride where its pitch and base allow, else 4-byte ones); F and Fo are
+// read from device memory (L1 and L2). Per chunk a warp runs mma.sync
 // m16n8k8 for S and, per 8 entries, for each accumulator set. Fragments (PTX
 // m16n8k8 .tf32; g = lane / 4, t = lane % 4): A holds rows g, g+8 at columns
 // t, t+4; B rows t, t+4 at column g; the accumulator rows g, g+8 at columns
@@ -58,12 +64,10 @@
 // feeds S's column 2t as its k = t and column 2t+1 as its k = t+4, and reads
 // Fo's rows in the same order. Its elementwise step keeps the f32 kernels'
 // definitions (max(wh, eps), a zero ratio where X is 0 with no division,
-// IEEE division, powf, logf over X > eps). The wide variant (KB = 0, MT = 1)
-// reads F and Fo from device memory (L1 and L2) and splits the output
-// columns into groups of 64, one per blockIdx.z, each computing S over all
-// of K again. The divergence term writes one double partial per (block row
-// tile, restart), part (ceil(M / mu_tf32_rows(K)), B); the wrapper sums them
-// over row tiles in a fixed order (no atomics).
+// IEEE division, powf, logf over X > eps). The divergence term, in both
+// designs, writes one double partial per (block row tile, restart), part
+// (ceil(M / mu_tf32_rows(K)), B); the wrapper sums them over row tiles in a
+// fixed order (no atomics).
 
 #include <cuda.h>
 
@@ -75,6 +79,7 @@
 namespace {
 
 constexpr float kEps = 1.1920928955078125e-07f;  // float32 machine epsilon
+constexpr float kLn2 = 0.693147180559945309f;
 constexpr int kWarps = 8;
 constexpr int kThreadsTc = kWarps * 32;
 constexpr int kGroups = 2;                 // row groups a block owns
@@ -90,27 +95,11 @@ enum Op { kKL = 0, kIS = 1, kPow = 2, kXLogWH = 3 };
 template <int OP>
 constexpr int kOuts = OP == kKL ? 1 : OP == kXLogWH ? 0 : 2;
 
-// 16-row tiles a warp owns: 2 while the A fragments and accumulators of
-// both fit the registers (K <= 32), else 1
-template <int KB>
-constexpr int kMT = KB >= 1 && KB <= 4 ? 2 : 1;
-// output rows a block owns
-template <int KB>
-constexpr int kTM = kGroups * 16 * kMT<KB>;
-// the X tile's pitch read transposed (rows of kTM rows of X)
-template <int KB>
-constexpr int kXTP = kTM<KB> + 4;
-// Fo's row pitch in shared memory: K + 4 floats puts both products' B
-// fragment reads of a warp on 32 different banks.
-template <int KB>
-constexpr int kFoPitch = KB * 8 + 4;
-// floats of one ring slot: the X tile and (register variant) the kRB Fo
-// chunks; the ring's two slots in bytes
-template <int KB>
-constexpr int kSlotFloats =
-    kTM<KB> * kXP + (KB > 0 ? kRB * kCC * kFoPitch<KB> : 0);
-template <int KB>
-constexpr int kSmemBytes = 2 * kSlotFloats<KB> * (int)sizeof(float);
+// output rows a block owns (two row groups of 16), the X tile's pitch read
+// transposed (rows of kTM rows of X) and the floats of one ring slot
+constexpr int kTM = kGroups * 16;
+constexpr int kXTP = kTM + 4;
+constexpr int kSlotFloats = kTM * kXP;
 
 __device__ __forceinline__ uint32_t tf32(float x) {
   uint32_t r;
@@ -148,44 +137,37 @@ __device__ __forceinline__ void terms(float x, float wh, float beta, float& r,
   }
 }
 
-// grid (ceil(B / kRB), ceil(M / kTM), output column groups: 1, or for the
-// wide variant ceil(K / 64); 1 for the divergence term). out0 (and out1 for
-// the beta terms' den) (B, M, K); part (gridDim.y, B) for the divergence.
-template <int KB, int OP>
+// grid (ceil(B / kRB), ceil(M / kTM), output column groups: ceil(K / 64),
+// 1 for the divergence term). out0 (and out1 for the beta terms' den) (B,
+// M, K); part (gridDim.y, B) for the divergence.
+template <int OP>
 __global__ void __launch_bounds__(kThreadsTc)
 tc_terms_kernel(const float* __restrict__ X, int M, int C, long long sxm,
                 long long sxc, const float* __restrict__ Fo,
                 const float* __restrict__ F, int B, int K, float beta,
                 float* __restrict__ out0, float* __restrict__ out1,
                 double* __restrict__ part) {
-  constexpr bool kWide = KB == 0;
   constexpr int NO = kOuts<OP>;
-  constexpr int MT = kMT<KB>;
-  constexpr int TM = kTM<KB>, XTP = kXTP<KB>;
-  constexpr int NI = kWide ? kWideTiles : KB;  // output n-tiles held
-  constexpr int FP = kWide ? 0 : kFoPitch<KB>;
-  constexpr int SLOT = kSlotFloats<KB>;
-  static_assert(kCC * XTP <= TM * kXP, "the transposed tile fits");
-  extern __shared__ __align__(16) float smem[];
+  constexpr int NI = kWideTiles;  // output n-tiles held
+  static_assert(kCC * kXTP <= kTM * kXP, "the transposed tile fits");
+  __shared__ __align__(16) float smem[2 * kSlotFloats];
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int wr = warp % kGroups, rb = warp / kGroups;
-  const int b0 = blockIdx.x * kRB, m0 = blockIdx.y * TM;
+  const int b0 = blockIdx.x * kRB, m0 = blockIdx.y * kTM;
   const int b = b0 + rb;
   const bool live = b < B;  // the same for the whole warp
-  const int kt = kWide ? K / 8 : KB;             // k-steps of S
-  const int n0 = kWide ? blockIdx.z * NI : 0;    // first output n-tile
-  const int ni = kWide ? min(NI, kt - n0) : NI;  // its live n-tiles
-  // the warp's first row in the block; tile mt's rows are r0 + 16 mt + g
-  // and + 8
-  const int r0 = wr * 16 * MT;
+  const int kt = K / 8;            // k-steps of S
+  const int n0 = blockIdx.z * NI;  // first output n-tile
+  const int ni = min(NI, kt - n0);  // its live n-tiles
+  // the warp's first row in the block; its rows are r0 + g and + 8
+  const int r0 = wr * 16;
   const float* const fo_b = Fo + (long long)b * C * K;
 
-  // Chunk q into ring slot `slot`: the X tile as xs[m * kXP + c] = X(m0 +
-  // m, q.kCC + c), or for X read transposed (xT: its unit stride along the
-  // rows) as xs[c * XTP + m]; and (register variant) each restart's Fo
-  // chunk fs[c * FP + k]; zero past M, C and B. X moves in 16-byte units
+  // Chunk q's X tile into ring slot `slot`, as xs[m * kXP + c] = X(m0 + m,
+  // q.kCC + c), or for X read transposed (xT: its unit stride along the
+  // rows) as xs[c * kXTP + m]; zero past M and C. X moves in 16-byte units
   // along its unit stride where its pitch is a multiple of 4 floats and it
   // is 16-byte aligned (vec), else in 4-byte ones.
   const bool xT = sxm == 1 && sxc != 1;
@@ -193,40 +175,28 @@ tc_terms_kernel(const float* __restrict__ X, int M, int C, long long sxm,
   const bool vec = (xT || sxc == 1) && pitch % 4 == 0 &&
                    reinterpret_cast<unsigned long long>(X) % 16 == 0;
   auto stage = [&](int slot, int q) {
-    float* const xs = smem + slot * SLOT;
+    float* const xs = smem + slot * kSlotFloats;
     const int c0 = q * kCC;
     if (vec) {
       // xT: units of 4 rows of one entry; else of 4 entries of one row
-      const int inner = xT ? TM : kCC, outer = xT ? kCC : TM;
+      const int inner = xT ? kTM : kCC, outer = xT ? kCC : kTM;
       const int lim_in = xT ? M - m0 : C - c0, lim_out = xT ? C - c0 : M - m0;
       for (int u = threadIdx.x; u < outer * inner / 4; u += kThreadsTc) {
         const int o = u / (inner / 4), i = u % (inner / 4) * 4;
         const int n = o < lim_out ? min(max(lim_in - i, 0), 4) : 0;
         const float* src =
             xT ? X + (c0 + o) * sxc + m0 + i : X + (m0 + o) * sxm + c0 + i;
-        cnmf::cp_async16(xs + o * (xT ? XTP : kXP) + i, n > 0 ? src : X,
+        cnmf::cp_async16(xs + o * (xT ? kXTP : kXP) + i, n > 0 ? src : X,
                          4 * n);
       }
     } else {
-      for (int u = threadIdx.x; u < TM * kCC; u += kThreadsTc) {
-        const int m = xT ? u % TM : u / kCC;
-        const int c = xT ? u / TM : u % kCC;
+      for (int u = threadIdx.x; u < kTM * kCC; u += kThreadsTc) {
+        const int m = xT ? u % kTM : u / kCC;
+        const int c = xT ? u / kTM : u % kCC;
         const bool ok = m0 + m < M && c0 + c < C;
-        cnmf::cp_async4(xs + (xT ? c * XTP + m : m * kXP + c),
+        cnmf::cp_async4(xs + (xT ? c * kXTP + m : m * kXP + c),
                         ok ? X + (m0 + m) * sxm + (c0 + c) * sxc : X,
                         ok ? 4 : 0);
-      }
-    }
-    if constexpr (!kWide) {
-      float* const fs = xs + TM * kXP;
-      constexpr int U = kCC * KB * 2;  // 16-byte units of a restart's chunk
-      for (int u = threadIdx.x; u < kRB * U; u += kThreadsTc) {
-        const int r = u / U, c = u % U / (KB * 2), k4 = u % (KB * 2) * 4;
-        const bool ok = b0 + r < B && c0 + c < C;
-        cnmf::cp_async16(fs + (r * kCC + c) * FP + k4,
-                         ok ? Fo + ((long long)(b0 + r) * C + c0 + c) * K + k4
-                            : Fo,
-                         ok ? 16 : 0);
       }
     }
   };
@@ -235,10 +205,10 @@ tc_terms_kernel(const float* __restrict__ X, int M, int C, long long sxm,
   stage(0, 0);
   cnmf::cp_async_commit();
 
-  // S's A fragment of tile mt at k-step ks: rows r0 + 16 mt + g and + 8,
-  // columns 8ks + t and 8ks + t + 4, zero past M and B.
-  auto load_a = [&](uint32_t (&a)[4], int mt, int ks) {
-    const int row = m0 + r0 + 16 * mt + g, k = 8 * ks + t;
+  // S's A fragment at k-step ks: rows r0 + g and + 8, columns 8ks + t and
+  // 8ks + t + 4, zero past M and B.
+  auto load_a = [&](uint32_t (&a)[4], int ks) {
+    const int row = m0 + r0 + g, k = 8 * ks + t;
     const float* const f = F + ((long long)b * M + row) * K + k;
     const bool lo = live && row < M, hi = live && row + 8 < M;
     a[0] = tf32(lo ? f[0] : 0.f);
@@ -246,22 +216,13 @@ tc_terms_kernel(const float* __restrict__ X, int M, int C, long long sxm,
     a[2] = tf32(lo ? f[4] : 0.f);
     a[3] = tf32(hi ? f[8LL * K + 4] : 0.f);
   };
-  uint32_t fa[MT][kWide ? 1 : KB][4];
-  if constexpr (!kWide) {
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int ks = 0; ks < KB; ++ks) load_a(fa[mt][ks], mt, ks);
-  }
-  float acc[NO > 0 ? NO : 1][MT][NI][4];
+  float acc[NO > 0 ? NO : 1][NI][4];
 #pragma unroll
   for (int o = 0; o < (NO > 0 ? NO : 1); ++o)
 #pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
+    for (int i = 0; i < NI; ++i)
 #pragma unroll
-      for (int i = 0; i < NI; ++i)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[o][mt][i][e] = 0.f;
+      for (int e = 0; e < 4; ++e) acc[o][i][e] = 0.f;
   double sum = 0.0;
 
   for (int q = 0; q < nq; ++q) {
@@ -269,114 +230,82 @@ tc_terms_kernel(const float* __restrict__ X, int M, int C, long long sxm,
     cnmf::cp_async_commit();
     cnmf::cp_async_wait<1>();
     __syncthreads();  // chunk q has landed for every thread
-    const float* const xs = smem + (q & 1) * SLOT;
-    const float* const fs = xs + TM * kXP + rb * kCC * FP;
+    const float* const xs = smem + (q & 1) * kSlotFloats;
     const int c0 = q * kCC;
     // Fo(c0 + c, k) of this warp's restart, as TF32
     auto fo = [&](int c, int k) -> uint32_t {
-      if constexpr (kWide) {
-        return tf32(c0 + c < C ? __ldg(fo_b + (long long)(c0 + c) * K + k)
-                               : 0.f);
-      } else {
-        return tf32(fs[c * FP + k]);
-      }
+      return tf32(c0 + c < C ? __ldg(fo_b + (long long)(c0 + c) * K + k)
+                             : 0.f);
     };
     if (live) {
-      float s[MT][kCC / 8][4];
+      float s[kCC / 8][4];
 #pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
+      for (int j = 0; j < kCC / 8; ++j)
 #pragma unroll
-        for (int j = 0; j < kCC / 8; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) s[mt][j][e] = 0.f;
-      // S = F_tile · Fo_chunkᵀ: column n of n-tile j is entry 8j + n; each
-      // B fragment serves every tile of the warp
-      auto s_step = [&](const uint32_t (&a)[MT][4], int kw) {
+        for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+      // S = F_tile · Fo_chunkᵀ: column n of n-tile j is entry 8j + n
+      for (int kw = 0; kw < kt; ++kw) {
+        uint32_t a[4];
+        load_a(a, kw);
 #pragma unroll
         for (int j = 0; j < kCC / 8; ++j) {
           const uint32_t bl = fo(8 * j + g, 8 * kw + t);
           const uint32_t bh = fo(8 * j + g, 8 * kw + t + 4);
-#pragma unroll
-          for (int mt = 0; mt < MT; ++mt) mma_tf32(s[mt][j], a[mt], bl, bh);
-        }
-      };
-      if constexpr (kWide) {
-        for (int kw = 0; kw < kt; ++kw) {
-          uint32_t a[MT][4];
-          load_a(a[0], 0, kw);
-          s_step(a, kw);
-        }
-      } else {
-#pragma unroll
-        for (int ks = 0; ks < KB; ++ks) {
-          uint32_t a[MT][4];
-#pragma unroll
-          for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) a[mt][e] = fa[mt][ks][e];
-          s_step(a, ks);
+          mma_tf32(s[j], a, bl, bh);
         }
       }
 #pragma unroll
       for (int j = 0; j < kCC / 8; ++j) {
-        uint32_t pa[NO > 0 ? NO : 1][MT][4];
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          // X at S's accumulator entries: (row, 2t), (row, 2t+1), (row +
-          // 8, 2t), (row + 8, 2t + 1) of n-tile j
-          const int rr = r0 + 16 * mt + g;
-          float x[4];
-          if (xT) {
-            const float* const xc = xs + (8 * j + 2 * t) * XTP + rr;
-            x[0] = xc[0];
-            x[1] = xc[XTP];
-            x[2] = xc[8];
-            x[3] = xc[XTP + 8];
-          } else {
-            const float* const xr = xs + rr * kXP + 8 * j + 2 * t;
-            const float2 xl = *reinterpret_cast<const float2*>(xr);
-            const float2 xh = *reinterpret_cast<const float2*>(xr + 8 * kXP);
-            x[0] = xl.x;
-            x[1] = xl.y;
-            x[2] = xh.x;
-            x[3] = xh.y;
-          }
-          if constexpr (OP == kXLogWH) {
-#pragma unroll
-            for (int e = 0; e < 4; ++e)
-              if (x[e] > kEps)
-                sum += (double)(x[e] * logf(fmaxf(s[mt][j][e], kEps)));
-          } else {
-            // P's A fragments: entry 2t is the product's k = t, 2t + 1 its
-            // k = t + 4 (the relabelling above)
-            float r[4], gg[4];
-#pragma unroll
-            for (int e = 0; e < 4; ++e)
-              terms<OP>(x[e], s[mt][j][e], beta, r[e], gg[e]);
-            pa[0][mt][0] = tf32(r[0]);
-            pa[0][mt][1] = tf32(r[2]);
-            pa[0][mt][2] = tf32(r[1]);
-            pa[0][mt][3] = tf32(r[3]);
-            if constexpr (NO == 2) {
-              pa[NO - 1][mt][0] = tf32(gg[0]);
-              pa[NO - 1][mt][1] = tf32(gg[2]);
-              pa[NO - 1][mt][2] = tf32(gg[1]);
-              pa[NO - 1][mt][3] = tf32(gg[3]);
-            }
-          }
+        uint32_t pa[NO > 0 ? NO : 1][4];
+        // X at S's accumulator entries: (row, 2t), (row, 2t+1), (row + 8,
+        // 2t), (row + 8, 2t + 1) of n-tile j
+        const int rr = r0 + g;
+        float x[4];
+        if (xT) {
+          const float* const xc = xs + (8 * j + 2 * t) * kXTP + rr;
+          x[0] = xc[0];
+          x[1] = xc[kXTP];
+          x[2] = xc[8];
+          x[3] = xc[kXTP + 8];
+        } else {
+          const float* const xr = xs + rr * kXP + 8 * j + 2 * t;
+          const float2 xl = *reinterpret_cast<const float2*>(xr);
+          const float2 xh = *reinterpret_cast<const float2*>(xr + 8 * kXP);
+          x[0] = xl.x;
+          x[1] = xl.y;
+          x[2] = xh.x;
+          x[3] = xh.y;
         }
-        if constexpr (OP != kXLogWH) {
+        if constexpr (OP == kXLogWH) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (x[e] > kEps)
+              sum += (double)(x[e] * logf(fmaxf(s[j][e], kEps)));
+        } else {
+          // P's A fragments: entry 2t is the product's k = t, 2t + 1 its
+          // k = t + 4 (the relabelling above)
+          float r[4], gg[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            terms<OP>(x[e], s[j][e], beta, r[e], gg[e]);
+          pa[0][0] = tf32(r[0]);
+          pa[0][1] = tf32(r[2]);
+          pa[0][2] = tf32(r[1]);
+          pa[0][3] = tf32(r[3]);
+          if constexpr (NO == 2) {
+            pa[NO - 1][0] = tf32(gg[0]);
+            pa[NO - 1][1] = tf32(gg[2]);
+            pa[NO - 1][2] = tf32(gg[1]);
+            pa[NO - 1][3] = tf32(gg[3]);
+          }
 #pragma unroll
           for (int i = 0; i < NI; ++i) {
-            if (kWide && i >= ni) continue;
+            if (i >= ni) continue;
             const int col = 8 * (n0 + i) + g;
             const uint32_t bl = fo(8 * j + 2 * t, col);
             const uint32_t bh = fo(8 * j + 2 * t + 1, col);
 #pragma unroll
-            for (int o = 0; o < NO; ++o)
-#pragma unroll
-              for (int mt = 0; mt < MT; ++mt)
-                mma_tf32(acc[o][mt][i], pa[o][mt], bl, bh);
+            for (int o = 0; o < NO; ++o) mma_tf32(acc[o][i], pa[o], bl, bh);
           }
         }
       }
@@ -400,34 +329,27 @@ tc_terms_kernel(const float* __restrict__ X, int M, int C, long long sxm,
     }
   } else {
     if (!live) return;
+    const int row = m0 + r0 + g;
 #pragma unroll
     for (int o = 0; o < NO; ++o) {
       float* const out = o == 0 ? out0 : out1;
 #pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        const int row = m0 + r0 + 16 * mt + g;
-#pragma unroll
-        for (int i = 0; i < NI; ++i) {
-          if (kWide && i >= ni) continue;
-          float* const dst = out + ((long long)b * M + row) * K + 8 * (n0 + i)
-                             + 2 * t;
-          if (row < M)
-            *reinterpret_cast<float2*>(dst) =
-                make_float2(acc[o][mt][i][0], acc[o][mt][i][1]);
-          if (row + 8 < M)
-            *reinterpret_cast<float2*>(dst + 8LL * K) =
-                make_float2(acc[o][mt][i][2], acc[o][mt][i][3]);
-        }
+      for (int i = 0; i < NI; ++i) {
+        if (i >= ni) continue;
+        float* const dst = out + ((long long)b * M + row) * K + 8 * (n0 + i)
+                           + 2 * t;
+        if (row < M)
+          *reinterpret_cast<float2*>(dst) =
+              make_float2(acc[o][i][0], acc[o][i][1]);
+        if (row + 8 < M)
+          *reinterpret_cast<float2*>(dst + 8LL * K) =
+              make_float2(acc[o][i][2], acc[o][i][3]);
       }
     }
   }
 }
 
-// Lifts the kernel's dynamic shared memory limit to its ring's need (above
-// the default 48 KB from K = 24 on), once per device; returns the CUDA
-// error of that call, at every launch.
-
-// ---- the Hopper design: the KL numerator and the beta terms at K = 8..64 ----
+// ---- the Hopper design: all three at K = 8..64 ----
 //
 // A block owns kRows = 128 output rows of R restarts: two consumer
 // warpgroups of 64 rows each and one producer warp. The contraction runs in
@@ -476,6 +398,33 @@ tc_terms_kernel(const float* __restrict__ X, int M, int C, long long sxm,
 // rounded by cvt.rna). A restart's arithmetic is the same in every slot of
 // the restart tile and at every B; padded rows, entries and restarts read
 // zeros and are not stored.
+//
+// The divergence term (wg_xlogwh_kernel) runs the same block, ring and X
+// tile with one product and no staging kernel (its C entry point takes no
+// scratch): a slot holds each restart's Fo chunk in S's operand layout
+// alone. The producer moves each restart's rows of the chunk as Fo stores
+// them with one bulk copy, a chunk ahead, then its 32 lanes round them to
+// TF32 in place in that layout and arrive on `full` after a proxy fence
+// (its synchronous loads from Fo had doubled the kernel's time). For
+// restart r, S = F_tile · Fo_chunkᵀ (wgmma m64n32k8), S of r + 1 issued
+// before the step of r; the step adds x · log(max(S, eps)) for x > eps
+// into a double a restart, in a fixed order of entries (x read as zero
+// where x <= eps: the product is then a zero that leaves the sum's bits as
+// they were). Each thread's doubles are summed over its warp by shuffles,
+// then over the 8 consumer warps in order: one partial a (128-row tile,
+// restart), in the same order in every slot of the restart tile and at
+// every B.
+//
+// The log is (x·ln 2)·lg2.approx(w), not the f32 kernels' logf: logf's 20
+// or so FMA-pipe instructions an entry took the kernel to 1.14 ms at the
+// factorize shape against 0.45, and on the card every restart stays within
+// 1e-6 of its float64 plain version (2.5e-7 at most) and the precision
+// ladder's KL arm keeps its sweeps (PERF.md, row T3). Measured and not kept:
+// half the conversions to double by integer instructions instead of F2F
+// (6 % faster here, 3-6 % slower on small grids), and a list of the
+// entries with X > eps (27 % of the path's X) gathered once a chunk for the
+// R restarts (slower: with two consumer warps an SM sub-partition the
+// gathered loop waits on its loads).
 
 namespace hop {
 
@@ -498,8 +447,16 @@ enum XMode { kXTma = 0, kXTmaT = 1, kXAsync = 2 };
 // on an H100: with 8 and 4 restarts ptxas serializes their products for
 // want of registers (C7512), with 6 and 3 (the general beta's 4 at K = 8)
 // it does not, and they run 25-45 % faster.
+// The divergence term holds no accumulator set, only a double a restart:
+// its tile is what its shared memory allows (R Fo chunks a slot and R F
+// tiles, a ring of at least 3 slots), 9 at K = 8 and 16, so that B = 100
+// makes 12 restart tiles x 22 row tiles of N = 2700 = 264 blocks, two
+// waves of the H100's 132 SMs at one block an SM (measured against 8, 10,
+// and 4 at two blocks an SM: 32 %, 11 % and 4 % slower at K=16).
 __host__ __device__ constexpr int restarts(int KB, int OP) {
-  return OP == kKL ? 16 / KB
+  return OP == kXLogWH ? (KB <= 2 ? 9 : KB == 3 ? 8 : KB == 4 ? 6
+                          : KB <= 6 ? 4 : 3)
+         : OP == kKL ? 16 / KB
          : KB == 1 ? (OP == kIS ? 6 : 4)
          : KB == 2 ? 3
                    : (8 / KB > 1 ? 8 / KB : 1);
@@ -509,14 +466,20 @@ template <int KB, int OP>
 struct Cfg {
   static constexpr int K = 8 * KB;
   static constexpr int R = restarts(KB, OP);
-  static constexpr int NO = OP == kKL ? 1 : 2;        // accumulator sets
-  static constexpr int kTile = 2 * kCC * K * 4;       // a restart's chunk
+  // accumulator sets (the divergence term: none), and the Fo copies a
+  // restart's chunk holds in a slot (S's operand, and the second product's)
+  static constexpr int NO = OP == kKL ? 1 : OP == kXLogWH ? 0 : 2;
+  static constexpr int kCopies = NO > 0 ? 2 : 1;
+  static constexpr int kTile = kCopies * kCC * K * 4;  // a restart's chunk
   static constexpr int kFoBytes = R * kTile;
   static constexpr int kStage = kXBytes + kFoBytes;   // a ring slot
   static constexpr int kFBytes = R * kRows * K * 4;   // the F tiles
-  static constexpr int kFit = (kSmemLimit - kAlign - kFBytes - 128) / kStage;
+  // the mbarriers' 128 bytes (3 a slot at most), then the divergence term's
+  // partials of its consumer warps
+  static constexpr int kTail = 128 + (NO > 0 ? 0 : kWG * 4 * R * 8);
+  static constexpr int kFit = (kSmemLimit - kAlign - kFBytes - kTail) / kStage;
   static constexpr int kStages = kFit < 4 ? kFit : 4;
-  static constexpr int kSmem = kAlign + kStages * kStage + kFBytes + 128;
+  static constexpr int kSmem = kAlign + kStages * kStage + kFBytes + kTail;
   static_assert(kStages >= 3, "a ring of at least 3 slots fits");
   static_assert(kStage % kAlign == 0, "every slot starts on a swizzle atom");
 };
@@ -840,6 +803,95 @@ __device__ __forceinline__ void terms(const float (&s)[16], uint32_t (&p)[16],
   }
 }
 
+// The start of a block of either kernel: its ring's mbarriers (`full`
+// completing on `arrivals` arrivals, `empty` on one a consumer warp, and
+// `loaded`, where given, on one) and the F tiles of restarts b0 .. b0 + R - 1
+// as TF32, restart r's rows of warpgroup wg as [K/4][64][4], zero past M and
+// B; then a block barrier.
+template <int K, int R, int S>
+__device__ __forceinline__ void block_start(uint64_t* full, uint64_t* empty,
+                                            uint64_t* loaded, int arrivals,
+                                            uint8_t* fsm,
+                                            const float* __restrict__ F,
+                                            int M, int B, int m0, int b0) {
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s], arrivals);
+      mbar_init(&empty[s], kWG * 4);
+      if (loaded) mbar_init(&loaded[s], 1);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  for (int u = threadIdx.x; u < R * kRows * (K / 4); u += kThreads) {
+    const int k4 = u % (K / 4), row = u / (K / 4) % kRows;
+    const int r = u / (K / 4 * kRows);
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (b0 + r < B && m0 + row < M)
+      v = *reinterpret_cast<const float4*>(
+          F + ((long long)(b0 + r) * M + m0 + row) * K + 4 * k4);
+    *reinterpret_cast<uint4*>(
+        fsm + ((r * kWG + row / 64) * 64 * K + k4 * 256 + row % 64 * 4) * 4) =
+        make_uint4(tf32(v.x), tf32(v.y), tf32(v.z), tf32(v.w));
+  }
+  // the tiles, written by threads, are read by wgmma (the async proxy)
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+}
+
+// Chunk q's X tile into the slot at st, from the producer warp's lane
+// `lane`: by TMA from lane 0 (its bytes expected on bar by the caller), or
+// by 4-byte cp.async from every lane into the same swizzled places, each
+// lane's copies arriving on bar (uncounted: in bar's arrivals) as they land.
+__device__ __forceinline__ void load_x(uint8_t* st, const CUtensorMap* xmap,
+                                       int xmode, bool xT,
+                                       const float* __restrict__ X, int M,
+                                       int C, long long sxm, long long sxc,
+                                       int m0, int q, int lane,
+                                       uint64_t* bar) {
+  if (xmode == kXTma) {
+    if (lane == 0) tma_load(st, xmap, q * kCC, m0, bar);
+  } else if (xmode == kXTmaT) {
+    if (lane == 0) {
+#pragma unroll
+      for (int i = 0; i < kRows / 32; ++i)
+        tma_load(st + i * kCC * 128, xmap, m0 + 32 * i, q * kCC, bar);
+    }
+  } else {
+    const int c0 = q * kCC;
+    for (int e = lane; e < kRows * kCC; e += 32) {
+      const int m = xT ? e % kRows : e / kCC, c = xT ? e / kRows : e % kCC;
+      const bool ok = m0 + m < M && c0 + c < C;
+      cnmf::cp_async4(reinterpret_cast<float*>(st + x_offset(m, c, xT)),
+                      ok ? X + (m0 + m) * sxm + (c0 + c) * sxc : X,
+                      ok ? 4 : 0);
+    }
+    cp_async_arrive(bar);
+  }
+}
+
+// X at a consumer thread's 16 S positions in the slot at st: accumulator
+// entry 4i + 2h + e is (row mr + 8h, entry 8i + 2t + e).
+__device__ __forceinline__ void read_x(float (&xv)[16], const uint8_t* st,
+                                       int mr, int t, bool xT) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = mr + 8 * h, c = 8 * i + 2 * t;
+      if (xT) {
+        xv[4 * i + 2 * h] =
+            *reinterpret_cast<const float*>(st + x_offset(m, c, true));
+        xv[4 * i + 2 * h + 1] =
+            *reinterpret_cast<const float*>(st + x_offset(m, c + 1, true));
+      } else {
+        const float2 v =
+            *reinterpret_cast<const float2*>(st + x_offset(m, c, false));
+        xv[4 * i + 2 * h] = v.x;
+        xv[4 * i + 2 * h + 1] = v.y;
+      }
+    }
+}
+
 // grid (ceil(M / kRows), Bp / R), kThreads threads, Cfg::kSmem bytes.
 // out0 (and out1, the beta terms' den) (B, M, K); staged from stage_kernel
 // with Bp = ceil(B / R)·R.
@@ -862,28 +914,8 @@ wg_terms_kernel(const __grid_constant__ CUtensorMap xmap, int xmode, int xT,
   const int m0 = blockIdx.x * kRows, b0 = blockIdx.y * R;
   const int nq = (C + kCC - 1) / kCC;
 
-  if (tid == 0) {
-    for (int s = 0; s < S; ++s) {
-      mbar_init(&full[s], xmode == kXAsync ? 33 : 1);
-      mbar_init(&empty[s], kWG * 4);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  // the F tiles as TF32: restart r's rows of warpgroup wg as [K/4][64][4]
-  for (int u = tid; u < R * kRows * (K / 4); u += kThreads) {
-    const int k4 = u % (K / 4), row = u / (K / 4) % kRows;
-    const int r = u / (K / 4 * kRows);
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (b0 + r < B && m0 + row < M)
-      v = *reinterpret_cast<const float4*>(
-          F + ((long long)(b0 + r) * M + m0 + row) * K + 4 * k4);
-    *reinterpret_cast<uint4*>(
-        fsm + ((r * kWG + row / 64) * 64 * K + k4 * 256 + row % 64 * 4) * 4) =
-        make_uint4(tf32(v.x), tf32(v.y), tf32(v.z), tf32(v.w));
-  }
-  // the tiles, written by threads, are read by wgmma (the async proxy)
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-  __syncthreads();
+  block_start<K, R, S>(full, empty, nullptr, xmode == kXAsync ? 33 : 1, fsm,
+                       F, M, B, m0, b0);
 
   if (tid >= kConsumers) {  // the producer warp
     const int lane = tid - kConsumers;
@@ -897,26 +929,8 @@ wg_terms_kernel(const __grid_constant__ CUtensorMap xmap, int xmode, int xT,
                        G::kFoBytes + (xmode == kXAsync ? 0 : kXBytes));
         bulk_load(st + kXBytes, staged + ((long long)q * Bp + b0) * (2 * kCC * K),
                   G::kFoBytes, &full[s]);
-        if (xmode == kXTma) {
-          tma_load(st, &xmap, q * kCC, m0, &full[s]);
-        } else if (xmode == kXTmaT) {
-#pragma unroll
-          for (int i = 0; i < kRows / 32; ++i)
-            tma_load(st + i * kCC * 128, &xmap, m0 + 32 * i, q * kCC,
-                     &full[s]);
-        }
       }
-      if (xmode == kXAsync) {
-        const int c0 = q * kCC;
-        for (int e = lane; e < kRows * kCC; e += 32) {
-          const int m = xT ? e % kRows : e / kCC, c = xT ? e / kRows : e % kCC;
-          const bool ok = m0 + m < M && c0 + c < C;
-          cnmf::cp_async4(
-              reinterpret_cast<float*>(st + x_offset(m, c, xT)),
-              ok ? X + (m0 + m) * sxm + (c0 + c) * sxc : X, ok ? 4 : 0);
-        }
-        cp_async_arrive(&full[s]);
-      }
+      load_x(st, &xmap, xmode, xT, X, M, C, sxm, sxc, m0, q, lane, &full[s]);
     }
     return;
   }
@@ -959,24 +973,7 @@ wg_terms_kernel(const __grid_constant__ CUtensorMap xmap, int xmode, int xT,
     mbar_wait(&full[s], (q / S) & 1);
     __syncwarp();  // the warp leaves the wait together: wgmma is .aligned
     const uint8_t* const st = smem + s * G::kStage;
-    // accumulator entry 4i + 2h + e is (row mr + 8h, entry 8i + 2t + e)
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int m = mr + 8 * h, c = 8 * i + 2 * t;
-        if (xT) {
-          xv[4 * i + 2 * h] =
-              *reinterpret_cast<const float*>(st + x_offset(m, c, true));
-          xv[4 * i + 2 * h + 1] =
-              *reinterpret_cast<const float*>(st + x_offset(m, c + 1, true));
-        } else {
-          const float2 v =
-              *reinterpret_cast<const float2*>(st + x_offset(m, c, false));
-          xv[4 * i + 2 * h] = v.x;
-          xv[4 * i + 2 * h + 1] = v.y;
-        }
-      }
+    read_x(xv, st, mr, t, xT);
     const uint64_t slot = (uint64_t)(s * G::kStage) >> 4;
     // S of restart r into d: k-step ks takes F's k groups 2ks, 2ks + 1
     auto issue_s = [&](float (&d)[16], int r) {
@@ -1048,6 +1045,157 @@ wg_terms_kernel(const __grid_constant__ CUtensorMap xmap, int xmode, int xT,
   }
 }
 
+// grid (ceil(M / kRows), ceil(B / R)), kThreads threads, Cfg::kSmem bytes.
+// part (gridDim.x, B): per row tile and restart, the sum over X > eps of
+// X · logf(max(S, eps)) in double.
+template <int KB>
+__global__ void __launch_bounds__(kThreads, 1)
+wg_xlogwh_kernel(const __grid_constant__ CUtensorMap xmap, int xmode, int xT,
+                 const float* __restrict__ X, int M, int C, long long sxm,
+                 long long sxc, const float* __restrict__ Fo,
+                 const float* __restrict__ F, int B,
+                 double* __restrict__ part) {
+  using G = Cfg<KB, kXLogWH>;
+  constexpr int K = G::K, R = G::R, S = G::kStages;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  uint8_t* const smem =
+      smem_raw + ((kAlign - cnmf::smem_addr(smem_raw) % kAlign) % kAlign);
+  uint8_t* const fsm = smem + S * G::kStage;
+  uint64_t* const full = reinterpret_cast<uint64_t*>(fsm + G::kFBytes);
+  uint64_t* const empty = full + S;
+  double* const red = reinterpret_cast<double*>(fsm + G::kFBytes + 128);
+  const int tid = threadIdx.x;
+  const int m0 = blockIdx.x * kRows, b0 = blockIdx.y * R;
+  const int nq = (C + kCC - 1) / kCC;
+
+  // a slot is full on its X (one arrival with its bytes, or one a lane's
+  // cp.async) and on each producer lane's Fo writes; `loaded` on its Fo
+  // rows as Fo stores them
+  uint64_t* const loaded = empty + S;
+  block_start<K, R, S>(full, empty, loaded, xmode == kXAsync ? 64 : 33, fsm,
+                       F, M, B, m0, b0);
+
+  if (tid >= kConsumers) {  // the producer warp
+    const int lane = tid - kConsumers;
+    // chunk q into slot q % S once it is free: X (on `full`) and each live
+    // restart's kCC rows of Fo, one bulk copy a restart (on `loaded`)
+    auto load = [&](int q) {
+      const int s = q % S;
+      if (q >= S) mbar_wait(&empty[s], (q / S - 1) & 1);
+      uint8_t* const st = smem + s * G::kStage;
+      if (lane == 0) {
+        const int c0 = q * kCC, rows = min(kCC, C - c0), live = min(R, B - b0);
+        mbar_expect_tx(&loaded[s], live * rows * K * 4);
+        for (int r = 0; r < live; ++r)
+          bulk_load(st + kXBytes + r * G::kTile,
+                    Fo + ((long long)(b0 + r) * C + c0) * K, rows * K * 4,
+                    &loaded[s]);
+        if (xmode != kXAsync) mbar_expect_tx(&full[s], kXBytes);
+      }
+      load_x(st, &xmap, xmode, xT, X, M, C, sxm, sxc, m0, q, lane, &full[s]);
+    };
+    load(0);
+    for (int q = 0; q < nq; ++q) {
+      if (q + 1 < nq) load(q + 1);  // in flight while chunk q is rounded
+      const int s = q % S;
+      mbar_wait(&loaded[s], (q / S) & 1);
+      // each restart's rows [kCC][K] in place as TF32 in S's operand layout
+      // [K/4][kCC][4], zero past C and B: lane c moves entry c. The rounding
+      // is cvt.rna's on finite values (to nearest, ties away from zero, a
+      // carry moving into the exponent), as stage_kernel rounds.
+      uint4* const tiles =
+          reinterpret_cast<uint4*>(smem + s * G::kStage + kXBytes);
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        uint4* const tile = tiles + r * (G::kTile / 16);
+        const bool live = b0 + r < B && q * kCC + lane < C;
+        uint4 v[K / 4];
+#pragma unroll
+        for (int i = 0; i < K / 4; ++i) v[i] = tile[lane * (K / 4) + i];
+        __syncwarp();
+#pragma unroll
+        for (int i = 0; i < K / 4; ++i)
+          tile[i * kCC + lane] =
+              live ? make_uint4((v[i].x + 0x1000u) & 0xffffe000u,
+                                (v[i].y + 0x1000u) & 0xffffe000u,
+                                (v[i].z + 0x1000u) & 0xffffe000u,
+                                (v[i].w + 0x1000u) & 0xffffe000u)
+                   : make_uint4(0u, 0u, 0u, 0u);
+      }
+      // the writes, made by threads, are read by wgmma (the async proxy)
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      mbar_arrive(&full[s]);
+    }
+    return;
+  }
+
+  // a consumer, as in wg_terms_kernel
+  const int wg = __shfl_sync(0xffffffffu, tid >> 7, 0);
+  const int warp = (tid >> 5) & 3, lane = tid & 31;
+  const int t = lane & 3;
+  const int mr = 64 * wg + 16 * warp + (lane >> 2);
+  const uint64_t f_desc =
+      desc(cnmf::smem_addr(fsm) + wg * 64 * K * 4, 64 * 16, 128);
+  const uint64_t s_desc = desc(cnmf::smem_addr(smem) + kXBytes, kCC * 16, 128);
+  double acc[R];
+  float sv[2][16];  // S of restart r, and of r + 1 in flight
+  float xv[16];     // X·ln 2 at S's entries, 0 where X <= eps
+#pragma unroll
+  for (int r = 0; r < R; ++r) acc[r] = 0.0;
+#pragma unroll
+  for (int i = 0; i < 16; ++i) sv[0][i] = sv[1][i] = 0.f;
+
+  for (int q = 0; q < nq; ++q) {
+    const int s = q % S;
+    mbar_wait(&full[s], (q / S) & 1);
+    __syncwarp();  // the warp leaves the wait together: wgmma is .aligned
+    read_x(xv, smem + s * G::kStage, mr, t, xT);
+#pragma unroll
+    for (int e = 0; e < 16; ++e) xv[e] = xv[e] > kEps ? xv[e] * kLn2 : 0.f;
+    const uint64_t slot = (uint64_t)(s * G::kStage) >> 4;
+    // S of restart r into d: k-step ks takes F's k groups 2ks, 2ks + 1
+    auto issue_s = [&](float (&d)[16], int r) {
+      reg_fence(d);
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < KB; ++ks)
+        wgmma_ss(d, f_desc + ((r * kWG * 64 * K * 4 + ks * 2 * 64 * 16) >> 4),
+                 s_desc + slot + ((r * G::kTile + ks * 2 * kCC * 16) >> 4),
+                 ks > 0);
+      wgmma_commit();
+    };
+    issue_s(sv[0], 0);
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      wgmma_wait<0>();  // S of r is done
+      reg_fence(sv[r % 2]);
+      if (r + 1 < R) issue_s(sv[(r + 1) % 2], r + 1);
+#pragma unroll
+      for (int e = 0; e < 16; ++e)
+        acc[r] += (double)(xv[e] * lg2_approx(fmaxf(sv[r % 2][e], kEps)));
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
+  }
+
+  // each restart's sum over the warp (a fixed shuffle tree), then over the
+  // consumer warps in order
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    double v = acc[r];
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+    if (lane == 0) red[(tid >> 5) * R + r] = v;
+  }
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
+  if (tid < R && b0 + tid < B) {
+    double v = 0.0;
+#pragma unroll
+    for (int w = 0; w < kWG * 4; ++w) v += red[w * R + tid];
+    part[(long long)blockIdx.x * B + b0 + tid] = v;
+  }
+}
+
 }  // namespace hop
 
 // Lifts a kernel's dynamic shared memory limit to `bytes` once per device
@@ -1068,21 +1216,14 @@ int allow_smem(Kernel kernel, int bytes, std::atomic<int>* done) {
   return rc - 1;
 }
 
-template <int KB, int OP>
-int prepare() {
-  static std::atomic<int> done[kDevices];
-  return allow_smem(tc_terms_kernel<KB, OP>, kSmemBytes<KB>, done);
-}
-
-template <int KB, int OP>
-int launch_kb(const float* X, int M, int C, long long sxm, long long sxc,
-              const float* Fo, const float* F, int B, int K, float beta,
-              float* out0, float* out1, double* part, cudaStream_t stream) {
-  if (const int rc = prepare<KB, OP>()) return rc;
+template <int OP>
+int launch_wide(const float* X, int M, int C, long long sxm, long long sxc,
+                const float* Fo, const float* F, int B, int K, float beta,
+                float* out0, float* out1, double* part, cudaStream_t stream) {
   const int groups =
-      KB > 0 || OP == kXLogWH ? 1 : (K / 8 + kWideTiles - 1) / kWideTiles;
-  const dim3 grid((B + kRB - 1) / kRB, (M + kTM<KB> - 1) / kTM<KB>, groups);
-  tc_terms_kernel<KB, OP><<<grid, kThreadsTc, kSmemBytes<KB>, stream>>>(
+      OP == kXLogWH ? 1 : (K / 8 + kWideTiles - 1) / kWideTiles;
+  const dim3 grid((B + kRB - 1) / kRB, (M + kTM - 1) / kTM, groups);
+  tc_terms_kernel<OP><<<grid, kThreadsTc, 0, stream>>>(
       X, M, C, sxm, sxc, Fo, F, B, K, beta, out0, out1, part);
   return (int)cudaGetLastError();
 }
@@ -1172,11 +1313,27 @@ int launch(const float* X, int M, int C, long long sxm, long long sxc,
   return (int)cudaGetLastError();
 }
 
+// wg_xlogwh_kernel into part (ceil(M / kRows), B)
+template <int KB>
+int launch_xlogwh(const float* X, int M, int C, long long sxm, long long sxc,
+                  const float* Fo, const float* F, int B, double* part,
+                  cudaStream_t stream) {
+  using G = Cfg<KB, kXLogWH>;
+  static std::atomic<int> done[kDevices];
+  if (const int rc = allow_smem(wg_xlogwh_kernel<KB>, G::kSmem, done))
+    return rc;
+  CUtensorMap map{};
+  int xT = 0;
+  const int xmode = x_mode(&map, X, M, C, sxm, sxc, &xT);
+  const dim3 grid((M + kRows - 1) / kRows, (B + G::R - 1) / G::R);
+  wg_xlogwh_kernel<KB><<<grid, kThreads, G::kSmem, stream>>>(
+      map, xmode, xT, X, M, C, sxm, sxc, Fo, F, B, part);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace hop
 
-// The divergence term at every K and the other ops at a wide K run the
-// mma.sync kernel; the KL numerator and the beta terms at K = 8..64 the
-// Hopper one.
+// K = 8..64 runs the Hopper kernels, a wide K the mma.sync one.
 template <int OP>
 int launch(const float* X, int M, int C, long long sxm, long long sxc,
            const float* Fo, const float* F, int B, int K, float beta,
@@ -1186,12 +1343,11 @@ int launch(const float* X, int M, int C, long long sxm, long long sxc,
   if (B < 1 || M < 1 || C < 1 || K < 8 || K % 8)
     return (int)cudaErrorInvalidValue;
   if constexpr (OP == kXLogWH) {
-#define TF32_CASE(KK)                                                       \
-  case KK:                                                                  \
-    return launch_kb<KK / 8, OP>(X, M, C, sxm, sxc, Fo, F, B, K, beta, out0, \
-                                 out1, part, s);
-    switch (K) { CNMF_K_BUCKETS(TF32_CASE) }
-#undef TF32_CASE
+#define XLW_CASE(KK)                                                      \
+  case KK:                                                                \
+    return hop::launch_xlogwh<KK / 8>(X, M, C, sxm, sxc, Fo, F, B, part, s);
+    switch (K) { CNMF_K_BUCKETS(XLW_CASE) }
+#undef XLW_CASE
   } else {
 #define HOP_CASE(KK)                                                       \
   case KK:                                                                 \
@@ -1200,8 +1356,8 @@ int launch(const float* X, int M, int C, long long sxm, long long sxc,
     switch (K) { CNMF_K_BUCKETS(HOP_CASE) }
 #undef HOP_CASE
   }
-  return launch_kb<0, OP>(X, M, C, sxm, sxc, Fo, F, B, K, beta, out0, out1,
-                          part, s);
+  return launch_wide<OP>(X, M, C, sxm, sxc, Fo, F, B, K, beta, out0, out1,
+                         part, s);
 }
 
 }  // namespace
@@ -1248,22 +1404,16 @@ int mu_kl_x_log_wh_tf32(const float* X, int M, int C, long long sxm,
 // does not take).
 int mu_tf32_rows(int K) {
   if (K < 8 || K % 8) return 0;
-  switch (K) {
-#define TF32_ROWS(KK) \
-  case KK:            \
-    return kTM<KK / 8>;
-    CNMF_K_BUCKETS(TF32_ROWS)
-#undef TF32_ROWS
-  }
-  return kTM<0>;
+  return K <= cnmf::kRegMaxK ? hop::kRows : kTM;
 }
 
 // The restarts a block of the KL numerator (op 0), the beta terms at beta 0
-// (1) or at another beta (2) owns at K; 0 at a K that runs the wide variant
-// (no staging).
+// (1) or at another beta (2), or the divergence term (3) owns at K; 0 at a
+// K that runs the wide variant.
 int mu_tf32_restarts(int K, int op) {
-  if (K < 8 || K % 8 || K > cnmf::kRegMaxK || op < 0 || op > 2) return 0;
-  return hop::restarts(K / 8, op == 0 ? kKL : op == 1 ? kIS : kPow);
+  if (K < 8 || K % 8 || K > cnmf::kRegMaxK || op < 0 || op > 3) return 0;
+  return hop::restarts(K / 8, op == 0 ? kKL : op == 1 ? kIS
+                              : op == 2 ? kPow : kXLogWH);
 }
 
 // The contraction entries of a staged chunk.

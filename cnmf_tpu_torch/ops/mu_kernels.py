@@ -37,11 +37,14 @@ The ``*_tf32`` wrappers are the coarse phase of the MU precision ladder
 products in TF32 on the tensor cores (``csrc/mu_tf32.cu``; any K a multiple
 of 8, any B). They replace no Pallas kernel: the JAX package's coarse phase
 runs its "default"-precision XLA products (cnmf_tpu/ops/nmf.py:1092-1207,
-:1036). At K = 8..64 the KL numerators and the beta terms run warpgroup
-``wgmma`` products on two TF32 copies of the contracted factor, which the
-same C call first writes into scratch the wrapper allocates
+:1036). At K = 8..64 all three run warpgroup ``wgmma`` products: the KL
+numerators and the beta terms on two TF32 copies of the contracted factor,
+which the same C call first writes into scratch the wrapper allocates
 (``tf32_stage_plain`` is their plain version and ``tf32_stage_order``
-their layout). Their plain twins round F, Fo and the elementwise factor to
+their layout), the divergence term on the first copy alone, which its
+kernel writes into shared memory itself, into double partials per tile of
+``tf32_rows(K)`` rows (``kl_x_log_wh_tf32_partials_plain``). Their plain
+twins round F, Fo and the elementwise factor to
 TF32 with ``tf32_round``, as the kernels do, then run the f32 plain terms;
 the twins serve the tests and ``chip_smoke.py``, never the solvers, which
 take the TF32 route on CUDA tensors only.
@@ -290,6 +293,34 @@ def kl_mu_h_numerator_tf32_plain(X, W, Ht):
 def kl_x_log_wh_tf32_plain(X, W, Ht):
     """Plain twin of ``kl_x_log_wh_tf32``."""
     return kl_x_log_wh_plain(X, tf32_round(W), tf32_round(Ht))
+
+
+# rows of W a block of the TF32 divergence kernel owns (``mu_tf32_rows``):
+# the Hopper kernel's at the register buckets, the mma.sync kernel's at a
+# wide K
+TF32_ROWS, TF32_WIDE_ROWS = 128, 32
+
+
+def tf32_rows(K: int) -> int:
+    """``csrc/mu_tf32.cu``'s ``mu_tf32_rows``: the rows of W each double
+    partial of ``kl_x_log_wh_tf32`` sums at bucket K (0 for a K the kernels
+    do not take)."""
+    if K < 8 or K % 8:
+        return 0
+    return TF32_ROWS if K <= 64 else TF32_WIDE_ROWS
+
+
+def kl_x_log_wh_tf32_partials_plain(X, W, Ht, rows=None):
+    """Plain version of the TF32 divergence kernel's partials: W and Ht
+    rounded by ``tf32_round``, then ``kl_x_log_wh_plain`` in float64 on
+    each tile of ``rows`` rows of W (default ``tf32_rows(K)``) → (ceil(N /
+    rows), B); summed over its tiles it is ``kl_x_log_wh_plain`` of the
+    rounded factors."""
+    rows = rows or tf32_rows(W.shape[2])
+    X = X.double()
+    W, Ht = (tf32_round(t).double() for t in (W, Ht))
+    return torch.stack([kl_x_log_wh_plain(X[m:m + rows], W[:, m:m + rows], Ht)
+                        for m in range(0, W.shape[1], rows)])
 
 
 def beta_mu_w_terms_tf32_plain(X, W, Ht, beta: float):
@@ -608,9 +639,13 @@ def beta_mu_h_terms(X, W, Ht, beta: float):
 # the TF32 wrappers: the precision ladder's coarse phase
 # ----------------------------------------------------------------------
 
+# ``mu_tf32_restarts``' op of the divergence term
+TF32_DIVERGENCE_OP = 3
+
+
 def tf32_op(beta=None) -> int:
     """``mu_tf32_restarts``' op: 0 the KL numerator (beta None), 1 the beta
-    terms at beta 0, 2 at any other beta."""
+    terms at beta 0, 2 at any other beta (3: ``TF32_DIVERGENCE_OP``)."""
     return 0 if beta is None else 1 if beta == 0 else 2
 
 
@@ -677,20 +712,32 @@ def kl_mu_h_numerator_tf32(X, W, Ht):
     return out
 
 
-def kl_x_log_wh_tf32(X, W, Ht):
-    """``kl_x_log_wh`` with W·H in TF32: per row tile and restart a double
-    partial, summed over row tiles in a fixed order; replaces no Pallas
-    kernel."""
+def kl_x_log_wh_tf32_partials(X, W, Ht):
+    """The TF32 divergence kernel's double partials on CUDA tensors: for
+    each tile of ``mu_tf32_rows(K)`` rows of W and each restart, the sum
+    over X > eps of X·log(max(W·H, eps)) with W·H in TF32 → (ceil(N /
+    rows), B), what ``kl_x_log_wh_tf32_partials_plain`` computes. Counts
+    the launch on ``kl_x_log_wh_tf32``."""
     name = "kl_x_log_wh_tf32"
-    if device_kind(name, W) == "cpu":
-        return kl_x_log_wh_tf32_plain(X, W, Ht)
     B, M, K = W.shape
+    check_k(name, K)
     rows = library_constant("mu_tf32_rows", K)
     part = torch.empty((-(-M // rows), B), dtype=torch.float64,
                        device=W.device)
     _launch(name, "mu_kl_x_log_wh_tf32", X, W, Ht, (part,), False)
     _count(kl_x_log_wh_tf32, B)
-    return part.sum(dim=0).to(torch.float32)
+    return part
+
+
+def kl_x_log_wh_tf32(X, W, Ht):
+    """``kl_x_log_wh`` with W·H in TF32: per row tile and restart a double
+    partial (``kl_x_log_wh_tf32_partials``), summed over row tiles in their
+    order, a scan along the tiles (a reduction's order could follow B);
+    replaces no Pallas kernel."""
+    if device_kind("kl_x_log_wh_tf32", W) == "cpu":
+        return kl_x_log_wh_tf32_plain(X, W, Ht)
+    part = kl_x_log_wh_tf32_partials(X, W, Ht)
+    return part.cumsum(dim=0)[-1].to(torch.float32)
 
 
 def beta_mu_w_terms_tf32(X, W, Ht, beta: float):

@@ -7,7 +7,9 @@ R - 1, R + 1 and 100 at every bucket), ragged rows and contraction, X's
 pitch a multiple of 4 floats (TMA) or not (4-byte cp.async), zero K columns
 that must stay zero; a restart's output bits the same at every B and in
 every slot of the restart tile; the staging of the contracted factor bit
-for bit against ``tf32_stage_plain``. Marked ``cuda``: without a card every
+for bit against ``tf32_stage_plain``; the divergence term's partials per
+row tile against their float64 plain version, the same bits on two
+launches and whether X moves by TMA or by cp.async (an unaligned view). Marked ``cuda``: without a card every
 test skips. This file imports no JAX.
 
 Run on a card: ``python -m pytest tests/test_torch_tf32_card.py -q``.
@@ -44,6 +46,10 @@ BUCKETS = (8, 16, 24, 32, 40, 48, 56, 64)
 TERMS = [("kl_mu_w_numerator_tf32", None), ("kl_mu_h_numerator_tf32", None)] + [
     (f"beta_mu_{side}_terms_tf32", beta) for beta in (0.0, 0.5, 1.5, 3.0)
     for side in "wh"]
+DIVERGENCE = "kl_x_log_wh_tf32"
+XLW = [(DIVERGENCE, None)]
+# the divergence term per restart against its float64 plain version
+XLW_EXACT = 1e-6
 
 
 @pytest.fixture
@@ -97,6 +103,11 @@ def _check_twin(name, beta, X, W, Ht, note):
         assert ok, (name, beta, note, l2, rel)
         if a.ndim == 3:
             assert not a[:, :, -2:].any()
+    if name == DIVERGENCE:
+        exact = mk.kl_x_log_wh_tf32_partials_plain(
+            X.cpu(), W.cpu(), Ht.cpu()).sum(dim=0)
+        err = ((outs[0].double().cpu() - exact).abs() / exact.abs()).max()
+        assert float(err) <= XLW_EXACT, (note, float(err))
     return outs
 
 
@@ -117,7 +128,7 @@ def test_tf32_kernel_matches_its_twin(card, name, beta, shape, transposed):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("K", (8, 16, 64))
-@pytest.mark.parametrize("name,beta", TERMS, ids=str)
+@pytest.mark.parametrize("name,beta", TERMS + XLW, ids=str)
 def test_tf32_zero_rows(card, name, beta, K):
     """Zero rows of W and Ht make S zero along a row and a column: the
     floored factors (eps), and for 1 < beta < 2 the den factor of S
@@ -128,20 +139,21 @@ def test_tf32_zero_rows(card, name, beta, K):
     _check_twin(name, beta, X, W, Ht, ("zero rows", K))
 
 
-def _tile(beta, K):
-    """The restarts a block of the kernel owns at K (beta None: the KL
-    numerator)."""
-    return mk.library_constant("mu_tf32_restarts", K, mk.tf32_op(beta))
+def _tile(name, beta, K):
+    """The restarts a block of the wrapper ``name``'s kernel owns at K (beta
+    None: the KL numerator, or the divergence term)."""
+    op = (mk.TF32_DIVERGENCE_OP if name == DIVERGENCE else mk.tf32_op(beta))
+    return mk.library_constant("mu_tf32_restarts", K, op)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("K", BUCKETS)
-@pytest.mark.parametrize("name,beta", TERMS[:4] + TERMS[6:7], ids=str)
+@pytest.mark.parametrize("name,beta", TERMS[:4] + TERMS[6:7] + XLW, ids=str)
 def test_tf32_restart_tiles(card, name, beta, K):
     """B = 1, R - 1, R + 1 and 100 restarts at every bucket, on ragged rows
     and contraction with X's pitch a multiple of 4 floats (TMA) and not
     (cp.async)."""
-    R = _tile(beta, K)
+    R = _tile(name, beta, K)
     for B in sorted({1, max(R - 1, 1), R + 1, 100}):
         for N, G in ((131, 77), (200, 152)):
             X, W, Ht = _problem(card, B, N, G, K, transposed=False)
@@ -150,12 +162,12 @@ def test_tf32_restart_tiles(card, name, beta, K):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("K", BUCKETS)
-@pytest.mark.parametrize("name,beta", TERMS, ids=str)
+@pytest.mark.parametrize("name,beta", TERMS + XLW, ids=str)
 def test_tf32_restart_bits_do_not_depend_on_its_slot(card, name, beta, K):
     """Each restart of a batch of 2R + 1 has the bits it has alone (B=1) and
     in the batch rolled by one (every restart in another slot of its
     restart tile, the last one in the first tile)."""
-    R = _tile(beta, K)
+    R = _tile(name, beta, K)
     B = 2 * R + 1
     X, W, Ht = _problem(card, B, 150, 120, K, transposed=False)
     fn = getattr(mk, name)
@@ -212,3 +224,52 @@ def test_tf32_wrappers_refuse_what_they_do_not_take(card):
                                   Ht[:, :, :12].contiguous())
     with pytest.raises(TypeError, match="float32"):
         mk.kl_x_log_wh_tf32(X.double(), W.double(), Ht.double())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", BUCKETS + (72,))
+def test_tf32_divergence_partials(card, K):
+    """The divergence kernel's partials, one a (``tf32_rows(K)``-row tile,
+    restart), each within 1e-6 of its float64 plain version relative to
+    the tile's sum of |X·log(max(S, eps))|, the same bits on a second
+    launch; ``tf32_rows`` is the library's ``mu_tf32_rows``."""
+    assert mk.tf32_rows(K) == mk.library_constant("mu_tf32_rows", K)
+    X, W, Ht = _problem(card, 5, 300, 152, K, transposed=False)
+    part = mk.kl_x_log_wh_tf32_partials(X, W, Ht)
+    again = mk.kl_x_log_wh_tf32_partials(X, W, Ht)
+    torch.cuda.synchronize()
+    assert torch.equal(part, again)
+    Xc, Wc, Hc = X.cpu(), W.cpu(), Ht.cpu()
+    exact = mk.kl_x_log_wh_tf32_partials_plain(Xc, Wc, Hc)
+    assert part.shape == exact.shape, (part.shape, exact.shape)
+    WH = torch.bmm(mk.tf32_round(Wc).double(),
+                   mk.tf32_round(Hc).double().transpose(1, 2))
+    mag = torch.where(Xc.double() > mk.EPSILON, Xc.double() * torch.log(
+        WH.clamp(min=mk.EPSILON)).abs(), 0.0)
+    rows = mk.tf32_rows(K)
+    for i in range(part.shape[0]):
+        tile = mag[:, i * rows:(i + 1) * rows].sum(dim=(1, 2))
+        err = (part[i].cpu() - exact[i]).abs() / tile.clamp(min=1e-30)
+        assert float(err.max()) <= XLW_EXACT, (K, i, float(err.max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", (8, 16))
+def test_tf32_divergence_unaligned_x_takes_cp_async(card, K):
+    """A row shard of X whose pitch is not a multiple of 4 floats, and a
+    view of X whose base is 4 bytes off 16, move X by 4-byte cp.async and
+    give the bits of the same values in an aligned buffer (by TMA where
+    its pitch allows)."""
+    X, W, Ht = _problem(card, 5, 301, 77, K, transposed=False)
+    shard, Ws = X[1:], W[:, 1:].contiguous()
+    assert mk.tf32_x_mode(shard) == 2 and mk.tf32_x_mode(shard.clone()) == 2
+    flat = torch.empty(300 * 76 + 1, device=card)
+    off = flat[1:].view(300, 76)
+    off.copy_(X[1:, :76])
+    aligned = off.clone()
+    assert mk.tf32_x_mode(off) == 2 and mk.tf32_x_mode(aligned) == 0
+    Hs = Ht[:, :76].contiguous()
+    for view, copy, w, h in ((shard, shard.clone(), Ws, Ht),
+                             (off, aligned, Ws, Hs)):
+        got = _check_twin(DIVERGENCE, None, view, w, h, ("view", K))
+        assert torch.equal(got[0], mk.kl_x_log_wh_tf32(copy, w, h))

@@ -102,3 +102,58 @@ def test_staged_operands_replay_both_products(K):
         cols = 8 * j + np.array([2 * t + e for e in (0, 1) for t in range(4)])
         acc += P[:, cols] @ b
     assert np.allclose(acc, P @ fo, rtol=1e-12, atol=0)
+
+
+# --- the TF32 divergence term's partials (``kl_x_log_wh_tf32``) ---
+
+def _divergence_problem(B, N, G, K, seed):
+    rng = np.random.RandomState(seed)
+    X = (rng.gamma(1.0, 1.0, (N, G)) * (rng.rand(N, G) > 0.4)).astype(
+        np.float32)
+    X[rng.rand(N, G) < 0.05] = 1e-8   # nonzero but not above eps
+    avg = np.sqrt(X.mean() / K)
+    W = (avg * np.abs(rng.randn(B, N, K))).astype(np.float32)
+    Ht = (avg * np.abs(rng.randn(B, G, K))).astype(np.float32)
+    W[:, 3] = 0.0   # a zero row: S floored at eps along it
+    return (torch.as_tensor(a) for a in (X, W, Ht))
+
+
+@pytest.mark.parametrize("K", BUCKETS + (72,))
+def test_divergence_partials_sum_to_the_twin(K):
+    """Per tile of ``tf32_rows(K)`` rows and restart, the partials summed
+    over their tiles are the twin's sum in float64 (the rounded factors),
+    and the f32 twin to f32's rounding."""
+    B, N, G = 3, 300, 41
+    X, W, Ht = _divergence_problem(B, N, G, K, K)
+    part = mk.kl_x_log_wh_tf32_partials_plain(X, W, Ht)
+    rows = mk.tf32_rows(K)
+    assert part.shape == (-(-N // rows), B) and part.dtype == torch.float64
+    exact = mk.kl_x_log_wh_plain(X.double(), mk.tf32_round(W).double(),
+                                 mk.tf32_round(Ht).double())
+    torch.testing.assert_close(part.sum(dim=0), exact, rtol=1e-12, atol=0)
+    torch.testing.assert_close(part.sum(dim=0).float(),
+                               mk.kl_x_log_wh_tf32_plain(X, W, Ht),
+                               rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("rows", (128, 32, 7))
+def test_divergence_partial_is_its_rows_sum(rows):
+    """Tile i's partial is the sum over rows i·rows .. (i + 1)·rows of W
+    alone; the last tile is ragged."""
+    X, W, Ht = _divergence_problem(2, 300, 50, 16, rows)
+    part = mk.kl_x_log_wh_tf32_partials_plain(X, W, Ht, rows=rows)
+    Wr, Htr = (mk.tf32_round(t).double() for t in (W, Ht))
+    for i in range(part.shape[0]):
+        sl = slice(i * rows, (i + 1) * rows)
+        want = mk.kl_x_log_wh_plain(X[sl].double(), Wr[:, sl], Htr)
+        torch.testing.assert_close(part[i], want, rtol=1e-12, atol=0)
+
+
+@pytest.mark.parametrize("K,rows", [(K, 128) for K in BUCKETS]
+                         + [(72, 32), (136, 32), (12, 0), (0, 0), (4, 0)])
+def test_tf32_rows_mirror(K, rows):
+    """``tf32_rows`` mirrors ``mu_tf32_rows``: the Hopper kernel's 128 rows
+    a block at every register bucket, the mma.sync kernel's 32 at a wide K,
+    0 where no kernel takes K (held to the library's in
+    tests/test_torch_tf32_card.py)."""
+    assert mk.tf32_rows(K) == rows
